@@ -1,0 +1,630 @@
+#!/usr/bin/env python3
+"""Chip smoke for the PyTorch/CUDA port (daft_tpu_torch) on one NVIDIA GPU.
+
+Run from the repository root on a machine with a CUDA card:
+
+    python3 chip_smoke.py
+
+Phases (any failure ends the run with a non-zero exit code):
+
+1. the card's name and power limit, and its device-to-device copy
+   bandwidth (the yardstick the kernel's bound is also given against);
+2. build of the CUDA kernels from ``daft_tpu_torch/csrc``
+   (``torch.utils.cpp_extension.load``, sm_90a);
+3. kernel phase: the hash grouped-agg table build against its plain torch
+   version on the card, at the main path's shape (C = 2^20 rows, ~751k
+   live), over 1-word and 2-word keys, null keys, every agg state kind,
+   int64/f32/f64/bool values with nulls and NaN, an overflow case and a
+   table-full case;
+4. main path: TPC-H SF1 lineitem generated from a seed into ``.cache/``,
+   then Q1 (dense strategy), an int64-keyed group-by on ``l_suppkey``
+   (hash, 2-word keys), a date-keyed group-by on ``l_shipdate`` (hash,
+   1-word keys) and Q6 (keyless), through ``daft_tpu_torch.read_parquet``
+   on ``cuda``; every answer is held against pyarrow on the same files,
+   and the port's counters must show the kernels ran and no morsel fell to
+   the host tier;
+5. a ``{"kernels": [...]}`` line with each kernel's launches, times and
+   bound, then the card line and the final ``{"ok": true, ...}`` line.
+
+Float tolerances: on the card, atomics sum in an order that changes from run
+to run, so a float sum is held to |got - exact| <= 2 * n * eps * sum(|x|)
+per group (n rows, eps of the sum's type, exact = f64 sum of the same
+values), the worst case of any summation order. Query answers are held to
+pyarrow at relative 1e-9 (sums, means), 1e-6 for stddev (the reference's
+one-pass sum-of-squares formula loses digits to cancellation); keys, counts,
+min/max and first values must match exactly.
+"""
+
+from __future__ import annotations
+
+import argparse
+import datetime
+import json
+import os
+import statistics
+import subprocess
+import sys
+import time
+
+import numpy as np
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+HBM_BYTES_PER_S = 3.35e12   # H100 SXM published HBM3 rate (700 W)
+MAIN_C = 1 << 20
+MAIN_LIVE = 751_000
+
+
+def log(*a):
+    print(*a, flush=True)
+
+
+# ------------------------------------------------------------------ timing
+
+def cuda_ms(fn, reps: int = 10, warm: int = 2) -> float:
+    """Median per-call device time of ``fn`` (CUDA events)."""
+    import torch
+    for _ in range(warm):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+    return statistics.median(times)
+
+
+def copy_bandwidth() -> float:
+    """Device-to-device copy rate, bytes/s (read + write counted)."""
+    import torch
+    n = 1 << 28  # 1 GiB of float32
+    src = torch.empty(n, dtype=torch.float32, device="cuda")
+    dst = torch.empty_like(src)
+    ms = cuda_ms(lambda: dst.copy_(src), reps=10)
+    del src, dst
+    return 2 * n * 4 / (ms / 1e3)
+
+
+# ------------------------------------------------------------ kernel phase
+
+def build_bytes(words, live, vals, contribs, specs, T: int) -> int:
+    """Bytes the table build must move: the live mask (C bytes); for each
+    live row its key words and each distinct value and contrib plane the
+    specs read (deduplicated by buffer: the compiler hands one tensor to
+    every agg over the same column; a count reads no value); each output
+    plane written once (key words, state, frow, one plane per spec)."""
+    import torch
+    from daft_tpu_torch.device import hash_kernels as hk
+    n_live = int(live.sum())
+    read = {}
+    for vi, _, kind, _ in specs:
+        read[contribs[vi].data_ptr()] = 1
+        if kind != "cnt":
+            read[vals[vi].data_ptr()] = vals[vi].element_size()
+    inp = live.shape[0] + n_live * (8 * len(words) + sum(read.values()))
+    out = T * (8 * len(words) + 4 + 4)
+    for _, _, kind, dt in specs:
+        out += T * torch.empty(0, dtype=hk._kernel_plane_dtype(kind, dt)) \
+            .element_size()
+    return inp + out
+
+
+def make_case(rng, C: int, live_n: int, key_kind: str, ndv: int,
+              ops, val_kinds, null_frac: float = 0.05):
+    """Seeded inputs for one build case, as numpy planes."""
+    live = np.zeros(C, dtype=np.bool_)
+    live[:live_n] = True
+    if key_kind == "int64":
+        keys = rng.integers(1, ndv + 1, C).astype(np.int64) * 7919 - 10**12
+    else:  # int32 / date days
+        keys = (rng.integers(0, ndv, C) + 8036).astype(np.int32)
+    kvalid = rng.random(C) >= null_frac
+    vals, vvalids = [], []
+    for vk in val_kinds:
+        if vk == "f64":
+            v = rng.normal(100.0, 50.0, C)
+            v[rng.random(C) < 0.001] = np.nan
+            v[rng.random(C) < 0.001] = -0.0
+        elif vk == "f32":
+            v = rng.normal(10.0, 5.0, C).astype(np.float32)
+            v[rng.random(C) < 0.001] = np.nan
+        elif vk == "i64":
+            v = rng.integers(-10**12, 10**12, C).astype(np.int64)
+        else:  # bool
+            v = rng.random(C) < 0.5
+        vals.append(v)
+        vvalids.append(rng.random(C) >= null_frac)
+    return dict(keys=keys, kvalid=kvalid, live=live, vals=vals,
+                vvalids=vvalids, ops=tuple(ops))
+
+
+def case_tensors(case, device):
+    import torch
+    from daft_tpu_torch.device import hash_kernels as hk
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device)  # noqa: E731
+    live = t(case["live"])
+    keys = (t(case["keys"]),)
+    kvalid = (t(case["kvalid"]),)
+    words = hk.key_words(keys, kvalid, live)
+    vals = [t(v) for v in case["vals"]]
+    contribs = [t(m) & live for m in case["vvalids"]]
+    specs = hk.agg_state_specs(case["ops"], [v.dtype for v in vals])
+    return words, live, vals, contribs, specs
+
+
+def _by_key(out):
+    """{key words tuple: slot} over occupied slots of a build result."""
+    tk, occ = out[0], out[1].cpu().numpy()
+    w = [x.cpu().numpy() for x in tk]
+    slots = np.nonzero(occ)[0]
+    return {tuple(int(x[s]) for x in w): int(s) for s in slots}
+
+
+def compare_builds(got, ref, specs, words, live, vals, contribs, T: int):
+    """Kernel result vs plain result, as sets keyed by the key words.
+    Returns the max abs error over the float sum planes."""
+    import torch
+    from daft_tpu_torch.device import hash_kernels as hk
+    g_got, g_ref = int(got[4]), int(ref[4])
+    if g_got != g_ref:
+        raise AssertionError(f"group count {g_got} != plain {g_ref}")
+    if g_ref >= T:
+        # table full: which keys won slots depends on claim order; the
+        # overflow signal (the count) is the contract
+        return 0.0
+    kg, kr = _by_key(got), _by_key(ref)
+    if set(kg) != set(kr):
+        raise AssertionError("occupied key sets differ")
+    keys = list(kr)
+    sg = torch.tensor([kg[k] for k in keys], device=live.device)
+    sr = torch.tensor([kr[k] for k in keys], device=live.device)
+    if not torch.equal(got[2][sg], ref[2][sr]):
+        raise AssertionError("frow differs")
+    cnt = {vi: ref[3][i][sr] for i, (vi, _, kind, _) in enumerate(specs)
+           if kind == "cnt"}
+    f64 = torch.float64
+    max_err = 0.0
+    for i, (vi, op, kind, dt) in enumerate(specs):
+        a, b = got[3][i][sg], ref[3][i][sr]
+        if kind in ("sum", "sumsq") and dt.is_floating_point:
+            # exact: the f64 sum of the values this plane accumulates (in
+            # the plane's own type), and the sum of their magnitudes
+            xs = vals[vi].to(dt)
+            x = (xs * xs if kind == "sumsq" else xs).to(f64)
+            ex = hk.hash_agg_build_plain(
+                words, live, [x, x.abs()], [contribs[vi]] * 2,
+                [(0, "sum", "sum", f64), (1, "sum", "sum", f64)], T)
+            exact, absum = ex[3][0][sr], ex[3][1][sr]
+            err = (a.to(f64) - exact).abs()
+            bound = 2 * cnt[vi].to(f64) * torch.finfo(dt).eps * absum
+            fin = ~torch.isnan(exact)
+            if not torch.equal(torch.isnan(a), ~fin) \
+                    or bool((err[fin] > bound[fin]).any()):
+                raise AssertionError(f"spec {i} ({op}/{kind}) float sum "
+                                     "outside 2*n*eps*sum|x|")
+            if bool(fin.any()):
+                max_err = max(max_err, float(err[fin].max()))
+        elif dt.is_floating_point:
+            same = (a == b) | (torch.isnan(a) & torch.isnan(b))
+            same &= (torch.signbit(a) == torch.signbit(b)) | torch.isnan(a)
+            if not bool(same.all()):
+                raise AssertionError(f"spec {i} ({op}/{kind}) differs")
+        elif not torch.equal(a, b):
+            raise AssertionError(f"spec {i} ({op}/{kind}) differs")
+    return max_err
+
+
+def kernel_phase(rng, bw: float, C: int, live_n: int):
+    """Kernel vs plain on the card over the coverage cases."""
+    from daft_tpu_torch.device import hash_kernels as hk
+    all_ops = ("count", "sum", "mean", "var", "stddev", "min", "max",
+               "any_value", "bool_and", "bool_or")
+    kinds = ("f64", "f32", "i64", "f64", "f32", "f64", "f32", "i64",
+             "bool", "bool")
+    extra_ops = ("min", "max", "any_value", "sum", "min", "max")
+    extra_kinds = ("i64", "i64", "f64", "bool", "bool", "f32")
+    cases = [
+        ("1word_int32_nullkeys", "int32", 2500, all_ops, kinds, 4096),
+        ("2word_int64_nullkeys", "int64", 10_000, all_ops, kinds, 32768),
+        ("1word_extra_kinds", "int32", 500, extra_ops, extra_kinds, 1024),
+        ("overflow_ndv_gt_out_cap", "int64", 5000, ("sum", "count"),
+         ("f64", "i64"), 8192),
+        ("table_full", "int32", 10_000, ("sum", "max"), ("f64", "f32"),
+         4096),
+    ]
+    out = []
+    for name, kk, ndv, ops, vk, T in cases:
+        case = make_case(rng, C, live_n, kk, ndv, ops, vk)
+        words, live, vals, contribs, specs = case_tensors(case, "cuda")
+        got = hk.hash_agg_build_cuda(words, live, vals, contribs, specs, T)
+        ref = hk.hash_agg_build_plain(words, live, vals, contribs, specs, T)
+        err = compare_builds(got, ref, specs, words, live, vals, contribs, T)
+        g = int(got[4])
+        if name == "table_full" and g != T:
+            raise AssertionError(f"table_full: count {g} != T {T}")
+        if name == "overflow_ndv_gt_out_cap" and not (2048 < g < T):
+            raise AssertionError(f"overflow: count {g} not in (2048, {T})")
+        ms = cuda_ms(lambda: hk.hash_agg_build_cuda(
+            words, live, vals, contribs, specs, T))
+        plain_ms = cuda_ms(lambda: hk.hash_agg_build_plain(
+            words, live, vals, contribs, specs, T), reps=10, warm=1)
+        nbytes = build_bytes(words, live, vals, contribs, specs, T)
+        rec = dict(case=name, C=C, live=int(live_n), T=T, words=len(words),
+                   groups=g, specs=len(specs), max_abs_err=err, ms=ms,
+                   plain_ms=plain_ms, bytes=nbytes,
+                   bound_ms=nbytes / HBM_BYTES_PER_S * 1e3,
+                   bound_measured_bw_ms=nbytes / bw * 1e3, library_ms=None)
+        log("kernel case " + json.dumps(rec))
+        out.append(rec)
+    return out
+
+
+# --------------------------------------------------------------- main path
+
+def tpch_root(sf: float) -> str:
+    from benchmarking.tpch.datagen import generate_tpch
+    root = os.path.join(HERE, ".cache", f"tpch_sf{sf:g}")
+    li = os.path.join(root, "lineitem")
+    if not (os.path.isdir(li) and os.listdir(li)):
+        t0 = time.perf_counter()
+        generate_tpch(root, scale_factor=sf, num_parts=8, seed=42)
+        log(f"datagen sf={sf:g}: {time.perf_counter() - t0:.3f} s")
+    return root
+
+
+def _close(a, b, rel: float) -> bool:
+    if a is None or b is None:
+        return a is None and b is None
+    return abs(a - b) <= rel * max(abs(a), abs(b), 1e-300)
+
+
+def check_table(name, got: dict, ref: dict, key_cols, exact_cols,
+                rel_cols, rel: float = 1e-9, loose_cols=()):
+    """Row-aligned comparison after sorting both by the key columns."""
+    n = len(ref[key_cols[0]]) if key_cols else 1
+    if any(len(v) != n for v in got.values()):
+        raise AssertionError(f"{name}: row count {len(next(iter(got.values())))} != {n}")
+    for c in key_cols + exact_cols:
+        if list(got[c]) != list(ref[c]):
+            raise AssertionError(f"{name}: column {c} differs")
+    for c in rel_cols:
+        for a, b in zip(got[c], ref[c]):
+            if not _close(a, b, rel):
+                raise AssertionError(f"{name}: {c} {a} vs {b}")
+    for c in loose_cols:
+        for a, b in zip(got[c], ref[c]):
+            if not _close(a, b, 1e-6):
+                raise AssertionError(f"{name}: {c} {a} vs {b}")
+
+
+def pyarrow_answers(root: str):
+    """The four queries computed independently with pyarrow."""
+    import pyarrow as pa
+    import pyarrow.compute as pc
+    import pyarrow.dataset as ds
+    li = ds.dataset(os.path.join(root, "lineitem"), format="parquet") \
+        .to_table(columns=["l_returnflag", "l_linestatus", "l_quantity",
+                           "l_extendedprice", "l_discount", "l_tax",
+                           "l_shipdate", "l_suppkey"])
+    out = {}
+    # Q1
+    t = li.filter(pc.less_equal(li["l_shipdate"],
+                                pa.scalar(datetime.date(1998, 9, 2))))
+    disc = pc.multiply(t["l_extendedprice"],
+                       pc.subtract(pa.scalar(1.0), t["l_discount"]))
+    charge = pc.multiply(disc, pc.add(pa.scalar(1.0), t["l_tax"]))
+    t = t.append_column("disc", disc).append_column("charge", charge)
+    g = t.group_by(["l_returnflag", "l_linestatus"]).aggregate([
+        ("l_quantity", "sum"), ("l_extendedprice", "sum"), ("disc", "sum"),
+        ("charge", "sum"), ("l_quantity", "mean"),
+        ("l_extendedprice", "mean"), ("l_discount", "mean"),
+        ("l_quantity", "count")]).sort_by([("l_returnflag", "ascending"),
+                                           ("l_linestatus", "ascending")])
+    out["q1"] = {
+        "l_returnflag": g["l_returnflag"].to_pylist(),
+        "l_linestatus": g["l_linestatus"].to_pylist(),
+        "sum_qty": g["l_quantity_sum"].to_pylist(),
+        "sum_base_price": g["l_extendedprice_sum"].to_pylist(),
+        "sum_disc_price": g["disc_sum"].to_pylist(),
+        "sum_charge": g["charge_sum"].to_pylist(),
+        "avg_qty": g["l_quantity_mean"].to_pylist(),
+        "avg_price": g["l_extendedprice_mean"].to_pylist(),
+        "avg_disc": g["l_discount_mean"].to_pylist(),
+        "count_order": g["l_quantity_count"].to_pylist()}
+    # suppkey group-by
+    g = li.group_by("l_suppkey").aggregate([
+        ("l_quantity", "sum"), ("l_extendedprice", "mean"),
+        ("l_discount", "count"), ("l_quantity", "min"),
+        ("l_extendedprice", "max"),
+        ("l_extendedprice", "stddev", pc.VarianceOptions(ddof=0))]) \
+        .sort_by("l_suppkey")
+    out["suppkey_agg"] = {
+        "l_suppkey": g["l_suppkey"].to_pylist(),
+        "sum_qty": g["l_quantity_sum"].to_pylist(),
+        "avg_price": g["l_extendedprice_mean"].to_pylist(),
+        "n": g["l_discount_count"].to_pylist(),
+        "min_qty": g["l_quantity_min"].to_pylist(),
+        "max_price": g["l_extendedprice_max"].to_pylist(),
+        "std_price": g["l_extendedprice_stddev"].to_pylist()}
+    pairs = li.group_by(["l_suppkey", "l_discount"]).aggregate([])
+    out["suppkey_disc_pairs"] = set(zip(pairs["l_suppkey"].to_pylist(),
+                                        pairs["l_discount"].to_pylist()))
+    # shipdate group-by
+    g = li.group_by("l_shipdate").aggregate([
+        ("l_quantity", "sum"), ("l_extendedprice", "sum"),
+        ("l_discount", "mean"), ("l_quantity", "count"),
+        ("l_discount", "max")]).sort_by("l_shipdate")
+    out["shipdate_agg"] = {
+        "l_shipdate": g["l_shipdate"].to_pylist(),
+        "sum_qty": g["l_quantity_sum"].to_pylist(),
+        "sum_price": g["l_extendedprice_sum"].to_pylist(),
+        "avg_disc": g["l_discount_mean"].to_pylist(),
+        "n": g["l_quantity_count"].to_pylist(),
+        "max_disc": g["l_discount_max"].to_pylist()}
+    # Q6
+    sd = li["l_shipdate"]
+    m = pc.and_(pc.and_(
+        pc.greater_equal(sd, pa.scalar(datetime.date(1994, 1, 1))),
+        pc.less(sd, pa.scalar(datetime.date(1995, 1, 1)))),
+        pc.and_(pc.and_(pc.greater_equal(li["l_discount"], 0.05),
+                        pc.less_equal(li["l_discount"], 0.07)),
+                pc.less(li["l_quantity"], 24.0)))
+    t = li.filter(m)
+    out["q6"] = {"revenue": [pc.sum(pc.multiply(
+        t["l_extendedprice"], t["l_discount"])).as_py()]}
+    out["rows"] = li.num_rows
+    return out
+
+
+def check_answer(name: str, got: dict, ref: dict):
+    if name == "q1":
+        check_table(name, got, ref["q1"], ["l_returnflag", "l_linestatus"],
+                    ["count_order"],
+                    ["sum_qty", "sum_base_price", "sum_disc_price",
+                     "sum_charge", "avg_qty", "avg_price", "avg_disc"])
+    elif name == "q6":
+        check_table(name, got, ref["q6"], [], [], ["revenue"])
+    elif name == "suppkey_agg":
+        r = ref["suppkey_agg"]
+        check_table(name, {k: got[k] for k in r}, r, ["l_suppkey"],
+                    ["n", "min_qty", "max_price"], ["sum_qty", "avg_price"],
+                    loose_cols=["std_price"])
+        for k, v in zip(got["l_suppkey"], got["any_disc"]):
+            if (k, v) not in ref["suppkey_disc_pairs"]:
+                raise AssertionError(f"{name}: any_value {v} not a value "
+                                     f"of group {k}")
+    else:
+        check_table(name, got, ref["shipdate_agg"], ["l_shipdate"],
+                    ["n", "max_disc"], ["sum_qty", "sum_price", "avg_disc"])
+
+
+EXPECT = {"q1": ("dense",), "suppkey_agg": ("hash",),
+          "shipdate_agg": ("hash",), "q6": ("global",)}
+
+
+def main_path(root: str, reps: int):
+    """Drive the port's entry points once with counters zeroed (the counted
+    run), check answers and counters, then time warm repeats."""
+    import torch
+    import daft_tpu_torch as dtt
+    from daft_tpu_torch.benchmarking import tpch_queries as Q
+    from daft_tpu_torch.device import hash_kernels as hk, runtime
+    get = lambda t: dtt.read_parquet(os.path.join(root, t))  # noqa: E731
+    t0 = time.perf_counter()
+    ref = pyarrow_answers(root)
+    log(f"pyarrow reference answers: {time.perf_counter() - t0:.3f} s")
+    recorded, events = [], []
+    orig = hk.hash_agg_build_cuda
+
+    def recording(words, live, vals, contribs, specs, T):
+        recorded.append((words, live, vals, contribs, specs, T))
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        out = orig(words, live, vals, contribs, specs, T)
+        b.record()
+        events.append((a, b))
+        return out
+    hk.hash_agg_build_cuda = recording
+    results = {}
+    # ---- the counted run: every count zeroed just before, read just after
+    runtime.reset_counters()
+    hk.reset_launches()
+    per_query = {}
+    try:
+        for name in ("q1", "suppkey_agg", "shipdate_agg", "q6"):
+            c0, l0, e0 = runtime.counters(), hk.launches, len(events)
+            t0 = time.perf_counter()
+            got = Q.QUERIES[name](get).to_pydict()
+            torch.cuda.synchronize()
+            cold = time.perf_counter() - t0
+            c1 = runtime.counters()
+            delta = {k: c1.get(k, 0) - c0.get(k, 0) for k in c1}
+            per_query[name] = dict(
+                counters=delta, launches=hk.launches - l0, cold_s=cold,
+                kernel_ms=sum(a.elapsed_time(b) for a, b in events[e0:]),
+                kernel_rungs=[(int(r[1].sum()), r[5]) for r in recorded[e0:]])
+            results[name] = got
+    finally:
+        hk.hash_agg_build_cuda = orig
+    main_launches = hk.launches
+    counters = runtime.counters()
+    for name, got in results.items():
+        check_answer(name, got, ref)
+        pq = per_query[name]
+        for s in EXPECT[name]:
+            if pq["counters"].get(s, 0) <= 0:
+                raise AssertionError(f"{name}: no {s} dispatch ({pq})")
+        if pq["counters"].get("host_morsels", 0) != 0:
+            raise AssertionError(f"{name}: host-tier morsels {pq}")
+        if name in ("suppkey_agg", "shipdate_agg") and pq["launches"] <= 0:
+            raise AssertionError(f"{name}: hash kernel never launched")
+        log(f"main path {name}: answer matches pyarrow; " + json.dumps(pq))
+    if main_launches <= 0:
+        raise AssertionError("hash kernel launched no time on the main path")
+    # ---- warm timings (not counted)
+    rows = ref["rows"]
+    timings = {}
+    for name in ("q1", "suppkey_agg", "shipdate_agg", "q6"):
+        walls = []
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            Q.QUERIES[name](get).to_pydict()
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+        w = statistics.median(walls)
+        timings[name] = dict(warm_s=w, rows=rows, rows_per_s=rows / w,
+                             walls=walls)
+        log(f"main path {name}: warm {w:.6f} s (median of {reps}), "
+            f"{rows / w:.1f} lineitem rows/s")
+    return dict(counters=counters, launches=main_launches,
+                per_query=per_query, timings=timings,
+                kernel_ms_sum=sum(a.elapsed_time(b) for a, b in events),
+                last_build=recorded[-1] if recorded else None)
+
+
+def main_path_kernel_timing(rec, bw: float):
+    """Kernel vs plain on the exact inputs of the main path's last hash
+    dispatch (the l_shipdate group-by's final rung)."""
+    from daft_tpu_torch.device import hash_kernels as hk
+    words, live, vals, contribs, specs, T = rec
+    got = hk.hash_agg_build_cuda(words, live, vals, contribs, specs, T)
+    ref = hk.hash_agg_build_plain(words, live, vals, contribs, specs, T)
+    err = compare_builds(got, ref, specs, words, live, vals, contribs, T)
+    ms = cuda_ms(lambda: hk.hash_agg_build_cuda(
+        words, live, vals, contribs, specs, T))
+    plain_ms = cuda_ms(lambda: hk.hash_agg_build_plain(
+        words, live, vals, contribs, specs, T), warm=1)
+    C = live.shape[0]
+    nbytes = build_bytes(words, live, vals, contribs, specs, T)
+    rec = dict(C=C, live=int(live.sum()), T=T, words=len(words),
+               groups=int(got[4]), specs=len(specs), max_abs_err=err, ms=ms,
+               plain_ms=plain_ms, bytes=nbytes,
+               bound_ms=nbytes / HBM_BYTES_PER_S * 1e3,
+               bound_measured_bw_ms=nbytes / bw * 1e3)
+    log("kernel at main-path inputs " + json.dumps(rec))
+    return rec
+
+
+def profile_phase(root: str):
+    """One traced run of each main-path query (``--profile``): host-side
+    time per stage (wall time spent inside the scan, the encode and copy
+    to the card, the fragment dispatch, and the fetch/decode/ladder; scan
+    loads run on pool threads and overlap the rest), and the card's busy
+    time from ``torch.profiler`` against the traced wall. Tracing adds
+    its own cost: compare the traced wall with the untraced warm wall."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    import daft_tpu_torch as dtt
+    from daft_tpu_torch.benchmarking import tpch_queries as Q
+    from daft_tpu_torch.device import column, fragment
+    from daft_tpu_torch.io import scan
+    get = lambda t: dtt.read_parquet(os.path.join(root, t))  # noqa: E731
+    stages = {"scan": (scan.ScanTask, "execute"),
+              "encode_h2d": (column, "encode_batch"),
+              "dispatch": (fragment, "submit_fused_agg_table"),
+              "fetch_decode_ladder": (fragment, "drain_fused_agg_table")}
+    for name in ("q1", "suppkey_agg", "shipdate_agg", "q6"):
+        acc = {k: 0.0 for k in stages}
+        saved = {}
+        for key, (owner, attr) in stages.items():
+            fn = saved[key] = getattr(owner, attr)
+
+            def timed(*a, _fn=fn, _key=key, **k):
+                t0 = time.perf_counter()
+                try:
+                    return _fn(*a, **k)
+                finally:
+                    acc[_key] += time.perf_counter() - t0
+            setattr(owner, attr, timed)
+        try:
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                Q.QUERIES[name](get).to_pydict()
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+        finally:
+            for key, (owner, attr) in stages.items():
+                setattr(owner, attr, saved[key])
+        # device-side events only (kernels, copies, memsets): an aten op's
+        # entry repeats the time of the kernels it launched
+        dev = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA
+               and not e.key.startswith("Activity Buffer")]
+        busy = sum(e.self_device_time_total for e in dev) / 1e6
+        top = sorted(dev, key=lambda e: -e.self_device_time_total)[:6]
+        log("profile " + json.dumps({
+            "query": name, "traced_wall_s": wall, "device_busy_s": busy,
+            "device_idle_share": 1.0 - busy / wall, "host_stages_s": acc,
+            "top_device_ms": [[e.key[:70], e.self_device_time_total / 1e3,
+                               e.count] for e in top]}))
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--sf", type=float, default=1.0)
+    ap.add_argument("--reps", type=int, default=3)
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--profile", action="store_true",
+                    help="also trace one run of each main-path query")
+    args = ap.parse_args()
+
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    # fails here (no output yet) when run outside a checkout of the repo
+    import daft_tpu_torch  # noqa: F401
+    from benchmarking.tpch import datagen  # noqa: F401
+    from daft_tpu_torch.device import cuda_build
+
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True).stdout.strip()
+    card = smi.splitlines()[0]
+    log(f"card: {card}")
+    bw = copy_bandwidth()
+    log(f"device-to-device copy bandwidth: {bw / 1e9:.1f} GB/s")
+
+    t0 = time.perf_counter()
+    cuda_build.extension()
+    log(f"kernel build: {time.perf_counter() - t0:.3f} s "
+        "(cpp_extension.load, sm_90a)")
+
+    rng = np.random.default_rng(args.seed)
+    kernel_phase(rng, bw, MAIN_C, MAIN_LIVE)
+
+    root = tpch_root(args.sf)
+    mp = main_path(root, args.reps)
+    krec = main_path_kernel_timing(mp["last_build"], bw)
+    if args.profile:
+        profile_phase(root)
+
+    kernels = [{
+        "name": "hash_agg_build", "route": "cuda",
+        "source": "daft_tpu_torch/csrc/hash_agg.cu",
+        "replaces": "daft_tpu/device/pallas_kernels.py:192",
+        "launches": mp["launches"], "max_abs_err": krec["max_abs_err"],
+        "ms": krec["ms"], "plain_ms": krec["plain_ms"],
+        "bound_ms": krec["bound_ms"], "bound_by": "bytes",
+        # device time of all the main path's counted launches, summed
+        "main_path_ms_sum": mp["kernel_ms_sum"],
+        # no single PyTorch call computes a hash group-by with these
+        # count/sum/sumsq/min/max/first planes and the overflow count
+        "library_ms": None}]
+    log(json.dumps({"kernels": kernels}))
+    log(f"{card}")
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,277 @@
+"""Logical plan nodes.
+
+Reference: ``src/daft-logical-plan/src/logical_plan.rs:25`` — the LogicalPlan
+enum — and ``partitioning.rs`` (ClusteringSpec). The port carries the nodes
+of the grouped-aggregation slice: Source/Project/Filter/Limit/Sort/TopN/
+Aggregate. Joins, windows, pivots and the rest come with later slices.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import List, Optional, Tuple
+
+from ..expressions import Expression
+from ..schema import Schema
+
+
+@dataclasses.dataclass(frozen=True)
+class ClusteringSpec:
+    """How rows are distributed across partitions."""
+
+    kind: str = "unknown"            # hash | range | random | unknown
+    num_partitions: int = 1
+    by: Tuple[Expression, ...] = ()
+    descending: Tuple[bool, ...] = ()
+
+    def normalized(self) -> "ClusteringSpec":
+        return self
+
+
+class LogicalPlan:
+    """Base node; immutable tree."""
+
+    def __init__(self, children: List["LogicalPlan"]):
+        self._children = children
+        self._schema: Optional[Schema] = None
+
+    @property
+    def children(self) -> List["LogicalPlan"]:
+        return self._children
+
+    def schema(self) -> Schema:
+        if self._schema is None:
+            self._schema = self._compute_schema()
+        return self._schema
+
+    def _compute_schema(self) -> Schema:
+        raise NotImplementedError
+
+    def with_children(self, children: List["LogicalPlan"]) -> "LogicalPlan":
+        raise NotImplementedError
+
+    def clustering_spec(self) -> ClusteringSpec:
+        if self._children:
+            return self._children[0].clustering_spec()
+        return ClusteringSpec()
+
+    def num_partitions(self) -> int:
+        return self.clustering_spec().num_partitions
+
+    def name(self) -> str:
+        return type(self).__name__
+
+    def multiline_display(self) -> List[str]:
+        return [self.name()]
+
+    # generic tree utilities -------------------------------------------
+    def transform_up(self, fn) -> "LogicalPlan":
+        new_children = [c.transform_up(fn) for c in self._children]
+        node = self if new_children == self._children \
+            else self.with_children(new_children)
+        return fn(node)
+
+    def transform_down(self, fn) -> "LogicalPlan":
+        node = fn(self)
+        new_children = [c.transform_down(fn) for c in node.children]
+        return node if new_children == node.children \
+            else node.with_children(new_children)
+
+    def semantic_id(self) -> Tuple:
+        return (self.name(),
+                tuple(repr(x) for x in self._params()),
+                tuple(c.semantic_id() for c in self._children))
+
+    def _params(self) -> Tuple:
+        return ()
+
+    def repr_ascii(self, depth: int = 0) -> str:
+        pad = "  " * depth
+        lines = [pad + ("* " if depth == 0 else "|- ") +
+                 "\n  ".join(self.multiline_display())]
+        for c in self._children:
+            lines.append(c.repr_ascii(depth + 1))
+        return "\n".join(lines)
+
+
+class Source(LogicalPlan):
+    def __init__(self, scan_op=None, partitions=None, schema: Schema = None,
+                 pushdowns=None, num_partitions: int = 1):
+        super().__init__([])
+        from ..io.scan import Pushdowns
+        self.scan_op = scan_op
+        self.partitions = partitions   # list[MicroPartition] for in-memory
+        self._source_schema = schema
+        self.pushdowns = pushdowns or Pushdowns()
+        self._num_partitions = num_partitions
+
+    def _compute_schema(self) -> Schema:
+        base = self._source_schema
+        if self.pushdowns.columns is not None:
+            return base.project([c for c in self.pushdowns.columns if c in base])
+        return base
+
+    def with_children(self, children):
+        assert not children
+        return self
+
+    def with_pushdowns(self, pushdowns) -> "Source":
+        return Source(self.scan_op, self.partitions, self._source_schema,
+                      pushdowns, self._num_partitions)
+
+    def clustering_spec(self) -> ClusteringSpec:
+        if self.partitions is not None:
+            return ClusteringSpec("unknown", max(len(self.partitions), 1))
+        if self.scan_op is not None:
+            # partition count = materialized scan-task count, sharing the
+            # same cache execution/translate use so footers are read once
+            tasks = getattr(self, "materialized_tasks", None)
+            if tasks is None:
+                try:
+                    tasks = self.scan_op.to_scan_tasks(self.pushdowns)
+                    self.materialized_tasks = tasks
+                except Exception:
+                    return ClusteringSpec("unknown", self._num_partitions)
+            return ClusteringSpec("unknown", max(len(tasks), 1))
+        return ClusteringSpec("unknown", self._num_partitions)
+
+    def _params(self):
+        return (id(self.scan_op) if self.scan_op else id(self.partitions),
+                self.pushdowns)
+
+    def multiline_display(self):
+        src = "InMemory" if self.partitions is not None else \
+            type(self.scan_op).__name__
+        out = [f"Source [{src}]", f"schema = {self.schema().column_names}"]
+        if self.pushdowns.filters is not None:
+            out.append(f"filter pushdown = {self.pushdowns.filters!r}")
+        if self.pushdowns.limit is not None:
+            out.append(f"limit pushdown = {self.pushdowns.limit}")
+        return out
+
+
+class Project(LogicalPlan):
+    def __init__(self, child: LogicalPlan, exprs: List[Expression]):
+        super().__init__([child])
+        self.exprs = list(exprs)
+
+    def _compute_schema(self) -> Schema:
+        s = self._children[0].schema()
+        return Schema([e.to_field(s) for e in self.exprs])
+
+    def with_children(self, children):
+        return Project(children[0], self.exprs)
+
+    def _params(self):
+        return tuple(e._key() for e in self.exprs)
+
+    def multiline_display(self):
+        return [f"Project: {', '.join(repr(e) for e in self.exprs[:6])}"
+                + ("…" if len(self.exprs) > 6 else "")]
+
+
+class Filter(LogicalPlan):
+    def __init__(self, child: LogicalPlan, predicate: Expression):
+        super().__init__([child])
+        self.predicate = predicate
+
+    def _compute_schema(self) -> Schema:
+        return self._children[0].schema()
+
+    def with_children(self, children):
+        return Filter(children[0], self.predicate)
+
+    def _params(self):
+        return (self.predicate._key(),)
+
+    def multiline_display(self):
+        return [f"Filter: {self.predicate!r}"]
+
+
+class Limit(LogicalPlan):
+    def __init__(self, child: LogicalPlan, limit: int, offset: int = 0):
+        super().__init__([child])
+        self.limit = limit
+        self.offset = offset
+
+    def _compute_schema(self) -> Schema:
+        return self._children[0].schema()
+
+    def with_children(self, children):
+        return Limit(children[0], self.limit, self.offset)
+
+    def _params(self):
+        return (self.limit, self.offset)
+
+    def multiline_display(self):
+        return [f"Limit: {self.limit}"]
+
+
+class Sort(LogicalPlan):
+    def __init__(self, child, sort_by, descending, nulls_first):
+        super().__init__([child])
+        self.sort_by = list(sort_by)
+        self.descending = list(descending)
+        self.nulls_first = list(nulls_first)
+
+    def _compute_schema(self) -> Schema:
+        return self._children[0].schema()
+
+    def with_children(self, children):
+        return Sort(children[0], self.sort_by, self.descending, self.nulls_first)
+
+    def clustering_spec(self) -> ClusteringSpec:
+        return ClusteringSpec("range", self._children[0].num_partitions(),
+                              tuple(self.sort_by), tuple(self.descending))
+
+    def _params(self):
+        return (tuple(e._key() for e in self.sort_by),
+                tuple(self.descending), tuple(self.nulls_first))
+
+    def multiline_display(self):
+        return [f"Sort: {', '.join(repr(e) for e in self.sort_by)}"]
+
+
+class TopN(LogicalPlan):
+    def __init__(self, child, sort_by, descending, nulls_first, limit: int):
+        super().__init__([child])
+        self.sort_by = list(sort_by)
+        self.descending = list(descending)
+        self.nulls_first = list(nulls_first)
+        self.limit = limit
+
+    def _compute_schema(self) -> Schema:
+        return self._children[0].schema()
+
+    def with_children(self, children):
+        return TopN(children[0], self.sort_by, self.descending,
+                    self.nulls_first, self.limit)
+
+    def _params(self):
+        return (tuple(e._key() for e in self.sort_by), tuple(self.descending),
+                tuple(self.nulls_first), self.limit)
+
+
+class Aggregate(LogicalPlan):
+    def __init__(self, child, aggs: List[Expression],
+                 group_by: List[Expression]):
+        super().__init__([child])
+        self.aggs = list(aggs)
+        self.group_by = list(group_by)
+
+    def _compute_schema(self) -> Schema:
+        s = self._children[0].schema()
+        fields = [e.to_field(s) for e in self.group_by]
+        fields += [e.to_field(s) for e in self.aggs]
+        return Schema(fields)
+
+    def with_children(self, children):
+        return Aggregate(children[0], self.aggs, self.group_by)
+
+    def _params(self):
+        return (tuple(e._key() for e in self.aggs),
+                tuple(e._key() for e in self.group_by))
+
+    def multiline_display(self):
+        return [f"Aggregate: {', '.join(repr(a) for a in self.aggs[:4])}",
+                f"group_by = {[repr(g) for g in self.group_by]}"]

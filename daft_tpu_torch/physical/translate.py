@@ -1,0 +1,200 @@
+"""Logical → physical translation.
+
+Reference: ``src/daft-local-plan/src/translate.rs:19-434`` (direct lowering,
+Aggregate → partial/final split) and
+``src/daft-physical-plan/src/physical_planner/translate.rs:639``
+(``populate_aggregation_stages``). The port is single-node: the final
+aggregate consumes the whole partial stream, so no exchange is inserted.
+"""
+
+from __future__ import annotations
+
+from typing import List, Optional
+
+from ..aggs import AGG_DECOMPOSITION as _DECOMPOSABLE
+from ..datatype import DataType
+from ..expressions import Expression, col
+from ..logical import plan as lp
+from ..schema import Schema
+from . import plan as pp
+
+
+def translate(node: lp.LogicalPlan) -> pp.PhysicalPlan:
+    if isinstance(node, lp.Source):
+        if node.partitions is not None:
+            return pp.InMemorySource(node.partitions, node.schema())
+        tasks = getattr(node, "materialized_tasks", None)
+        if tasks is None:
+            tasks = node.scan_op.to_scan_tasks(node.pushdowns)
+        return pp.ScanSource(tasks, node.schema())
+    if isinstance(node, lp.Project):
+        return pp.Project(translate(node.children[0]), node.exprs,
+                          node.schema())
+    if isinstance(node, lp.Filter):
+        return pp.Filter(translate(node.children[0]), node.predicate)
+    if isinstance(node, lp.Limit):
+        return pp.Limit(translate(node.children[0]), node.limit, node.offset)
+    if isinstance(node, lp.Sort):
+        return pp.Sort(translate(node.children[0]), node.sort_by,
+                       node.descending, node.nulls_first)
+    if isinstance(node, lp.TopN):
+        return pp.TopN(translate(node.children[0]), node.sort_by,
+                       node.descending, node.nulls_first, node.limit)
+    if isinstance(node, lp.Aggregate):
+        return _translate_agg(node)
+    raise NotImplementedError(f"translate for {node.name()}")
+
+
+def _translate_agg(node: lp.Aggregate) -> pp.PhysicalPlan:
+    from ..aggs import split_agg_expr
+    child = node.children[0]
+    pchild = translate(child)
+    specs = [split_agg_expr(e) for e in node.aggs]
+    if not all(op in _DECOMPOSABLE for op, _, _, _ in specs):
+        return pp.Aggregate(pchild, node.aggs, node.group_by, node.schema(),
+                            "single")
+
+    partial_aggs, final_aggs, final_proj = _split_aggs(node, child.schema())
+    p1_schema = _agg_schema(node.group_by, partial_aggs, child.schema())
+    p1 = _try_fuse_partial(pchild, partial_aggs, node.group_by, p1_schema)
+    if p1 is None:
+        p1 = pp.Aggregate(pchild, partial_aggs, node.group_by, p1_schema,
+                          "partial")
+    gb2 = [col(e.name()) for e in node.group_by]
+    f_schema = _agg_schema(gb2, final_aggs, p1_schema)
+    p2 = pp.Aggregate(p1, final_aggs, gb2, f_schema, "final")
+    proj = [col(e.name()) for e in node.group_by] + final_proj
+    return pp.Project(p2, proj, node.schema())
+
+
+def _try_fuse_partial(pchild: pp.PhysicalPlan, partial_aggs, group_by,
+                      p1_schema: Schema) -> Optional[pp.PhysicalPlan]:
+    """Collapse partial-Agg ← Project* ← Filter* ← Scan into a fused device
+    fragment, substituting intermediate projections so every expression is
+    over source columns."""
+    from ..aggs import split_agg_expr
+    from ..logical.optimizer import combine_conjuncts, substitute_columns
+    chain = []
+    n = pchild
+    while isinstance(n, (pp.Project, pp.Filter)):
+        chain.append(n)
+        n = n.children[0]
+    # chain may be empty: fusing projection-exprs + agg over a bare source
+    # still collapses to one program (scan-level filters prune earlier)
+    if not isinstance(n, (pp.ScanSource, pp.InMemorySource)):
+        return None
+    mapping = {c: col(c) for c in n.schema().column_names}
+    preds = []
+    for node2 in reversed(chain):
+        if isinstance(node2, pp.Filter):
+            preds.append(substitute_columns(node2.predicate, mapping))
+        else:
+            try:
+                mapping = {e.name(): substitute_columns(e._unalias(), mapping)
+                           for e in node2.exprs}
+            except Exception:
+                return None
+    try:
+        gb2 = [substitute_columns(e._unalias(), mapping).alias(e.name())
+               for e in group_by]
+        aggs2 = []
+        for a in partial_aggs:
+            op, child, name, params = split_agg_expr(a)
+            if op not in ("sum", "mean", "min", "max", "count", "stddev",
+                          "var", "any_value", "bool_and", "bool_or"):
+                return None
+            if op == "count" and params and params[0] != "valid":
+                return None
+            c2 = substitute_columns(child, mapping) if child is not None \
+                else None
+            new_inner = Expression("agg." + op,
+                                   (c2,) if c2 is not None else (), params)
+            aggs2.append(new_inner.alias(name))
+        pred = combine_conjuncts(preds) if preds else None
+        # all agg outputs must be decodable without a dictionary
+        for a in aggs2:
+            f = p1_schema[a.name()]
+            if f.dtype.device_repr() is None or f.dtype.is_string() \
+                    or f.dtype.is_binary():
+                return None
+        # string group keys must be source-column passthroughs (their
+        # dictionary travels from the encoded input)
+        for g in gb2:
+            f = p1_schema[g.name()]
+            if (f.dtype.is_string() or f.dtype.is_binary()) \
+                    and g._unalias().op != "col":
+                return None
+    except Exception:
+        return None
+    return pp.DeviceFragmentAgg(n, pred, aggs2, gb2, p1_schema, "partial")
+
+
+def _agg_schema(group_by, aggs, input_schema: Schema) -> Schema:
+    fields = [e.to_field(input_schema) for e in group_by]
+    fields += [e.to_field(input_schema) for e in aggs]
+    return Schema(fields)
+
+
+def _split_aggs(node: lp.Aggregate, in_schema: Schema):
+    """populate_aggregation_stages: per-agg partial exprs, final exprs over
+    partial outputs, and the final projection."""
+    partials: List[Expression] = []
+    finals: List[Expression] = []
+    projs: List[Expression] = []
+    seen_partial = {}
+
+    def add_partial(e: Expression) -> str:
+        k = e._key()
+        if k in seen_partial:
+            return seen_partial[k]
+        nm = e.name() if e.op == "alias" else f"__p{len(partials)}__{e.name()}"
+        seen_partial[k] = nm
+        partials.append(e.alias(nm) if e.name() != nm else e)
+        return nm
+
+    for e in node.aggs:
+        out_name = e.name()
+        inner = e._unalias()
+        op = inner.op[4:]
+        child = inner.args[0] if inner.args else None
+        out_field = e.to_field(in_schema)
+        if op in ("sum", "min", "max", "any_value", "bool_and", "bool_or",
+                  "list", "concat"):
+            p = add_partial(Expression(inner.op, inner.args, inner.params)
+                            .alias(out_name))
+            f_op = {"sum": "agg.sum", "min": "agg.min", "max": "agg.max",
+                    "any_value": "agg.any_value", "bool_and": "agg.bool_and",
+                    "bool_or": "agg.bool_or", "list": "agg.concat",
+                    "concat": "agg.concat"}[op]
+            finals.append(Expression(f_op, (col(p),),
+                                     inner.params).alias(out_name))
+            projs.append(col(out_name))
+        elif op == "count":
+            p = add_partial(inner.alias(out_name))
+            finals.append(col(p).sum().alias(out_name))
+            projs.append(col(out_name).cast(DataType.uint64()).alias(out_name))
+        elif op == "mean":
+            s = add_partial(child.sum().alias(f"__sum_{out_name}__"))
+            c = add_partial(child.count().alias(f"__count_{out_name}__"))
+            fs = f"__fsum_{out_name}__"
+            fc = f"__fcount_{out_name}__"
+            finals.append(col(s).sum().alias(fs))
+            finals.append(col(c).sum().alias(fc))
+            projs.append((col(fs).cast(DataType.float64())
+                          / col(fc).cast(DataType.float64())).alias(out_name))
+        elif op in ("stddev", "var"):
+            s = add_partial(child.sum().alias(f"__sum_{out_name}__"))
+            c = add_partial(child.count().alias(f"__count_{out_name}__"))
+            s2 = add_partial((child * child).sum().alias(f"__sumsq_{out_name}__"))
+            fs, fc, fs2 = (f"__fs_{out_name}__", f"__fc_{out_name}__",
+                           f"__fs2_{out_name}__")
+            finals.append(col(s).sum().alias(fs))
+            finals.append(col(c).sum().alias(fc))
+            finals.append(col(s2).sum().alias(fs2))
+            mean = col(fs).cast(DataType.float64()) / col(fc).cast(DataType.float64())
+            var = (col(fs2).cast(DataType.float64())
+                   / col(fc).cast(DataType.float64())) - mean * mean
+            projs.append((var.sqrt() if op == "stddev" else var).alias(out_name))
+        else:
+            raise NotImplementedError(f"agg split for {op}")
+    return partials, finals, projs

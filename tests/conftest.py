@@ -85,6 +85,8 @@ def make_df(data):
 def pytest_configure(config):
     config.addinivalue_line(
         "markers", "slow: excluded from the tier-1 `-m 'not slow'` run")
+    config.addinivalue_line(
+        "markers", "cuda: needs a CUDA card; skipped where none is present")
 
 
 def pytest_collection_modifyitems(config, items):
