@@ -16,15 +16,29 @@ Phases (any failure ends the run with a non-zero exit code):
    live), over 1-word and 2-word keys, null keys, every agg state kind,
    int64/f32/f64/bool values with nulls and NaN, an overflow case and a
    table-full case;
-4. main path: TPC-H SF1 lineitem generated from a seed into ``.cache/``,
-   then Q1 (dense strategy), an int64-keyed group-by on ``l_suppkey``
-   (hash, 2-word keys), a date-keyed group-by on ``l_shipdate`` (hash,
-   1-word keys) and Q6 (keyless), through ``daft_tpu_torch.read_parquet``
-   on ``cuda``; every answer is held against pyarrow on the same files,
-   and the port's counters must show the kernels ran and no morsel fell to
-   the host tier;
-5. a ``{"kernels": [...]}`` line with each kernel's launches, times and
+4. join-kernel phase: the hash-join build and probe against their plain
+   torch versions on the card (and the joined pairs against the torch
+   sort join), at the shape of TPC-H Q3's lineitem join (C_r = 2^22 build
+   rows, ~3.2M live; C_l = 2^18 probe rows), plus duplicate-heavy, NULL-
+   key, overflow (total > cap), empty-side and int64-edge-key cases;
+5. grouped-aggregation path: TPC-H SF1 generated from a seed into
+   ``.cache/``, then Q1 (dense strategy), an int64-keyed group-by on
+   ``l_suppkey`` (hash, 2-word keys), a date-keyed group-by on
+   ``l_shipdate`` (hash, 1-word keys) and Q6 (keyless), through
+   ``daft_tpu_torch.read_parquet`` on ``cuda``; every answer is held
+   against pyarrow on the same files, and the port's counters must show
+   the kernels ran and no morsel fell to the host tier;
+6. join path: TPC-H Q3 at SF1 (customer ⋈ orders ⋈ lineitem, then a
+   group-by and a top 10) through the same entry points, one counted cold
+   run and warm repeats; the answer is held against pyarrow
+   (``pa.Table.join`` plus ``group_by``) and the counters must show every
+   join on the device with the hash strategy (no host join);
+7. a ``{"kernels": [...]}`` line with each kernel's launches, times and
    bound, then the card line and the final ``{"ok": true, ...}`` line.
+
+Join kernels compare exactly (integer outputs): the build as a map from
+key to its rows in order (the slot layout is the kernel's own), the probe
+and the joined pairs element for element.
 
 Float tolerances: on the card, atomics sum in an order that changes from run
 to run, so a float sum is held to |got - exact| <= 2 * n * eps * sum(|x|)
@@ -263,6 +277,213 @@ def kernel_phase(rng, bw: float, C: int, live_n: int):
     return out
 
 
+# ------------------------------------------------------- join-kernel phase
+
+JOIN_C_R, JOIN_LIVE_R, JOIN_C_L = 1 << 22, 3_200_000, 1 << 18
+I64_MIN = -(1 << 63)
+
+
+def join_build_bytes(live, T: int) -> int:
+    """Bytes the join build must move: the live mask (C bytes) and each
+    live row's key (8 B) read once; the table's key (T+1 slots, 8 B),
+    offset (T+2, 4 B) and row (C, 4 B) planes written once."""
+    C = live.shape[0]
+    return C + 8 * int(live.sum()) + 8 * (T + 1) + 4 * (T + 2) + 4 * C
+
+
+def join_probe_bytes(live, packed, cap: int) -> int:
+    """Bytes the probe must move: the live mask (C bytes); per live row
+    its key, its slot's key and the slot's two offsets (24 B); per
+    emitted pair the right row id it reads (4 B); written once: the
+    per-row counts (4 B) and the pairs (8 B each). The packed matrix's
+    slots past the total are unspecified, so they are not charged."""
+    C = live.shape[0]
+    n_out = min(int(packed[2, :C].sum()), cap)
+    return C + 24 * int(live.sum()) + 4 * n_out + 4 * C + 8 * n_out
+
+
+def join_cases(rng, C_r: int, live_r: int, C_l: int):
+    """Seeded join-kernel cases (numpy planes; ``live`` already folds
+    validity and padding in): the first has Q3's lineitem-join shape,
+    the rest cover duplicate-heavy keys (segments long enough for the
+    shared- and global-memory segment sorts), NULL keys, overflow, empty
+    sides and keys at the int64 edges (INT64_MIN is the table's free-slot
+    marker)."""
+    def pad(a, C, fill=0):
+        out = np.full(C, fill, dtype=a.dtype)
+        out[:len(a)] = a
+        return out
+
+    cases = []
+    # lineitem-like build: 1-7 rows per order key, in key order
+    n_orders = live_r // 4
+    r = np.repeat(np.arange(n_orders, dtype=np.int64) * 4 + 1,
+                  rng.integers(1, 8, n_orders))[:live_r]
+    n_l = C_l * 9 // 16
+    l_keys = rng.permutation(2 * n_orders)[:n_l].astype(np.int64) * 4 + 1
+    cases.append(dict(
+        name="q3_lineitem_join_shape", r_code=pad(r, C_r),
+        r_live=np.arange(C_r) < len(r), l_code=pad(l_keys, C_l),
+        l_live=np.arange(C_l) < n_l, cap=C_r))
+    # duplicate-heavy: 16 keys with ~2.5% of the rows each, 256 with ~0.1%,
+    # the rest spread thin; build rows in random order
+    heavy = rng.integers(0, 16, C_r * 4 // 10)
+    medium = rng.integers(16, 272, C_r * 3 // 10)
+    thin = rng.integers(272, 272 + C_r, C_r - len(heavy) - len(medium))
+    r = rng.permutation(np.concatenate([heavy, medium, thin])) \
+        .astype(np.int64)
+    n_probe = max(C_l // 256, 64)
+    cases.append(dict(
+        name="duplicate_heavy", r_code=r, r_live=np.ones(C_r, bool),
+        l_code=rng.integers(0, 300, n_probe).astype(np.int64),
+        l_live=np.ones(n_probe, bool), cap=C_r * 4))
+    # NULL keys on both sides (20%), foreign-key shaped
+    cases.append(dict(
+        name="null_keys", r_code=rng.permutation(C_r).astype(np.int64),
+        r_live=rng.random(C_r) >= 0.2,
+        l_code=rng.integers(0, 2 * C_r, C_l).astype(np.int64),
+        l_live=rng.random(C_l) >= 0.2, cap=max(C_r, C_l)))
+    # overflow: ~64 build rows per key, cap a third of the total
+    c_o = C_r // 64
+    cases.append(dict(
+        name="overflow_total_gt_cap",
+        r_code=rng.integers(0, c_o // 64, c_o).astype(np.int64),
+        r_live=np.ones(c_o, bool),
+        l_code=rng.integers(0, c_o // 64, c_o // 4).astype(np.int64),
+        l_live=np.ones(c_o // 4, bool), cap=c_o // 4 * 64 // 3))
+    small = C_l // 16
+    cases.append(dict(
+        name="empty_build", r_code=rng.integers(0, 99, small).astype(
+            np.int64), r_live=np.zeros(small, bool),
+        l_code=rng.integers(0, 99, small).astype(np.int64),
+        l_live=np.ones(small, bool), cap=small))
+    cases.append(dict(
+        name="empty_probe", r_code=rng.integers(0, 99, small).astype(
+            np.int64), r_live=np.ones(small, bool),
+        l_code=rng.integers(0, 99, small).astype(np.int64),
+        l_live=np.zeros(small, bool), cap=small))
+    pool = np.array([I64_MIN, I64_MIN + 1, -1, 0, 1, (1 << 63) - 2,
+                     (1 << 63) - 1], dtype=np.int64)
+    c_e = C_l // 4
+    cases.append(dict(
+        name="int64_edge_keys", r_code=pool[rng.integers(0, 7, c_e)],
+        r_live=rng.random(c_e) >= 0.1, l_code=pool[rng.integers(0, 7, 64)],
+        l_live=np.ones(64, bool), cap=c_e * 16))
+    return cases
+
+
+def _table_order(table, code, n_live: int):
+    """(key, slot, row) per filled row-plane entry of a build result, and
+    the stable order that sorts the entries by key. Raises where an entry
+    sits in another key's slot, a slot's rows do not ascend, or the rows
+    past the live count are not -1."""
+    import torch
+    off = table.off.to(torch.int64)
+    e = torch.arange(n_live, device=off.device)
+    slot = torch.searchsorted(off, e, right=True) - 1
+    key = table.tk[slot]
+    row = table.rows[:n_live].to(torch.int64)
+    if not torch.equal(key, code[row]):
+        raise AssertionError("build: a row sits in another key's slot")
+    if bool(((slot[1:] == slot[:-1]) & (row[1:] <= row[:-1])).any()):
+        raise AssertionError("build: a slot's rows do not ascend")
+    if not bool((table.rows[n_live:] == -1).all()):
+        raise AssertionError("build: row plane past the live rows")
+    cnt = off[1:] - off[:-1]
+    free = torch.nonzero(cnt[:-1] == 0).flatten()
+    if not bool((table.tk[free] == I64_MIN).all()):
+        raise AssertionError("build: a free slot holds a key")
+    return key, row, torch.sort(key, stable=True).indices
+
+
+def check_join_case(case):
+    """Kernels vs plain versions on the card for one case: the build as a
+    key → ordered rows map (with the info counters), the probe of the
+    kernel's table element for element against the plain probe of both
+    tables, and the pairs against the torch sort join. Returns the
+    tensors and the result's sizes."""
+    import torch
+    from daft_tpu_torch.device import join_kernels as jk, kernels as K
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).cuda()  # noqa: E731
+    r_code, r_live = t(case["r_code"]), t(case["r_live"])
+    l_code, l_live = t(case["l_code"]), t(case["l_live"])
+    cap = case["cap"]
+    T = jk.join_table_capacity(r_code.shape[0])
+    got = jk.hash_join_build_cuda(r_code, r_live, T)
+    ref = jk.hash_join_build_plain(r_code, r_live, T)
+    n_live = int(r_live.sum())
+    if int(got.n_keys) != int(ref.n_keys) or int(got.unplaced) != 0:
+        raise AssertionError(f"{case['name']}: {int(got.n_keys)} keys, "
+                             f"plain {int(ref.n_keys)}; "
+                             f"{int(got.unplaced)} rows without a slot")
+    kg, rg, og = _table_order(got, r_code, n_live)
+    kr, rr, orr = _table_order(ref, r_code, n_live)
+    if not (torch.equal(kg[og], kr[orr]) and torch.equal(rg[og], rr[orr])):
+        raise AssertionError(f"{case['name']}: build key → rows differ")
+    packed = jk.hash_join_probe_cuda(l_code, l_live, got, cap)
+    for table in (got, ref):
+        if not torch.equal(packed, jk.hash_join_probe_plain(
+                l_code, l_live, table, cap)):
+            raise AssertionError(f"{case['name']}: probe differs")
+    C_l = l_code.shape[0]
+    ones_l = torch.ones(C_l, dtype=torch.bool, device=l_code.device)
+    ones_r = torch.ones_like(r_live)
+    srt = K.join_fused_impl(l_code, l_live, ones_l, r_code, r_live, ones_r,
+                            cap)
+    total = int(packed[2, :C_l].sum())
+    n = min(total, cap)
+    if not (torch.equal(packed[2, :C_l], srt[2, :C_l])
+            and torch.equal(packed[:2, :n], srt[:2, :n])):
+        raise AssertionError(f"{case['name']}: pairs differ from the sort "
+                             "join")
+    return dict(r_code=r_code, r_live=r_live, l_code=l_code, l_live=l_live,
+                T=T, cap=cap, table=got, packed=packed, total=total,
+                keys=int(got.n_keys), n_live_r=n_live)
+
+
+def time_join(c, bw: float):
+    """Kernel, plain and sort-join times (CUDA events) for one checked
+    case, with the byte bounds."""
+    from daft_tpu_torch.device import join_kernels as jk, kernels as K
+    import torch
+    r_code, r_live, l_code, l_live = c["r_code"], c["r_live"], \
+        c["l_code"], c["l_live"]
+    T, cap, table = c["T"], c["cap"], c["table"]
+    b_bytes = join_build_bytes(r_live, T)
+    p_bytes = join_probe_bytes(l_live, c["packed"], cap)
+    ones_l = torch.ones_like(l_live)
+    ones_r = torch.ones_like(r_live)
+    return dict(
+        build_ms=cuda_ms(lambda: jk.hash_join_build_cuda(r_code, r_live, T)),
+        build_plain_ms=cuda_ms(lambda: jk.hash_join_build_plain(
+            r_code, r_live, T), reps=5, warm=1),
+        build_bytes=b_bytes, build_bound_ms=b_bytes / HBM_BYTES_PER_S * 1e3,
+        build_bound_measured_bw_ms=b_bytes / bw * 1e3,
+        probe_ms=cuda_ms(lambda: jk.hash_join_probe_cuda(
+            l_code, l_live, table, cap)),
+        probe_plain_ms=cuda_ms(lambda: jk.hash_join_probe_plain(
+            l_code, l_live, table, cap), reps=5, warm=1),
+        probe_bytes=p_bytes, probe_bound_ms=p_bytes / HBM_BYTES_PER_S * 1e3,
+        probe_bound_measured_bw_ms=p_bytes / bw * 1e3,
+        sort_join_ms=cuda_ms(lambda: K.join_fused_impl(
+            l_code, l_live, ones_l, r_code, r_live, ones_r, cap), reps=5,
+            warm=1))
+
+
+def join_kernel_phase(rng, bw: float):
+    """Join kernels vs plain on the card over the coverage cases."""
+    out = []
+    for case in join_cases(rng, JOIN_C_R, JOIN_LIVE_R, JOIN_C_L):
+        c = check_join_case(case)
+        rec = dict(case=case["name"], C_r=c["r_code"].shape[0],
+                   live_r=c["n_live_r"], C_l=c["l_code"].shape[0],
+                   live_l=int(c["l_live"].sum()), T=c["T"], cap=c["cap"],
+                   keys=c["keys"], total=c["total"], **time_join(c, bw))
+        log("join kernel case " + json.dumps(rec))
+        out.append(rec)
+    return out
+
+
 # --------------------------------------------------------------- main path
 
 def tpch_root(sf: float) -> str:
@@ -487,6 +708,182 @@ def main_path(root: str, reps: int):
                 last_build=recorded[-1] if recorded else None)
 
 
+# --------------------------------------------------------------- join path
+
+Q3_DATE = datetime.date(1995, 3, 15)
+
+
+def q3_reference(root: str):
+    """Q3 computed independently with pyarrow (``Table.join`` and
+    ``group_by``) on the same files, and the filtered input sizes."""
+    import pyarrow as pa
+    import pyarrow.compute as pc
+    import pyarrow.dataset as ds
+
+    def read(t, cols):
+        return ds.dataset(os.path.join(root, t), format="parquet") \
+            .to_table(columns=cols)
+    c = read("customer", ["c_custkey", "c_mktsegment"])
+    c = c.filter(pc.equal(c["c_mktsegment"], "BUILDING"))
+    o = read("orders", ["o_orderkey", "o_custkey", "o_orderdate",
+                        "o_shippriority"])
+    o = o.filter(pc.less(o["o_orderdate"], pa.scalar(Q3_DATE)))
+    li = read("lineitem", ["l_orderkey", "l_extendedprice", "l_discount",
+                           "l_shipdate"])
+    li = li.filter(pc.greater(li["l_shipdate"], pa.scalar(Q3_DATE)))
+    co = c.join(o, keys="c_custkey", right_keys="o_custkey",
+                join_type="inner")
+    j = co.join(li, keys="o_orderkey", right_keys="l_orderkey",
+                join_type="inner")
+    vol = pc.multiply(j["l_extendedprice"],
+                      pc.subtract(pa.scalar(1.0), j["l_discount"]))
+    g = j.append_column("volume", vol) \
+        .group_by(["o_orderkey", "o_orderdate", "o_shippriority"]) \
+        .aggregate([("volume", "sum")]) \
+        .sort_by([("volume_sum", "descending"),
+                  ("o_orderdate", "ascending")]).slice(0, 10)
+    ans = {"o_orderkey": g["o_orderkey"].to_pylist(),
+           "revenue": g["volume_sum"].to_pylist(),
+           "o_orderdate": g["o_orderdate"].to_pylist(),
+           "o_shippriority": g["o_shippriority"].to_pylist()}
+    sizes = dict(customer=c.num_rows, orders=o.num_rows,
+                 lineitem=li.num_rows, customer_orders=co.num_rows,
+                 joined=j.num_rows)
+    return ans, sizes
+
+
+def q3_path(root: str, reps: int, ref=None, threshold=None,
+            label: str = "q3"):
+    """Drive Q3 once with every count zeroed just before (the counted
+    run), check the answer and the counters, then time warm repeats.
+    Each counted build/probe launch is timed with CUDA events (a join's
+    device section runs alone: ``joins._device_lock``). ``threshold``
+    overrides the broadcast threshold for the whole run (the
+    forced-broadcast variant, where each morsel of the streamed side
+    rebuilds the broadcast side's table)."""
+    import contextlib
+    import daft_tpu_torch as dtt
+    with (dtt.execution_config_ctx(
+            broadcast_join_size_bytes_threshold=threshold)
+          if threshold is not None else contextlib.nullcontext()):
+        return _q3_path(root, reps, ref, label)
+
+
+def _q3_path(root: str, reps: int, ref, label: str):
+    import torch
+    import daft_tpu_torch as dtt
+    from daft_tpu_torch.benchmarking import tpch_queries as Q
+    from daft_tpu_torch.device import hash_kernels as hk, runtime
+    from daft_tpu_torch.device import join_kernels as jk
+    from daft_tpu_torch.physical import plan as pp
+    from daft_tpu_torch.physical.translate import translate
+    get = lambda t: dtt.read_parquet(os.path.join(root, t))  # noqa: E731
+    if ref is None:
+        t0 = time.perf_counter()
+        ref = q3_reference(root)
+        log(f"q3 pyarrow reference: {time.perf_counter() - t0:.3f} s; "
+            f"filtered/joined rows {json.dumps(ref[1])}")
+    ref_ans = ref[0]
+    strategies = []
+
+    def walk(n):
+        if isinstance(n, pp.HashJoin):
+            strategies.append(n.strategy)
+        for ch in n.children:
+            walk(ch)
+    walk(translate(Q.q3(get).builder.optimize().plan))
+    log(f"{label} plan: join strategies (top join first) {strategies}")
+
+    builds, probes = [], []
+    orig_b, orig_p = jk.hash_join_build_cuda, jk.hash_join_probe_cuda
+
+    def timed(fn, store, *a):
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        out = fn(*a)
+        e1.record()
+        store.append((a, out, e0, e1))
+        return out
+    jk.hash_join_build_cuda = lambda *a: timed(orig_b, builds, *a)
+    jk.hash_join_probe_cuda = lambda *a: timed(orig_p, probes, *a)
+    # ---- the counted run: every count zeroed just before, read just after
+    runtime.reset_counters()
+    hk.reset_launches()
+    jk.reset_launches()
+    try:
+        t0 = time.perf_counter()
+        got = Q.q3(get).to_pydict()
+        torch.cuda.synchronize()
+        cold = time.perf_counter() - t0
+    finally:
+        jk.hash_join_build_cuda, jk.hash_join_probe_cuda = orig_b, orig_p
+    counters = runtime.counters()
+    launches = dict(jk.launches)
+    check_table(label, got, ref_ans, ["o_orderkey"],
+                ["o_orderdate", "o_shippriority"], ["revenue"])
+    n_hash = counters.get("join_hash", 0)
+    if counters.get("host_joins", 0) or counters.get("join_sort", 0) \
+            or n_hash < len(strategies):
+        raise AssertionError(f"{label}: joins not all on the device with "
+                             f"the hash strategy: {counters}")
+    if launches["hash_join_build"] != n_hash \
+            or launches["hash_join_probe"] != n_hash:
+        raise AssertionError(f"{label}: launches {launches} != hash "
+                             f"dispatches {n_hash}")
+    shapes = [dict(C_l=a[0].shape[0], live_l=int(a[1].sum()),
+                   C_r=a[2].rows.shape[0], T=a[2].T, cap=a[3],
+                   total=int(out[2, :a[0].shape[0]].sum()))
+              for a, out, _, _ in probes]
+    kernel_ms = {
+        "hash_join_build": sum(e0.elapsed_time(e1) for *_, e0, e1 in builds),
+        "hash_join_probe": sum(e0.elapsed_time(e1) for *_, e0, e1 in probes)}
+    rec = dict(counters=counters, launches=launches, cold_s=cold,
+               kernel_ms=kernel_ms, dispatches=shapes)
+    log(f"join path {label}: answer matches pyarrow; " + json.dumps(rec))
+    # ---- warm timings (not counted)
+    walls = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        Q.q3(get).to_pydict()
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    w = statistics.median(walls)
+    rows = sum(pq_rows(os.path.join(root, t))
+               for t in ("customer", "orders", "lineitem"))
+    log(f"join path {label}: warm {w:.6f} s (median of {reps}), "
+        f"{rows / w:.1f} scanned rows/s ({rows} rows in the three tables)"
+        f"; walls {walls}")
+    # the largest dispatch (the lineitem join) for the kernel timing
+    a, table, *_ = max(builds, key=lambda b: b[0][0].shape[0])
+    probe = next(p for p in probes if p[0][2] is table)
+    rec.update(warm_s=w, walls=walls, rows=rows, rows_per_s=rows / w,
+               strategies=strategies, main_build=(a, table),
+               main_probe=probe[0], ref=ref)
+    return rec
+
+
+def pq_rows(path: str) -> int:
+    import pyarrow.dataset as ds
+    return ds.dataset(path, format="parquet").count_rows()
+
+
+def join_main_path_timing(q3, bw: float):
+    """Kernels vs plain on the exact inputs of Q3's largest dispatch (the
+    lineitem join): checked as in the join-kernel phase, then timed."""
+    (r_code, r_live, T), _ = q3["main_build"]
+    l_code, l_live, _, cap = q3["main_probe"]
+    c = check_join_case(dict(name="q3_main_path", r_code=r_code.cpu().numpy(),
+                             r_live=r_live.cpu().numpy(),
+                             l_code=l_code.cpu().numpy(),
+                             l_live=l_live.cpu().numpy(), cap=cap))
+    rec = dict(C_r=r_code.shape[0], live_r=c["n_live_r"],
+               C_l=l_code.shape[0], live_l=int(l_live.sum()), T=T, cap=cap,
+               keys=c["keys"], total=c["total"], **time_join(c, bw))
+    log("join kernels at main-path inputs " + json.dumps(rec))
+    return rec
+
+
 def main_path_kernel_timing(rec, bw: float):
     """Kernel vs plain on the exact inputs of the main path's last hash
     dispatch (the l_shipdate group-by's final rung)."""
@@ -511,25 +908,34 @@ def main_path_kernel_timing(rec, bw: float):
 
 
 def profile_phase(root: str):
-    """One traced run of each main-path query (``--profile``): host-side
-    time per stage (wall time spent inside the scan, the encode and copy
-    to the card, the fragment dispatch, and the fetch/decode/ladder; scan
-    loads run on pool threads and overlap the rest), and the card's busy
-    time from ``torch.profiler`` against the traced wall. Tracing adds
-    its own cost: compare the traced wall with the untraced warm wall."""
+    """One traced run of each main-path query and of Q3 (``--profile``):
+    host-side time per stage (wall time spent inside each stage; scan
+    loads run on pool threads and overlap the rest; Q3's broadcast joins
+    run on pool threads too), and the card's busy time from
+    ``torch.profiler`` against the traced wall, split into host-to-device
+    copies, device-to-host copies, memsets and kernels. Tracing adds its
+    own cost: compare the traced wall with the untraced warm wall."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     import daft_tpu_torch as dtt
+    from daft_tpu_torch import joins
     from daft_tpu_torch.benchmarking import tpch_queries as Q
     from daft_tpu_torch.device import column, fragment
     from daft_tpu_torch.io import scan
+    from daft_tpu_torch.recordbatch import RecordBatch
     get = lambda t: dtt.read_parquet(os.path.join(root, t))  # noqa: E731
-    stages = {"scan": (scan.ScanTask, "execute"),
-              "encode_h2d": (column, "encode_batch"),
-              "dispatch": (fragment, "submit_fused_agg_table"),
-              "fetch_decode_ladder": (fragment, "drain_fused_agg_table")}
-    for name in ("q1", "suppkey_agg", "shipdate_agg", "q6"):
+    agg_stages = {"scan": (scan.ScanTask, "execute"),
+                  "encode_h2d": (column, "encode_batch"),
+                  "dispatch": (fragment, "submit_fused_agg_table"),
+                  "fetch_decode_ladder": (fragment, "drain_fused_agg_table")}
+    join_stages = {"scan": (scan.ScanTask, "execute"),
+                   "factorize": (joins, "_factorize_pair"),
+                   "device_h2d_kernels_d2h": (joins, "_device_match_indices"),
+                   "take": (joins, "_take_nullable"),
+                   "host_agg": (RecordBatch, "agg")}
+    for name in ("q1", "suppkey_agg", "shipdate_agg", "q6", "q3"):
+        stages = join_stages if name == "q3" else agg_stages
         acc = {k: 0.0 for k in stages}
         saved = {}
         for key, (owner, attr) in stages.items():
@@ -557,11 +963,17 @@ def profile_phase(root: str):
         dev = [e for e in prof.key_averages()
                if e.device_type == DeviceType.CUDA
                and not e.key.startswith("Activity Buffer")]
-        busy = sum(e.self_device_time_total for e in dev) / 1e6
+        split = {"h2d": 0.0, "d2h": 0.0, "memset": 0.0, "kernels": 0.0}
+        for e in dev:
+            k = "h2d" if "HtoD" in e.key else "d2h" if "DtoH" in e.key \
+                else "memset" if e.key.startswith("Memset") else "kernels"
+            split[k] += e.self_device_time_total / 1e6
+        busy = sum(split.values())
         top = sorted(dev, key=lambda e: -e.self_device_time_total)[:6]
         log("profile " + json.dumps({
             "query": name, "traced_wall_s": wall, "device_busy_s": busy,
-            "device_idle_share": 1.0 - busy / wall, "host_stages_s": acc,
+            "device_idle_share": 1.0 - busy / wall, "device_split_s": split,
+            "host_stages_s": acc,
             "top_device_ms": [[e.key[:70], e.self_device_time_total / 1e3,
                                e.count] for e in top]}))
 
@@ -572,7 +984,8 @@ def main() -> int:
     ap.add_argument("--reps", type=int, default=3)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--profile", action="store_true",
-                    help="also trace one run of each main-path query")
+                    help="also trace one run of each main-path query and "
+                         "of Q3")
     args = ap.parse_args()
 
     import torch
@@ -599,10 +1012,17 @@ def main() -> int:
 
     rng = np.random.default_rng(args.seed)
     kernel_phase(rng, bw, MAIN_C, MAIN_LIVE)
+    join_kernel_phase(rng, bw)
 
     root = tpch_root(args.sf)
     mp = main_path(root, args.reps)
+    q3 = q3_path(root, args.reps)
+    # every join forced to broadcast: the broadcast side's table is
+    # rebuilt for each morsel of the other side, as in the reference
+    q3_path(root, args.reps, ref=q3["ref"], threshold=1 << 40,
+            label="q3 forced broadcast")
     krec = main_path_kernel_timing(mp["last_build"], bw)
+    jrec = join_main_path_timing(q3, bw)
     if args.profile:
         profile_phase(root)
 
@@ -618,6 +1038,23 @@ def main() -> int:
         # no single PyTorch call computes a hash group-by with these
         # count/sum/sumsq/min/max/first planes and the overflow count
         "library_ms": None}]
+    for kname, pre, line in (("hash_join_build", "build", 455),
+                             ("hash_join_probe", "probe", 533)):
+        kernels.append({
+            "name": kname, "route": "cuda",
+            "source": "daft_tpu_torch/csrc/hash_join.cu",
+            "replaces": f"daft_tpu/device/pallas_kernels.py:{line}",
+            "launches": q3["launches"][kname],
+            # integer outputs, compared exactly
+            "max_abs_err": 0.0,
+            "ms": jrec[f"{pre}_ms"], "plain_ms": jrec[f"{pre}_plain_ms"],
+            "bound_ms": jrec[f"{pre}_bound_ms"], "bound_by": "bytes",
+            "main_path_ms_sum": q3["kernel_ms"][kname],
+            # the torch sort join (build + probe + expand) on the same
+            # inputs, for comparison; it is the port's `sort` strategy
+            "sort_join_ms": jrec["sort_join_ms"],
+            # no single PyTorch call generates join index pairs
+            "library_ms": None})
     log(json.dumps({"kernels": kernels}))
     log(f"{card}")
     print(json.dumps({"ok": True, "device": {

@@ -1,7 +1,8 @@
-"""The TPC-H queries of the grouped-aggregation slice, written against
-daft_tpu_torch: Q1 and Q6 as in ``benchmarking/tpch/queries.py``, plus the
-two hash-keyed group-bys over ``lineitem`` that exercise the hash strategy
-with 2-word (int64 ``l_suppkey``) and 1-word (date ``l_shipdate``) keys.
+"""The TPC-H queries of the grouped-aggregation and equi-join slices,
+written against daft_tpu_torch: Q1, Q3 and Q6 as in
+``benchmarking/tpch/queries.py``, plus the two hash-keyed group-bys over
+``lineitem`` that exercise the hash strategy with 2-word (int64
+``l_suppkey``) and 1-word (date ``l_shipdate``) keys.
 """
 
 from __future__ import annotations
@@ -29,6 +30,24 @@ def q1(get_df: GetDF) -> DataFrame:
                  col("l_discount").mean().alias("avg_disc"),
                  col("l_quantity").count().alias("count_order"))
             .sort(["l_returnflag", "l_linestatus"]))
+
+
+def q3(get_df: GetDF) -> DataFrame:
+    cust = get_df("customer").where(col("c_mktsegment") == "BUILDING")
+    orders = get_df("orders").where(
+        col("o_orderdate") < lit(datetime.date(1995, 3, 15)))
+    li = get_df("lineitem").where(
+        col("l_shipdate") > lit(datetime.date(1995, 3, 15)))
+    return (cust.join(orders, left_on="c_custkey", right_on="o_custkey")
+            .join(li, left_on="o_orderkey", right_on="l_orderkey")
+            .with_column("volume",
+                         col("l_extendedprice") * (1 - col("l_discount")))
+            .groupby(col("o_orderkey"), col("o_orderdate"),
+                     col("o_shippriority"))
+            .agg(col("volume").sum().alias("revenue"))
+            .sort([col("revenue"), col("o_orderdate")], desc=[True, False])
+            .limit(10)
+            .select("o_orderkey", "revenue", "o_orderdate", "o_shippriority"))
 
 
 def q6(get_df: GetDF) -> DataFrame:
@@ -65,5 +84,5 @@ def shipdate_agg(get_df: GetDF) -> DataFrame:
             .sort("l_shipdate"))
 
 
-QUERIES = {"q1": q1, "q6": q6, "suppkey_agg": suppkey_agg,
+QUERIES = {"q1": q1, "q3": q3, "q6": q6, "suppkey_agg": suppkey_agg,
            "shipdate_agg": shipdate_agg}

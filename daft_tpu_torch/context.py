@@ -23,6 +23,9 @@ class ExecutionConfig:
     #: ``"cuda"`` / ``"cpu"`` / ``"0"`` (host tier only); None defers to
     #: ``DAFT_TORCH_DEVICE`` and then to ``"cuda"``
     device: Optional[str] = None
+    #: a join side whose estimated size is at most this many bytes is
+    #: gathered once and joined against each morsel of the other side
+    broadcast_join_size_bytes_threshold: int = 10 * 1024 * 1024
 
 
 class Context:

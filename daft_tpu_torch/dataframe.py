@@ -3,8 +3,9 @@
 Reference: ``daft/dataframe/dataframe.py:108``. Each method extends the
 logical plan via LogicalPlanBuilder; execution happens on collect/show/
 iteration through ``execution.executor.run_plan``. The port carries the
-methods of the grouped-aggregation slice (select/filter/with_column/sort/
-limit/agg/groupby); joins, windows and writes come with later slices.
+methods of the grouped-aggregation and equi-join slices (select/filter/
+with_column/sort/limit/agg/groupby/join); cross joins, windows and writes
+come with later slices.
 """
 
 from __future__ import annotations
@@ -110,6 +111,28 @@ class DataFrame:
         out = func(self, *args, **kwargs)
         assert isinstance(out, DataFrame)
         return out
+
+    def join(self, other: "DataFrame",
+             on: Optional[Union[ColumnInput, List[ColumnInput]]] = None,
+             left_on=None, right_on=None, how: str = "inner",
+             strategy: Optional[str] = None, prefix: Optional[str] = None,
+             suffix: Optional[str] = None) -> "DataFrame":
+        """Equi-join with ``other``: ``how`` is inner, left, right, outer,
+        semi or anti; ``strategy`` None (chosen from size estimates),
+        ``hash``, ``broadcast``, ``broadcast_left`` or
+        ``broadcast_right``."""
+        if how == "cross":
+            raise NotImplementedError(
+                "cross join is not ported yet (ROADMAP A2: cross and "
+                "sort-merge join)")
+        if on is not None:
+            left_on = right_on = on
+        if left_on is None:
+            raise ValueError("join requires `on` or `left_on`/`right_on`")
+        lo = left_on if isinstance(left_on, (list, tuple)) else [left_on]
+        ro = right_on if isinstance(right_on, (list, tuple)) else [right_on]
+        return DataFrame(self._builder.join(other._builder, lo, ro, how,
+                                            strategy, prefix, suffix))
 
     # ---- aggregations ----------------------------------------------------
     def agg(self, *to_agg) -> "DataFrame":

@@ -4,8 +4,11 @@ The torch rewrite of the aggregation half of ``daft_tpu/device/kernels.py``
 (XLA programs there, eager torch here): the packed u64 key codes shared by
 the hash and sort strategies, the sort strategy
 (``grouped_agg_block_impl``), the dense direct-slot strategy
-(``grouped_agg_dense_impl``, what TPC-H Q1 runs) and the keyless
-``global_agg_impl`` (Q6).
+(``grouped_agg_dense_impl``, what TPC-H Q1 runs), the keyless
+``global_agg_impl`` (Q6), and the sort join (``join_sort_impl`` /
+``join_count_impl`` / ``join_expand_impl`` / ``join_fused_impl``: the
+``sort`` strategy of the device equi-join, and the oracle the hash join's
+kernels are held against).
 
 u64 words: torch's uint64 support is thin (``>>``, ``+`` and ``<`` raise on
 the CPU build), so every u64 word rides an int64 tensor holding the same
@@ -414,3 +417,78 @@ def global_agg_impl(vals, val_valids, row_mask, ops: Tuple[str, ...]):
     out_vals, out_valids = _reduce_segments(vals, val_valids, row_mask, ops,
                                             seg, 1, live)
     return tuple((v[0], m[0]) for v, m in zip(out_vals, out_valids))
+
+
+# ---------------------------------------------------------------------------
+# sort join (index generation)
+#
+# The reference's four phase programs, eager here: sort the build side,
+# count each probe row's matches by binary search, expand the counts into
+# (left, right) index pairs. Key codes stay int64 (torch's uint64 has no
+# searchsorted).
+
+def join_sort_impl(r_key, r_valid, r_mask):
+    """Sort the right side's key column, stably (equal keys keep ascending
+    row order); invalid/dead rows go to the end and read as the dtype's
+    maximum so the array stays monotonic for searchsorted."""
+    C = r_key.shape[0]
+    live = r_valid & r_mask
+    x = torch.where(live, r_key, torch.zeros((), dtype=r_key.dtype,
+                                              device=r_key.device))
+    perm = torch.sort(x, stable=True).indices
+    perm = perm[torch.sort((~live[perm]).to(torch.int8), stable=True).indices]
+    live_count = live.sum()
+    maxval = float("inf") if x.dtype.is_floating_point \
+        else torch.iinfo(x.dtype).max
+    pos = torch.arange(C, device=r_key.device)
+    sorted_keys = torch.where(pos < live_count, x[perm],
+                              torch.full_like(x, maxval))
+    return sorted_keys, perm, live_count
+
+
+def join_count_impl(l_key, l_valid, l_mask, r_sorted, r_live_count):
+    """Per-left-row match counts (and first match position) against the
+    sorted right keys."""
+    live = l_valid & l_mask
+    key = l_key.to(r_sorted.dtype)
+    starts = torch.minimum(torch.searchsorted(r_sorted, key), r_live_count)
+    ends = torch.minimum(torch.searchsorted(r_sorted, key, right=True),
+                         r_live_count)
+    counts = torch.where(live, ends - starts, torch.zeros_like(starts))
+    return counts, starts, counts.sum()
+
+
+def join_expand_impl(counts, starts, r_perm, out_capacity: int):
+    """Prefix-sum expansion: output slot j → (left row, right row)."""
+    C = counts.shape[0]
+    cum = torch.cumsum(counts, 0)
+    total = cum[-1]
+    j = torch.arange(out_capacity, dtype=cum.dtype, device=counts.device)
+    owner = torch.clamp(torch.searchsorted(cum, j, right=True), 0, C - 1)
+    offset = j - (cum - counts)[owner]
+    r_slot = starts[owner] + offset
+    # clip against the RIGHT side's capacity (the sides' buckets differ)
+    r_idx = r_perm[torch.clamp(r_slot, 0, r_perm.shape[0] - 1)]
+    return owner.to(torch.int32), r_idx.to(torch.int32), j < total
+
+
+def join_fused_impl(l_key, l_valid, l_mask, r_key, r_valid, r_mask,
+                    out_capacity: int):
+    """Sort + count + expand, packed as the reference packs it: int32
+    ``[3, max(out_capacity, C_l)]`` with row 0 the left row and row 1 the
+    right row of each output slot (``[:out_capacity]``) and row 2 the
+    per-left-row match counts (``[:C_l]``). Slots at or past the total
+    are garbage; a total above ``out_capacity`` means the caller
+    re-dispatches at a larger capacity. Pairs run left-major, right rows
+    ascending."""
+    C_l = l_key.shape[0]
+    r_sorted, r_perm, r_live_count = join_sort_impl(r_key, r_valid, r_mask)
+    counts, starts, _ = join_count_impl(l_key, l_valid, l_mask, r_sorted,
+                                        r_live_count)
+    owner, r_idx, _ = join_expand_impl(counts, starts, r_perm, out_capacity)
+    packed = torch.zeros((3, max(out_capacity, C_l)), dtype=torch.int32,
+                         device=l_key.device)
+    packed[0, :out_capacity] = owner
+    packed[1, :out_capacity] = r_idx
+    packed[2, :C_l] = counts.to(torch.int32)
+    return packed

@@ -2,9 +2,10 @@
 counters, the per-batch scalar preparation, and the helpers that route
 string dictionaries from the encoded inputs to the decoded outputs.
 
-The port keeps the agg half of ``daft_tpu/device/runtime.py``. Its
-per-operator device paths (projection, predicate, argsort, agg outside a
-fragment) and their cost gates come with later slices.
+The port keeps the agg half of ``daft_tpu/device/runtime.py`` and the
+join counters. Its per-operator device paths (projection, predicate,
+argsort, agg outside a fragment) and their cost gates come with later
+slices.
 """
 
 from __future__ import annotations
@@ -25,7 +26,9 @@ _counters: Dict[str, int] = {}
 def count(name: str, n: int = 1) -> None:
     """Bump a dispatch counter: ``dense`` / ``hash`` / ``sort`` /
     ``global`` per fused dispatch by strategy, ``host_morsels`` per morsel
-    a DeviceFragmentAgg ran on the host."""
+    a DeviceFragmentAgg ran on the host; ``join_hash`` / ``join_sort`` per
+    device join dispatch by strategy (an overflow re-dispatch counts
+    again), ``host_joins`` per equi-join index generation on the host."""
     with _counters_lock:
         _counters[name] = _counters.get(name, 0) + n
 

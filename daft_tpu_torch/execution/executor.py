@@ -5,8 +5,11 @@ Reference: ``daft_tpu/execution/executor.py`` (the pull-generator
 interpreter). The port runs single-node and synchronously per morsel: a
 final aggregate, sort or top-n gathers its whole input, and the fused
 device fragment (``_exec_DeviceFragmentAgg``) takes one source-file batch
-per dispatch. A device error propagates; only a morsel whose expressions do
-not compile for the device runs the host chain, and it is counted.
+per dispatch. A hash join gathers both sides and joins once; a broadcast
+join gathers one side and joins it against each morsel of the other
+(``_exec_HashJoin``; the index generation goes to the device per
+``joins.py``). A device error propagates; only a morsel whose expressions
+do not compile for the device runs the host chain, and it is counted.
 """
 
 from __future__ import annotations
@@ -234,6 +237,27 @@ class LocalExecutor:
             else self._exec(src)
         for p in stream:
             yield run(p)
+
+    # joins ------------------------------------------------------------
+    def _exec_HashJoin(self, node: pp.HashJoin):
+        how = node.how
+        lnode, rnode = node.children
+        if node.strategy == "broadcast_right":
+            right = _gather_all_or_empty(self._exec(rnode), rnode.schema())
+            yield from _ordered_parallel(
+                self._exec(lnode), lambda p: p.hash_join(
+                    right, node.left_on, node.right_on, how))
+            return
+        if node.strategy == "broadcast_left":
+            left = _gather_all_or_empty(self._exec(lnode), lnode.schema())
+            yield from _ordered_parallel(
+                self._exec(rnode), lambda p: left.hash_join(
+                    p, node.left_on, node.right_on, how))
+            return
+        # hash: single node, so both sides gather and join once
+        lall = _gather_all_or_empty(self._exec(lnode), lnode.schema())
+        rall = _gather_all_or_empty(self._exec(rnode), rnode.schema())
+        yield lall.hash_join(rall, node.left_on, node.right_on, how)
 
     # sorts ------------------------------------------------------------
     def _exec_Sort(self, node: pp.Sort):

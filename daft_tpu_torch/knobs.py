@@ -23,6 +23,9 @@ REGISTRY = {
         1 << 20, "hash-table slot ceiling; larger group budgets take sort"),
     "DAFT_TORCH_KERNEL_HASH_MAX_BITS": (
         128, "widest packed key set (bits, ≤128) the hash kernel accepts"),
+    "DAFT_TORCH_KERNEL_JOIN": (
+        "auto", "device equi-join strategy: `auto` (= `hash`), or force "
+        "`hash` (build/probe kernels) / `sort` (torch sort join)"),
 }
 
 

@@ -111,6 +111,14 @@ class LogicalPlanBuilder:
             node = lp.Project(node, gb_cols + final_exprs)
         return self._wrap(node)
 
+    def join(self, right: "LogicalPlanBuilder", left_on, right_on,
+             how: str = "inner", strategy: Optional[str] = None,
+             prefix: Optional[str] = None,
+             suffix: Optional[str] = None) -> "LogicalPlanBuilder":
+        return self._wrap(lp.Join(self._plan, right._plan,
+                                  _to_exprs(left_on), _to_exprs(right_on),
+                                  how, strategy, prefix, suffix))
+
     # ---- optimize --------------------------------------------------------
     def optimize(self) -> "LogicalPlanBuilder":
         from .optimizer import Optimizer

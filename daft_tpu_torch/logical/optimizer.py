@@ -2,9 +2,11 @@
 
 Reference: ``src/daft-logical-plan/src/optimization/optimizer.rs:40-215`` —
 rule batches with Once/FixedPoint strategies. The port carries the rules the
-grouped-aggregation slice needs (SimplifyExpressions, PushDownFilter,
-PushDownProjection, PushDownLimit, MaterializeScans); the join rules come
-with the join slice.
+grouped-aggregation and equi-join slices need (SimplifyExpressions,
+PushDownFilter, also into join sides, PushDownProjection, also through
+joins, PushDownLimit, MaterializeScans). The reference's join reordering,
+semi-join reduction, cross-join elimination and derived-filter rules come
+with a later slice (ROADMAP A2); answers do not depend on them.
 """
 
 from __future__ import annotations
@@ -178,6 +180,11 @@ class PushDownFilter(Rule):
             if isinstance(child, lp.Sort):
                 pushed = [lp.Filter(c, pred) for c in child.children]
                 return child.with_children(pushed)
+            if isinstance(child, lp.Join) and child.how in (
+                    "inner", "left", "right", "semi", "anti"):
+                pushed_join = _push_into_join(child, pred)
+                if pushed_join is not None:
+                    return pushed_join
             # into the scan's pushdowns
             if isinstance(child, lp.Source) and child.scan_op is not None:
                 pd = child.pushdowns
@@ -185,6 +192,44 @@ class PushDownFilter(Rule):
                 return child.with_pushdowns(pd.with_filters(new_f))
             return node
         return plan.transform_up(fn)
+
+
+def _push_into_join(join: lp.Join, pred: Expression
+                    ) -> Optional[lp.LogicalPlan]:
+    """Move the conjuncts of ``pred`` that read one side only below the
+    join, where that side's rows are all kept or dropped as a whole: the
+    left side of inner/left/semi/anti, the right side of inner/right
+    (prefixed right names map back to the right child's columns). None
+    when nothing moves."""
+    how = join.how
+    l_names = set(join.children[0].schema().column_names)
+    r_names = set(join.schema().column_names) - l_names
+    rc_names = set(join.children[1].schema().column_names)
+    keep, to_l, to_r = [], [], []
+    for c in split_conjuncts(pred):
+        used = set(c.column_names())
+        if used <= l_names and how in ("inner", "left", "semi", "anti"):
+            to_l.append(c)
+        elif used <= r_names and how in ("inner", "right"):
+            mapping = {}
+            for nm in used:
+                if nm in rc_names:
+                    continue
+                base = nm[6:] if nm.startswith("right.") else nm
+                if base in rc_names:
+                    mapping[nm] = col(base)
+            to_r.append(substitute_columns(c, mapping))
+        else:
+            keep.append(c)
+    if not (to_l or to_r):
+        return None
+    newl, newr = join.children
+    if to_l:
+        newl = lp.Filter(newl, combine_conjuncts(to_l))
+    if to_r:
+        newr = lp.Filter(newr, combine_conjuncts(to_r))
+    new_join = join.with_children([newl, newr])
+    return lp.Filter(new_join, combine_conjuncts(keep)) if keep else new_join
 
 
 class PushDownProjection(Rule):
@@ -248,6 +293,8 @@ class PushDownProjection(Rule):
                 child_req.update(e.column_names())
             return lp.Aggregate(self._prune(node.children[0], child_req),
                                 node.aggs, node.group_by)
+        if isinstance(node, lp.Join):
+            return node.with_children(self._join_requirements(node, required))
         if isinstance(node, lp.Sort):
             child_req = None if required is None else \
                 required | {c for e in node.sort_by for c in e.column_names()}
@@ -261,6 +308,30 @@ class PushDownProjection(Rule):
         # other nodes: require everything below
         return node.with_children(
             [self._prune(c, None) for c in node.children])
+
+    def _join_requirements(self, node: lp.Join, required: Optional[Set[str]]
+                           ) -> List[lp.LogicalPlan]:
+        """Each side pruned to the output columns it supplies plus its
+        join keys (a prefixed ``right.x`` is the right child's ``x``)."""
+        left, right = node.children
+        if required is None:
+            return [self._prune(left, None), self._prune(right, None)]
+        l_names = set(left.schema().column_names)
+        r_names = set(right.schema().column_names)
+        l_req: Set[str] = set()
+        r_req: Set[str] = set()
+        for nm in required:
+            if nm in l_names:
+                l_req.add(nm)
+            elif nm in r_names:
+                r_req.add(nm)
+            else:
+                r_req.add(nm[6:] if nm.startswith("right.") else nm)
+        for e in node.left_on:
+            l_req.update(e.column_names())
+        for e in node.right_on:
+            r_req.update(e.column_names())
+        return [self._prune(left, l_req), self._prune(right, r_req)]
 
 
 class PushDownLimit(Rule):

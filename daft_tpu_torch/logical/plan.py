@@ -2,8 +2,9 @@
 
 Reference: ``src/daft-logical-plan/src/logical_plan.rs:25`` — the LogicalPlan
 enum — and ``partitioning.rs`` (ClusteringSpec). The port carries the nodes
-of the grouped-aggregation slice: Source/Project/Filter/Limit/Sort/TopN/
-Aggregate. Joins, windows, pivots and the rest come with later slices.
+of the grouped-aggregation and equi-join slices: Source/Project/Filter/
+Limit/Sort/TopN/Aggregate/Join. Windows, pivots and the rest come with
+later slices.
 """
 
 from __future__ import annotations
@@ -12,7 +13,7 @@ import dataclasses
 from typing import List, Optional, Tuple
 
 from ..expressions import Expression
-from ..schema import Schema
+from ..schema import Field, Schema
 
 
 @dataclasses.dataclass(frozen=True)
@@ -275,3 +276,55 @@ class Aggregate(LogicalPlan):
     def multiline_display(self):
         return [f"Aggregate: {', '.join(repr(a) for a in self.aggs[:4])}",
                 f"group_by = {[repr(g) for g in self.group_by]}"]
+
+
+class Join(LogicalPlan):
+    """Equi-join; ``how`` ∈ inner/left/right/outer/semi/anti. Semi and anti
+    keep the left schema; otherwise the left columns, then the right ones,
+    where a right key named like its left key is dropped and any other
+    right name that collides with a left name takes the prefix (default
+    ``right.``) and suffix."""
+
+    def __init__(self, left, right, left_on, right_on, how: str = "inner",
+                 strategy: Optional[str] = None, prefix: Optional[str] = None,
+                 suffix: Optional[str] = None):
+        super().__init__([left, right])
+        self.left_on = list(left_on)
+        self.right_on = list(right_on)
+        self.how = how
+        self.strategy = strategy
+        self.prefix = prefix
+        self.suffix = suffix
+
+    def _compute_schema(self) -> Schema:
+        l, r = self._children[0].schema(), self._children[1].schema()
+        if self.how in ("semi", "anti"):
+            return l
+        fields = list(l.fields)
+        lnames = set(l.column_names)
+        rkey_names = [e.name() for e in self.right_on]
+        lkey_names = [e.name() for e in self.left_on]
+        for f in r.fields:
+            if f.name in rkey_names:
+                ki = rkey_names.index(f.name)
+                if ki < len(lkey_names) and lkey_names[ki] == f.name:
+                    continue
+            nm = f.name
+            if nm in lnames:
+                nm = (self.prefix or "right.") + nm + (self.suffix or "")
+            fields.append(Field(nm, f.dtype))
+        return Schema(fields)
+
+    def with_children(self, children):
+        return Join(children[0], children[1], self.left_on, self.right_on,
+                    self.how, self.strategy, self.prefix, self.suffix)
+
+    def _params(self):
+        return (tuple(e._key() for e in self.left_on),
+                tuple(e._key() for e in self.right_on), self.how,
+                self.strategy)
+
+    def multiline_display(self):
+        return [f"Join[{self.how}] on "
+                f"{[repr(e) for e in self.left_on]} = "
+                f"{[repr(e) for e in self.right_on]}"]

@@ -133,6 +133,12 @@ class MicroPartition:
         return MicroPartition.from_recordbatch(
             self.combined().agg(to_agg, group_by))
 
+    def hash_join(self, right: "MicroPartition", left_on, right_on,
+                  how="inner") -> "MicroPartition":
+        return MicroPartition.from_recordbatch(
+            self.combined().hash_join(right.combined(), left_on, right_on,
+                                      how))
+
     def distinct(self, on=None) -> "MicroPartition":
         return MicroPartition.from_recordbatch(self.combined().distinct(on))
 

@@ -1,7 +1,8 @@
 """Physical plan nodes (reference: ``src/daft-local-plan/src/plan.rs:20``).
 
 The port is single-node: there are no exchange nodes, and a final-mode
-Aggregate, Sort or TopN consumes its whole input stream."""
+Aggregate, Sort or TopN consumes its whole input stream, as a HashJoin
+consumes whole each side it gathers."""
 
 from __future__ import annotations
 
@@ -92,3 +93,17 @@ class TopN(PhysicalPlan):
         self.descending = descending
         self.nulls_first = nulls_first
         self.limit = limit
+
+
+class HashJoin(PhysicalPlan):
+    """Equi-join. strategy: ``broadcast_right`` (gather the right side,
+    stream the left), ``broadcast_left`` (the mirror), or ``hash`` (gather
+    both sides, one join)."""
+
+    def __init__(self, left, right, left_on, right_on, how, schema,
+                 strategy: str = "hash"):
+        super().__init__([left, right], schema)
+        self.left_on = left_on
+        self.right_on = right_on
+        self.how = how
+        self.strategy = strategy

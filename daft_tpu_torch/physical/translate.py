@@ -3,8 +3,10 @@
 Reference: ``src/daft-local-plan/src/translate.rs:19-434`` (direct lowering,
 Aggregate → partial/final split) and
 ``src/daft-physical-plan/src/physical_planner/translate.rs:639``
-(``populate_aggregation_stages``). The port is single-node: the final
-aggregate consumes the whole partial stream, so no exchange is inserted.
+(``populate_aggregation_stages``), and the join strategy choice of
+``daft_tpu/physical/translate.py``. The port is single-node: the final
+aggregate consumes the whole partial stream and a hash join gathers both
+sides, so no exchange is inserted.
 """
 
 from __future__ import annotations
@@ -42,7 +44,72 @@ def translate(node: lp.LogicalPlan) -> pp.PhysicalPlan:
                        node.descending, node.nulls_first, node.limit)
     if isinstance(node, lp.Aggregate):
         return _translate_agg(node)
+    if isinstance(node, lp.Join):
+        return _translate_join(node)
     raise NotImplementedError(f"translate for {node.name()}")
+
+
+def _estimate_size(node: lp.LogicalPlan) -> Optional[int]:
+    """Best-effort size estimate (bytes) for the join strategy choice."""
+    if isinstance(node, lp.Source):
+        if node.partitions is not None:
+            return sum(p.size_bytes() or 0 for p in node.partitions)
+        tasks = getattr(node, "materialized_tasks", None)
+        if tasks is None:
+            tasks = node.materialized_tasks = \
+                node.scan_op.to_scan_tasks(node.pushdowns)
+        sizes = [t.size_bytes() for t in tasks]
+        return sum(sizes) if all(s is not None for s in sizes) else None
+    if isinstance(node, lp.Filter):
+        base = _estimate_size(node.children[0])
+        return None if base is None else int(base * 0.2)
+    if isinstance(node, lp.Limit):
+        return 1024 * node.limit  # rough
+    if isinstance(node, lp.Aggregate):
+        base = _estimate_size(node.children[0])
+        return None if base is None else max(int(base * 0.05), 1024)
+    if node.children:
+        sizes = [_estimate_size(c) for c in node.children]
+        return None if any(s is None for s in sizes) else sum(sizes)
+    return None
+
+
+def _translate_join(node: lp.Join) -> pp.PhysicalPlan:
+    """Broadcast a side estimated at most
+    ``broadcast_join_size_bytes_threshold`` bytes (the right one first,
+    where the join type allows), else gather both sides."""
+    from ..context import get_context
+    left, right = node.children
+    pl, pr = translate(left), translate(right)
+    strategy = node.strategy
+    if strategy is None:
+        lsize, rsize = _estimate_size(left), _estimate_size(right)
+        threshold = get_context().execution_config \
+            .broadcast_join_size_bytes_threshold
+        if (rsize is not None and rsize <= threshold
+                and node.how in ("inner", "left", "semi", "anti")):
+            strategy = "broadcast_right"
+        elif (lsize is not None and lsize <= threshold
+              and node.how in ("inner", "right")):
+            strategy = "broadcast_left"
+        else:
+            strategy = "hash"
+    elif strategy == "broadcast":
+        strategy = "broadcast_right" if node.how in (
+            "inner", "left", "semi", "anti") else "hash"
+    if strategy not in ("hash", "broadcast_right", "broadcast_left"):
+        raise NotImplementedError(
+            f"join strategy {strategy!r} is not ported yet (ROADMAP A2: "
+            "cross and sort-merge join)")
+    # a broadcast side is joined once per morsel of the other, so it must
+    # be a side whose unmatched rows the join drops
+    if (strategy == "broadcast_right" and node.how in ("right", "outer")) \
+            or (strategy == "broadcast_left"
+                and node.how not in ("inner", "right")):
+        raise ValueError(f"join strategy {strategy!r} cannot run a "
+                         f"{node.how!r} join")
+    return pp.HashJoin(pl, pr, node.left_on, node.right_on, node.how,
+                       node.schema(), strategy)
 
 
 def _translate_agg(node: lp.Aggregate) -> pp.PhysicalPlan:

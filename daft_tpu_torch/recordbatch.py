@@ -7,8 +7,9 @@ sort, partition, explode, pivot/unpivot). Two execution tiers:
 - host tier here, over Arrow C++ compute (``pa.TableGroupBy``,
   ``pc.sort_indices`` — all native C++);
 - the torch device tier in ``daft_tpu_torch.device``, which the executor
-  calls for fused filter→project→aggregate fragments only; every method
-  here runs on the host.
+  calls for fused filter→project→aggregate fragments, and which
+  :meth:`RecordBatch.hash_join` calls for a join's index generation
+  (``joins.py``); every other method here runs on the host.
 """
 
 from __future__ import annotations
@@ -233,6 +234,16 @@ class RecordBatch:
         """
         from .aggs import agg_recordbatch
         return agg_recordbatch(self, list(to_agg), list(group_by))
+
+    # ---- joins -----------------------------------------------------------
+    def hash_join(self, right: "RecordBatch", left_on: Sequence[Expression],
+                  right_on: Sequence[Expression], how: str = "inner"
+                  ) -> "RecordBatch":
+        """Equi-join (inner/left/right/outer/semi/anti); see ``joins.py``
+        for where the index generation runs."""
+        from .joins import join_recordbatch
+        return join_recordbatch(self, right, list(left_on), list(right_on),
+                                how)
 
     def distinct(self, on: Optional[Sequence[Expression]] = None) -> "RecordBatch":
         on = list(on) if on else [col(n) for n in self.column_names()]

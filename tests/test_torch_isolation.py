@@ -82,6 +82,36 @@ def test_q6_runs_without_jax_or_daft_tpu_in_sys_modules():
     assert "LEAKED []" in r.stdout
 
 
+_Q3_SCRIPT = r"""
+import os, sys, tempfile
+os.environ["DAFT_TORCH_DEVICE"] = "cpu"
+from benchmarking.tpch.datagen import generate_tpch
+import daft_tpu_torch
+from daft_tpu_torch.benchmarking import tpch_queries as Q
+from daft_tpu_torch.device import runtime
+root = tempfile.mkdtemp()
+generate_tpch(root, scale_factor=0.004, num_parts=1)
+out = Q.q3(lambda t: daft_tpu_torch.read_parquet(os.path.join(root, t)))
+d = out.to_pydict()
+assert len(d["o_orderkey"]) == 10 and d["revenue"][0] > 0, d
+assert runtime.counters().get("join_hash", 0) > 0, runtime.counters()
+leaked = sorted(m for m in sys.modules
+                if m in ("jax", "jaxlib", "daft_tpu")
+                or m.startswith(("jax.", "jaxlib.", "daft_tpu.")))
+print("LEAKED", leaked)
+assert leaked == [], leaked
+"""
+
+
+def test_q3_join_runs_without_jax_or_daft_tpu_in_sys_modules():
+    env = dict(os.environ)
+    env["PYTHONPATH"] = REPO + os.pathsep + env.get("PYTHONPATH", "")
+    r = subprocess.run([sys.executable, "-c", _Q3_SCRIPT], cwd=REPO,
+                       env=env, capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stdout + r.stderr
+    assert "LEAKED []" in r.stdout
+
+
 def test_entry_point_raises_without_cuda_and_without_cpu_request(
         monkeypatch):
     import torch
