@@ -9,13 +9,15 @@ Phases (any failure ends the run with a non-zero exit code):
 
 1. the card's name and power limit, and its device-to-device copy
    bandwidth (the yardstick the kernel's bound is also given against);
-2. build of the CUDA kernels from ``daft_tpu_torch/csrc``
-   (``torch.utils.cpp_extension.load``, sm_90a);
+2. build of the CUDA kernels from ``daft_tpu_torch/csrc`` (one ``nvcc``
+   for sm_90a into a shared library loaded with ctypes; its seconds and
+   ``-Xptxas -v`` lines are printed);
 3. kernel phase: the hash grouped-agg table build against its plain torch
    version on the card, at the main path's shape (C = 2^20 rows, ~751k
    live), over 1-word and 2-word keys, null keys, every agg state kind,
-   int64/f32/f64/bool values with nulls and NaN, an overflow case and a
-   table-full case;
+   int64/f32/f64/bool values with nulls and NaN, an overflow case, a
+   table-full case, 4 groups (in a shared-memory and a global table),
+   sorted keys, and one case on each side of the shared-memory rule;
 4. join-kernel phase: the hash-join build and probe against their plain
    torch versions on the card (and the joined pairs against the torch
    sort join), at the shape of TPC-H Q3's lineitem join (C_r = 2^22 build
@@ -33,8 +35,12 @@ Phases (any failure ends the run with a non-zero exit code):
    run and warm repeats; the answer is held against pyarrow
    (``pa.Table.join`` plus ``group_by``) and the counters must show every
    join on the device with the hash strategy (no host join);
-7. a ``{"kernels": [...]}`` line with each kernel's launches, times and
-   bound, then the card line and the final ``{"ok": true, ...}`` line.
+7. the hash build against its plain version at the inputs of every
+   distinct hash rung of the main path (query, T, key words), and the
+   join kernels at Q3's lineitem join;
+8. a ``{"kernels": [...]}`` line with each kernel's launches, times and
+   bound (one row per hash rung), then the card line and the final
+   ``{"ok": true, ...}`` line.
 
 Join kernels compare exactly (integer outputs): the build as a map from
 key to its rows in order (the slot layout is the kernel's own), the probe
@@ -105,40 +111,67 @@ def copy_bandwidth() -> float:
 
 # ------------------------------------------------------------ kernel phase
 
-def build_bytes(words, live, vals, contribs, specs, T: int) -> int:
-    """Bytes the table build must move: the live mask (C bytes); for each
-    live row its key words and each distinct value and contrib plane the
-    specs read (deduplicated by buffer: the compiler hands one tensor to
-    every agg over the same column; a count reads no value); each output
-    plane written once (key words, state, frow, one plane per spec)."""
+def rows_until_full(words, live, T: int) -> int:
+    """Live rows up to the one whose key is the T-th distinct key in row
+    order (all live rows when there are fewer than T keys): what a build
+    that stops once its table is full must read."""
     import torch
+    rows = torch.nonzero(live).flatten()
+    key = words[0][rows] if len(words) == 1 \
+        else torch.stack([w[rows] for w in words], 1)
+    _, inv = torch.unique(key, dim=0, return_inverse=True)
+    n = int(inv.max()) + 1 if rows.numel() else 0
+    if n < T:
+        return int(rows.numel())
+    first = torch.full((n,), live.shape[0], dtype=torch.int64,
+                       device=live.device).scatter_reduce(0, inv, rows,
+                                                          "amin")
+    return int((rows <= torch.sort(first).values[T - 1]).sum())
+
+
+def build_bytes(words, live, vals, contribs, specs, T: int) -> int:
+    """Bytes the table build must move. Read once: the live mask (C
+    bytes), and for each live row it aggregates its key words and each
+    value and contrib plane the distinct planes read (by buffer: the
+    compiler hands one tensor to every agg over one column; a count or
+    `first` reads no value). Written once: per slot the key words, `occ`,
+    `frow` and each distinct plane (specs that compute the same plane
+    count once, as the kernel builds it once), and the count. A table
+    that fills aggregates only the rows up to the one that claims its
+    last slot (:func:`rows_until_full`)."""
     from daft_tpu_torch.device import hash_kernels as hk
-    n_live = int(live.sum())
+    distinct, _ = hk.plane_aliases(specs, vals, contribs)
+    uniq = [specs[i] for i in distinct]
     read = {}
-    for vi, _, kind, _ in specs:
+    for vi, _, kind, _ in uniq:
         read[contribs[vi].data_ptr()] = 1
-        if kind != "cnt":
+        if kind not in ("cnt", "first"):
             read[vals[vi].data_ptr()] = vals[vi].element_size()
-    inp = live.shape[0] + n_live * (8 * len(words) + sum(read.values()))
-    out = T * (8 * len(words) + 4 + 4)
-    for _, _, kind, dt in specs:
-        out += T * torch.empty(0, dtype=hk._kernel_plane_dtype(kind, dt)) \
-            .element_size()
+    n_rows = rows_until_full(words, live, T)
+    inp = live.shape[0] + n_rows * (8 * len(words) + sum(read.values()))
+    out = T * (8 * len(words) + 1 + 8 + sum(
+        hk._plane_dtype(kind, dt).itemsize for _, _, kind, dt in uniq)) + 8
     return inp + out
 
 
 def make_case(rng, C: int, live_n: int, key_kind: str, ndv: int,
-              ops, val_kinds, null_frac: float = 0.05):
-    """Seeded inputs for one build case, as numpy planes."""
+              ops, val_kinds, null_frac: float = 0.05,
+              sorted_keys: bool = False, one_column: bool = False):
+    """Seeded inputs for one build case, as numpy planes. ``sorted_keys``
+    sorts the keys (long runs of one key, as a clustered column gives);
+    ``one_column`` hands every agg the same value and validity planes, as
+    the compiler does for aggs over one column."""
     live = np.zeros(C, dtype=np.bool_)
     live[:live_n] = True
     if key_kind == "int64":
         keys = rng.integers(1, ndv + 1, C).astype(np.int64) * 7919 - 10**12
     else:  # int32 / date days
         keys = (rng.integers(0, ndv, C) + 8036).astype(np.int32)
+    if sorted_keys:
+        keys = np.sort(keys)
     kvalid = rng.random(C) >= null_frac
     vals, vvalids = [], []
-    for vk in val_kinds:
+    for vk in val_kinds[:1] if one_column else val_kinds:
         if vk == "f64":
             v = rng.normal(100.0, 50.0, C)
             v[rng.random(C) < 0.001] = np.nan
@@ -152,20 +185,33 @@ def make_case(rng, C: int, live_n: int, key_kind: str, ndv: int,
             v = rng.random(C) < 0.5
         vals.append(v)
         vvalids.append(rng.random(C) >= null_frac)
+    if one_column:
+        vals, vvalids = vals * len(ops), vvalids * len(ops)
     return dict(keys=keys, kvalid=kvalid, live=live, vals=vals,
                 vvalids=vvalids, ops=tuple(ops))
 
 
 def case_tensors(case, device):
+    """The case on ``device``: one tensor per distinct numpy plane, so
+    aggs over one column share their value and contrib tensors."""
     import torch
     from daft_tpu_torch.device import hash_kernels as hk
-    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device)  # noqa: E731
+    made = {}
+
+    def t(a):
+        if id(a) not in made:
+            made[id(a)] = torch.from_numpy(np.ascontiguousarray(a)).to(device)
+        return made[id(a)]
     live = t(case["live"])
     keys = (t(case["keys"]),)
     kvalid = (t(case["kvalid"]),)
     words = hk.key_words(keys, kvalid, live)
     vals = [t(v) for v in case["vals"]]
-    contribs = [t(m) & live for m in case["vvalids"]]
+    masked = {}
+    for m in case["vvalids"]:
+        if id(m) not in masked:
+            masked[id(m)] = t(m) & live
+    contribs = [masked[id(m)] for m in case["vvalids"]]
     specs = hk.agg_state_specs(case["ops"], [v.dtype for v in vals])
     return words, live, vals, contribs, specs
 
@@ -198,8 +244,6 @@ def compare_builds(got, ref, specs, words, live, vals, contribs, T: int):
     sr = torch.tensor([kr[k] for k in keys], device=live.device)
     if not torch.equal(got[2][sg], ref[2][sr]):
         raise AssertionError("frow differs")
-    cnt = {vi: ref[3][i][sr] for i, (vi, _, kind, _) in enumerate(specs)
-           if kind == "cnt"}
     f64 = torch.float64
     max_err = 0.0
     for i, (vi, op, kind, dt) in enumerate(specs):
@@ -211,10 +255,11 @@ def compare_builds(got, ref, specs, words, live, vals, contribs, T: int):
             x = (xs * xs if kind == "sumsq" else xs).to(f64)
             ex = hk.hash_agg_build_plain(
                 words, live, [x, x.abs()], [contribs[vi]] * 2,
-                [(0, "sum", "sum", f64), (1, "sum", "sum", f64)], T)
-            exact, absum = ex[3][0][sr], ex[3][1][sr]
+                [(0, "sum", "sum", f64), (1, "sum", "sum", f64),
+                 (0, "count", "cnt", torch.int32)], T)
+            exact, absum, n = (p[sr] for p in ex[3])
             err = (a.to(f64) - exact).abs()
-            bound = 2 * cnt[vi].to(f64) * torch.finfo(dt).eps * absum
+            bound = 2 * n.to(f64) * torch.finfo(dt).eps * absum
             fin = ~torch.isnan(exact)
             if not torch.equal(torch.isnan(a), ~fin) \
                     or bool((err[fin] > bound[fin]).any()):
@@ -232,6 +277,19 @@ def compare_builds(got, ref, specs, words, live, vals, contribs, T: int):
     return max_err
 
 
+def build_path(words, vals, contribs, specs, T: int) -> str:
+    """Which path the build takes for these inputs: "shared" (block-local
+    pre-aggregation) or "global" (:func:`hash_kernels.uses_shared_table`
+    over the distinct planes, on this card)."""
+    import torch
+    from daft_tpu_torch.device import hash_kernels as hk
+    distinct, _ = hk.plane_aliases(specs, vals, contribs)
+    dts = [hk._plane_dtype(specs[i][2], specs[i][3]) for i in distinct]
+    return "shared" if hk.uses_shared_table(
+        T, len(words), dts, words[0].shape[0],
+        hk.device_info(torch.cuda.current_device())) else "global"
+
+
 def kernel_phase(rng, bw: float, C: int, live_n: int):
     """Kernel vs plain on the card over the coverage cases."""
     from daft_tpu_torch.device import hash_kernels as hk
@@ -241,36 +299,69 @@ def kernel_phase(rng, bw: float, C: int, live_n: int):
              "bool", "bool")
     extra_ops = ("min", "max", "any_value", "sum", "min", "max")
     extra_kinds = ("i64", "i64", "f64", "bool", "bool", "f32")
+    rule_ops = ("sum", "min", "max", "any_value")
+    big = 1 << 21
+    # (name, key kind, ndv, ops, value kinds, T, sorted keys, one column,
+    #  expected path or None, rows)
     cases = [
-        ("1word_int32_nullkeys", "int32", 2500, all_ops, kinds, 4096),
-        ("2word_int64_nullkeys", "int64", 10_000, all_ops, kinds, 32768),
-        ("1word_extra_kinds", "int32", 500, extra_ops, extra_kinds, 1024),
+        ("1word_int32_nullkeys", "int32", 2500, all_ops, kinds, 4096,
+         False, False, None, C),
+        ("2word_int64_nullkeys", "int64", 10_000, all_ops, kinds, 32768,
+         False, False, None, C),
+        ("1word_extra_kinds", "int32", 500, extra_ops, extra_kinds, 1024,
+         False, False, "shared", C),
         ("overflow_ndv_gt_out_cap", "int64", 5000, ("sum", "count"),
-         ("f64", "i64"), 8192),
+         ("f64", "i64"), 8192, False, False, None, C),
         ("table_full", "int32", 10_000, ("sum", "max"), ("f64", "f32"),
-         4096),
+         4096, False, False, None, C),
+        # a T = 256 table filled by 10,000 keys in a block's shared memory
+        ("table_full_shared", "int32", 10_000, ("sum", "max", "count"),
+         ("f64", "f32", "i64"), 256, False, False, "shared", C),
+        # 4 groups (and the null key) over 750k rows: every row of a warp
+        # shares a few slots, in a shared-memory and a global table
+        ("few_groups", "int32", 4, all_ops, kinds, 128, False, False,
+         "shared", C),
+        ("few_groups_global_table", "int64", 4, all_ops, kinds, 1 << 16,
+         False, False, "global", C),
+        # a clustered key column: runs of ~300 rows of one key
+        ("sorted_keys", "int32", 2500, all_ops, kinds, 8192, True, False,
+         "global", C),
+        # one f64 column, 1-word keys, T = 2048 over 2^21 rows: count + sum
+        # + min + max + first is 36 B a slot, 56 B with the key, first row
+        # and state (114,688 B: two blocks fit the H100's 233,472 B SM);
+        # `var` adds a sumsq plane (64 B a slot, 131,072 B: one block)
+        ("rule_shared_side", "int32", 1000, rule_ops, ("f64",) * 4, 2048,
+         False, True, "shared", big),
+        ("rule_global_side", "int32", 1000, rule_ops + ("var",),
+         ("f64",) * 5, 2048, False, True, "global", big),
     ]
     out = []
-    for name, kk, ndv, ops, vk, T in cases:
-        case = make_case(rng, C, live_n, kk, ndv, ops, vk)
+    for name, kk, ndv, ops, vk, T, srt, one, want, rows in cases:
+        n_live = live_n * (rows // C)
+        case = make_case(rng, rows, n_live, kk, ndv, ops, vk,
+                         sorted_keys=srt, one_column=one)
         words, live, vals, contribs, specs = case_tensors(case, "cuda")
-        got = hk.hash_agg_build_cuda(words, live, vals, contribs, specs, T)
+        path = build_path(words, vals, contribs, specs, T)
+        if want is not None and path != want:
+            raise AssertionError(f"{name}: build path {path}, not {want}")
+        got = hk.hash_agg_build(words, live, vals, contribs, specs, T)
         ref = hk.hash_agg_build_plain(words, live, vals, contribs, specs, T)
         err = compare_builds(got, ref, specs, words, live, vals, contribs, T)
         g = int(got[4])
-        if name == "table_full" and g != T:
-            raise AssertionError(f"table_full: count {g} != T {T}")
+        if name.startswith("table_full") and g != T:
+            raise AssertionError(f"{name}: count {g} != T {T}")
         if name == "overflow_ndv_gt_out_cap" and not (2048 < g < T):
             raise AssertionError(f"overflow: count {g} not in (2048, {T})")
-        ms = cuda_ms(lambda: hk.hash_agg_build_cuda(
+        ms = cuda_ms(lambda: hk.hash_agg_build(
             words, live, vals, contribs, specs, T))
         plain_ms = cuda_ms(lambda: hk.hash_agg_build_plain(
             words, live, vals, contribs, specs, T), reps=10, warm=1)
         nbytes = build_bytes(words, live, vals, contribs, specs, T)
-        rec = dict(case=name, C=C, live=int(live_n), T=T, words=len(words),
-                   groups=g, specs=len(specs), max_abs_err=err, ms=ms,
-                   plain_ms=plain_ms, bytes=nbytes,
-                   bound_ms=nbytes / HBM_BYTES_PER_S * 1e3,
+        rec = dict(case=name, C=rows, live=n_live, T=T, words=len(words),
+                   groups=g, specs=len(specs),
+                   planes=len(hk.plane_aliases(specs, vals, contribs)[0]),
+                   path=path, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                   bytes=nbytes, bound_ms=nbytes / HBM_BYTES_PER_S * 1e3,
                    bound_measured_bw_ms=nbytes / bw * 1e3, library_ms=None)
         log("kernel case " + json.dumps(rec))
         out.append(rec)
@@ -639,10 +730,11 @@ def main_path(root: str, reps: int):
     ref = pyarrow_answers(root)
     log(f"pyarrow reference answers: {time.perf_counter() - t0:.3f} s")
     recorded, events = [], []
-    orig = hk.hash_agg_build_cuda
+    orig = hk.hash_agg_build
+    query = [None]
 
     def recording(words, live, vals, contribs, specs, T):
-        recorded.append((words, live, vals, contribs, specs, T))
+        recorded.append((query[0], (words, live, vals, contribs, specs, T)))
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         a.record()
@@ -650,7 +742,7 @@ def main_path(root: str, reps: int):
         b.record()
         events.append((a, b))
         return out
-    hk.hash_agg_build_cuda = recording
+    hk.hash_agg_build = recording
     results = {}
     # ---- the counted run: every count zeroed just before, read just after
     runtime.reset_counters()
@@ -658,6 +750,7 @@ def main_path(root: str, reps: int):
     per_query = {}
     try:
         for name in ("q1", "suppkey_agg", "shipdate_agg", "q6"):
+            query[0] = name
             c0, l0, e0 = runtime.counters(), hk.launches, len(events)
             t0 = time.perf_counter()
             got = Q.QUERIES[name](get).to_pydict()
@@ -668,12 +761,21 @@ def main_path(root: str, reps: int):
             per_query[name] = dict(
                 counters=delta, launches=hk.launches - l0, cold_s=cold,
                 kernel_ms=sum(a.elapsed_time(b) for a, b in events[e0:]),
-                kernel_rungs=[(int(r[1].sum()), r[5]) for r in recorded[e0:]])
+                kernel_rungs=[(int(a[1].sum()), a[5])
+                              for _, a in recorded[e0:]])
             results[name] = got
     finally:
-        hk.hash_agg_build_cuda = orig
+        hk.hash_agg_build = orig
     main_launches = hk.launches
     counters = runtime.counters()
+    # every distinct rung (query, T, key words): its first inputs, and the
+    # counted run's launches and summed event time there
+    rungs = {}
+    for (q, a), (e0, e1) in zip(recorded, events):
+        r = rungs.setdefault((q, a[5], len(a[0])),
+                             dict(args=a, launches=0, ms_sum=0.0))
+        r["launches"] += 1
+        r["ms_sum"] += e0.elapsed_time(e1)
     for name, got in results.items():
         check_answer(name, got, ref)
         pq = per_query[name]
@@ -687,6 +789,9 @@ def main_path(root: str, reps: int):
         log(f"main path {name}: answer matches pyarrow; " + json.dumps(pq))
     if main_launches <= 0:
         raise AssertionError("hash kernel launched no time on the main path")
+    if sum(r["launches"] for r in rungs.values()) != main_launches:
+        raise AssertionError(f"hash launches {main_launches} != the builds "
+                             "recorded at the rungs")
     # ---- warm timings (not counted)
     rows = ref["rows"]
     timings = {}
@@ -705,7 +810,7 @@ def main_path(root: str, reps: int):
     return dict(counters=counters, launches=main_launches,
                 per_query=per_query, timings=timings,
                 kernel_ms_sum=sum(a.elapsed_time(b) for a, b in events),
-                last_build=recorded[-1] if recorded else None)
+                rungs=rungs)
 
 
 # --------------------------------------------------------------- join path
@@ -884,27 +989,33 @@ def join_main_path_timing(q3, bw: float):
     return rec
 
 
-def main_path_kernel_timing(rec, bw: float):
-    """Kernel vs plain on the exact inputs of the main path's last hash
-    dispatch (the l_shipdate group-by's final rung)."""
+def main_path_kernel_timing(rungs, bw: float):
+    """Kernel vs plain on the exact inputs of each distinct hash rung of
+    the main path (the first dispatch of each): checked, then timed, with
+    the byte bound of those inputs."""
     from daft_tpu_torch.device import hash_kernels as hk
-    words, live, vals, contribs, specs, T = rec
-    got = hk.hash_agg_build_cuda(words, live, vals, contribs, specs, T)
-    ref = hk.hash_agg_build_plain(words, live, vals, contribs, specs, T)
-    err = compare_builds(got, ref, specs, words, live, vals, contribs, T)
-    ms = cuda_ms(lambda: hk.hash_agg_build_cuda(
-        words, live, vals, contribs, specs, T))
-    plain_ms = cuda_ms(lambda: hk.hash_agg_build_plain(
-        words, live, vals, contribs, specs, T), warm=1)
-    C = live.shape[0]
-    nbytes = build_bytes(words, live, vals, contribs, specs, T)
-    rec = dict(C=C, live=int(live.sum()), T=T, words=len(words),
-               groups=int(got[4]), specs=len(specs), max_abs_err=err, ms=ms,
-               plain_ms=plain_ms, bytes=nbytes,
-               bound_ms=nbytes / HBM_BYTES_PER_S * 1e3,
-               bound_measured_bw_ms=nbytes / bw * 1e3)
-    log("kernel at main-path inputs " + json.dumps(rec))
-    return rec
+    out = []
+    for (query, T, n_words), r in rungs.items():
+        words, live, vals, contribs, specs, _ = r["args"]
+        got = hk.hash_agg_build(words, live, vals, contribs, specs, T)
+        ref = hk.hash_agg_build_plain(words, live, vals, contribs, specs, T)
+        err = compare_builds(got, ref, specs, words, live, vals, contribs, T)
+        ms = cuda_ms(lambda: hk.hash_agg_build(
+            words, live, vals, contribs, specs, T))
+        plain_ms = cuda_ms(lambda: hk.hash_agg_build_plain(
+            words, live, vals, contribs, specs, T), warm=1)
+        nbytes = build_bytes(words, live, vals, contribs, specs, T)
+        rec = dict(query=query, C=live.shape[0], live=int(live.sum()), T=T,
+                   words=n_words, groups=int(got[4]), specs=len(specs),
+                   planes=len(hk.plane_aliases(specs, vals, contribs)[0]),
+                   path=build_path(words, vals, contribs, specs, T),
+                   launches=r["launches"], main_path_ms_sum=r["ms_sum"],
+                   max_abs_err=err, ms=ms, plain_ms=plain_ms, bytes=nbytes,
+                   bound_ms=nbytes / HBM_BYTES_PER_S * 1e3,
+                   bound_measured_bw_ms=nbytes / bw * 1e3)
+        log("kernel at main-path inputs " + json.dumps(rec))
+        out.append(rec)
+    return out
 
 
 def profile_phase(root: str):
@@ -1006,9 +1117,14 @@ def main() -> int:
     log(f"device-to-device copy bandwidth: {bw / 1e9:.1f} GB/s")
 
     t0 = time.perf_counter()
-    cuda_build.extension()
-    log(f"kernel build: {time.perf_counter() - t0:.3f} s "
-        "(cpp_extension.load, sm_90a)")
+    cuda_build.library()
+    log(f"kernel build: {time.perf_counter() - t0:.3f} s (one nvcc of "
+        f"{len(cuda_build.sources())} sources for sm_90a, loaded with "
+        "ctypes)")
+    for line in cuda_build.build_log.splitlines():
+        if "Compiling entry" in line or "stack frame" in line \
+                or "registers" in line:
+            log(f"  {line.strip()}")
 
     rng = np.random.default_rng(args.seed)
     kernel_phase(rng, bw, MAIN_C, MAIN_LIVE)
@@ -1021,23 +1137,24 @@ def main() -> int:
     # rebuilt for each morsel of the other side, as in the reference
     q3_path(root, args.reps, ref=q3["ref"], threshold=1 << 40,
             label="q3 forced broadcast")
-    krec = main_path_kernel_timing(mp["last_build"], bw)
+    krecs = main_path_kernel_timing(mp["rungs"], bw)
     jrec = join_main_path_timing(q3, bw)
     if args.profile:
         profile_phase(root)
 
+    # one row per distinct hash rung of the main path
     kernels = [{
-        "name": "hash_agg_build", "route": "cuda",
-        "source": "daft_tpu_torch/csrc/hash_agg.cu",
+        "name": f"hash_agg_build ({k['query']}, T={k['T']})",
+        "route": "cuda", "source": "daft_tpu_torch/csrc/hash_agg.cu",
         "replaces": "daft_tpu/device/pallas_kernels.py:192",
-        "launches": mp["launches"], "max_abs_err": krec["max_abs_err"],
-        "ms": krec["ms"], "plain_ms": krec["plain_ms"],
-        "bound_ms": krec["bound_ms"], "bound_by": "bytes",
-        # device time of all the main path's counted launches, summed
-        "main_path_ms_sum": mp["kernel_ms_sum"],
+        "launches": k["launches"], "max_abs_err": k["max_abs_err"],
+        "ms": k["ms"], "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
+        "bound_by": "bytes", "path": k["path"],
+        # device time of the counted run's launches at this rung, summed
+        "main_path_ms_sum": k["main_path_ms_sum"],
         # no single PyTorch call computes a hash group-by with these
         # count/sum/sumsq/min/max/first planes and the overflow count
-        "library_ms": None}]
+        "library_ms": None} for k in krecs]
     for kname, pre, line in (("hash_join_build", "build", 455),
                              ("hash_join_probe", "probe", 533)):
         kernels.append({

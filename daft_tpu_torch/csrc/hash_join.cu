@@ -21,7 +21,7 @@
 //             equal to EMPTY lives in the extra slot T), records its slot
 //             and bumps the slot's row count;
 //          2. an exclusive scan of the counts into segment offsets (a
-//             torch cumsum between the launches, csrc/binding.cpp);
+//             torch cumsum between the launches, device/join_kernels.py);
 //          3. scatter: each row takes a place in its slot's segment through
 //             an atomic cursor per slot (in no particular order);
 //          4. segment sort: segments of up to 32 rows are insertion-sorted
@@ -296,8 +296,9 @@ bool bad_table(long long C, int T) {
 }  // namespace
 
 // Each entry launches one pass on `stream` and returns
-// cudaErrorInvalidValue for arguments the kernels do not take, else 0; the
-// caller checks the launch itself (csrc/binding.cpp). The caller allocates
+// cudaErrorInvalidValue for arguments the kernels do not take, else
+// cudaGetLastError() after its launches, which the caller raises on
+// (device/join_kernels.py, through ctypes). The caller allocates
 // every plane: tk [T+1] filled with EMPTY, cnt and fill [T+1] zeros, off
 // [T+2] with off[0] = 0 and off[1:] the inclusive scan of cnt, rows [C],
 // slot_of [C], long_list [T+1], info [4] zeros (info[0]: occupied slots,
@@ -313,7 +314,7 @@ extern "C" int daft_hash_join_build_claim(const long long* code,
   build_claim_kernel<<<grid_for(C, kThreads), kThreads, 0,
                        static_cast<cudaStream_t>(stream)>>>(
       code, live, C, T, tk, cnt, slot_of, info);
-  return 0;
+  return static_cast<int>(cudaGetLastError());
 }
 
 extern "C" int daft_hash_join_build_scatter(const int* slot_of, long long C,
@@ -331,7 +332,7 @@ extern "C" int daft_hash_join_build_scatter(const int* slot_of, long long C,
   // two blocks per SM of the H100's 132; each loops over the queued
   // segments, whose count only the device knows
   sort_long_kernel<<<264, kSortThreads, 0, st>>>(off, rows, long_list, info);
-  return 0;
+  return static_cast<int>(cudaGetLastError());
 }
 
 extern "C" int daft_hash_join_probe_count(const long long* code,
@@ -346,7 +347,7 @@ extern "C" int daft_hash_join_probe_count(const long long* code,
   probe_count_kernel<<<grid_for(C, kThreads), kThreads, 0,
                        static_cast<cudaStream_t>(stream)>>>(
       code, live, C, T, tk, off, pslot, counts);
-  return 0;
+  return static_cast<int>(cudaGetLastError());
 }
 
 extern "C" int daft_hash_join_probe_emit(const int* pslot, const int* counts,
@@ -362,5 +363,5 @@ extern "C" int daft_hash_join_probe_emit(const int* pslot, const int* counts,
   probe_emit_kernel<<<grid, kThreads, 0,
                       static_cast<cudaStream_t>(stream)>>>(
       pslot, counts, incl, C, off, rows, cap, owner, ridx);
-  return 0;
+  return static_cast<int>(cudaGetLastError());
 }

@@ -1,10 +1,14 @@
 """Build and load the port's CUDA kernels.
 
-``torch.utils.cpp_extension.load`` compiles ``csrc/binding.cpp`` (the one
-file that includes ``torch/extension.h``) and every ``csrc/*.cu`` source
-for ``sm_90a`` into one extension module, with ninja compiling the sources
-in parallel. The build runs at first use, into ``daft_tpu_torch/_build/``
-(git-ignored); ``load`` rebuilds only what changed since the last build.
+One ``nvcc`` command compiles every ``csrc/*.cu`` source for ``sm_90a``
+into one shared library with a plain C interface, which ``ctypes`` loads.
+The library lives in ``daft_tpu_torch/_build/`` (git-ignored) under a name
+that carries a hash of the sources and flags, so an edited source builds
+anew and an unchanged one is loaded as it is. The build runs at first use.
+
+Every ``extern "C"`` entry launches on the stream it is given and returns
+``cudaGetLastError()`` after its launches (or ``cudaErrorInvalidValue`` for
+arguments it does not take); :func:`check` raises on anything but 0.
 
 Nothing here runs at import: the CPU-only test machines import every
 module and have no ``nvcc``.
@@ -12,39 +16,92 @@ module and have no ``nvcc``.
 
 from __future__ import annotations
 
+import ctypes
+import hashlib
 import os
+import shutil
+import subprocess
 import time
 from typing import List
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
-CUDA_FLAGS = ["-O3", "-gencode=arch=compute_90a,code=sm_90a"]
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
-_ext = None
-#: seconds the first :func:`extension` call took (build and load)
+_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+#: argtypes of every entry (pointers and the stream as c_void_p, so ctypes
+#: never cuts a 64-bit address to a C int)
+_ENTRIES = {
+    "daft_device_info": [_P],
+    "daft_hash_agg_build": [_P, _P, _P],
+    "daft_hash_join_build_claim": [_P, _P, _L, _I, _P, _P, _P, _P, _P],
+    "daft_hash_join_build_scatter": [_P, _L, _I, _P, _P, _P, _P, _P, _P],
+    "daft_hash_join_probe_count": [_P, _P, _L, _I, _P, _P, _P, _P, _P],
+    "daft_hash_join_probe_emit": [_P, _P, _P, _L, _P, _P, _L, _P, _P, _P],
+}
+
+_lib = None
+#: seconds the first :func:`library` call took (build where needed, load)
 build_seconds = 0.0
+#: the compiler's output of that build (``-Xptxas -v``: registers, stack
+#: frame and spills per kernel); empty when the library was already built
+build_log = ""
 
 
 def sources() -> List[str]:
     return sorted(os.path.join(CSRC, f) for f in os.listdir(CSRC)
-                  if f.endswith((".cpp", ".cu")))
+                  if f.endswith(".cu"))
 
 
-def load(build_dir: str):
-    """Build (where needed) and import the extension from ``build_dir``."""
-    from torch.utils import cpp_extension
-    os.makedirs(build_dir, exist_ok=True)  # load() does not, and fails
-    return cpp_extension.load(name="daft_torch_kernels", sources=sources(),
-                              build_directory=build_dir,
-                              extra_cuda_cflags=CUDA_FLAGS, verbose=False)
+def nvcc() -> str:
+    return shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
 
 
-def extension():
-    """The kernels' extension module, built on first call."""
-    global _ext, build_seconds
-    if _ext is None:
+def library_path() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for s in sources():
+        with open(s, "rb") as f:
+            h.update(f.read())
+    return os.path.join(BUILD_DIR,
+                        f"libdaft_torch_kernels_{h.hexdigest()[:16]}.so")
+
+
+def compile_library(srcs: List[str], out: str, extra=()) -> str:
+    """``nvcc`` of ``srcs`` into the shared library ``out``; returns the
+    compiler's output. Raises with that output when the build fails."""
+    os.makedirs(os.path.dirname(out), exist_ok=True)
+    tmp = f"{out}.{os.getpid()}.tmp"
+    r = subprocess.run([nvcc(), *NVCC_FLAGS, *extra, *srcs, "-o", tmp],
+                       capture_output=True, text=True)
+    if r.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({r.returncode}):\n{r.stdout}"
+                           f"{r.stderr}")
+    os.replace(tmp, out)
+    return r.stdout + r.stderr
+
+
+def library() -> ctypes.CDLL:
+    """The kernels' library, built on first call where needed."""
+    global _lib, build_seconds, build_log
+    if _lib is None:
         t0 = time.perf_counter()
-        _ext = load(BUILD_DIR)
+        path = library_path()
+        if not os.path.exists(path):
+            build_log = compile_library(sources(), path)
+        lib = ctypes.CDLL(path)
+        for name, argtypes in _ENTRIES.items():
+            fn = getattr(lib, name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
         build_seconds = time.perf_counter() - t0
-    return _ext
+        _lib = lib
+    return _lib
+
+
+def check(rc: int, what: str) -> None:
+    """Raise on a non-zero CUDA error code from an entry."""
+    if rc != 0:
+        raise RuntimeError(f"{what}: CUDA error {rc} (arguments refused or "
+                           "launch failed)")

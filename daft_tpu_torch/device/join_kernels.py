@@ -171,9 +171,10 @@ def _check_T(T: int, C: int) -> None:
 
 def hash_join_build_cuda(code: torch.Tensor, live: torch.Tensor,
                          T: int) -> JoinTable:
-    """Launch the build of ``csrc/hash_join.cu`` on the current stream
-    (through ``csrc/binding.cpp``). Raises on any input the kernel does
-    not take, and on a refused launch."""
+    """Launch the build of ``csrc/hash_join.cu`` on the current stream:
+    claim/count, the scan of the counts (torch cumsum), then scatter and
+    segment sort. Raises on any input the kernels do not take, and on a
+    refused launch."""
     from . import cuda_build
     C = code.shape[0]
     _check_T(T, C)
@@ -189,17 +190,28 @@ def hash_join_build_cuda(code: torch.Tensor, live: torch.Tensor,
     rows = torch.full((C,), -1, **i32)
     long_list = torch.empty(T + 1, **i32)
     info = torch.zeros(4, **i32)
-    cuda_build.extension().hash_join_build(code, live, T, tk, cnt, off,
-                                           slot_of, fill, rows, long_list,
-                                           info)
+    lib = cuda_build.library()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        cuda_build.check(lib.daft_hash_join_build_claim(
+            code.data_ptr(), live.data_ptr(), C, T, tk.data_ptr(),
+            cnt.data_ptr(), slot_of.data_ptr(), info.data_ptr(), stream),
+            "hash_join_build")
+        # the exclusive scan of the counts into off[1:]
+        torch.cumsum(cnt, 0, dtype=torch.int32, out=off[1:])
+        cuda_build.check(lib.daft_hash_join_build_scatter(
+            slot_of.data_ptr(), C, T, off.data_ptr(), fill.data_ptr(),
+            rows.data_ptr(), long_list.data_ptr(), info.data_ptr(), stream),
+            "hash_join_build")
     _launched("hash_join_build")
     return JoinTable(tk, off, rows, info[0], info[1], T)
 
 
 def hash_join_probe_cuda(code: torch.Tensor, live: torch.Tensor,
                          table: JoinTable, cap: int) -> torch.Tensor:
-    """Launch the probe of ``csrc/hash_join.cu`` on the current stream;
-    returns the packed int32 ``[3, max(cap, C)]`` matrix."""
+    """Launch the probe of ``csrc/hash_join.cu`` on the current stream:
+    count, the scan of the counts (torch cumsum), then emit; returns the
+    packed int32 ``[3, max(cap, C)]`` matrix."""
     from . import cuda_build
     C = code.shape[0]
     T = table.T
@@ -215,9 +227,21 @@ def hash_join_probe_cuda(code: torch.Tensor, live: torch.Tensor,
     packed = torch.zeros((3, max(cap, C)), dtype=torch.int32, device=dev)
     pslot = torch.empty(C, dtype=torch.int32, device=dev)
     incl = torch.empty(C, dtype=torch.int64, device=dev)
-    cuda_build.extension().hash_join_probe(code, live, T, table.tk,
-                                           table.off, table.rows, cap,
-                                           packed, pslot, incl)
+    counts = packed[2, :C]
+    lib = cuda_build.library()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        cuda_build.check(lib.daft_hash_join_probe_count(
+            code.data_ptr(), live.data_ptr(), C, T, table.tk.data_ptr(),
+            table.off.data_ptr(), pslot.data_ptr(), counts.data_ptr(),
+            stream), "hash_join_probe")
+        # the inclusive scan of the counts: each row's end in the output
+        torch.cumsum(counts, 0, dtype=torch.int64, out=incl)
+        cuda_build.check(lib.daft_hash_join_probe_emit(
+            pslot.data_ptr(), counts.data_ptr(), incl.data_ptr(), C,
+            table.off.data_ptr(), table.rows.data_ptr(), cap,
+            packed[0].data_ptr(), packed[1].data_ptr(), stream),
+            "hash_join_probe")
     _launched("hash_join_probe")
     return packed
 
