@@ -22,7 +22,10 @@ Phases (any failure ends the run with a non-zero exit code):
    torch versions on the card (and the joined pairs against the torch
    sort join), at the shape of TPC-H Q3's lineitem join (C_r = 2^22 build
    rows, ~3.2M live; C_l = 2^18 probe rows), plus duplicate-heavy, NULL-
-   key, overflow (total > cap), empty-side and int64-edge-key cases;
+   key, overflow (total > cap), empty-side and int64-edge-key cases, one
+   key holding every build row (2^20), keys clustered in runs that
+   straddle warp, block and sort-chunk boundaries, and all-distinct keys
+   over 2^22 build rows;
 5. grouped-aggregation path: TPC-H SF1 generated from a seed into
    ``.cache/``, then Q1 (dense strategy), an int64-keyed group-by on
    ``l_suppkey`` (hash, 2-word keys), a date-keyed group-by on
@@ -34,12 +37,14 @@ Phases (any failure ends the run with a non-zero exit code):
    group-by and a top 10) through the same entry points, one counted cold
    run and warm repeats; the answer is held against pyarrow
    (``pa.Table.join`` plus ``group_by``) and the counters must show every
-   join on the device with the hash strategy (no host join);
+   join on the device with the hash strategy (no host join), one build
+   launch per device join and one probe launch per dispatch;
 7. the hash build against its plain version at the inputs of every
    distinct hash rung of the main path (query, T, key words), and the
    join kernels at Q3's lineitem join;
 8. a ``{"kernels": [...]}`` line with each kernel's launches, times and
-   bound (one row per hash rung), then the card line and the final
+   bound (one row per hash rung; the join kernels also with their device
+   activities and host time per call), then the card line and the final
    ``{"ok": true, ...}`` line.
 
 Join kernels compare exactly (integer outputs): the build as a map from
@@ -96,6 +101,40 @@ def cuda_ms(fn, reps: int = 10, warm: int = 2) -> float:
         b.synchronize()
         times.append(a.elapsed_time(b))
     return statistics.median(times)
+
+
+def host_ms(fn, reps: int = 10) -> float:
+    """Host time of one call of ``fn``: ``reps`` calls enqueued back to
+    back (the card runs behind), per call."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    t = (time.perf_counter() - t0) / reps * 1e3
+    torch.cuda.synchronize()
+    return t
+
+
+def device_activities(fn, n: int = 3):
+    """Device activities (kernels, memsets, copies) of one call of ``fn``
+    from ``torch.profiler``: name -> [count, ms] per call (mean of
+    ``n``)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    return {e.key[:90]: [e.count / n, e.self_device_time_total / n / 1e3]
+            for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA
+            and not e.key.startswith("Activity Buffer")}
 
 
 def copy_bandwidth() -> float:
@@ -460,6 +499,43 @@ def join_cases(rng, C_r: int, live_r: int, C_l: int):
         name="int64_edge_keys", r_code=pool[rng.integers(0, 7, c_e)],
         r_live=rng.random(c_e) >= 0.1, l_code=pool[rng.integers(0, 7, 64)],
         l_live=np.ones(64, bool), cap=c_e * 16))
+    cases.extend(join_cases_skewed(rng, C_r, live_r))
+    return cases
+
+
+#: run lengths of the clustered case: inside a warp, across warps (33, 63,
+#: 257), across 256-thread blocks and across 4096-row sort chunks
+CLUSTER_RUNS = np.array([1, 2, 5, 7, 31, 32, 33, 63, 257, 1000, 5000, 9000])
+CLUSTER_P = np.array([20, 15, 15, 15, 10, 5, 5, 5, 4, 3, 2, 1]) / 100
+
+
+def join_cases_skewed(rng, C_r: int, live_r: int):
+    """The cases that skew the build: one key holding every build row (a
+    quarter of ``C_r``, one segment of many sort chunks), keys clustered
+    in runs whose lengths and starts straddle warp, block and chunk
+    boundaries (build rows in key order, as lineitem's are), and all
+    distinct keys over every row of ``C_r`` (one claim per row)."""
+    cases = []
+    c_1 = C_r // 4
+    l_1 = np.where(np.arange(64) % 16 == 0, 7, rng.integers(8, 99, 64))
+    cases.append(dict(
+        name="one_key_all_rows", r_code=np.full(c_1, 7, dtype=np.int64),
+        r_live=np.ones(c_1, bool), l_code=l_1.astype(np.int64),
+        l_live=np.ones(64, bool), cap=4 * c_1 - 3))
+    runs = rng.choice(CLUSTER_RUNS, live_r // 8, p=CLUSTER_P)
+    r = np.repeat(np.arange(len(runs), dtype=np.int64) * 3 + 5, runs)
+    r = r[rng.integers(0, 40):][:live_r]  # the first run starts anywhere
+    n_l = max(C_r // 256, 64)
+    cases.append(dict(
+        name="clustered_runs", r_code=np.pad(r, (0, C_r - len(r))),
+        r_live=np.arange(C_r) < len(r),
+        l_code=(rng.integers(0, 2 * (r[-1] // 3), n_l) * 3 + 5)
+        .astype(np.int64), l_live=rng.random(n_l) >= 0.1, cap=C_r))
+    cases.append(dict(
+        name="all_distinct", r_code=rng.permutation(C_r).astype(np.int64),
+        r_live=np.ones(C_r, bool),
+        l_code=rng.integers(0, 2 * C_r, C_r // 16).astype(np.int64),
+        l_live=np.ones(C_r // 16, bool), cap=C_r // 16))
     return cases
 
 
@@ -546,6 +622,10 @@ def time_join(c, bw: float):
     ones_r = torch.ones_like(r_live)
     return dict(
         build_ms=cuda_ms(lambda: jk.hash_join_build_cuda(r_code, r_live, T)),
+        build_host_ms=host_ms(lambda: jk.hash_join_build_cuda(
+            r_code, r_live, T)),
+        probe_host_ms=host_ms(lambda: jk.hash_join_probe_cuda(
+            l_code, l_live, table, cap)),
         build_plain_ms=cuda_ms(lambda: jk.hash_join_build_plain(
             r_code, r_live, T), reps=5, warm=1),
         build_bytes=b_bytes, build_bound_ms=b_bytes / HBM_BYTES_PER_S * 1e3,
@@ -877,6 +957,7 @@ def q3_path(root: str, reps: int, ref=None, threshold=None,
 def _q3_path(root: str, reps: int, ref, label: str):
     import torch
     import daft_tpu_torch as dtt
+    from daft_tpu_torch import joins
     from daft_tpu_torch.benchmarking import tpch_queries as Q
     from daft_tpu_torch.device import hash_kernels as hk, runtime
     from daft_tpu_torch.device import join_kernels as jk
@@ -912,6 +993,12 @@ def _q3_path(root: str, reps: int, ref, label: str):
         return out
     jk.hash_join_build_cuda = lambda *a: timed(orig_b, builds, *a)
     jk.hash_join_probe_cuda = lambda *a: timed(orig_p, probes, *a)
+    orig_m, joined = joins._device_match_indices, []
+
+    def counted(*a, **k):
+        joined.append(1)
+        return orig_m(*a, **k)
+    joins._device_match_indices = counted
     # ---- the counted run: every count zeroed just before, read just after
     runtime.reset_counters()
     hk.reset_launches()
@@ -923,6 +1010,7 @@ def _q3_path(root: str, reps: int, ref, label: str):
         cold = time.perf_counter() - t0
     finally:
         jk.hash_join_build_cuda, jk.hash_join_probe_cuda = orig_b, orig_p
+        joins._device_match_indices = orig_m
     counters = runtime.counters()
     launches = dict(jk.launches)
     check_table(label, got, ref_ans, ["o_orderkey"],
@@ -932,19 +1020,23 @@ def _q3_path(root: str, reps: int, ref, label: str):
             or n_hash < len(strategies):
         raise AssertionError(f"{label}: joins not all on the device with "
                              f"the hash strategy: {counters}")
-    if launches["hash_join_build"] != n_hash \
+    # one build per device join, one probe per dispatch (an overflow
+    # re-dispatch probes the same table again)
+    if launches["hash_join_build"] != len(joined) \
             or launches["hash_join_probe"] != n_hash:
-        raise AssertionError(f"{label}: launches {launches} != hash "
-                             f"dispatches {n_hash}")
+        raise AssertionError(f"{label}: launches {launches}, hash "
+                             f"dispatches {n_hash}, device joins "
+                             f"{len(joined)}")
     shapes = [dict(C_l=a[0].shape[0], live_l=int(a[1].sum()),
                    C_r=a[2].rows.shape[0], T=a[2].T, cap=a[3],
                    total=int(out[2, :a[0].shape[0]].sum()))
               for a, out, _, _ in probes]
-    kernel_ms = {
-        "hash_join_build": sum(e0.elapsed_time(e1) for *_, e0, e1 in builds),
-        "hash_join_probe": sum(e0.elapsed_time(e1) for *_, e0, e1 in probes)}
-    rec = dict(counters=counters, launches=launches, cold_s=cold,
-               kernel_ms=kernel_ms, dispatches=shapes)
+    each = {"hash_join_build": [e0.elapsed_time(e1) for *_, e0, e1 in builds],
+            "hash_join_probe": [e0.elapsed_time(e1) for *_, e0, e1 in probes]}
+    kernel_ms = {k: sum(v) for k, v in each.items()}
+    rec = dict(counters=counters, launches=launches, joins=len(joined),
+               cold_s=cold, kernel_ms=kernel_ms, kernel_ms_each=each,
+               dispatches=shapes)
     log(f"join path {label}: answer matches pyarrow; " + json.dumps(rec))
     # ---- warm timings (not counted)
     walls = []
@@ -982,9 +1074,16 @@ def join_main_path_timing(q3, bw: float):
                              r_live=r_live.cpu().numpy(),
                              l_code=l_code.cpu().numpy(),
                              l_live=l_live.cpu().numpy(), cap=cap))
+    from daft_tpu_torch.device import join_kernels as jk
     rec = dict(C_r=r_code.shape[0], live_r=c["n_live_r"],
                C_l=l_code.shape[0], live_l=int(l_live.sum()), T=T, cap=cap,
                keys=c["keys"], total=c["total"], **time_join(c, bw))
+    for pre, fn in (
+            ("build", lambda: jk.hash_join_build_cuda(r_code, r_live, T)),
+            ("probe", lambda: jk.hash_join_probe_cuda(
+                l_code, l_live, c["table"], cap))):
+        rec[f"{pre}_launches_per_call"] = sum(
+            n for n, _ in device_activities(fn).values())
     log("join kernels at main-path inputs " + json.dumps(rec))
     return rec
 
@@ -1167,6 +1266,10 @@ def main() -> int:
             "ms": jrec[f"{pre}_ms"], "plain_ms": jrec[f"{pre}_plain_ms"],
             "bound_ms": jrec[f"{pre}_bound_ms"], "bound_by": "bytes",
             "main_path_ms_sum": q3["kernel_ms"][kname],
+            # device activities (kernels, memsets) of one call, and the
+            # host time of one call enqueued back to back
+            "launches_per_call": jrec[f"{pre}_launches_per_call"],
+            "host_ms": jrec[f"{pre}_host_ms"],
             # the torch sort join (build + probe + expand) on the same
             # inputs, for comparison; it is the port's `sort` strategy
             "sort_join_ms": jrec["sort_join_ms"],

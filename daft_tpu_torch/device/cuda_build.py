@@ -36,10 +36,8 @@ _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _ENTRIES = {
     "daft_device_info": [_P],
     "daft_hash_agg_build": [_P, _P, _P],
-    "daft_hash_join_build_claim": [_P, _P, _L, _I, _P, _P, _P, _P, _P],
-    "daft_hash_join_build_scatter": [_P, _L, _I, _P, _P, _P, _P, _P, _P],
-    "daft_hash_join_probe_count": [_P, _P, _L, _I, _P, _P, _P, _P, _P],
-    "daft_hash_join_probe_emit": [_P, _P, _P, _L, _P, _P, _L, _P, _P, _P],
+    "daft_hash_join_build": [_P, _P, _L, _I, _P, _P, _P],
+    "daft_hash_join_probe": [_P, _P, _L, _I, _P, _P, _P, _L, _P, _P, _P],
 }
 
 _lib = None
@@ -98,6 +96,19 @@ def library() -> ctypes.CDLL:
         build_seconds = time.perf_counter() - t0
         _lib = lib
     return _lib
+
+
+def launch(entry, device, *args) -> int:
+    """Call a kernel entry with ``args`` and the current stream of
+    ``device``'s card last, making that card current for the call where
+    it is not; returns the entry's CUDA error code."""
+    import torch
+    idx = device.index if device.index is not None \
+        else torch.cuda.current_device()
+    if idx == torch.cuda.current_device():
+        return entry(*args, torch.cuda.current_stream(idx).cuda_stream)
+    with torch.cuda.device(idx):
+        return entry(*args, torch.cuda.current_stream(idx).cuda_stream)
 
 
 def check(rc: int, what: str) -> None:

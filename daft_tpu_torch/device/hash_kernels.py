@@ -394,15 +394,9 @@ def hash_agg_build_cuda(words: Sequence[torch.Tensor], live: torch.Tensor,
     for s in specs:
         ptrs += vp[s[0]]
     ptrs = np.array(ptrs, dtype=np.uint64)
-    if idx == torch.cuda.current_device():
-        rc = lib.daft_hash_agg_build(plan.meta.ctypes.data, ptrs.ctypes.data,
-                                     torch.cuda.current_stream(idx).cuda_stream)
-    else:
-        with torch.cuda.device(idx):
-            rc = lib.daft_hash_agg_build(
-                plan.meta.ctypes.data, ptrs.ctypes.data,
-                torch.cuda.current_stream(idx).cuda_stream)
-    cuda_build.check(rc, "hash_agg_build")
+    cuda_build.check(cuda_build.launch(
+        lib.daft_hash_agg_build, dev, plan.meta.ctypes.data,
+        ptrs.ctypes.data), "hash_agg_build")
     launches += 1
     return workspace_views(ws, plan.layout, T, n_words, len(specs))
 

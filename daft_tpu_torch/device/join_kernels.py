@@ -37,9 +37,11 @@ right row per output slot ``[:cap]``, row 2 per-left-row match counts
 
 from __future__ import annotations
 
+import functools
 import threading
-from typing import NamedTuple
+from typing import Dict, NamedTuple, Tuple
 
+import numpy as np
 import torch
 
 #: the free-slot marker of the table's key plane
@@ -152,6 +154,69 @@ def hash_join_probe_plain(code: torch.Tensor, live: torch.Tensor,
 
 # ------------------------------------------------------------- CUDA kernels
 
+#: slots per tile of the build's scan (``kScanTile`` in csrc/hash_join.cu)
+_SCAN_TILE = 4096
+#: rows of a long segment that one block sorts (``kChunk``)
+_CHUNK = 4096
+#: probe rows per tile of the probe's scan (``kThreads``)
+_PROBE_TILE = 256
+_ALIGN = 256
+
+
+class Layout(NamedTuple):
+    """A workspace's planes: byte offsets by name, the total size, and the
+    int64 array the kernel entry reads (byte offsets, then sizes)."""
+    offsets: Dict[str, int]
+    nbytes: int
+    meta: np.ndarray
+
+
+def _place(planes) -> Tuple[Dict[str, int], int]:
+    offsets, at = {}, 0
+    for name, nbytes in planes:
+        offsets[name] = at
+        at += -(-nbytes // _ALIGN) * _ALIGN
+    return offsets, at
+
+
+@functools.lru_cache(maxsize=64)
+def build_layout(C: int, T: int) -> Layout:
+    """The build's workspace over C build rows and T slots, every plane
+    256-byte aligned: the contract's ``tk`` [T+1] int64, ``off`` [T+2] and
+    ``rows`` [C] int32; the count plane [T+1] (the scatter's cursors
+    after the scan); ``slot_of`` [C] (each row's slot, then the long
+    segments' sort scratch); the lists of segments to order (``shorts``:
+    at most C/2 segments of 2..32 rows; ``items``: one int2 per chunk of a
+    longer one, at most C/33 + C/4096 + 2); the scan's tile status; and
+    eight int32 counters (n_keys, unplaced, then the kernels' own)."""
+    tiles = -(-(T + 1) // _SCAN_TILE)
+    items = C // 33 + C // _CHUNK + 2
+    offsets, nbytes = _place((
+        ("tk", 8 * (T + 1)), ("off", 4 * (T + 2)), ("rows", 4 * C),
+        ("cnt", 4 * (T + 1)), ("slot_of", 4 * C), ("shorts", 4 * (C // 2 + 1)),
+        ("items", 8 * items), ("status", 8 * tiles), ("info", 32)))
+    meta = np.array([offsets[k] for k in (
+        "tk", "off", "rows", "cnt", "slot_of", "shorts", "items", "status",
+        "info")] + [tiles, items], dtype=np.int64)
+    return Layout(offsets, nbytes, meta)
+
+
+@functools.lru_cache(maxsize=64)
+def probe_layout(C: int, W: int) -> Layout:
+    """The probe's buffer over C probe rows and W = max(cap, C) output
+    slots, zeroed whole by the wrapper: the packed int32 [3, W] matrix
+    first (its row 2 is the counts), then each row's inclusive end in the
+    output (int64), its slot, the scan's tile status and its tile
+    counter."""
+    tiles = -(-C // _PROBE_TILE)
+    offsets, nbytes = _place((
+        ("packed", 12 * W), ("incl", 8 * C), ("pslot", 4 * C),
+        ("status", 8 * tiles), ("tiles", 4)))
+    meta = np.array([W, 8 * W] + [offsets[k] for k in (
+        "incl", "pslot", "status", "tiles")] + [tiles], dtype=np.int64)
+    return Layout(offsets, nbytes, meta)
+
+
 def _check(t: torch.Tensor, name: str, n: int, dtype) -> None:
     if t.device.type != "cuda" or t.dtype != dtype or t.shape != (n,) \
             or not t.is_contiguous():
@@ -161,9 +226,9 @@ def _check(t: torch.Tensor, name: str, n: int, dtype) -> None:
 
 
 def _check_T(T: int, C: int) -> None:
-    if T < 1 or T & (T - 1) or T >= 2 ** 31 - 2:
+    if T < 1 or T & (T - 1) or T > 2 ** 30:
         raise ValueError(f"hash join: T={T} must be a power of two "
-                         "below 2^31")
+                         "up to 2^30")
     if C >= T:
         raise ValueError(f"hash join: the table's T={T} slots must exceed "
                          f"the build side's C={C} rows")
@@ -172,46 +237,35 @@ def _check_T(T: int, C: int) -> None:
 def hash_join_build_cuda(code: torch.Tensor, live: torch.Tensor,
                          T: int) -> JoinTable:
     """Launch the build of ``csrc/hash_join.cu`` on the current stream:
-    claim/count, the scan of the counts (torch cumsum), then scatter and
-    segment sort. Raises on any input the kernels do not take, and on a
-    refused launch."""
+    six kernels into one ``torch.empty`` workspace (:func:`build_layout`),
+    whose planes the table views. Raises on any input the kernels do not
+    take, and on a refused launch."""
     from . import cuda_build
     C = code.shape[0]
     _check_T(T, C)
     _check(code, "build keys", C, torch.int64)
     _check(live, "build live mask", C, torch.bool)
-    dev = code.device
-    i32 = dict(dtype=torch.int32, device=dev)
-    tk = torch.full((T + 1,), EMPTY, dtype=torch.int64, device=dev)
-    cnt = torch.zeros(T + 1, **i32)
-    off = torch.zeros(T + 2, **i32)
-    slot_of = torch.empty(C, **i32)
-    fill = torch.zeros(T + 1, **i32)
-    rows = torch.full((C,), -1, **i32)
-    long_list = torch.empty(T + 1, **i32)
-    info = torch.zeros(4, **i32)
-    lib = cuda_build.library()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        cuda_build.check(lib.daft_hash_join_build_claim(
-            code.data_ptr(), live.data_ptr(), C, T, tk.data_ptr(),
-            cnt.data_ptr(), slot_of.data_ptr(), info.data_ptr(), stream),
-            "hash_join_build")
-        # the exclusive scan of the counts into off[1:]
-        torch.cumsum(cnt, 0, dtype=torch.int32, out=off[1:])
-        cuda_build.check(lib.daft_hash_join_build_scatter(
-            slot_of.data_ptr(), C, T, off.data_ptr(), fill.data_ptr(),
-            rows.data_ptr(), long_list.data_ptr(), info.data_ptr(), stream),
-            "hash_join_build")
+    lay = build_layout(C, T)
+    ws = torch.empty(lay.nbytes // 4, dtype=torch.int32, device=code.device)
+    cuda_build.check(cuda_build.launch(
+        cuda_build.library().daft_hash_join_build, code.device,
+        code.data_ptr(), live.data_ptr(), C, T, ws.data_ptr(),
+        lay.meta.ctypes.data), "hash_join_build")
     _launched("hash_join_build")
-    return JoinTable(tk, off, rows, info[0], info[1], T)
+    tk, off, rows, info = (lay.offsets[k] // 4 for k in (
+        "tk", "off", "rows", "info"))
+    n_keys, unplaced = ws[info:info + 2].unbind()
+    return JoinTable(ws[tk:tk + 2 * (T + 1)].view(torch.int64),
+                     ws[off:off + T + 2], ws[rows:rows + C], n_keys,
+                     unplaced, T)
 
 
 def hash_join_probe_cuda(code: torch.Tensor, live: torch.Tensor,
                          table: JoinTable, cap: int) -> torch.Tensor:
     """Launch the probe of ``csrc/hash_join.cu`` on the current stream:
-    count, the scan of the counts (torch cumsum), then emit; returns the
-    packed int32 ``[3, max(cap, C)]`` matrix."""
+    one zeroed buffer (:func:`probe_layout`), the count-and-scan kernel,
+    then the emit kernel; returns the packed int32 ``[3, max(cap, C)]``
+    matrix (a view of the buffer)."""
     from . import cuda_build
     C = code.shape[0]
     T = table.T
@@ -223,27 +277,16 @@ def hash_join_probe_cuda(code: torch.Tensor, live: torch.Tensor,
     _check(table.tk, "table keys", T + 1, torch.int64)
     _check(table.off, "table offsets", T + 2, torch.int32)
     _check(table.rows, "table rows", table.rows.shape[0], torch.int32)
-    dev = code.device
-    packed = torch.zeros((3, max(cap, C)), dtype=torch.int32, device=dev)
-    pslot = torch.empty(C, dtype=torch.int32, device=dev)
-    incl = torch.empty(C, dtype=torch.int64, device=dev)
-    counts = packed[2, :C]
-    lib = cuda_build.library()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        cuda_build.check(lib.daft_hash_join_probe_count(
-            code.data_ptr(), live.data_ptr(), C, T, table.tk.data_ptr(),
-            table.off.data_ptr(), pslot.data_ptr(), counts.data_ptr(),
-            stream), "hash_join_probe")
-        # the inclusive scan of the counts: each row's end in the output
-        torch.cumsum(counts, 0, dtype=torch.int64, out=incl)
-        cuda_build.check(lib.daft_hash_join_probe_emit(
-            pslot.data_ptr(), counts.data_ptr(), incl.data_ptr(), C,
-            table.off.data_ptr(), table.rows.data_ptr(), cap,
-            packed[0].data_ptr(), packed[1].data_ptr(), stream),
-            "hash_join_probe")
+    W = max(cap, C)
+    lay = probe_layout(C, W)
+    buf = torch.zeros(lay.nbytes // 8, dtype=torch.int64, device=code.device)
+    cuda_build.check(cuda_build.launch(
+        cuda_build.library().daft_hash_join_probe, code.device,
+        code.data_ptr(), live.data_ptr(), C, T, table.tk.data_ptr(),
+        table.off.data_ptr(), table.rows.data_ptr(), cap, buf.data_ptr(),
+        lay.meta.ctypes.data), "hash_join_probe")
     _launched("hash_join_probe")
-    return packed
+    return buf.view(torch.int32)[:3 * W].view(3, W)
 
 
 # ---------------------------------------------------------------- dispatch
@@ -270,15 +313,30 @@ def hash_join_probe(code: torch.Tensor, live: torch.Tensor,
     raise ValueError(f"hash_join_probe: unsupported device {code.device}")
 
 
+def hash_join_table(r_key, r_valid, r_mask) -> JoinTable:
+    """The build side's table, as :func:`hash_join_impl` builds it: NULL
+    keys never match, so liveness folds validity in and dead rows do not
+    insert. One table serves any number of probes."""
+    return hash_join_build(r_key.to(torch.int64).contiguous(),
+                           (r_valid & r_mask).contiguous(),
+                           join_table_capacity(r_key.shape[0]))
+
+
+def hash_join_probe_table(l_key, l_valid, l_mask, table: JoinTable,
+                          out_capacity: int) -> torch.Tensor:
+    """One probe of a :func:`hash_join_table` table: the packed int32
+    ``[3, max(out_capacity, C_l)]`` matrix of :func:`hash_join_impl`."""
+    return hash_join_probe(l_key.to(torch.int64).contiguous(),
+                           (l_valid & l_mask).contiguous(), table,
+                           out_capacity)
+
+
 def hash_join_impl(l_key, l_valid, l_mask, r_key, r_valid, r_mask,
                    out_capacity: int) -> torch.Tensor:
     """Hash build/probe inner-equi-join index generation, returning the
     SAME packed int32 ``[3, max(out_capacity, C_l)]`` matrix as
     :func:`kernels.join_fused_impl`. NULL keys never match: liveness
     folds validity in, and dead rows neither insert nor probe."""
-    T = join_table_capacity(r_key.shape[0])
-    table = hash_join_build(r_key.to(torch.int64).contiguous(),
-                            (r_valid & r_mask).contiguous(), T)
-    return hash_join_probe(l_key.to(torch.int64).contiguous(),
-                           (l_valid & l_mask).contiguous(), table,
-                           out_capacity)
+    return hash_join_probe_table(l_key, l_valid, l_mask,
+                                 hash_join_table(r_key, r_valid, r_mask),
+                                 out_capacity)

@@ -165,19 +165,19 @@ def match_indices(l_gids: np.ndarray, r_gids: np.ndarray,
 
 def _device_match_indices(l_gids, r_gids, l_valid, r_valid, device):
     """Index generation on ``device``: both sides padded to power-of-two
-    buckets, one dispatch of the strategy's packed program
-    (``join_kernels.hash_join_impl`` or ``kernels.join_fused_impl``) with
-    an output bucket sized foreign-key shaped (about one match per row of
-    the larger side, at least 1024), and one re-dispatch at the bucket of
-    the true total when the counts say it was too small. Fetches the
-    counts, then only the ``[:total]`` pairs."""
+    buckets, one dispatch of the strategy's packed program (the hash
+    strategy's probe of a table built once, ``join_kernels``, or
+    ``kernels.join_fused_impl``) with an output bucket sized foreign-key
+    shaped (about one match per row of the larger side, at least 1024),
+    and one re-dispatch at the bucket of the true total when the counts
+    say it was too small (the hash strategy probes its table again).
+    Fetches the counts, then only the ``[:total]`` pairs."""
     import torch
 
     from .device import join_kernels as jk, kernels as K, runtime as drt
     from .device.column import bucket_capacity
 
     strategy = join_strategy()
-    impl = jk.hash_join_impl if strategy == "hash" else K.join_fused_impl
     n_l, n_r = len(l_gids), len(r_gids)
     c_l, c_r = bucket_capacity(n_l), bucket_capacity(n_r)
 
@@ -187,19 +187,25 @@ def _device_match_indices(l_gids, r_gids, l_valid, r_valid, device):
         return torch.from_numpy(out).to(device)
 
     with _device_lock:
-        args = (put(l_gids, c_l, np.int64), put(l_valid, c_l, np.bool_),
-                torch.arange(c_l, device=device) < n_l,
-                put(r_gids, c_r, np.int64), put(r_valid, c_r, np.bool_),
-                torch.arange(c_r, device=device) < n_r)
+        left = (put(l_gids, c_l, np.int64), put(l_valid, c_l, np.bool_),
+                torch.arange(c_l, device=device) < n_l)
+        right = (put(r_gids, c_r, np.int64), put(r_valid, c_r, np.bool_),
+                 torch.arange(c_r, device=device) < n_r)
+        if strategy == "hash":
+            table = jk.hash_join_table(*right)
+            dispatch = lambda cap: jk.hash_join_probe_table(  # noqa: E731
+                *left, table, cap)
+        else:
+            dispatch = lambda cap: K.join_fused_impl(  # noqa: E731
+                *left, *right, out_capacity=cap)
         cap = max(bucket_capacity(max(n_l, n_r, 1)), 1024)
         drt.count("join_" + strategy)
-        packed = impl(*args, out_capacity=cap)
+        packed = dispatch(cap)
         counts = packed[2, :n_l].cpu().numpy().astype(np.int64)
         total = int(counts.sum())
         if total > cap:  # many-to-many blowup past the estimate
-            cap = bucket_capacity(total)
             drt.count("join_" + strategy)
-            packed = impl(*args, out_capacity=cap)
+            packed = dispatch(bucket_capacity(total))
         pairs = packed[:2, :total].cpu().numpy().astype(np.int64)
     return pairs[0], pairs[1], counts
 

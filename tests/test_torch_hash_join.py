@@ -227,3 +227,114 @@ def test_hash_join_cuda_matches_plain():
     rng = np.random.default_rng(5)
     for case in chip_smoke.join_cases(rng, 1 << 14, 12000, 1 << 12):
         chip_smoke.check_join_case(case)
+
+
+# ------------------------------------------------------- wrapper-side layout
+
+LAYOUT_SIZES = [(0, 128), (16, 128), (1000, 2048), (12_345, 32_768),
+                (1 << 20, 1 << 21), (1 << 22, 1 << 23)]
+
+
+def _planes_fit(lay, sizes):
+    """Every plane 256-byte aligned, in order, inside the workspace and
+    not overlapping the next."""
+    names = list(lay.offsets)
+    assert names == list(sizes)
+    for a, b in zip(names, names[1:] + [None]):
+        start = lay.offsets[a]
+        end = lay.offsets[b] if b else lay.nbytes
+        assert start % 256 == 0 and start + sizes[a] <= end
+
+
+@pytest.mark.parametrize("C,T", LAYOUT_SIZES)
+def test_build_layout_planes(port, C, T):
+    """The build workspace holds the contract's planes and the kernels'
+    own, aligned and apart; the entry's int64 array lists their offsets,
+    the scan's tiles and the chunk list's capacity, which the kernel
+    checks against its own tile size."""
+    _, jk, _ = port
+    lay = jk.build_layout(C, T)
+    tiles = -(-(T + 1) // 4096)
+    items = C // 33 + C // 4096 + 2
+    _planes_fit(lay, {"tk": 8 * (T + 1), "off": 4 * (T + 2), "rows": 4 * C,
+                      "cnt": 4 * (T + 1), "slot_of": 4 * C,
+                      "shorts": 4 * (C // 2 + 1), "items": 8 * items,
+                      "status": 8 * tiles, "info": 32})
+    assert lay.meta.dtype == np.int64
+    assert list(lay.meta[:9]) == list(lay.offsets.values())
+    assert list(lay.meta[9:]) == [tiles, items]
+    assert jk.build_layout(C, T) is lay  # cached: no host work per call
+
+
+def _listed(segments):
+    """What the scatter lists for segments of these lengths, each split
+    over several warp groups: (short entries, chunk items)."""
+    shorts = sum(1 for n in segments if 2 <= n <= 32)
+    items = sum(-(-n // 4096) for n in segments if n > 32)
+    return shorts, items
+
+
+@pytest.mark.parametrize("C", [64, 4096, 100_000, 1 << 22])
+def test_build_layout_lists_hold_any_split(port, C):
+    """The short and chunk lists fit the worst splits of C rows: all
+    segments of 2 rows, of 33 rows, of 4097 rows, and one of C rows."""
+    _, jk, _ = port
+    lay = jk.build_layout(C, jk.join_table_capacity(C))
+    cap_short = C // 2 + 1
+    cap_items = int(lay.meta[10])
+    for n in (2, 33, 4097, C):
+        shorts, items = _listed([n] * (C // n))
+        assert shorts <= cap_short and items <= cap_items
+
+
+@pytest.mark.parametrize("C,W", [(0, 0), (1, 1024), (300, 1024),
+                                 (1 << 18, 1 << 22), (5000, 5000)])
+def test_probe_layout_planes(port, C, W):
+    """The probe buffer starts with the packed [3, W] matrix (row 2 the
+    counts), then the scan's planes; the entry's array lists W, the
+    counts' offset, the planes and one look-back tile per 256 rows."""
+    _, jk, _ = port
+    lay = jk.probe_layout(C, W)
+    tiles = -(-C // 256)
+    _planes_fit(lay, {"packed": 12 * W, "incl": 8 * C, "pslot": 4 * C,
+                      "status": 8 * tiles, "tiles": 4})
+    assert lay.offsets["packed"] == 0 and lay.nbytes % 8 == 0
+    assert list(lay.meta) == [W, 8 * W, lay.offsets["incl"],
+                              lay.offsets["pslot"], lay.offsets["status"],
+                              lay.offsets["tiles"], tiles]
+
+
+@pytest.mark.parametrize("name", sorted(CASES))
+def test_one_table_serves_several_probes(port, name):
+    """A table built once (``hash_join_table``) and probed at two output
+    capacities gives the reference's matrix at each: what the overflow
+    re-dispatch of ``joins._device_match_indices`` relies on."""
+    torch, jk, _ = port
+    seed, C_l, C_r, n_l, n_r, keys, nl, nr, cap = CASES[name]
+    planes = _case(seed, C_l, C_r, n_l, n_r, keys, nl, nr)
+    t = [torch.from_numpy(p) for p in planes]
+    table = jk.hash_join_table(*t[3:])
+    for c in (cap, 4 * cap):
+        got = jk.hash_join_probe_table(*t[:3], table, c).numpy()
+        _assert_same(got, _ref_hash(planes, c), C_l, c)
+
+
+# ------------------------------------------------------- the card's new cases
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["one_key_all_rows", "clustered_runs",
+                                  "all_distinct"])
+def test_hash_join_cuda_skewed_case(name):
+    """The skewed build cases of chip_smoke.py at a small size (one key's
+    segment still spans four sort chunks), kernels against the plain
+    versions on the card."""
+    torch = pytest.importorskip("torch")
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    import os
+    import sys
+    sys.path.insert(0, os.path.dirname(os.path.dirname(__file__)))
+    import chip_smoke
+    cases = chip_smoke.join_cases_skewed(np.random.default_rng(6), 1 << 16,
+                                         50_000)
+    chip_smoke.check_join_case(next(c for c in cases if c["name"] == name))

@@ -236,3 +236,35 @@ def test_cross_join_is_not_ported_yet():
     l, r = _frames(daft_tpu_torch, 10, 10)
     with pytest.raises(NotImplementedError, match="cross"):
         l.join(r, how="cross")
+
+
+@pytest.mark.parametrize("how", ["inner", "left", "outer"])
+def test_overflow_probes_the_one_table_again(monkeypatch, how):
+    """A many-to-many join past the first bucket builds the hash table
+    once and probes it at the grown capacity: one build, two probes, two
+    ``join_hash`` dispatches, the reference's rows."""
+    from daft_tpu_torch.device import join_kernels as jk
+    calls = {"build": 0, "probe": 0}
+    build, probe = jk.hash_join_build, jk.hash_join_probe
+
+    def counted(name, fn):
+        def run(*a):
+            calls[name] += 1
+            return fn(*a)
+        return run
+    monkeypatch.setattr(jk, "hash_join_build", counted("build", build))
+    monkeypatch.setattr(jk, "hash_join_probe", counted("probe", probe))
+    rng = np.random.default_rng(3)
+    left = {"k": _with_nulls(rng, rng.integers(0, 400, 5000), 0.05)}
+    right = {"k": _with_nulls(rng, rng.integers(0, 400, 4000), 0.05),
+             "v": list(range(4000))}
+    rc, pc = daft_tpu.col, daft_tpu_torch.col
+    ref = ref_joins.join_recordbatch(
+        RefBatch.from_pydict(left), RefBatch.from_pydict(right),
+        [rc("k")], [rc("k")], how).to_pydict()
+    got = port_joins.join_recordbatch(
+        PortBatch.from_pydict(left), PortBatch.from_pydict(right),
+        [pc("k")], [pc("k")], how).to_pydict()
+    assert len(got["k"]) > 16384 and got == ref
+    assert calls == {"build": 1, "probe": 2}
+    assert runtime.counters() == {"join_hash": 2}
