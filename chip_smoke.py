@@ -39,13 +39,27 @@ Phases (any failure ends the run with a non-zero exit code):
    (``pa.Table.join`` plus ``group_by``) and the counters must show every
    join on the device with the hash strategy (no host join), one build
    launch per device join and one probe launch per dispatch;
-7. the hash build against its plain version at the inputs of every
-   distinct hash rung of the main path (query, T, key words), and the
-   join kernels at Q3's lineitem join;
-8. a ``{"kernels": [...]}`` line with each kernel's launches, times and
-   bound (one row per hash rung; the join kernels also with their device
-   activities and host time per call), then the card line and the final
-   ``{"ok": true, ...}`` line.
+7. TPC-H 22 phase: all 22 queries as DataFrame code
+   (``daft_tpu_torch/benchmarking/tpch_queries.py``) at the same SF1
+   data, with the per-operator device paths (projection, predicate,
+   argsort, agg outside a fused fragment) on: per query a counted cold
+   run and a warm run, each held to the port's host tier
+   (``device="0"``) on the same files in the same process (keys, counts
+   and strings exact, floats at relative 1e-9); one line per query with
+   the walls, the dispatch counters and the kernel launches. Q3's
+   group-by must run on the card, an argsort and a per-operator hash
+   group-by must be dispatched, no fused morsel may fall to the host,
+   and Q1 keeps its 8 dense dispatches;
+8. the hash build against its plain version at the inputs of every
+   distinct hash rung of the main path and of the TPC-H 22 phase
+   (query, T, key words); the join kernels at Q3's lineitem join and at
+   every distinct join rung of the TPC-H 22 phase (query, C_r, T, C_l,
+   cap), each checked as in the join-kernel phase, then timed;
+9. a ``{"kernels": [...]}`` line with each kernel's launches, times and
+   bound (one row per hash rung and per join rung; Q3's join rows also
+   with their device activities and host time per call), the script's
+   total wall, then the card line and the final ``{"ok": true, ...}``
+   line.
 
 Join kernels compare exactly (integer outputs): the build as a map from
 key to its rows in order (the slot layout is the kernel's own), the probe
@@ -1088,6 +1102,30 @@ def join_main_path_timing(q3, bw: float):
     return rec
 
 
+def join_rung_timing(rungs, bw: float):
+    """Join kernels vs plain on the exact inputs of each distinct join
+    rung of the TPC-H 22 phase (the first dispatch of each): the build as
+    key → ordered rows, the probe element for element, the pairs against
+    the torch sort join (as in the join-kernel phase), then timed, with
+    the byte bounds of those inputs."""
+    out = []
+    for (query, C_r, T, C_l, cap), r in rungs.items():
+        r_code, r_live, _ = r["build"]
+        l_code, l_live, _ = r["probe"]
+        c = check_join_case(dict(
+            name=f"{query} join rung", r_code=r_code.cpu().numpy(),
+            r_live=r_live.cpu().numpy(), l_code=l_code.cpu().numpy(),
+            l_live=l_live.cpu().numpy(), cap=cap))
+        rec = dict(query=query, C_r=C_r, live_r=c["n_live_r"], C_l=C_l,
+                   live_l=int(c["l_live"].sum()), T=T, cap=cap,
+                   keys=c["keys"], total=c["total"],
+                   launches=r["launches"], main_path_ms_sum=r["ms_sum"],
+                   **time_join(c, bw))
+        log("join kernels at tpch22 rung " + json.dumps(rec))
+        out.append(rec)
+    return out
+
+
 def main_path_kernel_timing(rungs, bw: float):
     """Kernel vs plain on the exact inputs of each distinct hash rung of
     the main path (the first dispatch of each): checked, then timed, with
@@ -1117,6 +1155,179 @@ def main_path_kernel_timing(rungs, bw: float):
     return out
 
 
+TPCH22_COUNTERS = ("projection", "predicate", "argsort", "agg_hash",
+                   "agg_sort", "agg_global", "dense", "hash", "sort",
+                   "global", "join_hash", "host_joins", "host_ops",
+                   "host_morsels", "op_bytes_up")
+
+
+def _same_answer(name: str, got: dict, ref: dict, rel: float = 1e-9):
+    """Row for row: keys, counts, integers and strings exact, floats at
+    relative ``rel``."""
+    if list(got) != list(ref):
+        raise AssertionError(f"{name}: columns {list(got)} != {list(ref)}")
+    for c in ref:
+        if len(got[c]) != len(ref[c]):
+            raise AssertionError(f"{name}: {c} has {len(got[c])} rows, "
+                                 f"not {len(ref[c])}")
+        for a, b in zip(got[c], ref[c]):
+            ok = _close(a, b, rel) if isinstance(a, float) \
+                and isinstance(b, float) else a == b
+            if not ok:
+                raise AssertionError(f"{name}: {c} {a!r} vs {b!r}")
+
+
+def tpch22_phase(root: str):
+    """All 22 TPC-H queries as DataFrame code on the card: per query a
+    counted cold run (every count zeroed just before, read just after)
+    and one warm run, both held to the port's host tier on the same files
+    in the same process; hash-agg builds recorded per rung for the
+    kernel timing. Asserts Q3's group-by ran on the device, an argsort
+    was dispatched, a per-operator group-by took the hash table, no
+    fused morsel fell to the host, and Q1 kept its 8 dense dispatches."""
+    import torch
+    import daft_tpu_torch as dtt
+    from daft_tpu_torch.benchmarking import tpch_queries as Q
+    from daft_tpu_torch.device import hash_kernels as hk, runtime
+    from daft_tpu_torch.device import join_kernels as jk
+    get = lambda t: dtt.read_parquet(os.path.join(root, t))  # noqa: E731
+    recorded, events = [], []
+    orig = hk.hash_agg_build
+    query = [None]
+
+    def recording(words, live, vals, contribs, specs, T):
+        recorded.append((query[0], (words, live, vals, contribs, specs, T)))
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        out = orig(words, live, vals, contribs, specs, T)
+        b.record()
+        events.append((a, b))
+        return out
+    # join launches of the counted runs: each build by its table, each
+    # probe with the table it walks (a join's device section runs alone:
+    # ``joins._device_lock``)
+    jbuilds, jprobes = {}, []
+    orig_b, orig_p = jk.hash_join_build_cuda, jk.hash_join_probe_cuda
+
+    def timed(fn, *a):
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        out = fn(*a)
+        e1.record()
+        return out, (e0, e1)
+
+    def recording_build(code, live, T):
+        out, ev = timed(orig_b, code, live, T)
+        jbuilds[id(out)] = ((code, live, T), out, ev)
+        return out
+
+    def recording_probe(code, live, table, cap):
+        out, ev = timed(orig_p, code, live, table, cap)
+        jprobes.append(((code, live, table, cap), ev))
+        return out
+    per_query, totals, jrungs = {}, {}, {}
+    for q in range(1, 23):
+        name = f"q{q}"
+        # ---- the counted run: every count zeroed just before, read after
+        query[0] = f"tpch22 {name}"
+        hk.hash_agg_build = recording
+        jk.hash_join_build_cuda = recording_build
+        jk.hash_join_probe_cuda = recording_probe
+        runtime.reset_counters()
+        hk.reset_launches()
+        jk.reset_launches()
+        try:
+            t0 = time.perf_counter()
+            cold = Q.ALL[q](get).to_pydict()
+            torch.cuda.synchronize()
+            cold_s = time.perf_counter() - t0
+        finally:
+            hk.hash_agg_build = orig
+            jk.hash_join_build_cuda = orig_b
+            jk.hash_join_probe_cuda = orig_p
+        counts = runtime.counters()
+        launches = dict(hash_agg_build=hk.launches, **jk.launches)
+        _join_rungs(query[0], jbuilds, jprobes, jrungs)
+        jbuilds.clear()
+        jprobes.clear()
+        t0 = time.perf_counter()
+        warm = Q.ALL[q](get).to_pydict()
+        torch.cuda.synchronize()
+        warm_s = time.perf_counter() - t0
+        # the host tier last, so its files are as warm as the card's
+        with dtt.execution_config_ctx(device="0"):
+            t0 = time.perf_counter()
+            host = Q.ALL[q](get).to_pydict()
+            host_s = time.perf_counter() - t0
+        _same_answer(f"{name} cold", cold, host)
+        _same_answer(f"{name} warm", warm, host)
+        rec = dict(query=name, warm_s=warm_s, cold_s=cold_s, host_s=host_s,
+                   rows=len(next(iter(host.values()))),
+                   counters={k: counts.get(k, 0) for k in TPCH22_COUNTERS},
+                   launches=launches)
+        per_query[name] = rec
+        for k, v in list(rec["counters"].items()) + list(launches.items()):
+            totals[k] = totals.get(k, 0) + v
+        log("tpch22 " + json.dumps(rec))
+    q1, q3 = per_query["q1"]["counters"], per_query["q3"]["counters"]
+    if q1["dense"] != 8 or q1["agg_hash"] or q1["agg_sort"]:
+        raise AssertionError(f"q1 changed route: {q1}")
+    # Q3's three group keys (int64, date, int32) pack 131 bits, past the
+    # hash table's 128: its group-by takes the sort strategy on the card,
+    # as the reference's width check routes it
+    if q3["agg_sort"] < 1 or q3["agg_hash"]:
+        raise AssertionError(f"q3's group-by did not run on the card: {q3}")
+    for k in ("argsort", "agg_hash", "projection", "predicate"):
+        if totals[k] < 1:
+            raise AssertionError(f"tpch22: no {k} dispatch ({totals})")
+    if totals["host_morsels"]:
+        raise AssertionError(f"tpch22: host-tier morsels ({totals})")
+    if totals["hash_agg_build"] != len(recorded):
+        raise AssertionError("tpch22: hash launches != recorded builds")
+    for k in ("hash_agg_build", "hash_join_build", "hash_join_probe"):
+        if totals[k] < 1:
+            raise AssertionError(f"tpch22: {k} launched no time")
+    for k in ("hash_join_build", "hash_join_probe"):
+        if sum(r["launches"][k] for r in jrungs.values()) != totals[k]:
+            raise AssertionError(f"tpch22: {k} launches != recorded calls")
+    rungs = {}
+    for (q, a), (e0, e1) in zip(recorded, events):
+        r = rungs.setdefault((q, a[5], len(a[0])),
+                             dict(args=a, launches=0, ms_sum=0.0))
+        r["launches"] += 1
+        r["ms_sum"] += e0.elapsed_time(e1)
+    log("tpch22 totals " + json.dumps(totals) + "; warm walls summed "
+        f"{sum(r['warm_s'] for r in per_query.values()):.6f} s, host tier "
+        f"{sum(r['host_s'] for r in per_query.values()):.6f} s")
+    return dict(per_query=per_query, totals=totals, rungs=rungs,
+                join_rungs=jrungs)
+
+
+def _join_rungs(query: str, builds: dict, probes: list, rungs: dict):
+    """Fold one counted run's join launches into rungs keyed by (query,
+    C_r, T, C_l, cap): each rung keeps the first dispatch's inputs, its
+    probe launches and each build whose table it probed first, with the
+    summed event times."""
+    first_probe = set()
+    for (code, live, table, cap), (e0, e1) in probes:
+        b_args, _, (b0, b1) = builds[id(table)]
+        r = rungs.setdefault(
+            (query, b_args[0].shape[0], b_args[2], code.shape[0], cap),
+            dict(build=b_args, probe=(code, live, cap),
+                 launches={"hash_join_build": 0, "hash_join_probe": 0},
+                 ms_sum={"hash_join_build": 0.0, "hash_join_probe": 0.0}))
+        r["launches"]["hash_join_probe"] += 1
+        r["ms_sum"]["hash_join_probe"] += e0.elapsed_time(e1)
+        if id(table) not in first_probe:
+            first_probe.add(id(table))
+            r["launches"]["hash_join_build"] += 1
+            r["ms_sum"]["hash_join_build"] += b0.elapsed_time(b1)
+    if len(first_probe) != len(builds):
+        raise AssertionError(f"{query}: a join table was never probed")
+
+
 def profile_phase(root: str):
     """One traced run of each main-path query and of Q3 (``--profile``):
     host-side time per stage (wall time spent inside each stage; scan
@@ -1143,7 +1354,7 @@ def profile_phase(root: str):
                    "factorize": (joins, "_factorize_pair"),
                    "device_h2d_kernels_d2h": (joins, "_device_match_indices"),
                    "take": (joins, "_take_nullable"),
-                   "host_agg": (RecordBatch, "agg")}
+                   "agg": (RecordBatch, "agg")}
     for name in ("q1", "suppkey_agg", "shipdate_agg", "q6", "q3"):
         stages = join_stages if name == "q3" else agg_stages
         acc = {k: 0.0 for k in stages}
@@ -1197,6 +1408,7 @@ def main() -> int:
                     help="also trace one run of each main-path query and "
                          "of Q3")
     args = ap.parse_args()
+    t_start = time.perf_counter()
 
     import torch
     if not torch.cuda.is_available():
@@ -1236,8 +1448,11 @@ def main() -> int:
     # rebuilt for each morsel of the other side, as in the reference
     q3_path(root, args.reps, ref=q3["ref"], threshold=1 << 40,
             label="q3 forced broadcast")
+    t22 = tpch22_phase(root)
     krecs = main_path_kernel_timing(mp["rungs"], bw)
+    krecs += main_path_kernel_timing(t22["rungs"], bw)
     jrec = join_main_path_timing(q3, bw)
+    jrecs = join_rung_timing(t22["join_rungs"], bw)
     if args.profile:
         profile_phase(root)
 
@@ -1275,7 +1490,26 @@ def main() -> int:
             "sort_join_ms": jrec["sort_join_ms"],
             # no single PyTorch call generates join index pairs
             "library_ms": None})
+    # one row per kernel per distinct join rung of the TPC-H 22 phase
+    for j in jrecs:
+        for kname, pre, line in (("hash_join_build", "build", 455),
+                                 ("hash_join_probe", "probe", 533)):
+            if not j["launches"][kname]:
+                continue  # an overflow rung re-probes an earlier table
+            kernels.append({
+                "name": f"{kname} ({j['query']}, C_r={j['C_r']}, "
+                        f"C_l={j['C_l']}, cap={j['cap']})",
+                "route": "cuda",
+                "source": "daft_tpu_torch/csrc/hash_join.cu",
+                "replaces": f"daft_tpu/device/pallas_kernels.py:{line}",
+                "launches": j["launches"][kname], "max_abs_err": 0.0,
+                "ms": j[f"{pre}_ms"], "plain_ms": j[f"{pre}_plain_ms"],
+                "bound_ms": j[f"{pre}_bound_ms"], "bound_by": "bytes",
+                "main_path_ms_sum": j["main_path_ms_sum"][kname],
+                "host_ms": j[f"{pre}_host_ms"],
+                "sort_join_ms": j["sort_join_ms"], "library_ms": None})
     log(json.dumps({"kernels": kernels}))
+    log(f"chip_smoke total wall: {time.perf_counter() - t_start:.3f} s")
     log(f"{card}")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -3,9 +3,10 @@
 Reference capability: ``src/daft-recordbatch/src/ops/agg.rs:12-29``
 (agg/agg_global/agg_groupby). Grouped aggregation rides Arrow C++
 ``TableGroupBy`` (native hash aggregation). The torch device tier runs
-aggregations only inside the executor's fused fragments
+aggregations inside the executor's fused fragments
 (``device/fragment.py``), which merge their partial states through
-:data:`AGG_DECOMPOSITION`.
+:data:`AGG_DECOMPOSITION`, and per operator where
+``device/runtime.try_agg`` takes the batch (:func:`agg_recordbatch`).
 """
 
 from __future__ import annotations
@@ -74,6 +75,10 @@ AGG_DECOMPOSITION: Dict[str, Tuple[Tuple[str, ...], str]] = {
 
 
 def agg_recordbatch(batch, to_agg: List[Expression], group_by: List[Expression]):
+    from .device import runtime as device_runtime
+    out = device_runtime.try_agg(batch, to_agg, group_by)
+    if out is not None:
+        return out
     specs = [split_agg_expr(e) for e in to_agg]
     if not group_by:
         return _agg_global(batch, specs)

@@ -3,9 +3,9 @@
 Reference: ``daft/dataframe/dataframe.py:108``. Each method extends the
 logical plan via LogicalPlanBuilder; execution happens on collect/show/
 iteration through ``execution.executor.run_plan``. The port carries the
-methods of the grouped-aggregation and equi-join slices (select/filter/
-with_column/sort/limit/agg/groupby/join); cross joins, windows and writes
-come with later slices.
+methods of the grouped-aggregation, join and TPC-H slices (select/
+filter/with_column/sort/limit/distinct/agg/groupby/join, cross joins
+included); windows and writes come with later slices.
 """
 
 from __future__ import annotations
@@ -103,6 +103,10 @@ class DataFrame:
         by = by if isinstance(by, (list, tuple)) else [by]
         return DataFrame(self._builder.sort(by, desc, nulls_first))
 
+    def distinct(self, *on: ColumnInput) -> "DataFrame":
+        """Rows unique over ``on`` (every column when none is given)."""
+        return DataFrame(self._builder.distinct(list(on) if on else None))
+
     def pipe(self, func, *args, **kwargs):
         """``df.pipe(f, ...)`` → ``f(df, ...)`` (reference parity)."""
         return func(self, *args, **kwargs)
@@ -120,14 +124,11 @@ class DataFrame:
         """Equi-join with ``other``: ``how`` is inner, left, right, outer,
         semi or anti; ``strategy`` None (chosen from size estimates),
         ``hash``, ``broadcast``, ``broadcast_left`` or
-        ``broadcast_right``."""
-        if how == "cross":
-            raise NotImplementedError(
-                "cross join is not ported yet (ROADMAP A2: cross and "
-                "sort-merge join)")
+        ``broadcast_right``. ``how="cross"`` takes no keys and pairs every
+        row with every row of ``other``."""
         if on is not None:
             left_on = right_on = on
-        if left_on is None:
+        if how != "cross" and left_on is None:
             raise ValueError("join requires `on` or `left_on`/`right_on`")
         lo = left_on if isinstance(left_on, (list, tuple)) else [left_on]
         ro = right_on if isinstance(right_on, (list, tuple)) else [right_on]

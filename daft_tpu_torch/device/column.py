@@ -10,7 +10,7 @@ the reference's f32 downcast exists only for TPUs).
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Dict, Optional, Sequence
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import pyarrow as pa
@@ -26,6 +26,13 @@ _MIN_CAPACITY = 16
 #: ops); uint64 has no lossless signed twin and stays on the host.
 _WIDEN = {np.dtype("uint16"): np.dtype("int32"),
           np.dtype("uint32"): np.dtype("int64")}
+
+
+#: numpy dtype of each torch dtype a device plane may have
+NP_DTYPE = {torch.bool: np.bool_, torch.uint8: np.uint8,
+            torch.int8: np.int8, torch.int16: np.int16,
+            torch.int32: np.int32, torch.int64: np.int64,
+            torch.float32: np.float32, torch.float64: np.float64}
 
 
 def bucket_capacity(n: int) -> int:
@@ -117,19 +124,36 @@ def _pad(x: np.ndarray, capacity: int) -> np.ndarray:
     return out
 
 
+def encode_series(s: Series, capacity: int,
+                  device: torch.device) -> DeviceColumn:
+    """One Series onto ``device``, padded to ``capacity`` rows. Raises
+    ValueError for a column that has no device plane."""
+    vals, validity, dictionary = _np_encode(s)
+    return DeviceColumn(torch.from_numpy(_pad(vals, capacity)).to(device),
+                        torch.from_numpy(_pad(validity, capacity)).to(device),
+                        s.datatype(), dictionary)
+
+
+def encoded_nbytes(batch, columns: Sequence[str]) -> int:
+    """Bytes these columns occupy once encoded: the device plane's
+    itemsize (strings: int32 dictionary codes; the dictionary stays on the
+    host) times the power-of-two capacity, plus one validity byte per
+    slot."""
+    cap = bucket_capacity(max(len(batch), 1))
+    total = 0
+    for nm in columns:
+        rep = batch.get_column(nm).datatype().to_physical().device_repr()
+        total += cap * ((8 if rep is None else np.dtype(rep).itemsize) + 1)
+    return total
+
+
 def encode_batch(batch, columns: Sequence[str],
                  device: torch.device) -> DeviceTable:
     """Encode the named columns of a RecordBatch onto ``device``."""
     n = len(batch)
     cap = bucket_capacity(n)
-    cols = {}
-    for nm in columns:
-        s = batch.get_column(nm)
-        vals, validity, dictionary = _np_encode(s)
-        cols[nm] = DeviceColumn(
-            torch.from_numpy(_pad(vals, cap)).to(device),
-            torch.from_numpy(_pad(validity, cap)).to(device),
-            s.datatype(), dictionary)
+    cols = {nm: encode_series(batch.get_column(nm), cap, device)
+            for nm in columns}
     mask = np.zeros(cap, dtype=np.bool_)
     mask[:n] = True
     return DeviceTable(cols, torch.from_numpy(mask).to(device), n, cap)
@@ -193,3 +217,38 @@ def decode_np(name: str, dtype, vals: np.ndarray, validity: np.ndarray,
         if arr.type != target:
             arr = arr.cast(target)
     return Series(name, dtype, arrow=arr)
+
+
+def fetch_host(planes: Sequence[torch.Tensor]) -> List[np.ndarray]:
+    """Many device planes → host numpy arrays in ONE device→host copy:
+    their bytes are concatenated on the device (widest dtype first, so
+    every plane stays aligned in the host buffer) and split on the host.
+    CPU tensors come back as views."""
+    if not planes or all(p.device.type == "cpu" for p in planes):
+        return [p.numpy() for p in planes]
+    order = sorted(range(len(planes)),
+                   key=lambda i: -planes[i].element_size())
+    flat = torch.cat([planes[i].contiguous().reshape(-1).view(torch.uint8)
+                      for i in order])
+    host = flat.cpu().numpy()
+    out: List[Optional[np.ndarray]] = [None] * len(planes)
+    off = 0
+    for i in order:
+        p = planes[i]
+        nb = p.numel() * p.element_size()
+        out[i] = host[off:off + nb].view(NP_DTYPE[p.dtype]) \
+            .reshape(p.shape)
+        off += nb
+    return out
+
+
+
+def decode_columns(named: Sequence[Tuple[str, DeviceColumn]],
+                   count: int) -> List[Series]:
+    """Decode the first ``count`` rows of many DeviceColumns, with one
+    device→host copy for every data and validity plane."""
+    host = fetch_host([p for _, c in named
+                       for p in (c.data[:count], c.validity[:count])])
+    return [decode_np(name, c.dtype, host[2 * i], host[2 * i + 1],
+                      c.dictionary)
+            for i, (name, c) in enumerate(named)]

@@ -21,6 +21,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from typing import List
 
@@ -41,6 +42,7 @@ _ENTRIES = {
 }
 
 _lib = None
+_lib_lock = threading.Lock()
 #: seconds the first :func:`library` call took (build where needed, load)
 build_seconds = 0.0
 #: the compiler's output of that build (``-Xptxas -v``: registers, stack
@@ -81,9 +83,14 @@ def compile_library(srcs: List[str], out: str, extra=()) -> str:
 
 
 def library() -> ctypes.CDLL:
-    """The kernels' library, built on first call where needed."""
+    """The kernels' library, built on first call where needed (once: the
+    executor's pool threads may ask for it together)."""
     global _lib, build_seconds, build_log
-    if _lib is None:
+    if _lib is not None:
+        return _lib
+    with _lib_lock:
+        if _lib is not None:
+            return _lib
         t0 = time.perf_counter()
         path = library_path()
         if not os.path.exists(path):

@@ -1,10 +1,11 @@
 """Fused scan fragments: filter + project + partial aggregation as ONE
-torch program per morsel, with one packed result transfer.
+torch program per morsel, with one result transfer.
 
 The torch rewrite of ``daft_tpu/device/fragment.py``'s fused-agg family.
-``run_packed`` evaluates the compiled filter and projections, reduces with
-one of three strategies, and packs every output lane bit-preservingly into
-one int64 matrix, so a partial aggregation costs one device→host copy:
+``run_planes`` evaluates the compiled filter and projections and reduces
+with one of three strategies; the drain fetches the group count and every
+output plane with ``column.fetch_host``, so a partial aggregation costs
+one device→host copy:
 
 - **dense** (``kernels.grouped_agg_dense_impl``): every group key is a
   dictionary-coded string passthrough and the slot product fits — TPC-H Q1;
@@ -32,7 +33,6 @@ import torch
 
 from ..expressions.expressions import Expression
 from ..schema import Schema
-from .. import knobs
 from . import column as dcol
 from . import compiler, hash_kernels, kernels, runtime
 
@@ -41,31 +41,6 @@ _OUT_CAP0 = 128
 #: dense-strategy slot ceiling: K = prod(dim + 1) slots per dispatch
 DENSE_MAX_SLOTS = 4096
 
-_NP_OF = {torch.bool: np.bool_, torch.uint8: np.uint8, torch.int8: np.int8,
-          torch.int16: np.int16, torch.int32: np.int32,
-          torch.int64: np.int64, torch.float32: np.float32,
-          torch.float64: np.float64}
-
-
-def _pack_i64(x: torch.Tensor) -> torch.Tensor:
-    """Bit-preserving lowering of any output lane to int64."""
-    if x.dtype == torch.float32:
-        return x.view(torch.int32).to(torch.int64) & 0xFFFFFFFF
-    if x.dtype == torch.float64:
-        return x.view(torch.int64)
-    return x.to(torch.int64)
-
-
-def _unpack_i64(row: np.ndarray, dtype) -> np.ndarray:
-    """Host-side inverse of :func:`_pack_i64`."""
-    dt = np.dtype(dtype)
-    if dt == np.bool_:
-        return row != 0
-    if dt == np.float32:
-        return (row & 0xFFFFFFFF).astype(np.uint32).view(np.float32)
-    if dt == np.float64:
-        return row.view(np.float64)
-    return row.astype(dt)
 
 
 class FusedAggProgram:
@@ -95,21 +70,20 @@ class FusedAggProgram:
         vvalids = tuple(m for _, m in outs[nk:])
         return keys, kvalids, vals, vvalids, row_mask
 
-    def run_packed(self, arrays, valids, row_mask, scalars, out_cap: int,
+    def run_planes(self, arrays, valids, row_mask, scalars, out_cap: int,
                    strategy: str = "sort", dims: Tuple[int, ...] = ()
-                   ) -> Tuple[torch.Tensor, List[torch.dtype]]:
-        """The whole fragment → (packed int64 matrix, lane dtypes).
-        Grouped: row 0 holds the group count at [0, 0], then one
-        [out_cap] row per key, key validity, value, value validity.
-        Keyless: one column of values then validities."""
+                   ) -> List[torch.Tensor]:
+        """The whole fragment → its output planes on the device. Grouped:
+        the group count (one int64), then one [out_cap] plane per key,
+        key validity, value, value validity. Keyless: one element per
+        value, then per validity."""
         keys, kvalids, vals, vvalids, row_mask = self.eval_inputs(
             arrays, valids, row_mask, scalars)
         if self.nk == 0:
             results = kernels.global_agg_impl(vals, vvalids, row_mask,
                                               self.ops)
-            flat = [v for v, _ in results] + [m for _, m in results]
-            return torch.stack([_pack_i64(x.reshape(())) for x in flat]), \
-                [x.dtype for x in flat]
+            return [v.reshape(1) for v, _ in results] + \
+                [m.reshape(1) for _, m in results]
         if strategy == "dense":
             out = kernels.grouped_agg_dense_impl(
                 keys, kvalids, vals, vvalids, row_mask, self.ops, out_cap,
@@ -121,11 +95,9 @@ class FusedAggProgram:
             out = kernels.grouped_agg_block_impl(
                 keys, kvalids, vals, vvalids, row_mask, self.ops, out_cap)
         ok, okv, ov, ovv, g = out
-        flat = list(ok) + list(okv) + list(ov) + list(ovv)
-        head = torch.zeros(out_cap, dtype=torch.int64, device=row_mask.device)
-        head[0] = g
-        rows = [head] + [_pack_i64(x) for x in flat]
-        return torch.stack(rows), [x.dtype for x in flat]
+        head = torch.as_tensor(g, dtype=torch.int64,
+                               device=row_mask.device).reshape(1)
+        return [head] + list(ok) + list(okv) + list(ov) + list(ovv)
 
     def key_plane_dtypes(self) -> List[torch.dtype]:
         """Device dtypes of the group-key planes, for the hash width check
@@ -201,24 +173,18 @@ def strategy_for(prog: FusedAggProgram, dt: dcol.DeviceTable, out_cap: int,
     hash budget and the table fits the slot ceiling, else sort.
     ``DAFT_TORCH_KERNEL_GROUPBY`` forces one (a forced dense that cannot
     apply, or a forced hash over an unpackable key set, takes the rule)."""
-    forced = knobs.env_str("DAFT_TORCH_KERNEL_GROUPBY").lower()
-    if forced not in ("auto", "dense", "hash", "sort"):
-        raise ValueError(f"DAFT_TORCH_KERNEL_GROUPBY={forced!r}")
-    if forced in ("auto", "dense"):
+    if runtime.forced_groupby() in ("auto", "dense"):
         plan = dense_plan(prog, dt, cap_limit)
         if plan is not None:
             return "dense", plan[0], plan[1]
-    if forced == "sort" or prog.hash_unfit \
-            or hash_kernels.hash_pack_words(prog.key_plane_dtypes()) is None:
+    if prog.hash_unfit:
         return "sort", (), out_cap
-    if forced == "hash" or hash_kernels.table_capacity(out_cap) \
-            <= hash_kernels.max_table_slots():
-        return "hash", (), out_cap
-    return "sort", (), out_cap
+    return runtime.agg_strategy(prog.key_plane_dtypes(), out_cap), (), \
+        out_cap
 
 
 class InflightFusedAgg:
-    """One dispatched fused-agg morsel: the device-side packed result plus
+    """One dispatched fused-agg morsel: the device-side output planes plus
     the ladder state the drain needs to finish."""
 
     def __init__(self, prog, dt, group_exprs, key_fields, agg_fields):
@@ -231,8 +197,7 @@ class InflightFusedAgg:
         self.out_cap = min(_OUT_CAP0, self.cap_limit)
         self.strategy: Optional[str] = None
         self.dims: Tuple[int, ...] = ()
-        self.packed: Optional[torch.Tensor] = None
-        self.dtypes: List[torch.dtype] = []
+        self.planes: List[torch.Tensor] = []
 
 
 def _dispatch(tok: InflightFusedAgg) -> None:
@@ -242,8 +207,8 @@ def _dispatch(tok: InflightFusedAgg) -> None:
     valids = {n: c.validity for n, c in dt.columns.items()}
     scalars = runtime._prep_scalars(prog.compiled, dt)
     if prog.nk == 0:
-        tok.packed, tok.dtypes = prog.run_packed(arrays, valids, dt.row_mask,
-                                                 scalars, _OUT_CAP0)
+        tok.planes = prog.run_planes(arrays, valids, dt.row_mask, scalars,
+                                     _OUT_CAP0)
         runtime.count("global")
         return
     while True:
@@ -251,7 +216,7 @@ def _dispatch(tok: InflightFusedAgg) -> None:
             tok.strategy, tok.dims, tok.out_cap = strategy_for(
                 prog, dt, tok.out_cap, tok.cap_limit)
         try:
-            tok.packed, tok.dtypes = prog.run_packed(
+            tok.planes = prog.run_planes(
                 arrays, valids, dt.row_mask, scalars, tok.out_cap,
                 tok.strategy, tok.dims)
         except hash_kernels.HashKeyWidthError:
@@ -276,25 +241,22 @@ def submit_fused_agg_table(prog: FusedAggProgram, dt: dcol.DeviceTable,
 
 
 def drain_fused_agg_table(tok: InflightFusedAgg):
-    """Fetch the packed result (one transfer) and decode it, climbing the
-    overflow ladder while the group count outgrows the bucket."""
+    """Fetch the output planes (one transfer) and decode them, climbing
+    the overflow ladder while the group count outgrows the bucket."""
     from ..recordbatch import RecordBatch
     prog = tok.prog
     if prog.nk == 0:
-        packed = tok.packed.cpu().numpy()
+        host = dcol.fetch_host(tok.planes)
         nv = len(tok.agg_fields)
-        cols = []
-        for i, f in enumerate(tok.agg_fields):
-            v = _unpack_i64(packed[i:i + 1], _NP_OF[tok.dtypes[i]])
-            m = _unpack_i64(packed[nv + i:nv + i + 1],
-                            _NP_OF[tok.dtypes[nv + i]]).astype(np.bool_)
-            cols.append(dcol.decode_np(f.name, f.dtype, v, m))
-        return RecordBatch.from_series(cols)
+        return RecordBatch.from_series([
+            dcol.decode_np(f.name, f.dtype, host[i],
+                           host[nv + i].astype(np.bool_))
+            for i, f in enumerate(tok.agg_fields)])
     while True:
-        packed = tok.packed.cpu().numpy()
-        g = int(packed[0, 0])
+        host = dcol.fetch_host(tok.planes)
+        g = int(host[0][0])
         if g <= tok.out_cap:
-            return _decode_grouped(tok, packed, g)
+            return _decode_grouped(tok, host[1:], g)
         if g > tok.cap_limit:
             raise RuntimeError(f"group count {g} exceeds the morsel "
                                f"capacity {tok.cap_limit}")
@@ -308,22 +270,18 @@ def drain_fused_agg_table(tok: InflightFusedAgg):
         _dispatch(tok)
 
 
-def _decode_grouped(tok: InflightFusedAgg, packed: np.ndarray, g: int):
+def _decode_grouped(tok: InflightFusedAgg, rows: List[np.ndarray], g: int):
     from ..recordbatch import RecordBatch
     nk, nv = tok.prog.nk, len(tok.agg_fields)
-    dts = [_NP_OF[d] for d in tok.dtypes]
-    rows = packed[1:]
     cols = []
     for i, (e, f) in enumerate(zip(tok.group_exprs, tok.key_fields)):
-        kv = _unpack_i64(rows[i][:g], dts[i])
-        km = _unpack_i64(rows[nk + i][:g], dts[nk + i]).astype(np.bool_)
-        cols.append(dcol.decode_np(f.name, f.dtype, kv, km,
+        cols.append(dcol.decode_np(f.name, f.dtype, rows[i][:g],
+                                   rows[nk + i][:g].astype(np.bool_),
                                    runtime.key_dictionary(e, f, tok.dt)))
     for i, f in enumerate(tok.agg_fields):
-        vv = _unpack_i64(rows[2 * nk + i][:g], dts[2 * nk + i])
-        vm = _unpack_i64(rows[2 * nk + nv + i][:g],
-                         dts[2 * nk + nv + i]).astype(np.bool_)
-        cols.append(dcol.decode_np(f.name, f.dtype, vv, vm))
+        cols.append(dcol.decode_np(f.name, f.dtype, rows[2 * nk + i][:g],
+                                   rows[2 * nk + nv + i][:g]
+                                   .astype(np.bool_)))
     return RecordBatch.from_series(cols)
 
 

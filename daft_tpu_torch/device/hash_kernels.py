@@ -31,6 +31,7 @@ compared as sets keyed by the key.
 from __future__ import annotations
 
 import functools
+import threading
 from typing import List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
@@ -40,13 +41,22 @@ from .. import knobs
 from . import kernels
 
 #: CUDA kernel launches since the last :func:`reset_launches` — counted
-#: where the wrapper launches the kernel and nowhere else
+#: where the wrapper launches the kernel and nowhere else, under a lock
+#: (the executor's pool threads launch it concurrently)
 launches = 0
+_launches_lock = threading.Lock()
 
 
 def reset_launches() -> None:
     global launches
-    launches = 0
+    with _launches_lock:
+        launches = 0
+
+
+def _launched() -> None:
+    global launches
+    with _launches_lock:
+        launches += 1
 
 
 class HashKeyWidthError(ValueError):
@@ -364,7 +374,6 @@ def hash_agg_build_cuda(words: Sequence[torch.Tensor], live: torch.Tensor,
     the workspace's init and the build, into one ``torch.empty``
     workspace whose views are the result. Raises on any input the kernels
     do not take, and on a refused launch."""
-    global launches
     from . import cuda_build
     C = live.shape[0]
     dev = live.device
@@ -397,7 +406,7 @@ def hash_agg_build_cuda(words: Sequence[torch.Tensor], live: torch.Tensor,
     cuda_build.check(cuda_build.launch(
         lib.daft_hash_agg_build, dev, plan.meta.ctypes.data,
         ptrs.ctypes.data), "hash_agg_build")
-    launches += 1
+    _launched()
     return workspace_views(ws, plan.layout, T, n_words, len(specs))
 
 
@@ -498,7 +507,7 @@ def hash_grouped_agg_impl(keys, key_valids, vals, val_valids, row_mask,
         words, row_mask, list(vals), contribs, specs, T)
 
     # compact occupied slots to the front (stable: slot order survives)
-    order = torch.sort((~occ).to(torch.int8), stable=True).indices
+    order = kernels.compaction_perm(occ)
     sel = order[:out_cap] if out_cap <= T else torch.cat(
         [order, torch.zeros(out_cap - T, dtype=order.dtype, device=dev)])
     j = torch.arange(out_cap, device=dev)

@@ -162,6 +162,22 @@ def _packed_argsort(codes, C: int, want_words: bool = False):
     return perm, tuple(w[perm] for words in chunks for w in words)
 
 
+def argsort_kernel(keys, valids, row_mask, descending: Tuple[bool, ...],
+                   nulls_first: Tuple[bool, ...]) -> torch.Tensor:
+    """Multi-key sort permutation (reference: ``kernels.argsort_kernel``):
+    live rows first, in key order, ties in row order; per key, nulls
+    placed by ``nulls_first`` and values by the IEEE total order (-0.0
+    before +0.0, NaN after +inf)."""
+    codes = _sort_codes(keys, valids, row_mask, descending, nulls_first)
+    return _packed_argsort(codes, row_mask.shape[0])
+
+
+def compaction_perm(row_mask: torch.Tensor) -> torch.Tensor:
+    """Stable permutation moving the set rows of ``row_mask`` to the
+    front."""
+    return torch.sort((~row_mask).to(torch.int8), stable=True).indices
+
+
 # ---------------------------------------------------------------------------
 # segment reductions
 
@@ -310,7 +326,25 @@ def grouped_agg_block_impl(keys, key_valids, vals, val_valids, row_mask,
     key words, mark group boundaries, scatter each row's segment id back to
     its original position and reduce there. Groups come out in ascending
     key order; groups past ``out_cap`` are dropped, and ``group_count >
-    out_cap`` tells the caller to re-dispatch bigger."""
+    out_cap`` tells the caller to re-dispatch bigger. Float sums
+    accumulate as the reference's block strategy does
+    (:func:`_float_acc`)."""
+    return _sort_grouped_agg(keys, key_valids, vals, val_valids, row_mask,
+                             ops, out_cap, _float_acc(vals))
+
+
+def grouped_agg_impl(keys, key_valids, vals, val_valids, row_mask,
+                     ops: Tuple[str, ...]):
+    """The scatter form (reference: ``kernels.grouped_agg_impl``): the
+    sort strategy at a ``[C]``-wide group block, which holds every group
+    of C rows, so it never overflows. Groups in ascending key order; each
+    float value sums in its own type."""
+    return _sort_grouped_agg(keys, key_valids, vals, val_valids, row_mask,
+                             ops, row_mask.shape[0], None)
+
+
+def _sort_grouped_agg(keys, key_valids, vals, val_valids, row_mask,
+                      ops: Tuple[str, ...], out_cap: int, float_acc):
     C = row_mask.shape[0]
     dev = row_mask.device
     codes = _sort_codes(keys, key_valids, row_mask,
@@ -339,7 +373,7 @@ def grouped_agg_block_impl(keys, key_valids, vals, val_valids, row_mask,
     out_vals, out_valids = _reduce_segments(
         vals, val_valids, row_mask, ops, seg, out_cap + 1,
         torch.cat([live_group, torch.zeros(1, dtype=torch.bool,
-                                           device=dev)]), _float_acc(vals))
+                                           device=dev)]), float_acc)
     return out_keys, out_kvalids, tuple(x[:out_cap] for x in out_vals), \
         tuple(x[:out_cap] for x in out_valids), group_count
 
@@ -378,7 +412,7 @@ def grouped_agg_dense_impl(keys, key_valids, vals, val_valids, row_mask,
     group_count = occupied.sum()
     # compact occupied slots to the front, ascending slot order (slot K,
     # the empty dead-row slot, pads the block)
-    slot_of = torch.sort((~occupied).to(torch.int8), stable=True).indices
+    slot_of = compaction_perm(occupied)
     slot_of = torch.cat([slot_of, torch.full(
         (out_cap - K,), K, dtype=torch.int64, device=dev)])
     j = torch.arange(out_cap, dtype=torch.int64, device=dev)

@@ -1,23 +1,49 @@
-"""Device-tier bookkeeping shared by the fused fragments: dispatch
-counters, the per-batch scalar preparation, and the helpers that route
-string dictionaries from the encoded inputs to the decoded outputs.
+"""Device dispatch: the dispatch counters, the per-batch scalar
+preparation shared with the fused fragments, and the per-operator device
+paths — projection, predicate, argsort and aggregation outside a fused
+fragment — that ``RecordBatch`` and ``aggs.agg_recordbatch`` try before
+their Arrow host tier.
 
-The port keeps the agg half of ``daft_tpu/device/runtime.py`` and the
-join counters. Its per-operator device paths (projection, predicate,
-argsort, agg outside a fragment) and their cost gates come with later
-slices.
+The torch rewrite of ``daft_tpu/device/runtime.py``. Each ``try_*``
+returns None (the caller runs the host tier) in the cases where the
+reference declines: no device (``backend.resolve_device()`` is None), a
+projection that does not compile, an output that cannot be decoded, a
+Python-object column, an aggregation outside :data:`_DEVICE_AGGS`. The
+reference's link-priced gates (``costmodel.row_output_op_wins``,
+``argsort_wins``, ``agg_upload_wins``, ``groupby_strategy``) wait for the
+port's cost model; in their place one row floor applies,
+``DAFT_TORCH_DEVICE_MIN_ROWS`` (read at call time): a batch of fewer rows
+(and never fewer than one; two for an argsort) runs on the host and counts
+``host_ops``. Nothing else is caught: an error in a device path
+propagates.
+
+The device-resident hand-off of decoded columns (the reference's
+``allow_resident``) waits for the residency registry; every decoded column
+goes to the host.
 """
 
 from __future__ import annotations
 
 import threading
-from typing import Dict, Optional
+from typing import Dict, List, Optional, Tuple
 
+import numpy as np
 import pyarrow as pa
 import torch
 
+from .. import knobs
 from ..expressions.expressions import Expression
+from ..schema import Schema
+from ..series import Series
 from . import column as dcol
+from .backend import resolve_device
+
+#: what type inference raises for an expression it cannot type: the
+#: operator then runs on the host, where the same error surfaces
+_TYPE_ERRORS = (ValueError, TypeError, KeyError, NotImplementedError)
+
+_DEVICE_AGGS = {"sum", "mean", "min", "max", "count", "stddev", "var",
+                "any_value", "bool_and", "bool_or"}
 
 _counters_lock = threading.Lock()
 _counters: Dict[str, int] = {}
@@ -28,7 +54,12 @@ def count(name: str, n: int = 1) -> None:
     ``global`` per fused dispatch by strategy, ``host_morsels`` per morsel
     a DeviceFragmentAgg ran on the host; ``join_hash`` / ``join_sort`` per
     device join dispatch by strategy (an overflow re-dispatch counts
-    again), ``host_joins`` per equi-join index generation on the host."""
+    again), ``host_joins`` per equi-join index generation on the host;
+    ``projection`` / ``predicate`` / ``argsort`` and ``agg_hash`` /
+    ``agg_sort`` / ``agg_global`` per per-operator device dispatch,
+    ``host_ops`` per per-operator call the row floor sent to the host, and
+    ``op_bytes_up`` for the bytes those dispatches encoded onto the
+    device."""
     with _counters_lock:
         _counters[name] = _counters.get(name, 0) + n
 
@@ -42,6 +73,77 @@ def reset_counters() -> None:
     with _counters_lock:
         _counters.clear()
 
+
+def _over_floor(n_rows: int, least: int = 1) -> bool:
+    """True when a batch of ``n_rows`` goes to the device (at least
+    ``DAFT_TORCH_DEVICE_MIN_ROWS`` and ``least`` rows); else counts
+    ``host_ops``."""
+    if n_rows >= max(knobs.env_int("DAFT_TORCH_DEVICE_MIN_ROWS"), least):
+        return True
+    count("host_ops")
+    return False
+
+
+# ------------------------------------------------- projection compile cache
+
+_projection_cache: Dict[Tuple, object] = {}
+# single-flight: concurrent identical compiles (the executor's pool
+# threads run one projection over many morsels at once) produce ONE
+# compile, the others wait on the winner
+_compile_lock = threading.Lock()
+_compile_inflight: Dict[Tuple, threading.Event] = {}
+_compile_counters: Dict[str, int] = {"hits": 0, "misses": 0, "compiles": 0,
+                                     "waits": 0}
+
+
+def compile_cache_counters() -> Dict[str, int]:
+    """Process-wide projection-compile cache counters."""
+    with _compile_lock:
+        out = dict(_compile_counters)
+        out["entries"] = len(_projection_cache)
+    return out
+
+
+def _schema_key(schema: Schema) -> Tuple:
+    return tuple((f.name, hash(f.dtype)) for f in schema)
+
+
+def _get_compiled(exprs: List[Expression], schema: Schema):
+    """The compiled program of ``exprs`` over ``schema``, or None when it
+    does not compile (failures are not cached)."""
+    from . import compiler
+    key = (tuple(e._key() for e in exprs), _schema_key(schema))
+    while True:
+        with _compile_lock:
+            hit = _projection_cache.get(key)
+            if hit is not None:
+                _compile_counters["hits"] += 1
+                return hit
+            ev = _compile_inflight.get(key)
+            if ev is None:
+                _compile_inflight[key] = threading.Event()
+                _compile_counters["misses"] += 1
+                break
+            _compile_counters["waits"] += 1
+        ev.wait()
+    try:
+        try:
+            c = compiler.compile_projection(exprs, schema)
+        except (compiler.NotCompilable, NotImplementedError, ValueError,
+                TypeError, KeyError, OverflowError):
+            return None
+        with _compile_lock:
+            _projection_cache[key] = c
+            _compile_counters["compiles"] += 1
+        return c
+    finally:
+        with _compile_lock:
+            ev2 = _compile_inflight.pop(key, None)
+        if ev2 is not None:
+            ev2.set()
+
+
+# ------------------------------------------------------------ shared helpers
 
 def _string_out_source(e: Expression) -> Optional[str]:
     """If expr output is a passthrough of a column, its source name."""
@@ -63,8 +165,239 @@ def _prep_scalars(c, dt: dcol.DeviceTable):
 
 def key_dictionary(e: Expression, field, dt: dcol.DeviceTable
                    ) -> Optional[pa.Array]:
-    """The dictionary a string group key decodes through: its source
+    """The dictionary a string output decodes through: its source
     column's."""
     if field.dtype.is_string() or field.dtype.is_binary():
         return dt.columns[_string_out_source(e)].dictionary
     return None
+
+
+def _decodable(e: Expression, field) -> bool:
+    """An output decodes when it has a device plane; a string one only as
+    a passthrough of a column (its dictionary)."""
+    if field.dtype.is_string() or field.dtype.is_binary():
+        return _string_out_source(e) is not None
+    return field.dtype.device_repr() is not None
+
+
+def _has_pyobject(batch, names) -> bool:
+    return any(batch.get_column(n).is_pyobject() for n in names)
+
+
+def encode_for(c, batch, device: torch.device):
+    """Encode a batch's needed columns for a compiled program → (table,
+    arrays, valids, scalars)."""
+    dt = dcol.encode_batch(batch, c.needs_cols, device)
+    count("op_bytes_up", dcol.encoded_nbytes(batch, c.needs_cols))
+    arrays = {n: col.data for n, col in dt.columns.items()}
+    valids = {n: col.validity for n, col in dt.columns.items()}
+    return dt, arrays, valids, _prep_scalars(c, dt)
+
+
+def _run_compiled(c, batch, device: torch.device):
+    """Encode the inputs and run the program → (table, per-expr
+    ``(values, validity)`` outputs)."""
+    dt, arrays, valids, scalars = encode_for(c, batch, device)
+    return dt, c.fn(arrays, valids, dt.row_mask, scalars)
+
+
+# ----------------------------------------------------- per-operator paths
+
+def try_eval_projection(batch, exprs: List[Expression]):
+    """A whole projection on the device → RecordBatch, or None (host)."""
+    from ..recordbatch import RecordBatch
+    device = resolve_device()
+    if device is None:
+        return None
+    schema = batch.schema
+    try:
+        out_fields = [e.to_field(schema) for e in exprs]
+    except _TYPE_ERRORS:
+        return None
+    if not all(_decodable(e, f) for e, f in zip(exprs, out_fields)):
+        return None
+    c = _get_compiled(exprs, schema)
+    if c is None or _has_pyobject(batch, c.needs_cols) \
+            or not _over_floor(len(batch)):
+        return None
+    dt, outs = _run_compiled(c, batch, device)
+    count("projection")
+    named = [(f.name, dcol.DeviceColumn(v, m, f.dtype,
+                                        key_dictionary(e, f, dt)))
+             for e, f, (v, m) in zip(exprs, out_fields, outs)]
+    # one device→host copy for every output plane
+    return RecordBatch.from_series(dcol.decode_columns(named, len(batch)))
+
+
+def try_eval_predicate(batch, predicate: Expression) -> Optional[np.ndarray]:
+    """A predicate on the device → host boolean mask, or None (host)."""
+    device = resolve_device()
+    if device is None:
+        return None
+    c = _get_compiled([predicate], batch.schema)
+    if c is None or _has_pyobject(batch, c.needs_cols) \
+            or not _over_floor(len(batch)):
+        return None
+    _, outs = _run_compiled(c, batch, device)
+    count("predicate")
+    val, valid = outs[0]
+    mask = (val.to(torch.bool) & valid)[:len(batch)]
+    return dcol.fetch_host([mask])[0].astype(bool)
+
+
+def try_argsort(key_series: List[Series], descending: List[bool],
+                nulls_first: List[bool]) -> Optional[np.ndarray]:
+    """A multi-key sort permutation on the device, or None (host)."""
+    from . import kernels
+    if not key_series:
+        return None
+    device = resolve_device()
+    n = len(key_series[0])
+    if device is None or n < 2:
+        return None
+    for s in key_series:
+        if s.is_pyobject():
+            return None
+        dt = s.datatype()
+        if not (dt.is_device_representable() or dt.is_string()):
+            return None
+    if not _over_floor(n, 2):
+        return None
+    cap = dcol.bucket_capacity(n)
+    try:
+        cols = [dcol.encode_series(s, cap, device) for s in key_series]
+    except (ValueError, pa.ArrowInvalid):
+        return None
+    count("op_bytes_up", sum(c.data.nbytes + c.validity.nbytes
+                             for c in cols))
+    mask = torch.arange(cap, device=device) < n
+    perm = kernels.argsort_kernel(
+        tuple(c.data for c in cols), tuple(c.validity for c in cols), mask,
+        tuple(bool(d) for d in descending),
+        tuple(bool(x) for x in nulls_first))
+    count("argsort")
+    return dcol.fetch_host([perm[:n]])[0].astype(np.int64)
+
+
+def forced_groupby() -> str:
+    """``DAFT_TORCH_KERNEL_GROUPBY``: ``auto``, or a forced ``dense`` /
+    ``hash`` / ``sort``."""
+    forced = knobs.env_str("DAFT_TORCH_KERNEL_GROUPBY").lower()
+    if forced not in ("auto", "dense", "hash", "sort"):
+        raise ValueError(f"DAFT_TORCH_KERNEL_GROUPBY={forced!r}")
+    return forced
+
+
+def agg_strategy(key_dtypes, out_cap: int) -> str:
+    """``hash`` or ``sort`` for a group-by of ``out_cap`` groups (a fused
+    fragment's rung, or a per-operator dispatch's whole capacity): sort
+    when ``DAFT_TORCH_KERNEL_GROUPBY=sort``, when the keys pack wider than
+    ``DAFT_TORCH_KERNEL_HASH_MAX_BITS``, or (unless hash is forced) when
+    the hash table would pass ``DAFT_TORCH_KERNEL_MAX_TABLE`` slots; else
+    hash. ``dense`` is the fragments' own first choice: forcing it leaves
+    this one to the rule."""
+    from . import hash_kernels as hk
+    forced = forced_groupby()
+    if forced == "sort" or hk.hash_pack_words(key_dtypes) is None:
+        return "sort"
+    if forced == "hash" or hk.table_capacity(out_cap) \
+            <= hk.max_table_slots():
+        return "hash"
+    return "sort"
+
+
+def try_agg(batch, to_agg: List[Expression], group_by: List[Expression]):
+    """Grouped or global aggregation on the device → RecordBatch, or None
+    (host). Keyless: ``kernels.global_agg_impl``. Grouped: the hash table
+    (``hash_kernels.hash_grouped_agg_impl``) or the sort strategy's
+    scatter form (``kernels.grouped_agg_impl``) by :func:`agg_strategy`,
+    either at a group budget of the whole capacity, so it never
+    overflows."""
+    from ..aggs import split_agg_expr
+    from ..recordbatch import RecordBatch
+    from . import hash_kernels, kernels
+    device = resolve_device()
+    if device is None:
+        return None
+    schema = batch.schema
+    try:
+        specs = [split_agg_expr(e) for e in to_agg]
+    except ValueError:
+        return None
+    for op, child, name, params in specs:
+        if op not in _DEVICE_AGGS:
+            return None
+        if op == "count" and params and params[0] != "valid":
+            return None
+    try:
+        out_fields = [e.to_field(schema) for e in to_agg]
+        key_fields = [e.to_field(schema) for e in group_by]
+    except _TYPE_ERRORS:
+        return None
+    if not all(_decodable(e, f) for e, f in zip(group_by, key_fields)):
+        return None
+    for (op, child, _, _), f in zip(specs, out_fields):
+        if f.dtype.is_string() or f.dtype.is_binary():
+            if child is None or _string_out_source(child) is None:
+                return None
+        elif f.dtype.device_repr() is None:
+            return None
+    # keys and agg children compile as one projection
+    child_exprs = [(child if child is not None else Expression._lit(True))
+                   .alias(f"__in{i}__")
+                   for i, (_, child, _, _) in enumerate(specs)]
+    proj = list(group_by) + child_exprs
+    c = _get_compiled(proj, schema)
+    if c is None or _has_pyobject(batch, c.needs_cols) \
+            or not _over_floor(len(batch)):
+        return None
+    dt, outs = _run_compiled(c, batch, device)
+    nk = len(group_by)
+    ops = tuple(s[0] for s in specs)
+    keys = tuple(v for v, _ in outs[:nk])
+    kvalids = tuple(m for _, m in outs[:nk])
+    vals = tuple(v for v, _ in outs[nk:])
+    vvalids = tuple(m for _, m in outs[nk:])
+    if nk == 0:
+        results = kernels.global_agg_impl(vals, vvalids, dt.row_mask, ops)
+        count("agg_global")
+        # one device→host copy for every scalar
+        host = dcol.fetch_host([x.reshape(1) for r in results for x in r])
+        return RecordBatch.from_series([
+            _decode_scalar(name, f.dtype, host[2 * i], host[2 * i + 1])
+            for i, ((_, _, name, _), f) in enumerate(zip(specs,
+                                                         out_fields))])
+    strategy = agg_strategy([k.dtype for k in keys], dt.capacity)
+    if strategy == "hash":
+        out = hash_kernels.hash_grouped_agg_impl(
+            keys, kvalids, vals, vvalids, dt.row_mask, ops,
+            out_cap=dt.capacity)
+    else:
+        out = kernels.grouped_agg_impl(keys, kvalids, vals, vvalids,
+                                       dt.row_mask, ops)
+    count("agg_" + strategy)
+    ok, okv, ov, ovv, g_t = out
+    planes = [g_t.reshape(1)] + [x for pair in zip(ok, okv)
+                                 for x in pair] \
+        + [x for pair in zip(ov, ovv) for x in pair]
+    host = dcol.fetch_host(planes)
+    g = int(host[0][0])
+    cols = []
+    for i, (e, f) in enumerate(zip(group_by, key_fields)):
+        cols.append(dcol.decode_np(f.name, f.dtype, host[1 + 2 * i][:g],
+                                   host[2 + 2 * i][:g],
+                                   key_dictionary(e, f, dt)))
+    base = 1 + 2 * nk
+    for i, ((_, child, name, _), f) in enumerate(zip(specs, out_fields)):
+        # a string min/max/any_value decodes through its child's dictionary
+        cols.append(dcol.decode_np(name, f.dtype, host[base + 2 * i][:g],
+                                   host[base + 2 * i + 1][:g],
+                                   key_dictionary(child, f, dt)))
+    return RecordBatch.from_series(cols)
+
+
+def _decode_scalar(name: str, dtype, v: np.ndarray, m: np.ndarray
+                   ) -> Series:
+    """One already-fetched global-agg result → a one-row Series."""
+    return dcol.decode_np(name, dtype, v.reshape(1),
+                          m.reshape(1).astype(np.bool_))

@@ -8,7 +8,8 @@ device fragment (``_exec_DeviceFragmentAgg``) takes one source-file batch
 per dispatch. A hash join gathers both sides and joins once; a broadcast
 join gathers one side and joins it against each morsel of the other
 (``_exec_HashJoin``; the index generation goes to the device per
-``joins.py``). A device error propagates; only a morsel whose expressions
+``joins.py``); a cross join gathers its right side and pairs it with each
+morsel of the left, and a distinct gathers its input. A device error propagates; only a morsel whose expressions
 do not compile for the device runs the host chain, and it is counted.
 """
 
@@ -103,15 +104,54 @@ class LocalExecutor:
     def __init__(self, device=None):
         self.cfg = get_context().execution_config
         self.device = device
+        self._shared: dict = {}
+        self._shared_lock = threading.Lock()
 
     def run(self, plan: pp.PhysicalPlan) -> Iterator[MicroPartition]:
         return self._exec(plan)
 
     def _exec(self, node: pp.PhysicalPlan) -> Iterator[MicroPartition]:
+        if getattr(node, "shared_consumers", 1) > 1:
+            return self._shared_stream(node)
         h = getattr(self, "_exec_" + type(node).__name__, None)
         if h is None:
             raise NotImplementedError(f"executor for {type(node).__name__}")
         return h(node)
+
+    def _shared_stream(self, node) -> Iterator[MicroPartition]:
+        """A subplan with several consumers (``translate``) runs ONCE into
+        a list of partitions that every consumer then streams; the last
+        consumer to finish drops it."""
+        with self._shared_lock:
+            ent = self._shared.get(id(node))
+            build = ent is None
+            if build:
+                ent = self._shared[id(node)] = {
+                    "done": threading.Event(), "parts": None, "err": None,
+                    "remaining": node.shared_consumers}
+        if build:
+            try:
+                h = getattr(self, "_exec_" + type(node).__name__)
+                ent["parts"] = list(h(node))
+            except BaseException as exc:
+                ent["err"] = exc
+                raise
+            finally:
+                ent["done"].set()
+        else:
+            ent["done"].wait()
+            if ent["err"] is not None:
+                raise ent["err"]
+
+        def serve():
+            try:
+                yield from ent["parts"]
+            finally:
+                with self._shared_lock:
+                    ent["remaining"] -= 1
+                    if ent["remaining"] <= 0:
+                        self._shared.pop(id(node), None)
+        return serve()
 
     # sources ----------------------------------------------------------
     def _morselize(self, stream: Iterator) -> Iterator:
@@ -258,6 +298,24 @@ class LocalExecutor:
         lall = _gather_all_or_empty(self._exec(lnode), lnode.schema())
         rall = _gather_all_or_empty(self._exec(rnode), rnode.schema())
         yield lall.hash_join(rall, node.left_on, node.right_on, how)
+
+    def _exec_CrossJoin(self, node: pp.CrossJoin):
+        lnode, rnode = node.children
+        rb = _gather_all_or_empty(self._exec(rnode), rnode.schema()) \
+            .combined()
+        # right names that collide with left ones take the join's prefix
+        names = node.schema().column_names[len(lnode.schema()):]
+        right = MicroPartition(node.schema().project(names), batches=[
+            RecordBatch(node.schema().project(names),
+                        [c.rename(n) for c, n in zip(rb.columns(), names)],
+                        len(rb))])
+        yield from _ordered_parallel(self._exec(lnode),
+                                     lambda p: p.cross_join(right))
+
+    def _exec_Dedup(self, node: pp.Dedup):
+        # single node: the whole input meets in one place
+        yield _gather_all_or_empty(self._exec(node.children[0]),
+                                   node.schema()).distinct(node.on)
 
     # sorts ------------------------------------------------------------
     def _exec_Sort(self, node: pp.Sort):

@@ -270,6 +270,10 @@ class Expression:
     def float(self) -> "ExpressionFloatNamespace":
         return ExpressionFloatNamespace(self)
 
+    @property
+    def str(self) -> "ExpressionStringNamespace":
+        return ExpressionStringNamespace(self)
+
     # -- schema ------------------------------------------------------------
     def to_field(self, schema: Schema) -> Field:
         from .typing import infer_field
@@ -325,6 +329,17 @@ class ExpressionDatetimeNamespace(_Ns):
     def strftime(self, format: Optional[str] = None):
         return self._f("dt.strftime", (), (format,))
     def total_seconds(self): return self._f("dt.total_seconds")
+
+
+class ExpressionStringNamespace(_Ns):
+    """The utf8 functions TPC-H reaches (reference surface:
+    ``src/daft-functions-utf8``); the rest come with later slices."""
+
+    def contains(self, pattern): return self._f("str.contains", (pattern,))
+    def startswith(self, prefix): return self._f("str.startswith", (prefix,))
+    def endswith(self, suffix): return self._f("str.endswith", (suffix,))
+    def left(self, n): return self._f("str.left", (n,))
+    def match(self, pattern): return self._f("str.match", (pattern,))
 
 
 class ExpressionFloatNamespace(_Ns):

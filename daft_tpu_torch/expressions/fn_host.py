@@ -1,9 +1,10 @@
-"""Host implementations of the namespaced scalar functions the device
-compiler also lowers (``dt.*``, ``float.*``), over Arrow C++ compute.
+"""Host implementations of the namespaced scalar functions (``dt.*``,
+``float.*`` and the ``str.*`` functions TPC-H reaches), over Arrow C++
+compute.
 
-Capability mirror of the reference's ``src/daft-functions-temporal`` and
-float functions; the other function families come with the slices that
-need them.
+Capability mirror of the reference's ``src/daft-functions-temporal``,
+float and utf8 functions; the other function families come with the
+slices that need them.
 """
 
 from __future__ import annotations
@@ -23,6 +24,8 @@ def eval_function(op: str, e, kids: List[Series], b, out_field: Field) -> Series
     s = kids[0]
     name = s.name()
 
+    if ns == "str":
+        return _str_fn(fn, kids)
     if ns == "dt":
         return _dt_fn(fn, e, kids, b, out_field)
     if ns == "float":
@@ -39,6 +42,27 @@ def eval_function(op: str, e, kids: List[Series], b, out_field: Field) -> Series
             return Series.from_arrow(
                 pc.if_else(mask, fill.to_arrow(), arr), name)
     raise NotImplementedError(f"host function {op}")
+
+
+def _str_fn(fn, kids) -> Series:
+    """``str.contains`` / ``startswith`` / ``endswith`` / ``match`` (a
+    regular expression) / ``left``; the second argument is a literal."""
+    s = kids[0]
+    arr = s.to_arrow().cast(pa.large_string())
+    arg = kids[1].to_pylist()[0]
+    if fn == "contains":
+        out = pc.match_substring(arr, arg)
+    elif fn == "startswith":
+        out = pc.starts_with(arr, arg)
+    elif fn == "endswith":
+        out = pc.ends_with(arr, arg)
+    elif fn == "match":
+        out = pc.match_substring_regex(arr, arg)
+    elif fn == "left":
+        out = pc.utf8_slice_codeunits(arr, 0, arg)
+    else:
+        raise NotImplementedError(f"str.{fn}")
+    return Series.from_arrow(out, s.name())
 
 
 def _dt_fn(fn, e, kids, b, out_field) -> Series:

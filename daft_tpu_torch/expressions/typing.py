@@ -244,6 +244,12 @@ def _function_field(op: str, e, child_fields, schema: Schema) -> Field:
     ns, fn = op.split(".", 1)
     f = child_fields[0]
     name = f.name
+    if ns == "str":
+        if fn in ("contains", "startswith", "endswith", "match"):
+            return Field(name, DataType.bool())
+        if fn == "left":
+            return Field(name, DataType.string())
+        raise NotImplementedError(f"str.{fn}")
     if ns == "dt":
         if fn in ("day", "hour", "minute", "second", "month", "quarter",
                   "day_of_week", "day_of_year", "week_of_year", "millisecond",

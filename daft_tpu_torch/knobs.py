@@ -13,6 +13,10 @@ REGISTRY = {
     "DAFT_TORCH_DEVICE": (
         "cuda", "`cuda` (default), `cpu`, or `0` for the host tier only; "
         "an explicit `ExecutionConfig.device` wins"),
+    "DAFT_TORCH_DEVICE_MIN_ROWS": (
+        4096, "row floor of the per-operator device paths (projection, "
+        "predicate, argsort, agg outside a fused fragment): a smaller "
+        "batch runs on the host tier and counts `host_ops`"),
     "DAFT_TORCH_KERNEL_GROUPBY": (
         "auto", "grouped-agg strategy: `auto` (dense, else hash, else "
         "sort), or force `dense`/`hash`/`sort`"),

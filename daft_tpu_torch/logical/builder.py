@@ -111,10 +111,17 @@ class LogicalPlanBuilder:
             node = lp.Project(node, gb_cols + final_exprs)
         return self._wrap(node)
 
+    def distinct(self, on: Optional[Sequence] = None) -> "LogicalPlanBuilder":
+        return self._wrap(lp.Distinct(self._plan,
+                                      _to_exprs(on) if on else None))
+
     def join(self, right: "LogicalPlanBuilder", left_on, right_on,
              how: str = "inner", strategy: Optional[str] = None,
              prefix: Optional[str] = None,
              suffix: Optional[str] = None) -> "LogicalPlanBuilder":
+        if how == "cross":
+            return self._wrap(lp.Join(self._plan, right._plan, [], [],
+                                      "cross", strategy, prefix, suffix))
         return self._wrap(lp.Join(self._plan, right._plan,
                                   _to_exprs(left_on), _to_exprs(right_on),
                                   how, strategy, prefix, suffix))

@@ -75,6 +75,12 @@ def split_conjuncts(e: Expression) -> List[Expression]:
     return [e]
 
 
+def _split_disjuncts(e: Expression) -> List[Expression]:
+    if e.op == "or":
+        return _split_disjuncts(e.args[0]) + _split_disjuncts(e.args[1])
+    return [e]
+
+
 def combine_conjuncts(es: List[Expression]) -> Expression:
     out = es[0]
     for e in es[1:]:

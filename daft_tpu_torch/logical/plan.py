@@ -2,9 +2,9 @@
 
 Reference: ``src/daft-logical-plan/src/logical_plan.rs:25`` — the LogicalPlan
 enum — and ``partitioning.rs`` (ClusteringSpec). The port carries the nodes
-of the grouped-aggregation and equi-join slices: Source/Project/Filter/
-Limit/Sort/TopN/Aggregate/Join. Windows, pivots and the rest come with
-later slices.
+of the grouped-aggregation, join and TPC-H slices: Source/Project/Filter/
+Limit/Sort/TopN/Distinct/Aggregate/Join (equi and cross). Windows, pivots
+and the rest come with later slices.
 """
 
 from __future__ import annotations
@@ -253,6 +253,24 @@ class TopN(LogicalPlan):
                 tuple(self.nulls_first), self.limit)
 
 
+class Distinct(LogicalPlan):
+    """Rows unique over ``on`` (every column when None), each the first
+    of its duplicates."""
+
+    def __init__(self, child, on: Optional[List[Expression]] = None):
+        super().__init__([child])
+        self.on = on
+
+    def _compute_schema(self) -> Schema:
+        return self._children[0].schema()
+
+    def with_children(self, children):
+        return Distinct(children[0], self.on)
+
+    def _params(self):
+        return tuple(e._key() for e in (self.on or []))
+
+
 class Aggregate(LogicalPlan):
     def __init__(self, child, aggs: List[Expression],
                  group_by: List[Expression]):
@@ -279,8 +297,8 @@ class Aggregate(LogicalPlan):
 
 
 class Join(LogicalPlan):
-    """Equi-join; ``how`` ∈ inner/left/right/outer/semi/anti. Semi and anti
-    keep the left schema; otherwise the left columns, then the right ones,
+    """Equi-join, ``how`` ∈ inner/left/right/outer/semi/anti, or a
+    ``cross`` join (no keys). Semi and anti keep the left schema; otherwise the left columns, then the right ones,
     where a right key named like its left key is dropped and any other
     right name that collides with a left name takes the prefix (default
     ``right.``) and suffix."""

@@ -139,6 +139,10 @@ class MicroPartition:
             self.combined().hash_join(right.combined(), left_on, right_on,
                                       how))
 
+    def cross_join(self, right: "MicroPartition") -> "MicroPartition":
+        return MicroPartition.from_recordbatch(
+            self.combined().cross_join(right.combined()))
+
     def distinct(self, on=None) -> "MicroPartition":
         return MicroPartition.from_recordbatch(self.combined().distinct(on))
 

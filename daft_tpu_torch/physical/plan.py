@@ -78,6 +78,14 @@ class DeviceFragmentAgg(PhysicalPlan):
         self.mode = mode
 
 
+class Dedup(PhysicalPlan):
+    """Rows unique over ``on``: single node, so over the gathered input."""
+
+    def __init__(self, child, on: List[Expression]):
+        super().__init__([child], child.schema())
+        self.on = on
+
+
 class Sort(PhysicalPlan):
     def __init__(self, child, sort_by, descending, nulls_first):
         super().__init__([child], child.schema())
@@ -107,3 +115,11 @@ class HashJoin(PhysicalPlan):
         self.right_on = right_on
         self.how = how
         self.strategy = strategy
+
+
+class CrossJoin(PhysicalPlan):
+    """Every left row with every right row: the right side is gathered
+    once and paired with each morsel of the left."""
+
+    def __init__(self, left, right, schema):
+        super().__init__([left, right], schema)

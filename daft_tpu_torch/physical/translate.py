@@ -11,6 +11,7 @@ sides, so no exchange is inserted.
 
 from __future__ import annotations
 
+import threading
 from typing import List, Optional
 
 from ..aggs import AGG_DECOMPOSITION as _DECOMPOSABLE
@@ -21,7 +22,40 @@ from ..schema import Schema
 from . import plan as pp
 
 
-def translate(node: lp.LogicalPlan) -> pp.PhysicalPlan:
+_tl = threading.local()
+
+
+def translate(plan: lp.LogicalPlan) -> pp.PhysicalPlan:
+    """Logical → physical, deduplicating shared subplans (reference:
+    ``daft_tpu/physical/translate.py:translate``): logically equal
+    subtrees (by ``semantic_id``) map to one physical node whose
+    ``shared_consumers`` counts its parents, and the executor runs it once
+    for all of them. A query that reads one DataFrame twice (TPC-H Q15's
+    ``revenue``, compared with its own maximum) so sees one answer for
+    it, whatever order the device's atomics summed in."""
+    fresh = not getattr(_tl, "active", False)
+    if fresh:
+        _tl.active = True
+        _tl.memo = {}
+    try:
+        return _t(plan)
+    finally:
+        if fresh:
+            _tl.active = False
+            _tl.memo = {}
+
+
+def _t(node: lp.LogicalPlan) -> pp.PhysicalPlan:
+    key = node.semantic_id()
+    hit = _tl.memo.get(key)
+    if hit is not None:
+        hit.shared_consumers = getattr(hit, "shared_consumers", 1) + 1
+        return hit
+    out = _tl.memo[key] = _t_node(node)
+    return out
+
+
+def _t_node(node: lp.LogicalPlan) -> pp.PhysicalPlan:
     if isinstance(node, lp.Source):
         if node.partitions is not None:
             return pp.InMemorySource(node.partitions, node.schema())
@@ -30,18 +64,21 @@ def translate(node: lp.LogicalPlan) -> pp.PhysicalPlan:
             tasks = node.scan_op.to_scan_tasks(node.pushdowns)
         return pp.ScanSource(tasks, node.schema())
     if isinstance(node, lp.Project):
-        return pp.Project(translate(node.children[0]), node.exprs,
+        return pp.Project(_t(node.children[0]), node.exprs,
                           node.schema())
     if isinstance(node, lp.Filter):
-        return pp.Filter(translate(node.children[0]), node.predicate)
+        return pp.Filter(_t(node.children[0]), node.predicate)
     if isinstance(node, lp.Limit):
-        return pp.Limit(translate(node.children[0]), node.limit, node.offset)
+        return pp.Limit(_t(node.children[0]), node.limit, node.offset)
     if isinstance(node, lp.Sort):
-        return pp.Sort(translate(node.children[0]), node.sort_by,
+        return pp.Sort(_t(node.children[0]), node.sort_by,
                        node.descending, node.nulls_first)
     if isinstance(node, lp.TopN):
-        return pp.TopN(translate(node.children[0]), node.sort_by,
+        return pp.TopN(_t(node.children[0]), node.sort_by,
                        node.descending, node.nulls_first, node.limit)
+    if isinstance(node, lp.Distinct):
+        on = node.on or [col(n) for n in node.schema().column_names]
+        return pp.Dedup(_t(node.children[0]), on)
     if isinstance(node, lp.Aggregate):
         return _translate_agg(node)
     if isinstance(node, lp.Join):
@@ -68,6 +105,11 @@ def _estimate_size(node: lp.LogicalPlan) -> Optional[int]:
     if isinstance(node, lp.Aggregate):
         base = _estimate_size(node.children[0])
         return None if base is None else max(int(base * 0.05), 1024)
+    if isinstance(node, lp.Distinct):
+        # DISTINCT on key columns often barely reduces (TPC-H Q21's
+        # (orderkey, suppkey) pairs), so it is priced at half its input
+        base = _estimate_size(node.children[0])
+        return None if base is None else max(int(base * 0.5), 1024)
     if node.children:
         sizes = [_estimate_size(c) for c in node.children]
         return None if any(s is None for s in sizes) else sum(sizes)
@@ -77,10 +119,13 @@ def _estimate_size(node: lp.LogicalPlan) -> Optional[int]:
 def _translate_join(node: lp.Join) -> pp.PhysicalPlan:
     """Broadcast a side estimated at most
     ``broadcast_join_size_bytes_threshold`` bytes (the right one first,
-    where the join type allows), else gather both sides."""
+    where the join type allows), else gather both sides. A cross join
+    gathers its right side (``CrossJoin``)."""
     from ..context import get_context
     left, right = node.children
-    pl, pr = translate(left), translate(right)
+    pl, pr = _t(left), _t(right)
+    if node.how == "cross":
+        return pp.CrossJoin(pl, pr, node.schema())
     strategy = node.strategy
     if strategy is None:
         lsize, rsize = _estimate_size(left), _estimate_size(right)
@@ -100,7 +145,7 @@ def _translate_join(node: lp.Join) -> pp.PhysicalPlan:
     if strategy not in ("hash", "broadcast_right", "broadcast_left"):
         raise NotImplementedError(
             f"join strategy {strategy!r} is not ported yet (ROADMAP A2: "
-            "cross and sort-merge join)")
+            "sort-merge join)")
     # a broadcast side is joined once per morsel of the other, so it must
     # be a side whose unmatched rows the join drops
     if (strategy == "broadcast_right" and node.how in ("right", "outer")) \
@@ -115,7 +160,7 @@ def _translate_join(node: lp.Join) -> pp.PhysicalPlan:
 def _translate_agg(node: lp.Aggregate) -> pp.PhysicalPlan:
     from ..aggs import split_agg_expr
     child = node.children[0]
-    pchild = translate(child)
+    pchild = _t(child)
     specs = [split_agg_expr(e) for e in node.aggs]
     if not all(op in _DECOMPOSABLE for op, _, _, _ in specs):
         return pp.Aggregate(pchild, node.aggs, node.group_by, node.schema(),

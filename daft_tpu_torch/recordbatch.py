@@ -6,10 +6,12 @@ sort, partition, explode, pivot/unpivot). Two execution tiers:
 
 - host tier here, over Arrow C++ compute (``pa.TableGroupBy``,
   ``pc.sort_indices`` — all native C++);
-- the torch device tier in ``daft_tpu_torch.device``, which the executor
-  calls for fused filter→project→aggregate fragments, and which
-  :meth:`RecordBatch.hash_join` calls for a join's index generation
-  (``joins.py``); every other method here runs on the host.
+- the torch device tier in ``daft_tpu_torch.device``: the executor's
+  fused filter→project→aggregate fragments, a join's index generation
+  (:meth:`RecordBatch.hash_join`, ``joins.py``), and the per-operator
+  paths that :meth:`eval_expression_list`, :meth:`filter`,
+  :meth:`argsort` and :meth:`agg` try first (``device/runtime.py``;
+  None from them means the host tier runs).
 """
 
 from __future__ import annotations
@@ -132,7 +134,13 @@ class RecordBatch:
         return {c.name(): c for c in self._columns}
 
     def eval_expression_list(self, exprs: Sequence[Expression]) -> "RecordBatch":
-        """Evaluate a projection with Arrow host compute."""
+        """Evaluate a projection: on the device when the whole projection
+        compiles for it (``device/runtime.try_eval_projection``), else
+        with Arrow host compute."""
+        from .device import runtime as device_runtime
+        out = device_runtime.try_eval_projection(self, list(exprs))
+        if out is not None:
+            return out
         cols = self._cols_dict()
         return RecordBatch.from_series(
             [eval_expression(e, cols, self._len) for e in exprs])
@@ -143,7 +151,12 @@ class RecordBatch:
     # ---- row selection ---------------------------------------------------
     def filter(self, predicate: Union[Expression, Series]) -> "RecordBatch":
         if isinstance(predicate, Expression):
-            mask = self.eval_expression(predicate)
+            from .device import runtime as device_runtime
+            m_np = device_runtime.try_eval_predicate(self, predicate)
+            if m_np is not None:
+                mask = Series.from_arrow(pa.array(m_np), "mask")
+            else:
+                mask = self.eval_expression(predicate)
         else:
             mask = predicate
         m = pc.fill_null(mask.to_arrow().cast(pa.bool_()), False)
@@ -198,6 +211,10 @@ class RecordBatch:
         ks = [self.eval_expression(e) for e in sort_keys]
         descending = descending or [False] * len(ks)
         nulls_first = nulls_first or list(descending)
+        from .device import runtime as device_runtime
+        idx = device_runtime.try_argsort(ks, descending, nulls_first)
+        if idx is not None:
+            return idx
         # emulate per-key null placement with an explicit null-rank plane per key
         cols, keys = {}, []
         for i, (k, d, nf) in enumerate(zip(ks, descending, nulls_first)):
@@ -226,10 +243,9 @@ class RecordBatch:
     # ---- aggregation -----------------------------------------------------
     def agg(self, to_agg: Sequence[Expression],
             group_by: Sequence[Expression] = ()) -> "RecordBatch":
-        """Global or grouped aggregation.
-
-        Host path: Arrow C++ ``TableGroupBy`` (the device path is the
-        executor's fused fragment, ``device/fragment.py``).
+        """Global or grouped aggregation: on the device where
+        ``device/runtime.try_agg`` takes it, else Arrow C++
+        ``TableGroupBy``.
         Mirrors ``src/daft-recordbatch/src/ops/agg.rs:12-29``.
         """
         from .aggs import agg_recordbatch
@@ -244,6 +260,14 @@ class RecordBatch:
         from .joins import join_recordbatch
         return join_recordbatch(self, right, list(left_on), list(right_on),
                                 how)
+
+    def cross_join(self, right: "RecordBatch") -> "RecordBatch":
+        """Every row of ``self`` with every row of ``right``, left-major."""
+        n_l, n_r = len(self), len(right)
+        li = np.repeat(np.arange(n_l), n_r)
+        ri = np.tile(np.arange(n_r), n_l)
+        return RecordBatch.from_series([c.take(li) for c in self._columns]
+                                       + [c.take(ri) for c in right._columns])
 
     def distinct(self, on: Optional[Sequence[Expression]] = None) -> "RecordBatch":
         on = list(on) if on else [col(n) for n in self.column_names()]

@@ -112,6 +112,42 @@ def test_q3_join_runs_without_jax_or_daft_tpu_in_sys_modules():
     assert "LEAKED []" in r.stdout
 
 
+_OPS_SCRIPT = r"""
+import os, sys
+os.environ["DAFT_TORCH_DEVICE"] = "cpu"
+os.environ["DAFT_TORCH_DEVICE_MIN_ROWS"] = "0"
+import daft_tpu_torch
+from daft_tpu_torch import col
+from daft_tpu_torch.device import runtime
+a = daft_tpu_torch.from_pydict({"k": [1, 2, 2, 3, 3, 3], "s": list("abbccc"),
+                                "v": [1.0, 2.0, 2.0, 3.0, 4.0, 5.0]})
+b = daft_tpu_torch.from_pydict({"w": [10, 20]})
+out = (a.distinct("k", "s").join(b, how="cross")
+       .with_column("x", col("k") * col("w"))
+       .where(col("x") > 15)
+       .groupby("s").agg(col("x").sum().alias("sx"))
+       .sort("s", desc=True)).to_pydict()
+assert out == {"s": ["c", "b", "a"], "sx": [90, 60, 20]}, out
+c = runtime.counters()
+for k in ("projection", "predicate", "agg_hash", "argsort"):
+    assert c.get(k, 0) > 0, (k, c)
+leaked = sorted(m for m in sys.modules
+                if m in ("jax", "jaxlib", "daft_tpu")
+                or m.startswith(("jax.", "jaxlib.", "daft_tpu.")))
+print("LEAKED", leaked)
+assert leaked == [], leaked
+"""
+
+
+def test_distinct_cross_join_and_operator_paths_run_without_jax():
+    env = dict(os.environ)
+    env["PYTHONPATH"] = REPO + os.pathsep + env.get("PYTHONPATH", "")
+    r = subprocess.run([sys.executable, "-c", _OPS_SCRIPT], cwd=REPO,
+                       env=env, capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stdout + r.stderr
+    assert "LEAKED []" in r.stdout
+
+
 def test_entry_point_raises_without_cuda_and_without_cpu_request(
         monkeypatch):
     import torch

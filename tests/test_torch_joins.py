@@ -233,9 +233,23 @@ def test_broadcasting_a_preserved_side_is_refused(how, strategy):
 
 
 def test_cross_join_is_not_ported_yet():
-    l, r = _frames(daft_tpu_torch, 10, 10)
-    with pytest.raises(NotImplementedError, match="cross"):
-        l.join(r, how="cross")
+    """Ported since: a cross join pairs every row with every row, as in
+    the reference; a right name that collides with a left one takes the
+    join's prefix, as the logical schema says (the reference's executor
+    raises on such a name, so that case is held to the schema)."""
+    rl, rr = _frames(daft_tpu, 10, 7)
+    pl, pr = _frames(daft_tpu_torch, 10, 7)
+    ref = rl.join(rr.select("k2", daft_tpu.col("x").alias("y")),
+                  how="cross").to_pydict()
+    got = pl.join(pr.select("k2", daft_tpu_torch.col("x").alias("y")),
+                  how="cross").to_pydict()
+    assert list(got) == list(ref) and len(got["k"]) == 70
+    assert _rows(got) == _rows(ref)
+    both = pl.join(pr, how="cross")
+    d = both.to_pydict()
+    assert list(d) == both.column_names and "right.x" in d
+    assert _rows({"k": d["k"], "x": d["right.x"]}) == \
+        _rows({"k": got["k"], "x": got["y"]})
 
 
 @pytest.mark.parametrize("how", ["inner", "left", "outer"])
