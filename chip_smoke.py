@@ -50,11 +50,21 @@ Phases (any failure ends the run with a non-zero exit code):
    group-by must run on the card, an argsort and a per-operator hash
    group-by must be dispatched, no fused morsel may fall to the host,
    and Q1 keeps its 8 dense dispatches;
+7b. TPC-H SQL phase: the same 22 queries as SQL text through
+   ``daft_tpu_torch.sql`` (``daft_tpu_torch/benchmarking/tpch_sql.py``:
+   the SQL frontend, subquery decorrelation and the join rules), per
+   query a counted cold run and a warm run, each held to phase 7's
+   answer (floats at relative 1e-6: the two forms write some expressions
+   differently); one ``tpchsql`` line per query with the walls beside
+   the DataFrame form's, the counters, the join strategies and the cross
+   joins left (must be 0); no fused morsel may fall to the host;
 8. the hash build against its plain version at the inputs of every
    distinct hash rung of the main path and of the TPC-H 22 phase
-   (query, T, key words); the join kernels at Q3's lineitem join and at
+   (query, T, key words), and of every rung of the SQL phase whose shape
+   phase 7 did not hold; the join kernels at Q3's lineitem join and at
    every distinct join rung of the TPC-H 22 phase (query, C_r, T, C_l,
-   cap), each checked as in the join-kernel phase, then timed;
+   cap) and every SQL-phase rung of a shape phase 7 did not hold, each
+   checked as in the join-kernel phase, then timed;
 9. a ``{"kernels": [...]}`` line with each kernel's launches, times and
    bound (one row per hash rung and per join rung; Q3's join rows also
    with their device activities and host time per call), the script's
@@ -1177,61 +1187,50 @@ def _same_answer(name: str, got: dict, ref: dict, rel: float = 1e-9):
                 raise AssertionError(f"{name}: {c} {a!r} vs {b!r}")
 
 
-def tpch22_phase(root: str):
-    """All 22 TPC-H queries as DataFrame code on the card: per query a
-    counted cold run (every count zeroed just before, read just after)
-    and one warm run, both held to the port's host tier on the same files
-    in the same process; hash-agg builds recorded per rung for the
-    kernel timing. Asserts Q3's group-by ran on the device, an argsort
-    was dispatched, a per-operator group-by took the hash table, no
-    fused morsel fell to the host, and Q1 kept its 8 dense dispatches."""
-    import torch
-    import daft_tpu_torch as dtt
-    from daft_tpu_torch.benchmarking import tpch_queries as Q
-    from daft_tpu_torch.device import hash_kernels as hk, runtime
-    from daft_tpu_torch.device import join_kernels as jk
-    get = lambda t: dtt.read_parquet(os.path.join(root, t))  # noqa: E731
-    recorded, events = [], []
-    orig = hk.hash_agg_build
-    query = [None]
+class KernelRecorder:
+    """Records every hash-agg build and every join build and probe of the
+    counted runs, with CUDA events around each launch, and folds them
+    into rungs: hash (query, T, key words), join (query, C_r, T, C_l,
+    cap), each keeping its first dispatch's inputs, its launches and the
+    summed event times (a join's device section runs alone:
+    ``joins._device_lock``)."""
 
-    def recording(words, live, vals, contribs, specs, T):
-        recorded.append((query[0], (words, live, vals, contribs, specs, T)))
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
-        out = orig(words, live, vals, contribs, specs, T)
-        b.record()
-        events.append((a, b))
-        return out
-    # join launches of the counted runs: each build by its table, each
-    # probe with the table it walks (a join's device section runs alone:
-    # ``joins._device_lock``)
-    jbuilds, jprobes = {}, []
-    orig_b, orig_p = jk.hash_join_build_cuda, jk.hash_join_probe_cuda
+    def __init__(self):
+        self.recorded, self.events = [], []
+        self.jbuilds, self.jprobes, self.join_rungs = {}, [], {}
 
-    def timed(fn, *a):
-        e0 = torch.cuda.Event(enable_timing=True)
-        e1 = torch.cuda.Event(enable_timing=True)
-        e0.record()
-        out = fn(*a)
-        e1.record()
-        return out, (e0, e1)
+    def counted(self, label: str, fn):
+        """``fn()`` with every count zeroed just before and read just
+        after → (answer, wall s, counters, launches)."""
+        import torch
+        from daft_tpu_torch.device import hash_kernels as hk, runtime
+        from daft_tpu_torch.device import join_kernels as jk
+        orig = hk.hash_agg_build
+        orig_b, orig_p = jk.hash_join_build_cuda, jk.hash_join_probe_cuda
 
-    def recording_build(code, live, T):
-        out, ev = timed(orig_b, code, live, T)
-        jbuilds[id(out)] = ((code, live, T), out, ev)
-        return out
+        def timed(f, *a):
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            e0.record()
+            out = f(*a)
+            e1.record()
+            return out, (e0, e1)
 
-    def recording_probe(code, live, table, cap):
-        out, ev = timed(orig_p, code, live, table, cap)
-        jprobes.append(((code, live, table, cap), ev))
-        return out
-    per_query, totals, jrungs = {}, {}, {}
-    for q in range(1, 23):
-        name = f"q{q}"
-        # ---- the counted run: every count zeroed just before, read after
-        query[0] = f"tpch22 {name}"
+        def recording(*a):
+            out, ev = timed(orig, *a)
+            self.recorded.append((label, a))
+            self.events.append(ev)
+            return out
+
+        def recording_build(code, live, T):
+            out, ev = timed(orig_b, code, live, T)
+            self.jbuilds[id(out)] = ((code, live, T), out, ev)
+            return out
+
+        def recording_probe(code, live, table, cap):
+            out, ev = timed(orig_p, code, live, table, cap)
+            self.jprobes.append(((code, live, table, cap), ev))
+            return out
         hk.hash_agg_build = recording
         jk.hash_join_build_cuda = recording_build
         jk.hash_join_probe_cuda = recording_probe
@@ -1240,18 +1239,62 @@ def tpch22_phase(root: str):
         jk.reset_launches()
         try:
             t0 = time.perf_counter()
-            cold = Q.ALL[q](get).to_pydict()
+            out = fn()
             torch.cuda.synchronize()
-            cold_s = time.perf_counter() - t0
+            wall = time.perf_counter() - t0
         finally:
             hk.hash_agg_build = orig
             jk.hash_join_build_cuda = orig_b
             jk.hash_join_probe_cuda = orig_p
         counts = runtime.counters()
         launches = dict(hash_agg_build=hk.launches, **jk.launches)
-        _join_rungs(query[0], jbuilds, jprobes, jrungs)
-        jbuilds.clear()
-        jprobes.clear()
+        _join_rungs(label, self.jbuilds, self.jprobes, self.join_rungs)
+        self.jbuilds.clear()
+        self.jprobes.clear()
+        return out, wall, counts, launches
+
+    def hash_rungs(self) -> dict:
+        rungs = {}
+        for (q, a), (e0, e1) in zip(self.recorded, self.events):
+            r = rungs.setdefault((q, a[5], len(a[0])),
+                                 dict(args=a, launches=0, ms_sum=0.0))
+            r["launches"] += 1
+            r["ms_sum"] += e0.elapsed_time(e1)
+        return rungs
+
+    def check_totals(self, phase: str, totals: dict):
+        if totals["hash_agg_build"] != len(self.recorded):
+            raise AssertionError(f"{phase}: hash launches != recorded "
+                                 "builds")
+        for k in ("hash_agg_build", "hash_join_build", "hash_join_probe"):
+            if totals[k] < 1:
+                raise AssertionError(f"{phase}: {k} launched no time")
+        for k in ("hash_join_build", "hash_join_probe"):
+            if sum(r["launches"][k] for r in self.join_rungs.values()) \
+                    != totals[k]:
+                raise AssertionError(f"{phase}: {k} launches != recorded "
+                                     "calls")
+
+
+def tpch22_phase(root: str):
+    """All 22 TPC-H queries as DataFrame code on the card: per query a
+    counted cold run (every count zeroed just before, read just after)
+    and one warm run, both held to the port's host tier on the same files
+    in the same process; hash-agg builds and join builds and probes
+    recorded per rung for the kernel timing. Asserts Q3's group-by ran
+    on the device, an argsort was dispatched, a per-operator group-by
+    took the hash table, no fused morsel fell to the host, and Q1 kept
+    its 8 dense dispatches."""
+    import torch
+    import daft_tpu_torch as dtt
+    from daft_tpu_torch.benchmarking import tpch_queries as Q
+    get = lambda t: dtt.read_parquet(os.path.join(root, t))  # noqa: E731
+    rec_k = KernelRecorder()
+    per_query, totals, answers = {}, {}, {}
+    for q in range(1, 23):
+        name = f"q{q}"
+        cold, cold_s, counts, launches = rec_k.counted(
+            f"tpch22 {name}", lambda: Q.ALL[q](get).to_pydict())
         t0 = time.perf_counter()
         warm = Q.ALL[q](get).to_pydict()
         torch.cuda.synchronize()
@@ -1263,6 +1306,7 @@ def tpch22_phase(root: str):
             host_s = time.perf_counter() - t0
         _same_answer(f"{name} cold", cold, host)
         _same_answer(f"{name} warm", warm, host)
+        answers[q] = warm
         rec = dict(query=name, warm_s=warm_s, cold_s=cold_s, host_s=host_s,
                    rows=len(next(iter(host.values()))),
                    counters={k: counts.get(k, 0) for k in TPCH22_COUNTERS},
@@ -1284,25 +1328,92 @@ def tpch22_phase(root: str):
             raise AssertionError(f"tpch22: no {k} dispatch ({totals})")
     if totals["host_morsels"]:
         raise AssertionError(f"tpch22: host-tier morsels ({totals})")
-    if totals["hash_agg_build"] != len(recorded):
-        raise AssertionError("tpch22: hash launches != recorded builds")
-    for k in ("hash_agg_build", "hash_join_build", "hash_join_probe"):
-        if totals[k] < 1:
-            raise AssertionError(f"tpch22: {k} launched no time")
-    for k in ("hash_join_build", "hash_join_probe"):
-        if sum(r["launches"][k] for r in jrungs.values()) != totals[k]:
-            raise AssertionError(f"tpch22: {k} launches != recorded calls")
-    rungs = {}
-    for (q, a), (e0, e1) in zip(recorded, events):
-        r = rungs.setdefault((q, a[5], len(a[0])),
-                             dict(args=a, launches=0, ms_sum=0.0))
-        r["launches"] += 1
-        r["ms_sum"] += e0.elapsed_time(e1)
+    rec_k.check_totals("tpch22", totals)
     log("tpch22 totals " + json.dumps(totals) + "; warm walls summed "
         f"{sum(r['warm_s'] for r in per_query.values()):.6f} s, host tier "
         f"{sum(r['host_s'] for r in per_query.values()):.6f} s")
+    return dict(per_query=per_query, totals=totals,
+                rungs=rec_k.hash_rungs(), join_rungs=rec_k.join_rungs,
+                answers=answers)
+
+
+def tpchsql_phase(root: str, t22: dict):
+    """All 22 TPC-H queries as SQL text (``daft_tpu_torch.sql`` over the
+    port's copy of the texts, ``daft_tpu_torch/benchmarking/tpch_sql.py``) on the card:
+    per query a counted cold run and one warm run, each held to the TPC-H
+    22 phase's answer for that query (keys, counts and strings exact,
+    floats at relative 1e-6, where the two forms write an expression
+    differently); every comma join turned into an equi-join (no cross
+    join left but a scalar subquery's one-row one) and no fused morsel on
+    the host. Hash-agg and join launches are recorded per rung; the
+    rungs whose shape the TPC-H 22 phase did not already hold are
+    returned for phase 8."""
+    import torch
+    import daft_tpu_torch as dtt
+    from daft_tpu_torch.benchmarking import tpch_sql
+    from daft_tpu_torch.logical.optimizer import unconverted_cross_joins
+    from daft_tpu_torch.physical import plan as pp
+    from daft_tpu_torch.physical.translate import translate
+    get = lambda t: dtt.read_parquet(os.path.join(root, t))  # noqa: E731
+    rec_k = KernelRecorder()
+    per_query, totals = {}, {}
+    for q in range(1, 23):
+        name = f"q{q}"
+        plan = tpch_sql.run(q, get).builder.optimize().plan
+        crosses = unconverted_cross_joins(plan)
+        strategies = []
+
+        def walk(n):
+            if isinstance(n, (pp.HashJoin, pp.CrossJoin)):
+                strategies.append(getattr(n, "strategy", "cross"))
+            for ch in n.children:
+                walk(ch)
+        walk(translate(plan))
+        cold, cold_s, counts, launches = rec_k.counted(
+            f"tpchsql {name}", lambda: tpch_sql.run(q, get).to_pydict())
+        t0 = time.perf_counter()
+        warm = tpch_sql.run(q, get).to_pydict()
+        torch.cuda.synchronize()
+        warm_s = time.perf_counter() - t0
+        want = t22["answers"][q]
+        if len(cold) != len(want) or len(warm) != len(want):
+            raise AssertionError(f"sql {name}: {list(cold)} against "
+                                 f"{list(want)}")
+        # the SQL texts name some output columns differently: compare by
+        # position
+        _same_answer(f"sql {name} cold", dict(zip(want, cold.values())),
+                     want, rel=1e-6)
+        _same_answer(f"sql {name} warm", dict(zip(want, warm.values())),
+                     want, rel=1e-6)
+        rec = dict(query=name, warm_s=warm_s, cold_s=cold_s,
+                   df_warm_s=t22["per_query"][name]["warm_s"],
+                   rows=len(next(iter(want.values()))),
+                   counters={k: counts.get(k, 0) for k in TPCH22_COUNTERS},
+                   launches=launches, join_strategies=strategies,
+                   cross_joins_left=crosses)
+        per_query[name] = rec
+        for k, v in list(rec["counters"].items()) + list(launches.items()):
+            totals[k] = totals.get(k, 0) + v
+        log("tpchsql " + json.dumps(rec))
+        if crosses:
+            raise AssertionError(f"sql {name}: {crosses} cross joins left")
+    if totals["host_morsels"]:
+        raise AssertionError(f"tpchsql: host-tier morsels ({totals})")
+    rec_k.check_totals("tpchsql", totals)
+    held = {k[1:] for k in t22["rungs"]}
+    jheld = {k[1:] for k in t22["join_rungs"]}
+    rungs = {k: v for k, v in rec_k.hash_rungs().items()
+             if k[1:] not in held}
+    join_rungs = {k: v for k, v in rec_k.join_rungs.items()
+                  if k[1:] not in jheld}
+    log("tpchsql totals " + json.dumps(totals) + "; warm walls summed "
+        f"{sum(r['warm_s'] for r in per_query.values()):.6f} s, the "
+        "DataFrame forms' "
+        f"{sum(r['df_warm_s'] for r in per_query.values()):.6f} s; rungs "
+        f"not held by the TPC-H 22 phase: {len(rungs)} hash, "
+        f"{len(join_rungs)} join")
     return dict(per_query=per_query, totals=totals, rungs=rungs,
-                join_rungs=jrungs)
+                join_rungs=join_rungs)
 
 
 def _join_rungs(query: str, builds: dict, probes: list, rungs: dict):
@@ -1449,10 +1560,13 @@ def main() -> int:
     q3_path(root, args.reps, ref=q3["ref"], threshold=1 << 40,
             label="q3 forced broadcast")
     t22 = tpch22_phase(root)
+    tsql = tpchsql_phase(root, t22)
     krecs = main_path_kernel_timing(mp["rungs"], bw)
     krecs += main_path_kernel_timing(t22["rungs"], bw)
+    krecs += main_path_kernel_timing(tsql["rungs"], bw)
     jrec = join_main_path_timing(q3, bw)
     jrecs = join_rung_timing(t22["join_rungs"], bw)
+    jrecs += join_rung_timing(tsql["join_rungs"], bw)
     if args.profile:
         profile_phase(root)
 

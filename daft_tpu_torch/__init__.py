@@ -16,12 +16,37 @@ from .io import read_parquet
 from .recordbatch import RecordBatch
 from .schema import Field, Schema
 from .series import Series
+from .catalog import Catalog, Identifier, NotFoundError, Table
+from .session import (
+    Session, attach, attach_catalog, attach_function, attach_table,
+    create_namespace, create_namespace_if_not_exists, create_table,
+    create_table_if_not_exists, create_temp_table, current_catalog,
+    current_namespace, current_session, detach_catalog, detach_function,
+    detach_table, drop_namespace, drop_table, get_catalog, get_table,
+    has_catalog, has_namespace, has_table, list_catalogs, list_namespaces,
+    list_tables, read_table, set_catalog, set_namespace, use, write_table,
+)
+from .udf import udf
+# Last, and as a from-import: the import machinery binds the ``sql``
+# submodule as a package attribute first, and this binding then replaces
+# it, so ``daft_tpu_torch.sql`` is the function, not the module.
+from .sql import sql, sql_expr
 
 __version__ = "0.1.0"
 
 __all__ = [
-    "DataFrame", "DataType", "Expression", "Field", "RecordBatch", "Schema",
-    "Series", "TimeUnit", "col", "execution_config_ctx", "from_arrow",
-    "from_pandas", "from_pydict", "from_pylist", "get_context", "lit",
-    "read_parquet", "set_execution_config",
+    "Catalog", "DataFrame", "DataType", "Expression", "Field", "Identifier",
+    "NotFoundError", "RecordBatch", "Schema", "Series", "Session", "Table",
+    "TimeUnit", "attach", "attach_catalog", "attach_function",
+    "attach_table", "col", "create_namespace",
+    "create_namespace_if_not_exists", "create_table",
+    "create_table_if_not_exists", "create_temp_table", "current_catalog",
+    "current_namespace", "current_session", "detach_catalog",
+    "detach_function", "detach_table", "drop_namespace", "drop_table",
+    "execution_config_ctx", "from_arrow", "from_pandas", "from_pydict",
+    "from_pylist", "get_catalog", "get_context", "get_table", "has_catalog",
+    "has_namespace", "has_table", "list_catalogs", "list_namespaces",
+    "list_tables", "lit", "read_parquet", "read_table", "set_catalog",
+    "set_execution_config", "set_namespace", "sql", "sql_expr", "udf",
+    "use", "write_table",
 ]

@@ -3,9 +3,10 @@
 Reference: ``daft/dataframe/dataframe.py:108``. Each method extends the
 logical plan via LogicalPlanBuilder; execution happens on collect/show/
 iteration through ``execution.executor.run_plan``. The port carries the
-methods of the grouped-aggregation, join and TPC-H slices (select/
+methods of the grouped-aggregation, join, TPC-H and SQL slices (select/
 filter/with_column/sort/limit/distinct/agg/groupby/join, cross joins
-included); windows and writes come with later slices.
+included, concat and the set operations, monotonically increasing ids);
+windows and writes come with later slices.
 """
 
 from __future__ import annotations
@@ -84,7 +85,10 @@ class DataFrame:
     def exclude(self, *names: str) -> "DataFrame":
         return DataFrame(self._builder.exclude(list(names)))
 
-    def where(self, predicate: Expression) -> "DataFrame":
+    def where(self, predicate: Union[Expression, str]) -> "DataFrame":
+        if isinstance(predicate, str):
+            from .sql import sql_expr
+            predicate = sql_expr(predicate)
         return DataFrame(self._builder.filter(predicate))
 
     filter = where
@@ -115,6 +119,36 @@ class DataFrame:
         out = func(self, *args, **kwargs)
         assert isinstance(out, DataFrame)
         return out
+
+    def concat(self, other: "DataFrame") -> "DataFrame":
+        return DataFrame(self._builder.concat(other._builder))
+
+    def union(self, other: "DataFrame") -> "DataFrame":
+        return DataFrame(self._builder.union(other._builder, all=False))
+
+    def union_all(self, other: "DataFrame") -> "DataFrame":
+        return DataFrame(self._builder.union(other._builder, all=True))
+
+    def _aligned_by_name(self, other: "DataFrame") -> "DataFrame":
+        mine, theirs = self.column_names, other.column_names
+        if set(mine) != set(theirs):
+            raise ValueError(
+                f"union_by_name: column sets differ "
+                f"({sorted(set(mine) ^ set(theirs))})")
+        return other.select(*[col(n) for n in mine])
+
+    def union_all_by_name(self, other: "DataFrame") -> "DataFrame":
+        return self.union_all(self._aligned_by_name(other))
+
+    def intersect(self, other: "DataFrame") -> "DataFrame":
+        return DataFrame(self._builder.intersect(other._builder))
+
+    def except_distinct(self, other: "DataFrame") -> "DataFrame":
+        return DataFrame(self._builder.except_(other._builder))
+
+    def add_monotonically_increasing_id(self, column_name=None) -> "DataFrame":
+        return DataFrame(
+            self._builder.add_monotonically_increasing_id(column_name))
 
     def join(self, other: "DataFrame",
              on: Optional[Union[ColumnInput, List[ColumnInput]]] = None,

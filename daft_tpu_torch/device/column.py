@@ -23,9 +23,14 @@ _MIN_CAPACITY = 16
 
 #: numpy dtypes the device planes may carry. Unsigned ints wider than a
 #: byte widen to the next signed type (torch's uint16/32/64 support few
-#: ops); uint64 has no lossless signed twin and stays on the host.
+#: ops). uint64 rides an int64 plane, which holds it losslessly only below
+#: 2^63: a column with a larger value has no device plane
+#: (:func:`has_device_plane`), and no op on the device sees a uint64 tensor.
 _WIDEN = {np.dtype("uint16"): np.dtype("int32"),
-          np.dtype("uint32"): np.dtype("int64")}
+          np.dtype("uint32"): np.dtype("int64"),
+          np.dtype("uint64"): np.dtype("int64")}
+
+_U64_PLANE_LIMIT = 2 ** 63
 
 
 #: numpy dtype of each torch dtype a device plane may have
@@ -48,9 +53,21 @@ def device_np_dtype(np_dtype) -> np.dtype:
     raises ValueError for one that has no device plane."""
     d = np.dtype(np_dtype)
     d = _WIDEN.get(d, d)
-    if d == np.dtype("uint64") or d.kind not in "biuf":
+    if d.kind not in "biuf":
         raise ValueError(f"{d} has no device plane")
     return d
+
+
+def has_device_plane(s: Series) -> bool:
+    """Whether this column's values travel to the device losslessly: not
+    Python objects, and no uint64 value at or above 2^63."""
+    if s.is_pyobject():
+        return False
+    arr = s.to_arrow()
+    if pa.types.is_uint64(arr.type):
+        top = pc.max(arr).as_py()
+        return top is None or top < _U64_PLANE_LIMIT
+    return True
 
 
 @dataclass
@@ -114,6 +131,10 @@ def _np_encode(s: Series):
             # fill at the Arrow level so nullable ints don't decay to f64
             arr = pc.fill_null(arr, pa.scalar(0, type=arr.type))
         vals = np.asarray(arr.to_numpy(zero_copy_only=False))
+    if vals.dtype == np.uint64 and len(vals) \
+            and int(vals.max()) >= _U64_PLANE_LIMIT:
+        raise ValueError(f"column {s.name()!r}: a uint64 value at or "
+                         "above 2^63 has no int64 plane")
     return vals.astype(device_np_dtype(vals.dtype), copy=False), \
         validity, None
 
@@ -193,6 +214,11 @@ def decode_np(name: str, dtype, vals: np.ndarray, validity: np.ndarray,
     count = len(vals)
     if dtype.is_null():
         return Series(name, dtype, arrow=pa.nulls(count))
+    if dictionary is not None and len(dictionary) == 0:
+        # a column with no valid value encodes to an empty dictionary:
+        # every row is null
+        return Series(name, dtype,
+                      arrow=pa.nulls(count, type=dtype.to_arrow()))
     if dictionary is not None:
         codes = np.where(validity, vals.astype(np.int64), 0)
         arr = dictionary.take(pa.array(codes, type=pa.int64()))

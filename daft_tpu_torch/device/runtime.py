@@ -180,8 +180,9 @@ def _decodable(e: Expression, field) -> bool:
     return field.dtype.device_repr() is not None
 
 
-def _has_pyobject(batch, names) -> bool:
-    return any(batch.get_column(n).is_pyobject() for n in names)
+def _host_only(batch, names) -> bool:
+    """Some named column has no device plane (:func:`dcol.has_device_plane`)."""
+    return not all(dcol.has_device_plane(batch.get_column(n)) for n in names)
 
 
 def encode_for(c, batch, device: torch.device):
@@ -217,7 +218,7 @@ def try_eval_projection(batch, exprs: List[Expression]):
     if not all(_decodable(e, f) for e, f in zip(exprs, out_fields)):
         return None
     c = _get_compiled(exprs, schema)
-    if c is None or _has_pyobject(batch, c.needs_cols) \
+    if c is None or _host_only(batch, c.needs_cols) \
             or not _over_floor(len(batch)):
         return None
     dt, outs = _run_compiled(c, batch, device)
@@ -235,7 +236,7 @@ def try_eval_predicate(batch, predicate: Expression) -> Optional[np.ndarray]:
     if device is None:
         return None
     c = _get_compiled([predicate], batch.schema)
-    if c is None or _has_pyobject(batch, c.needs_cols) \
+    if c is None or _host_only(batch, c.needs_cols) \
             or not _over_floor(len(batch)):
         return None
     _, outs = _run_compiled(c, batch, device)
@@ -256,7 +257,7 @@ def try_argsort(key_series: List[Series], descending: List[bool],
     if device is None or n < 2:
         return None
     for s in key_series:
-        if s.is_pyobject():
+        if not dcol.has_device_plane(s):
             return None
         dt = s.datatype()
         if not (dt.is_device_representable() or dt.is_string()):
@@ -348,7 +349,7 @@ def try_agg(batch, to_agg: List[Expression], group_by: List[Expression]):
                    for i, (_, child, _, _) in enumerate(specs)]
     proj = list(group_by) + child_exprs
     c = _get_compiled(proj, schema)
-    if c is None or _has_pyobject(batch, c.needs_cols) \
+    if c is None or _host_only(batch, c.needs_cols) \
             or not _over_floor(len(batch)):
         return None
     dt, outs = _run_compiled(c, batch, device)

@@ -224,6 +224,15 @@ class LocalExecutor:
             if remaining <= 0:
                 break
 
+    def _exec_Concat(self, node: pp.Concat):
+        yield from self._exec(node.children[0])
+        yield from self._exec(node.children[1])
+
+    def _exec_MonotonicallyIncreasingId(self, node: pp.MonotonicallyIncreasingId):
+        # ids per partition index of the child's stream, as the reference
+        for i, p in enumerate(self._exec(node.children[0])):
+            yield p.add_monotonically_increasing_id(i, node.column_name)
+
     # aggregation ------------------------------------------------------
     def _exec_Aggregate(self, node: pp.Aggregate):
         child = self._exec(node.children[0])
@@ -239,7 +248,7 @@ class LocalExecutor:
 
     def _exec_DeviceFragmentAgg(self, node: pp.DeviceFragmentAgg):
         from ..aggs import split_agg_expr
-        from ..device import fragment, runtime as drt
+        from ..device import column as dcol, fragment, runtime as drt
         specs = [split_agg_expr(a) for a in node.aggs]
         child_exprs = [(c if c is not None else _lit_true())
                        .alias(f"__v{i}__")
@@ -253,8 +262,8 @@ class LocalExecutor:
             if self.device is not None and len(rb) > 0:
                 prog = fragment.get_fused_agg(node.group_by, child_exprs,
                                               ops, node.predicate, rb.schema)
-            if prog is not None and not any(
-                    rb.get_column(n).is_pyobject()
+            if prog is not None and all(
+                    dcol.has_device_plane(rb.get_column(n))
                     for n in prog.compiled.needs_cols):
                 out = fragment.run_fused_agg(prog, rb, node.group_by,
                                              agg_cols, node.schema(),

@@ -131,6 +131,10 @@ def _eval(e: Expression, cols: Dict[str, Series], n: int) -> Series:
     schema = Schema([c.field() for c in cols.values()])
     out_field = e.to_field(schema)
 
+    if op == "udf":
+        u, arg_spec, kw_spec = e.params
+        out = u.run(kids, arg_spec, kw_spec, max_len)
+        return out.rename(kids[0].name() if kids else u.name)
     if op in ("add", "sub", "mul", "div", "pow"):
         l, r = kids
         if op == "add" and l.datatype().is_string():

@@ -332,14 +332,34 @@ class ExpressionDatetimeNamespace(_Ns):
 
 
 class ExpressionStringNamespace(_Ns):
-    """The utf8 functions TPC-H reaches (reference surface:
-    ``src/daft-functions-utf8``); the rest come with later slices."""
+    """The utf8 functions TPC-H and the SQL function library reach
+    (reference surface: ``src/daft-functions-utf8``); split, extract,
+    to_date/to_datetime, normalize, count_matches and tokenize wait for
+    ROADMAP A8."""
 
     def contains(self, pattern): return self._f("str.contains", (pattern,))
     def startswith(self, prefix): return self._f("str.startswith", (prefix,))
     def endswith(self, suffix): return self._f("str.endswith", (suffix,))
+    def concat(self, other): return self._f("str.concat", (other,))
+    def length(self): return self._f("str.length")
+    def lower(self): return self._f("str.lower")
+    def upper(self): return self._f("str.upper")
+    def lstrip(self): return self._f("str.lstrip")
+    def rstrip(self): return self._f("str.rstrip")
+    def strip(self): return self._f("str.strip")
+    def reverse(self): return self._f("str.reverse")
+    def capitalize(self): return self._f("str.capitalize")
     def left(self, n): return self._f("str.left", (n,))
+    def right(self, n): return self._f("str.right", (n,))
+    def repeat(self, n): return self._f("str.repeat", (n,))
     def match(self, pattern): return self._f("str.match", (pattern,))
+    def replace(self, pattern, replacement, regex: bool = False):
+        return self._f("str.replace", (pattern, replacement), (regex,))
+    def find(self, substr): return self._f("str.find", (substr,))
+    def rpad(self, length, pad): return self._f("str.rpad", (length, pad))
+    def lpad(self, length, pad): return self._f("str.lpad", (length, pad))
+    def substr(self, start, length=None):
+        return self._f("str.substr", (start, length))
 
 
 class ExpressionFloatNamespace(_Ns):

@@ -25,7 +25,7 @@ def eval_function(op: str, e, kids: List[Series], b, out_field: Field) -> Series
     name = s.name()
 
     if ns == "str":
-        return _str_fn(fn, kids)
+        return _str_fn(fn, e, kids, b)
     if ns == "dt":
         return _dt_fn(fn, e, kids, b, out_field)
     if ns == "float":
@@ -44,25 +44,84 @@ def eval_function(op: str, e, kids: List[Series], b, out_field: Field) -> Series
     raise NotImplementedError(f"host function {op}")
 
 
-def _str_fn(fn, kids) -> Series:
-    """``str.contains`` / ``startswith`` / ``endswith`` / ``match`` (a
-    regular expression) / ``left``; the second argument is a literal."""
+def _str_fn(fn, e, kids, b) -> Series:
+    """The ported ``str`` functions (reference:
+    ``daft_tpu/expressions/fn_host.py:_str_fn``). A pattern, prefix or
+    width argument is a literal; ``concat``, ``repeat``, ``substr`` and
+    the pads take a column or a literal."""
     s = kids[0]
+    name = s.name()
     arr = s.to_arrow().cast(pa.large_string())
-    arg = kids[1].to_pylist()[0]
+
+    def arg(i):
+        return kids[i].to_pylist()[0]
+
     if fn == "contains":
-        out = pc.match_substring(arr, arg)
-    elif fn == "startswith":
-        out = pc.starts_with(arr, arg)
-    elif fn == "endswith":
-        out = pc.ends_with(arr, arg)
-    elif fn == "match":
-        out = pc.match_substring_regex(arr, arg)
-    elif fn == "left":
-        out = pc.utf8_slice_codeunits(arr, 0, arg)
-    else:
-        raise NotImplementedError(f"str.{fn}")
-    return Series.from_arrow(out, s.name())
+        return Series.from_arrow(pc.match_substring(arr, arg(1)), name)
+    if fn == "startswith":
+        return Series.from_arrow(pc.starts_with(arr, arg(1)), name)
+    if fn == "endswith":
+        return Series.from_arrow(pc.ends_with(arr, arg(1)), name)
+    if fn == "match":
+        return Series.from_arrow(pc.match_substring_regex(arr, arg(1)), name)
+    if fn == "concat":
+        other = b(kids[1]).to_arrow().cast(pa.large_string())
+        return Series.from_arrow(pc.binary_join_element_wise(
+            arr, other, pa.scalar("", type=pa.large_string())), name)
+    if fn == "length":
+        return Series.from_arrow(pc.utf8_length(arr), name) \
+            .cast(DataType.uint64())
+    simple = {"lower": pc.utf8_lower, "upper": pc.utf8_upper,
+              "lstrip": pc.utf8_ltrim_whitespace,
+              "rstrip": pc.utf8_rtrim_whitespace,
+              "strip": pc.utf8_trim_whitespace,
+              "reverse": pc.utf8_reverse, "capitalize": pc.utf8_capitalize}
+    if fn in simple:
+        return Series.from_arrow(simple[fn](arr), name)
+    if fn == "left":
+        return Series.from_arrow(pc.utf8_slice_codeunits(arr, 0, arg(1)),
+                                 name)
+    if fn == "right":
+        n = arg(1)
+        return Series.from_pylist(
+            [None if v is None else v[-n:] if n else ""
+             for v in arr.to_pylist()], name)
+    if fn == "repeat":
+        return Series.from_pylist(
+            [None if v is None or c is None else v * c
+             for v, c in zip(arr.to_pylist(), b(kids[1]).to_pylist())], name)
+    if fn == "replace":
+        fnc = pc.replace_substring_regex if e.params[0] \
+            else pc.replace_substring
+        return Series.from_arrow(
+            fnc(arr, pattern=arg(1), replacement=arg(2)), name)
+    if fn == "find":
+        return Series.from_arrow(pc.find_substring(arr, arg(1)), name) \
+            .cast(DataType.int64())
+    if fn in ("rpad", "lpad"):
+        out = []
+        for v, L, p in zip(arr.to_pylist(), b(kids[1]).to_pylist(),
+                           b(kids[2]).to_pylist()):
+            if v is None or L is None or p is None:
+                out.append(None)
+            elif len(v) >= L:
+                out.append(v[:L])
+            else:
+                pad = (p * L)[: L - len(v)]
+                out.append(v + pad if fn == "rpad" else pad + v)
+        return Series.from_pylist(out, name)
+    if fn == "substr":
+        starts = b(kids[1]).to_pylist()
+        lens = b(kids[2]).to_pylist() if len(kids) > 2 \
+            else [None] * len(arr)
+        out = []
+        for v, st, ln in zip(arr.to_pylist(), starts, lens):
+            if v is None or st is None:
+                out.append(None)
+            else:
+                out.append(v[st:] if ln is None else v[st:st + ln])
+        return Series.from_pylist(out, name)
+    raise NotImplementedError(f"str.{fn}")
 
 
 def _dt_fn(fn, e, kids, b, out_field) -> Series:

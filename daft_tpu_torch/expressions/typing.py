@@ -113,6 +113,10 @@ def infer_field(e, schema: Schema) -> Field:
             "unsupported — e.g. a subquery in a SELECT list or HAVING")
     if op == "lit":
         return _lit_field(e.params[0])
+    if op == "udf":
+        u = e.params[0]
+        name = infer_field(e.args[0], schema).name if e.args else u.name
+        return Field(name, u.return_dtype)
     if op == "lit_interval":
         return Field("literal", DataType.interval())
     if op == "alias":
@@ -240,6 +244,13 @@ def _agg_field(agg: str, e, f: Optional[Field]) -> Field:
     raise NotImplementedError(f"agg type inference for {agg}")
 
 
+#: the ported ``str`` functions whose output is a string
+_STR_TO_STR = frozenset((
+    "concat", "lower", "upper", "lstrip", "rstrip", "strip", "reverse",
+    "capitalize", "left", "right", "repeat", "replace", "rpad", "lpad",
+    "substr"))
+
+
 def _function_field(op: str, e, child_fields, schema: Schema) -> Field:
     ns, fn = op.split(".", 1)
     f = child_fields[0]
@@ -247,7 +258,11 @@ def _function_field(op: str, e, child_fields, schema: Schema) -> Field:
     if ns == "str":
         if fn in ("contains", "startswith", "endswith", "match"):
             return Field(name, DataType.bool())
-        if fn == "left":
+        if fn == "length":
+            return Field(name, DataType.uint64())
+        if fn == "find":
+            return Field(name, DataType.int64())
+        if fn in _STR_TO_STR:
             return Field(name, DataType.string())
         raise NotImplementedError(f"str.{fn}")
     if ns == "dt":

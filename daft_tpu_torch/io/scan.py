@@ -48,8 +48,10 @@ class ScanTask:
 
     def __init__(self, path: str, schema: Schema, pushdowns: Pushdowns,
                  num_rows: int, size_bytes: int,
-                 row_groups: Optional[List[int]] = None):
+                 row_groups: Optional[List[int]] = None, metadata=None):
         self.path = path
+        #: the file's parquet footer, read once at planning
+        self.metadata = metadata
         self.schema = schema
         self.pushdowns = pushdowns
         self._num_rows = num_rows
@@ -130,7 +132,8 @@ class GlobScanOperator:
             tasks.append(ScanTask(
                 p, self._schema, pushdowns,
                 sum(md.row_group(g).num_rows for g in keep),
-                sum(md.row_group(g).total_byte_size for g in keep), groups))
+                sum(md.row_group(g).total_byte_size for g in keep), groups,
+                md))
         return tasks
 
 

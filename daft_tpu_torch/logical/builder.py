@@ -126,6 +126,35 @@ class LogicalPlanBuilder:
                                   _to_exprs(left_on), _to_exprs(right_on),
                                   how, strategy, prefix, suffix))
 
+    def concat(self, other: "LogicalPlanBuilder") -> "LogicalPlanBuilder":
+        return self._wrap(lp.Concat(self._plan, other._plan))
+
+    def intersect(self, other: "LogicalPlanBuilder") -> "LogicalPlanBuilder":
+        # the distinct rows, semi-joined on every column, as the reference
+        # desugars INTERSECT
+        return self._set_join(other, "semi")
+
+    def except_(self, other: "LogicalPlanBuilder") -> "LogicalPlanBuilder":
+        return self._set_join(other, "anti")
+
+    def _set_join(self, other: "LogicalPlanBuilder",
+                  how: str) -> "LogicalPlanBuilder":
+        base = self.distinct()
+        return base._wrap(lp.Join(
+            base._plan, other._plan,
+            [col(n) for n in self.schema().column_names],
+            [col(n) for n in other.schema().column_names], how))
+
+    def union(self, other: "LogicalPlanBuilder",
+              all: bool = False) -> "LogicalPlanBuilder":
+        out = self.concat(other)
+        return out if all else out.distinct()
+
+    def add_monotonically_increasing_id(self, column_name=None
+                                        ) -> "LogicalPlanBuilder":
+        return self._wrap(lp.MonotonicallyIncreasingId(
+            self._plan, column_name or "id"))
+
     # ---- optimize --------------------------------------------------------
     def optimize(self) -> "LogicalPlanBuilder":
         from .optimizer import Optimizer

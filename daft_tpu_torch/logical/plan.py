@@ -2,9 +2,10 @@
 
 Reference: ``src/daft-logical-plan/src/logical_plan.rs:25`` — the LogicalPlan
 enum — and ``partitioning.rs`` (ClusteringSpec). The port carries the nodes
-of the grouped-aggregation, join and TPC-H slices: Source/Project/Filter/
-Limit/Sort/TopN/Distinct/Aggregate/Join (equi and cross). Windows, pivots
-and the rest come with later slices.
+of the grouped-aggregation, join, TPC-H and SQL slices: Source/Project/
+Filter/Limit/Sort/TopN/Distinct/Aggregate/Join (equi and cross)/Concat/
+MonotonicallyIncreasingId. Windows, pivots and the rest come with later
+slices (ROADMAP A5).
 """
 
 from __future__ import annotations
@@ -346,3 +347,46 @@ class Join(LogicalPlan):
         return [f"Join[{self.how}] on "
                 f"{[repr(e) for e in self.left_on]} = "
                 f"{[repr(e) for e in self.right_on]}"]
+
+
+class Concat(LogicalPlan):
+    """The left child's rows, then the right child's (same column names)."""
+
+    def __init__(self, left, right):
+        super().__init__([left, right])
+
+    def _compute_schema(self) -> Schema:
+        l, r = self._children[0].schema(), self._children[1].schema()
+        if l.column_names != r.column_names:
+            raise ValueError(
+                f"concat requires matching schemas: {l.column_names} vs "
+                f"{r.column_names}")
+        return l
+
+    def with_children(self, children):
+        return Concat(children[0], children[1])
+
+    def clustering_spec(self) -> ClusteringSpec:
+        return ClusteringSpec(
+            "unknown", self._children[0].num_partitions()
+            + self._children[1].num_partitions())
+
+
+class MonotonicallyIncreasingId(LogicalPlan):
+    """Prepends a uint64 id column: partition index in the upper 28 bits,
+    row index within the partition in the lower 36."""
+
+    def __init__(self, child, column_name: str):
+        super().__init__([child])
+        self.column_name = column_name
+
+    def _compute_schema(self) -> Schema:
+        from ..datatype import DataType
+        s = self._children[0].schema()
+        return Schema([Field(self.column_name, DataType.uint64())] + s.fields)
+
+    def with_children(self, children):
+        return MonotonicallyIncreasingId(children[0], self.column_name)
+
+    def _params(self):
+        return (self.column_name,)

@@ -146,6 +146,13 @@ class MicroPartition:
     def distinct(self, on=None) -> "MicroPartition":
         return MicroPartition.from_recordbatch(self.combined().distinct(on))
 
+    def add_monotonically_increasing_id(self, partition_num: int,
+                                        column_name: str
+                                        ) -> "MicroPartition":
+        return MicroPartition.from_recordbatch(
+            self.combined().add_monotonically_increasing_id(partition_num,
+                                                            column_name))
+
     def concat(self, others: List["MicroPartition"]) -> "MicroPartition":
         batches = self.batches()
         for o in others:

@@ -123,3 +123,16 @@ class CrossJoin(PhysicalPlan):
 
     def __init__(self, left, right, schema):
         super().__init__([left, right], schema)
+
+
+class Concat(PhysicalPlan):
+    """Streams the left child, then the right."""
+
+    def __init__(self, left, right):
+        super().__init__([left, right], left.schema())
+
+
+class MonotonicallyIncreasingId(PhysicalPlan):
+    def __init__(self, child, column_name: str, schema: Schema):
+        super().__init__([child], schema)
+        self.column_name = column_name

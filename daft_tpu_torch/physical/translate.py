@@ -83,6 +83,11 @@ def _t_node(node: lp.LogicalPlan) -> pp.PhysicalPlan:
         return _translate_agg(node)
     if isinstance(node, lp.Join):
         return _translate_join(node)
+    if isinstance(node, lp.Concat):
+        return pp.Concat(_t(node.children[0]), _t(node.children[1]))
+    if isinstance(node, lp.MonotonicallyIncreasingId):
+        return pp.MonotonicallyIncreasingId(
+            _t(node.children[0]), node.column_name, node.schema())
     raise NotImplementedError(f"translate for {node.name()}")
 
 

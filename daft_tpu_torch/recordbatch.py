@@ -288,6 +288,15 @@ class RecordBatch:
 
     # ---- misc ------------------------------------------------------------
 
+    def add_monotonically_increasing_id(self, partition_num: int,
+                                        column_name: str) -> "RecordBatch":
+        """64-bit ids: upper 28 bits partition, lower 36 row index
+        (reference: daft-recordbatch monotonically_increasing_id)."""
+        ids = (np.uint64(partition_num) << np.uint64(36)) + \
+            np.arange(self._len, dtype=np.uint64)
+        s = Series.from_arrow(pa.array(ids), column_name)
+        return RecordBatch.from_series([s] + self._columns)
+
     def cast_to_schema(self, schema: Schema) -> "RecordBatch":
         cols = []
         for f in schema:

@@ -167,3 +167,40 @@ def test_entry_point_raises_without_cuda_and_without_cpu_request(
     with daft_tpu_torch.execution_config_ctx(device="cpu"):
         monkeypatch.delenv("DAFT_TORCH_DEVICE")
         assert backend.resolve_device() == torch.device("cpu")
+
+
+_SQL_SCRIPT = r"""
+import os, sys, tempfile
+os.environ["DAFT_TORCH_DEVICE"] = "cpu"
+import pyarrow as pa, pyarrow.parquet as pq
+import daft_tpu_torch
+cust = daft_tpu_torch.from_pydict({"c_id": [1, 2, 3, 4],
+                                   "c_bal": [100.0, 5.0, 60.0, 40.0]})
+orders = daft_tpu_torch.from_pydict({"o_cust": [1, 1, 2, 3, 3],
+                                     "o_total": [20.0, 30.0, 7.0, 55.0, 5.0]})
+out = daft_tpu_torch.sql(
+    "SELECT c_id FROM cust WHERE c_bal > "
+    "(SELECT 2 * avg(o_total) FROM orders WHERE o_cust = c_id) "
+    "AND EXISTS (SELECT 1 FROM orders o2 WHERE o2.o_cust = c_id "
+    "AND o2.o_total <> 20.0) ORDER BY c_id").to_pydict()
+assert out == {"c_id": [1]}, out
+d = tempfile.mkdtemp()
+pq.write_table(pa.table({"x": [3, 1, 2]}), os.path.join(d, "t.parquet"))
+out = daft_tpu_torch.sql(
+    f"SELECT sum(x) AS s FROM read_parquet('{d}/*.parquet')").to_pydict()
+assert out == {"s": [6]}, out
+leaked = sorted(m for m in sys.modules
+                if m in ("jax", "jaxlib", "daft_tpu")
+                or m.startswith(("jax.", "jaxlib.", "daft_tpu.")))
+print("LEAKED", leaked)
+assert leaked == [], leaked
+"""
+
+
+def test_sql_subquery_and_table_function_run_without_jax():
+    env = dict(os.environ)
+    env["PYTHONPATH"] = REPO + os.pathsep + env.get("PYTHONPATH", "")
+    r = subprocess.run([sys.executable, "-c", _SQL_SCRIPT], cwd=REPO,
+                       env=env, capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stdout + r.stderr
+    assert "LEAKED []" in r.stdout
