@@ -26,6 +26,9 @@ class ExecutionConfig:
     #: a join side whose estimated size is at most this many bytes is
     #: gathered once and joined against each morsel of the other side
     broadcast_join_size_bytes_threshold: int = 10 * 1024 * 1024
+    #: in-flight device slots of the fused-agg pipeline (0 = synchronous);
+    #: ``DAFT_TORCH_DEVICE_INFLIGHT`` wins when set
+    device_inflight: int = 2
 
 
 class Context:

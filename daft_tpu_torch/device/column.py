@@ -5,10 +5,21 @@ tensors plus validity planes and a live-row mask, padded to a power-of-two
 capacity bucket. String/binary columns ride sorted-dictionary codes, so code
 order is string order. Float64 lanes stay float64 (the H100 has native f64;
 the reference's f32 downcast exists only for TPUs).
+
+Transfers on a card: an encode stages each padded plane in a pinned host
+buffer and copies it with ``non_blocking=True`` on the card's copy stream
+(:func:`copy_stream`); the current stream waits on an event recorded after
+the copies, and the table keeps that event (``ready``) and its staging
+buffers until its first drain. A fetch is two halves
+(:func:`fetch_host_async`): the submit concatenates the planes on the
+current stream and starts one copy into a pinned host buffer; the wait
+blocks on the copy's event before numpy reads a byte.
 """
 
 from __future__ import annotations
 
+import contextlib
+import threading
 from dataclasses import dataclass
 from typing import Dict, List, Optional, Sequence, Tuple
 
@@ -84,10 +95,105 @@ class DeviceTable:
     row_mask: torch.Tensor                 # [capacity] bool — live rows
     row_count: int                         # host-side live count
     capacity: int
+    #: the planes are shared with the device column cache or the residency
+    #: registry: nothing may write into them
+    resident: bool = False
+    #: event recorded on the copy stream after this table's host→device
+    #: copies (None on the CPU, or when nothing was copied)
+    ready: Optional[object] = None
+    #: the pinned staging buffers of those copies, held until a drain
+    staging: Optional[list] = None
 
     @property
     def device(self) -> torch.device:
         return self.row_mask.device
+
+    def planes(self) -> List[torch.Tensor]:
+        return [t for c in self.columns.values()
+                for t in (c.data, c.validity)] + [self.row_mask]
+
+    def nbytes(self) -> int:
+        return sum(t.nbytes for t in self.planes())
+
+
+# ------------------------------------------------------------ streams
+
+_copy_streams: Dict[int, object] = {}
+_stream_lock = threading.Lock()
+
+
+def copy_stream(device: torch.device):
+    """The card's dedicated host→device copy stream (one per card)."""
+    idx = device.index if device.index is not None \
+        else torch.cuda.current_device()
+    s = _copy_streams.get(idx)
+    if s is None:
+        with _stream_lock:
+            s = _copy_streams.get(idx)
+            if s is None:
+                s = _copy_streams[idx] = torch.cuda.Stream(device=idx)
+    return s
+
+
+def use_on_current_stream(dt: DeviceTable) -> None:
+    """Make a table safe to compute on from the current stream: wait for
+    its copies, and mark every plane used there, so that the caching
+    allocator does not hand a plane's memory to another stream (an
+    eviction from the cache, say) while this stream's kernels still read
+    it. A no-op on the CPU."""
+    if dt.device.type != "cuda":
+        return
+    cur = torch.cuda.current_stream(dt.device)
+    if dt.ready is not None:
+        cur.wait_event(dt.ready)
+    for t in dt.planes():
+        t.record_stream(cur)
+
+
+def on_stream(stream):
+    """``torch.cuda.stream(stream)``, or nothing for None (the CPU)."""
+    return torch.cuda.stream(stream) if stream is not None \
+        else contextlib.nullcontext()
+
+
+def _count(name: str, n: int = 1) -> None:
+    from . import runtime
+    runtime.count(name, n)
+
+
+def _upload(planes: Sequence[np.ndarray], capacity: int,
+            device: torch.device):
+    """Host planes → ``[capacity]`` device tensors, zero-padded →
+    (tensors, ready event or None, staging buffers or None). On a card:
+    pinned staging, one ``non_blocking`` copy each on the copy stream into
+    tensors allocated on the current stream (which uses them), and the
+    current stream waits on the copies' event."""
+    _count("bytes_up", sum(capacity * a.dtype.itemsize for a in planes))
+    if device.type != "cuda":
+        return [torch.from_numpy(_pad(a, capacity)).to(device)
+                for a in planes], None, None
+    staging, outs = [], []
+    for a in planes:
+        t = torch.empty(capacity, pin_memory=True, dtype=torch.from_numpy(
+            np.empty(0, dtype=a.dtype)).dtype)
+        h = t.numpy()
+        h[:len(a)] = a
+        h[len(a):] = 0
+        staging.append(t)
+        outs.append(torch.empty(capacity, dtype=t.dtype, device=device))
+    cur = torch.cuda.current_stream(device)
+    cs = copy_stream(device)
+    # the new tensors' memory may have been freed by work still queued on
+    # the current stream: the copies start after it
+    cs.wait_stream(cur)
+    with torch.cuda.stream(cs):
+        for d, t in zip(outs, staging):
+            d.copy_(t, non_blocking=True)
+        ev = torch.cuda.Event()
+        ev.record(cs)
+    cur.wait_event(ev)
+    _count("h2d_copies", len(planes))
+    return outs, ev, staging
 
 
 def _np_encode(s: Series):
@@ -147,12 +253,29 @@ def _pad(x: np.ndarray, capacity: int) -> np.ndarray:
 
 def encode_series(s: Series, capacity: int,
                   device: torch.device) -> DeviceColumn:
-    """One Series onto ``device``, padded to ``capacity`` rows. Raises
-    ValueError for a column that has no device plane."""
+    """One Series onto ``device``, padded to ``capacity`` rows (its
+    resident planes when they are still on the card at that capacity).
+    Raises ValueError for a column that has no device plane."""
+    res = _resident_column(s, capacity, device)
+    if res is not None:
+        return res
     vals, validity, dictionary = _np_encode(s)
-    return DeviceColumn(torch.from_numpy(_pad(vals, capacity)).to(device),
-                        torch.from_numpy(_pad(validity, capacity)).to(device),
-                        s.datatype(), dictionary)
+    (data, valid), _, _ = _upload([vals, validity], capacity, device)
+    return DeviceColumn(data, valid, s.datatype(), dictionary)
+
+
+def _resident_column(s: Series, capacity: int,
+                     device: torch.device) -> Optional[DeviceColumn]:
+    """A decoded Series' resident planes, when they are on ``device`` at
+    exactly ``capacity`` (reference ``column.py:275``)."""
+    from . import pipeline
+    hit = pipeline.resident_planes(s, len(s))
+    if hit is None:
+        return None
+    data, validity, dictionary, cap = hit
+    if cap != capacity or data.device != device:
+        return None
+    return DeviceColumn(data, validity, s.datatype(), dictionary)
 
 
 def encoded_nbytes(batch, columns: Sequence[str]) -> int:
@@ -170,14 +293,49 @@ def encoded_nbytes(batch, columns: Sequence[str]) -> int:
 
 def encode_batch(batch, columns: Sequence[str],
                  device: torch.device) -> DeviceTable:
-    """Encode the named columns of a RecordBatch onto ``device``."""
+    """Encode the named columns of a RecordBatch onto ``device``: every
+    plane and the live-row mask in one round of copies (or the batch's
+    resident planes, :func:`_resident_batch`)."""
     n = len(batch)
     cap = bucket_capacity(n)
-    cols = {nm: encode_series(batch.get_column(nm), cap, device)
-            for nm in columns}
-    mask = np.zeros(cap, dtype=np.bool_)
-    mask[:n] = True
-    return DeviceTable(cols, torch.from_numpy(mask).to(device), n, cap)
+    resident = _resident_batch(batch, columns, n, cap, device)
+    if resident is not None:
+        return resident
+    enc = [(nm, _np_encode(batch.get_column(nm))) for nm in columns]
+    host = [a for _, (vals, valid, _) in enc for a in (vals, valid)]
+    host.append(np.ones(n, dtype=np.bool_))
+    planes, ready, staging = _upload(host, cap, device)
+    cols = {nm: DeviceColumn(planes[2 * i], planes[2 * i + 1],
+                             batch.get_column(nm).datatype(), d)
+            for i, (nm, (_, _, d)) in enumerate(enc)}
+    return DeviceTable(cols, planes[-1], n, cap, ready=ready,
+                       staging=staging)
+
+
+def _resident_batch(batch, names, n: int, cap: int, device: torch.device
+                    ) -> Optional[DeviceTable]:
+    """Every requested column's decoded planes still resident on
+    ``device`` at one shared capacity of at least ``cap`` → a table of
+    them and a fresh live-row mask, marked ``resident`` (reference
+    ``column.py:330``); else None."""
+    from . import pipeline
+    hits = {}
+    shared_cap = None
+    for nm in names:
+        s = batch.get_column(nm)
+        hit = pipeline.resident_planes(s, n)
+        if hit is None:
+            return None
+        data, validity, dictionary, ccap = hit
+        if ccap < cap or data.device != device \
+                or (shared_cap is not None and ccap != shared_cap):
+            return None
+        shared_cap = ccap
+        hits[nm] = DeviceColumn(data, validity, s.datatype(), dictionary)
+    if shared_cap is None:
+        return None
+    mask = torch.arange(shared_cap, device=device) < n
+    return DeviceTable(hits, mask, n, shared_cap, resident=True)
 
 
 def from_reference_planes(arrays: Dict[str, np.ndarray],
@@ -245,36 +403,80 @@ def decode_np(name: str, dtype, vals: np.ndarray, validity: np.ndarray,
     return Series(name, dtype, arrow=arr)
 
 
-def fetch_host(planes: Sequence[torch.Tensor]) -> List[np.ndarray]:
-    """Many device planes → host numpy arrays in ONE device→host copy:
-    their bytes are concatenated on the device (widest dtype first, so
-    every plane stays aligned in the host buffer) and split on the host.
-    CPU tensors come back as views."""
+class HostFetch:
+    """One device→host copy in flight: :meth:`wait` blocks on its event
+    and splits the pinned host buffer into the planes."""
+
+    __slots__ = ("_planes", "_order", "_host", "_event", "_out")
+
+    def __init__(self, planes, order=None, host=None, event=None,
+                 out=None):
+        self._planes = [(tuple(p.shape), p.dtype, p.numel()
+                         * p.element_size()) for p in planes]
+        self._order, self._host, self._event = order, host, event
+        self._out = out
+
+    def wait(self) -> List[np.ndarray]:
+        if self._out is not None:
+            return self._out
+        self._event.synchronize()
+        host = self._host.numpy()
+        out: List[Optional[np.ndarray]] = [None] * len(self._planes)
+        off = 0
+        for i in self._order:
+            shape, dt, nb = self._planes[i]
+            out[i] = host[off:off + nb].view(NP_DTYPE[dt]).reshape(shape)
+            off += nb
+        self._out = out
+        return out
+
+
+def fetch_host_async(planes: Sequence[torch.Tensor]) -> HostFetch:
+    """Start ONE device→host copy of many device planes on the current
+    stream: their bytes are concatenated on the device (widest dtype
+    first, so every plane stays aligned in the host buffer) and copied
+    with ``non_blocking=True`` into a pinned buffer. CPU tensors come
+    back as views, at once."""
     if not planes or all(p.device.type == "cpu" for p in planes):
-        return [p.numpy() for p in planes]
+        return HostFetch([], out=[p.numpy() for p in planes])
     order = sorted(range(len(planes)),
                    key=lambda i: -planes[i].element_size())
     flat = torch.cat([planes[i].contiguous().reshape(-1).view(torch.uint8)
                       for i in order])
-    host = flat.cpu().numpy()
-    out: List[Optional[np.ndarray]] = [None] * len(planes)
-    off = 0
-    for i in order:
-        p = planes[i]
-        nb = p.numel() * p.element_size()
-        out[i] = host[off:off + nb].view(NP_DTYPE[p.dtype]) \
-            .reshape(p.shape)
-        off += nb
-    return out
+    host = torch.empty(flat.numel(), dtype=torch.uint8, pin_memory=True)
+    host.copy_(flat, non_blocking=True)
+    ev = torch.cuda.Event()
+    ev.record(torch.cuda.current_stream(flat.device))
+    _count("d2h_copies")
+    _count("bytes_down", flat.numel())
+    return HostFetch(planes, order, host, ev)
+
+
+def fetch_host(planes: Sequence[torch.Tensor]) -> List[np.ndarray]:
+    """Many device planes → host numpy arrays in ONE device→host copy
+    (:func:`fetch_host_async`, then its wait)."""
+    return fetch_host_async(planes).wait()
 
 
 
 def decode_columns(named: Sequence[Tuple[str, DeviceColumn]],
                    count: int) -> List[Series]:
     """Decode the first ``count`` rows of many DeviceColumns, with one
-    device→host copy for every data and validity plane."""
+    device→host copy for every data and validity plane. While the
+    pipeline is on, each decoded Series registers its device planes for
+    reuse by a later encode (reference ``column.py:384``); decimals do
+    not, since their float64 encoding is lossy."""
+    from . import pipeline
     host = fetch_host([p for _, c in named
                        for p in (c.data[:count], c.validity[:count])])
-    return [decode_np(name, c.dtype, host[2 * i], host[2 * i + 1],
+    register = pipeline.inflight_window() > 0
+    out = []
+    for i, (name, c) in enumerate(named):
+        s = decode_np(name, c.dtype, host[2 * i], host[2 * i + 1],
                       c.dictionary)
-            for i, (name, c) in enumerate(named)]
+        if register and not c.dtype.is_decimal() \
+                and not c.dtype.is_null():
+            pipeline.note_decoded(s, c.data, c.validity, c.dictionary,
+                                  count, int(c.data.shape[0]))
+        out.append(s)
+    return out

@@ -1,7 +1,8 @@
 """Build and load the port's CUDA kernels.
 
-One ``nvcc`` command compiles every ``csrc/*.cu`` source for ``sm_90a``
-into one shared library with a plain C interface, which ``ctypes`` loads.
+One ``nvcc`` per ``csrc/*.cu`` source, all started together, compiles it
+for ``sm_90a`` into an object; one more links the objects into one shared
+library with a plain C interface, which ``ctypes`` loads.
 The library lives in ``daft_tpu_torch/_build/`` (git-ignored) under a name
 that carries a hash of the sources and flags, so an edited source builds
 anew and an unchanged one is loaded as it is. The build runs at first use.
@@ -29,7 +30,7 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 #: argtypes of every entry (pointers and the stream as c_void_p, so ctypes
@@ -69,17 +70,32 @@ def library_path() -> str:
 
 
 def compile_library(srcs: List[str], out: str, extra=()) -> str:
-    """``nvcc`` of ``srcs`` into the shared library ``out``; returns the
-    compiler's output. Raises with that output when the build fails."""
+    """Build the shared library ``out`` from ``srcs``: one ``nvcc -c`` per
+    source, all running at once, then one link. Returns the compilers'
+    output; raises with it when a step fails."""
     os.makedirs(os.path.dirname(out), exist_ok=True)
-    tmp = f"{out}.{os.getpid()}.tmp"
-    r = subprocess.run([nvcc(), *NVCC_FLAGS, *extra, *srcs, "-o", tmp],
-                       capture_output=True, text=True)
-    if r.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({r.returncode}):\n{r.stdout}"
-                           f"{r.stderr}")
-    os.replace(tmp, out)
-    return r.stdout + r.stderr
+    tmp = f"{out}.{os.getpid()}"
+    objs = [f"{tmp}.{i}.o" for i in range(len(srcs))]
+    procs = [subprocess.Popen([nvcc(), *NVCC_FLAGS, *extra, "-c", src,
+                               "-o", obj], stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for src, obj in zip(srcs, objs)]
+    logs = [p.communicate()[0] for p in procs]
+    try:
+        for p, log in zip(procs, logs):
+            if p.returncode != 0:
+                raise RuntimeError(f"nvcc failed ({p.returncode}):\n{log}")
+        r = subprocess.run([nvcc(), "-shared", *objs, "-o", f"{tmp}.so"],
+                           capture_output=True, text=True)
+        if r.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({r.returncode}):\n"
+                               f"{r.stdout}{r.stderr}")
+    finally:
+        for obj in objs:
+            if os.path.exists(obj):
+                os.remove(obj)
+    os.replace(f"{tmp}.so", out)
+    return "".join(logs) + r.stdout + r.stderr
 
 
 def library() -> ctypes.CDLL:

@@ -3,9 +3,11 @@ torch program per morsel, with one result transfer.
 
 The torch rewrite of ``daft_tpu/device/fragment.py``'s fused-agg family.
 ``run_planes`` evaluates the compiled filter and projections and reduces
-with one of three strategies; the drain fetches the group count and every
-output plane with ``column.fetch_host``, so a partial aggregation costs
-one device→host copy:
+with one of three strategies. :func:`submit_fused_agg_tables` dispatches
+every table of a window and starts one device→host copy of all their
+output planes (the group counts and every output plane);
+:func:`drain_fused_agg_tables` waits for it and decodes, so a window of
+partial aggregations costs one copy:
 
 - **dense** (``kernels.grouped_agg_dense_impl``): every group key is a
   dictionary-coded string passthrough and the slot product fits — TPC-H Q1;
@@ -17,11 +19,12 @@ one device→host copy:
 sort with a byte model (``costmodel.groupby_strategy``); that model, and the
 link-priced group-capacity ceiling, wait for the port's cost model.
 
-Overflow ladder (the reference's ``drain_fused_agg_table``): the group
+Overflow ladder (the reference's ``drain_fused_agg_tables``): the group
 block starts at 128 groups. A sort or dense result carries the true group
 count, and a larger one re-dispatches at that bucket with the strategy
 asked again. A full hash table only says "at least T groups", so it
-re-dispatches on sort, whose count is exact.
+re-dispatches on sort, whose count is exact. The window's overflowed
+tables climb together, with one copy for each step.
 """
 
 from __future__ import annotations
@@ -184,7 +187,7 @@ def strategy_for(prog: FusedAggProgram, dt: dcol.DeviceTable, out_cap: int,
 
 
 class InflightFusedAgg:
-    """One dispatched fused-agg morsel: the device-side output planes plus
+    """One table's fused-agg dispatch: its device-side output planes plus
     the ladder state the drain needs to finish."""
 
     def __init__(self, prog, dt, group_exprs, key_fields, agg_fields):
@@ -201,7 +204,8 @@ class InflightFusedAgg:
 
 
 def _dispatch(tok: InflightFusedAgg) -> None:
-    """Run the current ladder rung (asks the strategy when unset)."""
+    """Run the current ladder rung (asks the strategy when unset) on the
+    current stream."""
     prog, dt = tok.prog, tok.dt
     arrays = {n: c.data for n, c in dt.columns.items()}
     valids = {n: c.validity for n, c in dt.columns.items()}
@@ -229,45 +233,108 @@ def _dispatch(tok: InflightFusedAgg) -> None:
         return
 
 
-def submit_fused_agg_table(prog: FusedAggProgram, dt: dcol.DeviceTable,
-                           in_schema: Schema, group_exprs, agg_exprs,
-                           out_schema: Schema) -> InflightFusedAgg:
-    """Dispatch the first ladder rung; no host fetch."""
+def _climb(tok: InflightFusedAgg, g: int) -> None:
+    """One overflow-ladder step for a result of ``g`` groups past the
+    bucket: grow the bucket to hold them; a full hash table's count is
+    only a lower bound, so it climbs on sort, whose count is exact;
+    otherwise the grown bucket asks the strategy again."""
+    if g > tok.cap_limit:
+        raise RuntimeError(f"group count {g} exceeds the morsel "
+                           f"capacity {tok.cap_limit}")
+    saturated = tok.strategy == "hash" and \
+        g >= hash_kernels.table_capacity(tok.out_cap)
+    tok.out_cap = min(dcol.bucket_capacity(max(g, _OUT_CAP0)), tok.cap_limit)
+    tok.strategy = "sort" if saturated else None
+
+
+class InflightFusedAggBatch:
+    """A window's fused-agg dispatches, one per DeviceTable, with ONE
+    device→host copy of all their output planes in flight."""
+
+    def __init__(self, items: List[InflightFusedAgg], stream, fetch):
+        self.items = items
+        #: the stream the dispatches ran on (None on the CPU): the
+        #: overflow retries run there too
+        self.stream = stream
+        self.fetch = fetch
+
+
+def _fetch_all(items: List[InflightFusedAgg]):
+    return dcol.fetch_host_async([p for it in items for p in it.planes])
+
+
+def submit_fused_agg_tables(prog: FusedAggProgram, tables, in_schema: Schema,
+                            group_exprs, agg_exprs, out_schema: Schema
+                            ) -> InflightFusedAggBatch:
+    """Dispatch every table's fused program on the current stream (each
+    table asks its own strategy: its dictionaries size the dense plan)
+    and start one device→host copy of all their output planes. No
+    wait."""
     key_fields = [e.to_field(in_schema) for e in group_exprs]
     agg_fields = [out_schema[e.name()] for e in agg_exprs]
-    tok = InflightFusedAgg(prog, dt, group_exprs, key_fields, agg_fields)
-    _dispatch(tok)
-    return tok
+    items = []
+    for dt in tables:
+        dcol.use_on_current_stream(dt)
+        it = InflightFusedAgg(prog, dt, group_exprs, key_fields, agg_fields)
+        _dispatch(it)
+        items.append(it)
+    dev = tables[0].device if tables else None
+    stream = torch.cuda.current_stream(dev) \
+        if dev is not None and dev.type == "cuda" else None
+    return InflightFusedAggBatch(items, stream, _fetch_all(items))
 
 
-def drain_fused_agg_table(tok: InflightFusedAgg):
-    """Fetch the output planes (one transfer) and decode them, climbing
-    the overflow ladder while the group count outgrows the bucket."""
+def drain_fused_agg_tables(tok: InflightFusedAggBatch) -> list:
+    """Wait for the window's one copy and decode every table's partial
+    groups (a list parallel to the tables). The tables whose group count
+    outgrew their bucket climb the ladder together: one dispatch each and
+    one copy for all of them, until every table fits."""
+    results: list = [None] * len(tok.items)
+    todo = list(range(len(tok.items)))
+    fetch = tok.fetch
+    while todo:
+        host = fetch.wait()
+        retry, off = [], 0
+        for i in todo:
+            it = tok.items[i]
+            n = len(it.planes)
+            rows, off = host[off:off + n], off + n
+            if it.prog.nk == 0:
+                results[i] = _decode_global(it, rows)
+                continue
+            g = int(rows[0][0])
+            if g <= it.out_cap:
+                results[i] = _decode_grouped(it, rows[1:], g)
+                continue
+            _climb(it, g)
+            retry.append(i)
+        todo = retry
+        if todo:
+            with dcol.on_stream(tok.stream):
+                for i in todo:
+                    _dispatch(tok.items[i])
+                fetch = _fetch_all([tok.items[i] for i in todo])
+    for it in tok.items:
+        # the copies completed before the first fetch did
+        it.dt.staging = None
+    return results
+
+
+def run_fused_agg_tables(prog: FusedAggProgram, tables, in_schema: Schema,
+                         group_exprs, agg_exprs, out_schema: Schema) -> list:
+    """Submit then drain: every table's partial groups, with one copy for
+    the window's results (and one per ladder climb)."""
+    return drain_fused_agg_tables(submit_fused_agg_tables(
+        prog, tables, in_schema, group_exprs, agg_exprs, out_schema))
+
+
+def _decode_global(tok: InflightFusedAgg, host: List[np.ndarray]):
     from ..recordbatch import RecordBatch
-    prog = tok.prog
-    if prog.nk == 0:
-        host = dcol.fetch_host(tok.planes)
-        nv = len(tok.agg_fields)
-        return RecordBatch.from_series([
-            dcol.decode_np(f.name, f.dtype, host[i],
-                           host[nv + i].astype(np.bool_))
-            for i, f in enumerate(tok.agg_fields)])
-    while True:
-        host = dcol.fetch_host(tok.planes)
-        g = int(host[0][0])
-        if g <= tok.out_cap:
-            return _decode_grouped(tok, host[1:], g)
-        if g > tok.cap_limit:
-            raise RuntimeError(f"group count {g} exceeds the morsel "
-                               f"capacity {tok.cap_limit}")
-        saturated = tok.strategy == "hash" and \
-            g >= hash_kernels.table_capacity(tok.out_cap)
-        tok.out_cap = min(dcol.bucket_capacity(max(g, _OUT_CAP0)),
-                          tok.cap_limit)
-        # a full table's count is only a lower bound: sort counts exactly;
-        # otherwise the grown bucket re-asks the strategy
-        tok.strategy = "sort" if saturated else None
-        _dispatch(tok)
+    nv = len(tok.agg_fields)
+    return RecordBatch.from_series([
+        dcol.decode_np(f.name, f.dtype, host[i],
+                       host[nv + i].astype(np.bool_))
+        for i, f in enumerate(tok.agg_fields)])
 
 
 def _decode_grouped(tok: InflightFusedAgg, rows: List[np.ndarray], g: int):
@@ -285,10 +352,20 @@ def _decode_grouped(tok: InflightFusedAgg, rows: List[np.ndarray], g: int):
     return RecordBatch.from_series(cols)
 
 
+def submit_fused_agg(prog: FusedAggProgram, batch, group_exprs, agg_exprs,
+                     out_schema: Schema, device: torch.device
+                     ) -> InflightFusedAggBatch:
+    """Encode one RecordBatch onto ``device`` and submit the fused program
+    (reference ``fragment.py:237``); drain with
+    :func:`drain_fused_agg_tables`."""
+    dt = dcol.encode_batch(batch, prog.compiled.needs_cols, device)
+    return submit_fused_agg_tables(prog, [dt], batch.schema, group_exprs,
+                                   agg_exprs, out_schema)
+
+
 def run_fused_agg(prog: FusedAggProgram, batch, group_exprs, agg_exprs,
                   out_schema: Schema, device: torch.device):
     """Encode one RecordBatch onto ``device``, run the fused program and
     return its partial groups as a RecordBatch."""
-    dt = dcol.encode_batch(batch, prog.compiled.needs_cols, device)
-    return drain_fused_agg_table(submit_fused_agg_table(
-        prog, dt, batch.schema, group_exprs, agg_exprs, out_schema))
+    return drain_fused_agg_tables(submit_fused_agg(
+        prog, batch, group_exprs, agg_exprs, out_schema, device))[0]

@@ -17,9 +17,9 @@ port's cost model; in their place one row floor applies,
 ``host_ops``. Nothing else is caught: an error in a device path
 propagates.
 
-The device-resident hand-off of decoded columns (the reference's
-``allow_resident``) waits for the residency registry; every decoded column
-goes to the host.
+A projection's decoded columns register their device planes in the
+pipeline's residency registry (``pipeline.note_decoded``), so a later
+encode of the same Series reuses them (``column.encode_batch``).
 """
 
 from __future__ import annotations
@@ -59,19 +59,42 @@ def count(name: str, n: int = 1) -> None:
     ``agg_sort`` / ``agg_global`` per per-operator device dispatch,
     ``host_ops`` per per-operator call the row floor sent to the host, and
     ``op_bytes_up`` for the bytes those dispatches encoded onto the
-    device."""
+    device; ``bytes_up`` / ``h2d_copies`` for every encode's bytes (the
+    pinned host→device copies on a card) and ``bytes_down`` /
+    ``d2h_copies`` for every fetch."""
     with _counters_lock:
         _counters[name] = _counters.get(name, 0) + n
 
 
 def counters() -> Dict[str, int]:
+    """The dispatch and transfer counters, and beside them those of the
+    pipeline (``pipeline_*``, :func:`pipeline.counters_snapshot`), the
+    device column cache (``cache_*``: hits, misses, puts, evictions,
+    refused, bytes_put, bytes_evicted) and the residency registry
+    (``residency_*``: hits, misses, evictions) — each since the last
+    :func:`reset_counters`, and only where it is not 0. What the cache and
+    the registry hold now is ``cache.get_cache().stats()`` and
+    ``pipeline.residency_counters()``."""
+    from . import cache, pipeline
     with _counters_lock:
-        return dict(_counters)
+        out = dict(_counters)
+    for prefix, vals in (("pipeline_", pipeline.counters_snapshot()),
+                         ("cache_", cache.get_cache().stats()),
+                         ("residency_", pipeline.residency_counters())):
+        out.update({prefix + k: v for k, v in vals.items()
+                    if v and k not in ("entries", "bytes")})
+    return out
 
 
 def reset_counters() -> None:
+    """Zero every counter (the cache's and the registry's contents
+    stay)."""
+    from . import cache, pipeline
     with _counters_lock:
         _counters.clear()
+    pipeline.reset_counters()
+    pipeline.reset_residency_counters()
+    cache.get_cache().reset_counters()
 
 
 def _over_floor(n_rows: int, least: int = 1) -> bool:

@@ -2,15 +2,18 @@
 MicroPartitions.
 
 Reference: ``daft_tpu/execution/executor.py`` (the pull-generator
-interpreter). The port runs single-node and synchronously per morsel: a
-final aggregate, sort or top-n gathers its whole input, and the fused
-device fragment (``_exec_DeviceFragmentAgg``) takes one source-file batch
-per dispatch. A hash join gathers both sides and joins once; a broadcast
-join gathers one side and joins it against each morsel of the other
-(``_exec_HashJoin``; the index generation goes to the device per
-``joins.py``); a cross join gathers its right side and pairs it with each
-morsel of the left, and a distinct gathers its input. A device error propagates; only a morsel whose expressions
-do not compile for the device runs the host chain, and it is counted.
+interpreter). The port runs single-node: a final aggregate, sort or top-n
+gathers its whole input, and the fused device fragment
+(``_exec_DeviceFragmentAgg``) takes one source-file batch per dispatch,
+through windows of scan tasks served from the device column cache and
+the bounded in-flight pipeline (``device/pipeline.py``). A hash join
+gathers both sides and joins once; a broadcast join gathers one side and
+joins it against each morsel of the other (``_exec_HashJoin``; the index
+generation goes to the device per ``joins.py``); a cross join gathers its
+right side and pairs it with each morsel of the left, and a distinct
+gathers its input. A device error propagates; only a batch that is empty
+or whose expressions or columns have no device form runs the host chain,
+and it is counted.
 """
 
 from __future__ import annotations
@@ -18,14 +21,17 @@ from __future__ import annotations
 import concurrent.futures as cf
 import os
 import threading
+import time
 from typing import Callable, Iterator, List, Optional
 
+from .. import knobs
 from ..context import get_context
 from ..expressions import Expression, col
 from ..micropartition import MicroPartition
 from ..physical import plan as pp
 from ..recordbatch import RecordBatch
 from ..schema import Schema
+from .memory import MemoryManager
 
 _POOL: Optional[cf.ThreadPoolExecutor] = None
 _pools_lock = threading.Lock()
@@ -106,6 +112,10 @@ class LocalExecutor:
         self.device = device
         self._shared: dict = {}
         self._shared_lock = threading.Lock()
+        #: admission of the pipeline's slots: the bytes they keep on the
+        #: device, held to the device cache's budget
+        self.mem = MemoryManager(
+            knobs.env_int("DAFT_TORCH_DEVICE_CACHE_BYTES"))
 
     def run(self, plan: pp.PhysicalPlan) -> Iterator[MicroPartition]:
         return self._exec(plan)
@@ -178,11 +188,7 @@ class LocalExecutor:
             yield MicroPartition.empty(node.schema())
             return
 
-        def load(t) -> MicroPartition:
-            mp = MicroPartition.from_scan_task(t)
-            mp._load()
-            return mp
-        yield from _ordered_parallel(iter(node.tasks), load)
+        yield from _ordered_parallel(iter(node.tasks), _load_with_retry)
 
     def _exec_ScanSource(self, node: pp.ScanSource):
         yield from self._morselize(self._scan_files(node))
@@ -247,8 +253,23 @@ class LocalExecutor:
             .agg(node.aggs, node.group_by).cast_to_schema(node.schema())
 
     def _exec_DeviceFragmentAgg(self, node: pp.DeviceFragmentAgg):
+        """The reference's shape (``executor.py:580``): over a
+        ``ScanSource``, the task-level path (:meth:`_fragment_scan_tasks`:
+        windows of scan tasks, the device column cache, one copy per
+        window); over any other child, the pipelined morsels
+        (:meth:`_pipelined_fragment_morsels`), or one morsel at a time
+        when the window is 0.
+
+        The port's gate: the reference prices each upload and the group
+        block against a remote link (``costmodel.agg_upload_wins``,
+        ``_fragment_groups_affordable``); that cost model is ROADMAP A4.
+        Until then a batch goes to the device when it is not empty and
+        every column the program reads has a device plane, the rule the
+        fused fragment always had (``DAFT_TORCH_DEVICE_MIN_ROWS`` floors
+        the per-operator paths only)."""
         from ..aggs import split_agg_expr
-        from ..device import column as dcol, fragment, runtime as drt
+        from ..device import column as dcol, fragment, pipeline as dpipe
+        from ..device import runtime as drt
         specs = [split_agg_expr(a) for a in node.aggs]
         child_exprs = [(c if c is not None else _lit_true())
                        .alias(f"__v{i}__")
@@ -256,22 +277,9 @@ class LocalExecutor:
         ops = tuple(s[0] for s in specs)
         agg_cols = [col(s[2]) for s in specs]
 
-        def run(p: MicroPartition) -> MicroPartition:
-            rb = p.combined()
-            prog = None
-            if self.device is not None and len(rb) > 0:
-                prog = fragment.get_fused_agg(node.group_by, child_exprs,
-                                              ops, node.predicate, rb.schema)
-            if prog is not None and all(
-                    dcol.has_device_plane(rb.get_column(n))
-                    for n in prog.compiled.needs_cols):
-                out = fragment.run_fused_agg(prog, rb, node.group_by,
-                                             agg_cols, node.schema(),
-                                             self.device)
-                return MicroPartition.from_recordbatch(
-                    out.cast_to_schema(node.schema()))
+        def host_agg(rb: RecordBatch) -> MicroPartition:
             # planning, not a fallback: the host tier was asked for, the
-            # morsel is empty, or its expressions have no device lowering
+            # batch is empty, or a column or expression has no device form
             drt.count("host_morsels")
             if node.predicate is not None:
                 rb = rb.filter(node.predicate)
@@ -279,13 +287,214 @@ class LocalExecutor:
                 rb.agg(node.aggs, node.group_by)
                 .cast_to_schema(node.schema()))
 
+        def program(schema):
+            return fragment.get_fused_agg(node.group_by, child_exprs, ops,
+                                          node.predicate, schema)
+
+        def morsel_gate(rb: RecordBatch):
+            """The fused program when the device takes this batch, else
+            None (host)."""
+            if self.device is None or len(rb) == 0:
+                return None
+            prog = program(rb.schema)
+            if prog is None or not all(
+                    dcol.has_device_plane(rb.get_column(n))
+                    for n in prog.compiled.needs_cols):
+                return None
+            return prog
+
         src = node.children[0]
+        if isinstance(src, pp.ScanSource) and src.tasks \
+                and self.device is not None:
+            prog = program(src.schema())
+            if prog is not None:
+                yield from self._fragment_scan_tasks(node, prog, src,
+                                                     agg_cols, host_agg)
+                return
         # a device dispatch takes a whole source file: big morsels amortize
         # the launches, and the kernels are sized for them
-        stream = self._scan_files(src) if isinstance(src, pp.ScanSource) \
+        child = self._scan_files(src) if isinstance(src, pp.ScanSource) \
             else self._exec(src)
-        for p in stream:
-            yield run(p)
+        window = dpipe.inflight_window()
+        if window > 0 and self.device is not None:
+            yield from self._pipelined_fragment_morsels(
+                node, child, morsel_gate, agg_cols, host_agg, window)
+            return
+        for p in child:
+            rb = p.combined()
+            prog = morsel_gate(rb)
+            if prog is None:
+                yield host_agg(rb)
+                continue
+            yield _to_partition(fragment.run_fused_agg(
+                prog, rb, node.group_by, agg_cols, node.schema(),
+                self.device), node)
+
+    def _slot_stream(self):
+        """A stream of the torch pool for one pipeline slot's work (None
+        on the CPU)."""
+        import torch
+        if self.device is None or self.device.type != "cuda":
+            return None
+        return torch.cuda.Stream(device=self.device)
+
+    def _pipelined_fragment_morsels(self, node, child, morsel_gate,
+                                    agg_cols, host_agg, window: int):
+        """The bounded-window pipeline over a morsel stream
+        (``device/pipeline.py``; reference ``executor.py:690``). Each
+        device morsel's slot admits its encoded footprint on submit and
+        releases it on drain; its encode and dispatch run on the slot's
+        own stream. Host-routed morsels bypass the window. Order is
+        kept."""
+        from ..device import column as dcol, fragment, pipeline as dpipe
+
+        def submit(p, seq, gate):
+            rb = p.combined()
+            prog = morsel_gate(rb)
+            if prog is None:
+                return host_agg(rb)
+            est = dcol.encoded_nbytes(rb, prog.compiled.needs_cols)
+            slot = dpipe.acquire_slot(gate, seq, self.mem, est)
+            try:
+                t0 = time.perf_counter()
+                with dcol.on_stream(self._slot_stream()):
+                    tok = fragment.submit_fused_agg(
+                        prog, rb, node.group_by, agg_cols, node.schema(),
+                        self.device)
+                sub_s = time.perf_counter() - t0
+            except BaseException:
+                dpipe.release_slot(slot)
+                raise
+            return dpipe.InflightItem(slot, tok, sub_s=sub_s)
+
+        def drain(ret, seq):
+            if not isinstance(ret, dpipe.InflightItem):
+                return ret   # a host result, computed on the pool
+            return _to_partition(
+                fragment.drain_fused_agg_tables(ret.token)[0], node)
+
+        yield from dpipe.run_pipelined(child, submit, drain, window=window)
+
+    def _fragment_scan_tasks(self, node, prog, src, agg_cols, host_agg):
+        """Windows of scan tasks (reference ``executor.py:737``). Each task
+        of a window resolves to a device table (a cache hit, or loaded,
+        encoded and put in the cache) or to a host batch (empty, or a
+        column without a device plane); the window's fused programs are
+        dispatched and ALL their results come back in one device→host
+        copy; the partitions are emitted in task order. With a window
+        above 0, window N+1 loads, encodes and dispatches on the submit
+        pool (on its slot's stream) while window N's results come back
+        here."""
+        import itertools
+
+        from ..device import cache as dcache, column as dcol, fragment
+        from ..device import pipeline as dpipe, runtime as drt
+        device = self.device
+        needs = prog.compiled.needs_cols
+        schema = src.schema()
+        cache = dcache.get_cache()
+        n_tasks = len(src.tasks)
+
+        def classify(t):
+            """A cache hit is a device table; an empty batch or one with a
+            column without a device plane goes to the host; the rest are
+            candidates for encoding."""
+            fp = dcache.task_fingerprint(t, device)
+            if fp is not None:
+                dt = cache.get_table(fp, needs)
+                if dt is not None:
+                    return ("dev", dt)
+            rb = _load_with_retry(t).combined()
+            if len(rb) == 0 or not all(dcol.has_device_plane(
+                    rb.get_column(n)) for n in needs):
+                return ("host", rb)
+            return ("cand", rb, fp)
+
+        def encode(c):
+            """Encode a candidate; cache it when the whole scan's working
+            set fits the budget (a slice of an oversized scan would only
+            evict entries other queries still repay)."""
+            _, rb, fp = c
+            dt = dcol.encode_batch(rb, needs, device)
+            drt.count("scan_bytes_up", dt.nbytes())
+            if fp is not None and dcol.encoded_nbytes(rb, needs) \
+                    * n_tasks <= dcache.budget():
+                cache.put_table(fp, dt)
+            return ("dev", dt)
+
+        def resolve(window_tasks, stream):
+            """Classify, then encode the candidates on ``stream``, on the
+            pool in task order."""
+            def one(t):
+                c = classify(t)
+                if c[0] != "cand":
+                    return c
+                with dcol.on_stream(stream):
+                    return encode(c)
+            return list(_ordered_parallel(iter(window_tasks), one))
+
+        def emit(resolved, outs):
+            di = 0
+            for kind, val in resolved:
+                if kind == "dev":
+                    yield _to_partition(outs[di], node)
+                    di += 1
+                else:
+                    yield host_agg(val)
+
+        def tables(resolved):
+            return [v for k, v in resolved if k == "dev"]
+
+        width = max(os.cpu_count() or 4, 4) * 2
+        pwin = dpipe.inflight_window()
+        if pwin > 0:
+            # enough windows to fill the in-flight ladder: window + 1
+            width = max(1, min(width, -(-n_tasks // (pwin + 1))))
+
+        def windows():
+            it = iter(src.tasks)
+            while True:
+                w = list(itertools.islice(it, width))
+                if not w:
+                    return
+                yield w
+
+        if pwin <= 0:
+            # the synchronous loop: window N+1 loads after window N's fetch
+            for w in windows():
+                resolved = resolve(w, None)
+                outs = fragment.run_fused_agg_tables(
+                    prog, tables(resolved), schema, node.group_by,
+                    agg_cols, node.schema())
+                yield from emit(resolved, outs)
+            return
+
+        def p_submit(window_tasks, seq, gate):
+            t0 = time.perf_counter()
+            stream = self._slot_stream()
+            resolved = resolve(window_tasks, stream)
+            est = sum(dt.nbytes() for dt in tables(resolved))
+            slot = dpipe.acquire_slot(gate, seq, self.mem, est)
+            try:
+                with dcol.on_stream(stream):
+                    tok = fragment.submit_fused_agg_tables(
+                        prog, tables(resolved), schema, node.group_by,
+                        agg_cols, node.schema())
+            except BaseException:
+                dpipe.release_slot(slot)
+                raise
+            return dpipe.InflightItem(slot, (resolved, tok),
+                                      sub_s=time.perf_counter() - t0)
+
+        def p_drain(ret, seq):
+            resolved, tok = ret.token
+            outs = fragment.drain_fused_agg_tables(tok)
+            dpipe.release_slot(ret.slot)
+            return list(emit(resolved, outs))
+
+        for outs in dpipe.run_pipelined(windows(), p_submit, p_drain,
+                                        window=pwin, width=pwin + 1):
+            yield from outs
 
     # joins ------------------------------------------------------------
     def _exec_HashJoin(self, node: pp.HashJoin):
@@ -342,6 +551,26 @@ class LocalExecutor:
         yield MicroPartition.from_recordbatch(
             merged.combined().top_n(node.sort_by, node.limit,
                                     node.descending, node.nulls_first))
+
+
+def _to_partition(out: RecordBatch, node) -> MicroPartition:
+    return MicroPartition.from_recordbatch(out.cast_to_schema(node.schema()))
+
+
+def _load_with_retry(task, tries: int = 2) -> MicroPartition:
+    """Load a scan task, retrying a transient IO error once (reference
+    ``executor.py:2083``: the input is re-readable from storage)."""
+    last = None
+    for attempt in range(max(tries, 1)):
+        mp = MicroPartition.from_scan_task(task)
+        try:
+            mp._load()
+            return mp
+        except OSError as exc:
+            last = exc
+            if attempt + 1 < tries:
+                time.sleep(min(0.2 * (2 ** attempt), 2.0))
+    raise last
 
 
 def _lit_true() -> Expression:

@@ -30,6 +30,14 @@ REGISTRY = {
     "DAFT_TORCH_KERNEL_JOIN": (
         "auto", "device equi-join strategy: `auto` (= `hash`), or force "
         "`hash` (build/probe kernels) / `sort` (torch sort join)"),
+    "DAFT_TORCH_DEVICE_INFLIGHT": (
+        "", "in-flight device slots of the fused-agg pipeline (0 = the "
+        "synchronous path; at most 64); unset defers to "
+        "`ExecutionConfig.device_inflight` (default 2)"),
+    "DAFT_TORCH_DEVICE_CACHE_BYTES": (
+        8 * 1024 ** 3, "byte budget of the device column cache (encoded "
+        "scan columns kept on the card across queries, LRU); the "
+        "residency registry of decoded planes gets 1/8 of it"),
 }
 
 

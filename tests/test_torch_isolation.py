@@ -204,3 +204,40 @@ def test_sql_subquery_and_table_function_run_without_jax():
                        env=env, capture_output=True, text=True, timeout=120)
     assert r.returncode == 0, r.stdout + r.stderr
     assert "LEAKED []" in r.stdout
+
+
+_PIPE_SCRIPT = r"""
+import os, sys, tempfile
+os.environ["DAFT_TORCH_DEVICE"] = "cpu"
+os.environ["DAFT_TORCH_DEVICE_INFLIGHT"] = "2"
+from benchmarking.tpch.datagen import generate_tpch
+import daft_tpu_torch
+from daft_tpu_torch.benchmarking import tpch_queries as Q
+from daft_tpu_torch.device import runtime
+root = tempfile.mkdtemp()
+generate_tpch(root, scale_factor=0.001, num_parts=4)
+get = lambda t: daft_tpu_torch.read_parquet(os.path.join(root, t))
+cold = Q.q1(get).to_pydict()
+c = runtime.counters()
+assert c["pipeline_slots"] >= 2 and c["cache_puts"] == 4, c
+runtime.reset_counters()
+warm = Q.q1(get).to_pydict()
+c = runtime.counters()
+assert c["cache_hits"] == 4 and c.get("scan_bytes_up", 0) == 0, c
+assert c["pipeline_slots_acquired"] == c["pipeline_slots_released"], c
+assert cold == warm and len(cold["l_returnflag"]) == 4, cold
+leaked = sorted(m for m in sys.modules
+                if m in ("jax", "jaxlib", "daft_tpu")
+                or m.startswith(("jax.", "jaxlib.", "daft_tpu.")))
+print("LEAKED", leaked)
+assert leaked == [], leaked
+"""
+
+
+def test_pipelined_cached_query_runs_without_jax():
+    env = dict(os.environ)
+    env["PYTHONPATH"] = REPO + os.pathsep + env.get("PYTHONPATH", "")
+    r = subprocess.run([sys.executable, "-c", _PIPE_SCRIPT], cwd=REPO,
+                       env=env, capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stdout + r.stderr
+    assert "LEAKED []" in r.stdout
