@@ -9,6 +9,10 @@ Phases (any failure ends the run with a non-zero exit code):
 
 1. the card's name and power limit, and its device-to-device copy
    bandwidth (the yardstick the kernel's bound is also given against);
+   the cost model's link profile measured afresh on this machine (RTT,
+   up and down rates through the port's pinned staging and copy stream;
+   ``DAFT_TORCH_LINK_CACHE=0``: no stored profile from another machine)
+   and every constant the model prices with, on one ``costmodel`` line;
 2. build of the CUDA kernels from ``daft_tpu_torch/csrc`` (one ``nvcc``
    per source for sm_90a, all at once, linked into a shared library
    loaded with ctypes; its seconds and ``-Xptxas -v`` lines are
@@ -56,31 +60,42 @@ Phases (any failure ends the run with a non-zero exit code):
    launch per device join and one probe launch per dispatch;
 7. TPC-H 22 phase: all 22 queries as DataFrame code
    (``daft_tpu_torch/benchmarking/tpch_queries.py``) at the same SF1
-   data, with the per-operator device paths (projection, predicate,
-   argsort, agg outside a fused fragment) on: per query a counted cold
-   run and a warm run (the device column cache cleared before each, so
-   the walls keep their meaning), each held to the port's host tier
-   (``device="0"``) on the same files in the same process (keys, counts
-   and strings exact, floats at relative 1e-9); one line per query with
-   the walls, the dispatch counters and the kernel launches. Q3's
-   group-by must run on the card, an argsort and a per-operator hash
-   group-by must be dispatched, no fused morsel may fall to the host,
-   and Q1 keeps its 8 dense dispatches;
+   data, at the default knobs (the cost model decides host against card
+   and hash against sort): per query a counted cold run and a warm run
+   (the device column cache cleared before each, so the walls keep their
+   meaning), each held to the port's host tier (``device="0"``) on the
+   same files in the same process (keys, counts and strings exact,
+   floats at relative 1e-9), then a counted dispatch pass with
+   ``DAFT_TORCH_DEVICE_MIN_ROWS=4096`` (the per-operator paths at the
+   row floor the port had before its cost model) held to the same
+   answer; one line per query with the walls, the dispatch counters, the
+   cost model's decision counts and the kernel launches of both counted
+   runs (``--dispatch-log DIR`` also writes each warm run's decisions
+   as JSON lines, one file per query). Q1 keeps its 8 dense dispatches;
+   the fused morsels of a default run on the host are exactly those the
+   cost model priced there (``fused_agg_upload`` decisions); in the
+   dispatch pass (where the explicit floor also leaves the fused fragment
+   unpriced, its rule before the cost model) no fused morsel falls to the
+   host, Q3's group-by runs on the card, and an argsort and a
+   per-operator hash group-by are dispatched;
 7b. TPC-H SQL phase: the same 22 queries as SQL text through
    ``daft_tpu_torch.sql`` (``daft_tpu_torch/benchmarking/tpch_sql.py``:
    the SQL frontend, subquery decorrelation and the join rules), per
    query one counted cold run (depth cut to make room for the pipeline
-   phase: no warm run), held to phase 7's answer (floats at relative
-   1e-6: the two forms write some expressions differently); one
-   ``tpchsql`` line per query with the wall beside the DataFrame form's
-   cold wall, the counters, the join strategies and the cross joins
-   left (must be 0); no fused morsel may fall to the host;
+   phase: no warm run) at phase 7's dispatch setting, held to phase 7's
+   answer (floats at relative 1e-6: the two forms write some
+   expressions differently); one ``tpchsql`` line per query with the
+   wall beside the DataFrame form's dispatch-pass wall, the counters,
+   the join strategies and the cross joins left (must be 0); no fused
+   morsel may fall to the host;
 8. the hash build against its plain version at the inputs of every
-   distinct hash rung of the main path and of the TPC-H 22 phase
+   distinct hash rung of the main path and of the TPC-H 22 phase's
+   dispatch pass
    (query, T, key words), and of every rung of the SQL phase whose shape
    phase 7 did not hold; the join kernels at Q3's lineitem join and at
    every distinct join rung of the TPC-H 22 phase (query, C_r, T, C_l,
-   cap) and every SQL-phase rung of a shape phase 7 did not hold, each
+   cap) of that pass and every SQL-phase rung of a shape phase 7 did not
+   hold, each
    checked as in the join-kernel phase, then timed;
 9. a ``{"kernels": [...]}`` line with each kernel's launches, times and
    bound (one row per hash rung and per join rung; Q3's join rows also
@@ -114,8 +129,10 @@ import time
 
 import numpy as np
 
+# the port's own yardstick: the ledger's roofline reads the same rate
+from daft_tpu_torch.device.mfu import HBM_BPS as HBM_BYTES_PER_S
+
 HERE = os.path.dirname(os.path.abspath(__file__))
-HBM_BYTES_PER_S = 3.35e12   # H100 SXM published HBM3 rate (700 W)
 MAIN_C = 1 << 20
 MAIN_LIVE = 751_000
 
@@ -901,7 +918,8 @@ def main_path(root: str):
     rungs = {}
     for (q, a), (e0, e1) in zip(recorded, events):
         r = rungs.setdefault((q, a[5], len(a[0])),
-                             dict(args=a, launches=0, ms_sum=0.0))
+                             dict(args=a, launches=0, ms_sum=0.0,
+                                  pass_="default"))
         r["launches"] += 1
         r["ms_sum"] += e0.elapsed_time(e1)
     for name, got in results.items():
@@ -924,6 +942,31 @@ def main_path(root: str):
     if sum(r["launches"] for r in rungs.values()) != main_launches:
         raise AssertionError(f"hash launches {main_launches} != the builds "
                              "recorded at the rungs")
+    # the dispatch pass: the four queries again with the per-operator
+    # paths at the 4,096-row floor (answers held to pyarrow), so a rung
+    # the cost model now keeps on the host (l_shipdate's final merge) is
+    # still held and timed in phase 8, marked with its pass
+    n0 = len(recorded)
+    hk.hash_agg_build = recording
+    try:
+        with _env(**DISPATCH_PASS):
+            for name in ("q1", "suppkey_agg", "shipdate_agg", "q6"):
+                query[0] = name
+                _clear_device_cache()
+                check_answer(name, Q.QUERIES[name](get).to_pydict(), ref)
+    finally:
+        hk.hash_agg_build = orig
+    for (q, a), (e0, e1) in zip(recorded[n0:], events[n0:]):
+        key = (q, a[5], len(a[0]))
+        if key in rungs and rungs[key]["pass_"] == "default":
+            continue
+        r = rungs.setdefault(key, dict(args=a, launches=0, ms_sum=0.0,
+                                       pass_="floor4096"))
+        r["launches"] += 1
+        r["ms_sum"] += e0.elapsed_time(e1)
+    log("main path dispatch pass: answers match pyarrow; rungs held only "
+        "there: " + json.dumps([list(k) for k, r in rungs.items()
+                                if r["pass_"] != "default"]))
     return dict(counters=counters, launches=main_launches,
                 per_query=per_query,
                 kernel_ms_sum=sum(a.elapsed_time(b) for a, b in events),
@@ -1356,6 +1399,7 @@ def main_path_kernel_timing(rungs, bw: float):
                    planes=len(hk.plane_aliases(specs, vals, contribs)[0]),
                    path=build_path(words, vals, contribs, specs, T),
                    launches=r["launches"], main_path_ms_sum=r["ms_sum"],
+                   pass_=r.get("pass_", "default"),
                    max_abs_err=err, ms=ms, plain_ms=plain_ms, bytes=nbytes,
                    bound_ms=nbytes / HBM_BYTES_PER_S * 1e3,
                    bound_measured_bw_ms=nbytes / bw * 1e3)
@@ -1391,6 +1435,43 @@ def _clear_device_cache():
     cache.get_cache().clear()
 
 
+class _env:
+    """Environment variables set for a block, put back after."""
+
+    def __init__(self, **kv):
+        self.kv, self.saved = kv, {}
+
+    def __enter__(self):
+        for k, v in self.kv.items():
+            self.saved[k] = os.environ.get(k)
+            os.environ[k] = v
+
+    def __exit__(self, *exc):
+        for k, v in self.saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+#: phase 7's dispatch pass (and the SQL phase): the rules the port had
+#: before its cost model, the per-operator paths at the 4,096-row floor and
+#: the fused fragment unpriced
+DISPATCH_PASS = dict(DAFT_TORCH_DEVICE_MIN_ROWS="4096")
+
+
+def _priced_host_morsels(name: str, counts: dict, decisions: dict):
+    """The fused morsels that ran on the host are exactly those the cost
+    model priced there (its ``fused_agg_upload`` decisions for the host):
+    none went there for a reason the model did not price."""
+    host = sum(decisions.get(k, {}).get("host", 0)
+               for k in ("fused_agg_upload", "fused_agg_upload_invest"))
+    if counts.get("host_morsels", 0) != host:
+        raise AssertionError(f"{name}: {counts.get('host_morsels')} host "
+                             f"morsels, {host} priced to the host "
+                             f"({decisions})")
+
+
 class KernelRecorder:
     """Records every hash-agg build and every join build and probe of the
     counted runs, with CUDA events around each launch, and folds them
@@ -1399,7 +1480,10 @@ class KernelRecorder:
     summed event times (a join's device section runs alone:
     ``joins._device_lock``)."""
 
-    def __init__(self):
+    def __init__(self, pass_: str = "default"):
+        #: the run the rungs come from: ``default`` (the cost model) or
+        #: ``floor4096`` (the dispatch pass)
+        self.pass_ = pass_
         self.recorded, self.events = [], []
         self.jbuilds, self.jprobes, self.join_rungs = {}, [], {}
 
@@ -1435,11 +1519,13 @@ class KernelRecorder:
             out, ev = timed(orig_p, code, live, table, cap)
             self.jprobes.append(((code, live, table, cap), ev))
             return out
+        from daft_tpu_torch.device import costmodel
         hk.hash_agg_build = recording
         jk.hash_join_build_cuda = recording_build
         jk.hash_join_probe_cuda = recording_probe
         _clear_device_cache()
         runtime.reset_counters()
+        costmodel.reset_decision_counts()
         hk.reset_launches()
         jk.reset_launches()
         try:
@@ -1452,6 +1538,8 @@ class KernelRecorder:
             jk.hash_join_build_cuda = orig_b
             jk.hash_join_probe_cuda = orig_p
         counts = runtime.counters()
+        #: the cost model's decisions of this run
+        self.decisions = costmodel.decision_counts_snapshot()
         launches = dict(hash_agg_build=hk.launches, **jk.launches)
         _join_rungs(label, self.jbuilds, self.jprobes, self.join_rungs)
         self.jbuilds.clear()
@@ -1462,7 +1550,8 @@ class KernelRecorder:
         rungs = {}
         for (q, a), (e0, e1) in zip(self.recorded, self.events):
             r = rungs.setdefault((q, a[5], len(a[0])),
-                                 dict(args=a, launches=0, ms_sum=0.0))
+                                 dict(args=a, launches=0, ms_sum=0.0,
+                                      pass_=self.pass_))
             r["launches"] += 1
             r["ms_sum"] += e0.elapsed_time(e1)
         return rungs
@@ -1481,50 +1570,71 @@ class KernelRecorder:
                                      "calls")
 
 
-def tpch22_phase(root: str):
-    """All 22 TPC-H queries as DataFrame code on the card: per query a
-    counted cold run (every count zeroed just before, read just after)
-    and one warm run, both held to the port's host tier on the same files
-    in the same process; hash-agg builds and join builds and probes
-    recorded per rung for the kernel timing. Asserts Q3's group-by ran
-    on the device, an argsort was dispatched, a per-operator group-by
-    took the hash table, no fused morsel fell to the host, and Q1 kept
-    its 8 dense dispatches."""
+def tpch22_phase(root: str, dispatch_log=None):
+    """All 22 TPC-H queries as DataFrame code on the card. At the default
+    knobs (the cost model decides): per query a counted cold run (every
+    count zeroed just before, read just after) and one warm run, both
+    held to the port's host tier on the same files in the same process.
+    Then the dispatch pass, per query a counted cold run with
+    ``DISPATCH_PASS``, held to the same answer: its hash-agg builds and
+    join builds and probes are recorded per rung for the kernel timing.
+    Asserts Q1 kept its 8 dense dispatches, the host morsels of each
+    default run are exactly those the cost model priced there, and in the
+    dispatch pass no fused morsel fell to the host, Q3's group-by ran on
+    the device, an argsort was dispatched and a per-operator group-by took
+    the hash table."""
     import torch
     import daft_tpu_torch as dtt
     from daft_tpu_torch.benchmarking import tpch_queries as Q
     get = lambda t: dtt.read_parquet(os.path.join(root, t))  # noqa: E731
-    rec_k = KernelRecorder()
-    per_query, totals, answers = {}, {}, {}
+    rec_d, rec_k = KernelRecorder(), KernelRecorder("floor4096")
+    per_query, totals, ftotals, answers = {}, {}, {}, {}
     for q in range(1, 23):
         name = f"q{q}"
-        cold, cold_s, counts, launches = rec_k.counted(
-            f"tpch22 {name}", lambda: Q.ALL[q](get).to_pydict())
+        run = lambda: Q.ALL[q](get).to_pydict()  # noqa: E731
+        cold, cold_s, counts, launches = rec_d.counted(f"tpch22 {name}", run)
+        decisions = rec_d.decisions
         # the device column cache cleared, as for the cold run: these
         # walls keep the meaning they had before the cache (cached walls:
         # the pipeline phase)
         _clear_device_cache()
-        t0 = time.perf_counter()
-        warm = Q.ALL[q](get).to_pydict()
-        torch.cuda.synchronize()
-        warm_s = time.perf_counter() - t0
-        # the host tier last, so its files are as warm as the card's
+        logged = _env(DAFT_TORCH_DISPATCH_LOG=os.path.join(
+            dispatch_log, f"{name}.jsonl")) if dispatch_log else _env()
+        with logged:
+            t0 = time.perf_counter()
+            warm = run()
+            torch.cuda.synchronize()
+            warm_s = time.perf_counter() - t0
+        # the host tier after the card's runs, so its files are as warm
         with dtt.execution_config_ctx(device="0"):
             t0 = time.perf_counter()
-            host = Q.ALL[q](get).to_pydict()
+            host = run()
             host_s = time.perf_counter() - t0
+        with _env(**DISPATCH_PASS):
+            fl, fl_s, fcounts, flaunches = rec_k.counted(
+                f"tpch22 {name}", run)
         _same_answer(f"{name} cold", cold, host)
         _same_answer(f"{name} warm", warm, host)
+        _same_answer(f"{name} dispatch pass", fl, host)
+        _priced_host_morsels(f"{name} cold", counts, decisions)
         answers[q] = warm
         rec = dict(query=name, warm_s=warm_s, cold_s=cold_s, host_s=host_s,
                    rows=len(next(iter(host.values()))),
                    counters={k: counts.get(k, 0) for k in TPCH22_COUNTERS},
-                   launches=launches)
+                   decisions=decisions, launches=launches,
+                   floor4096_cold_s=fl_s,
+                   floor4096_counters={k: fcounts.get(k, 0)
+                                       for k in TPCH22_COUNTERS},
+                   floor4096_launches=flaunches)
         per_query[name] = rec
         for k, v in list(rec["counters"].items()) + list(launches.items()):
             totals[k] = totals.get(k, 0) + v
+        for k, v in list(rec["floor4096_counters"].items()) \
+                + list(flaunches.items()):
+            ftotals[k] = ftotals.get(k, 0) + v
         log("tpch22 " + json.dumps(rec))
-    q1, q3 = per_query["q1"]["counters"], per_query["q3"]["counters"]
+    q1 = per_query["q1"]["counters"]
+    q3 = per_query["q3"]["floor4096_counters"]
     if q1["dense"] != 8 or q1["agg_hash"] or q1["agg_sort"]:
         raise AssertionError(f"q1 changed route: {q1}")
     # Q3's three group keys (int64, date, int32) pack 131 bits, past the
@@ -1533,17 +1643,19 @@ def tpch22_phase(root: str):
     if q3["agg_sort"] < 1 or q3["agg_hash"]:
         raise AssertionError(f"q3's group-by did not run on the card: {q3}")
     for k in ("argsort", "agg_hash", "projection", "predicate"):
-        if totals[k] < 1:
-            raise AssertionError(f"tpch22: no {k} dispatch ({totals})")
-    if totals["host_morsels"]:
-        raise AssertionError(f"tpch22: host-tier morsels ({totals})")
-    rec_k.check_totals("tpch22", totals)
-    log("tpch22 totals " + json.dumps(totals) + "; warm walls summed "
-        f"{sum(r['warm_s'] for r in per_query.values()):.6f} s, host tier "
-        f"{sum(r['host_s'] for r in per_query.values()):.6f} s")
-    return dict(per_query=per_query, totals=totals,
+        if ftotals[k] < 1:
+            raise AssertionError(f"tpch22: no {k} dispatch ({ftotals})")
+    if ftotals["host_morsels"]:
+        raise AssertionError(f"tpch22 dispatch pass: host-tier morsels "
+                             f"({ftotals})")
+    rec_k.check_totals("tpch22", ftotals)
+    sums = {k: sum(r[k] for r in per_query.values())
+            for k in ("warm_s", "cold_s", "host_s", "floor4096_cold_s")}
+    log("tpch22 totals " + json.dumps(totals) + "; dispatch pass "
+        + json.dumps(ftotals) + "; walls summed " + json.dumps(sums))
+    return dict(per_query=per_query, totals=totals, floor_totals=ftotals,
                 rungs=rec_k.hash_rungs(), join_rungs=rec_k.join_rungs,
-                answers=answers)
+                answers=answers, sums=sums)
 
 
 def tpchsql_phase(root: str, t22: dict):
@@ -1563,7 +1675,7 @@ def tpchsql_phase(root: str, t22: dict):
     from daft_tpu_torch.physical import plan as pp
     from daft_tpu_torch.physical.translate import translate
     get = lambda t: dtt.read_parquet(os.path.join(root, t))  # noqa: E731
-    rec_k = KernelRecorder()
+    rec_k = KernelRecorder("floor4096")
     per_query, totals = {}, {}
     for q in range(1, 23):
         name = f"q{q}"
@@ -1577,8 +1689,9 @@ def tpchsql_phase(root: str, t22: dict):
             for ch in n.children:
                 walk(ch)
         walk(translate(plan))
-        cold, cold_s, counts, launches = rec_k.counted(
-            f"tpchsql {name}", lambda: tpch_sql.run(q, get).to_pydict())
+        with _env(**DISPATCH_PASS):
+            cold, cold_s, counts, launches = rec_k.counted(
+                f"tpchsql {name}", lambda: tpch_sql.run(q, get).to_pydict())
         want = t22["answers"][q]
         if len(cold) != len(want):
             raise AssertionError(f"sql {name}: {list(cold)} against "
@@ -1588,7 +1701,7 @@ def tpchsql_phase(root: str, t22: dict):
         _same_answer(f"sql {name} cold", dict(zip(want, cold.values())),
                      want, rel=1e-6)
         rec = dict(query=name, cold_s=cold_s,
-                   df_cold_s=t22["per_query"][name]["cold_s"],
+                   df_cold_s=t22["per_query"][name]["floor4096_cold_s"],
                    rows=len(next(iter(want.values()))),
                    counters={k: counts.get(k, 0) for k in TPCH22_COUNTERS},
                    launches=launches, join_strategies=strategies,
@@ -1721,7 +1834,15 @@ def main() -> int:
     ap.add_argument("--profile", action="store_true",
                     help="also trace one run of each main-path query and "
                          "of Q3")
+    ap.add_argument("--dispatch-log", default=None, metavar="DIR",
+                    help="write the cost model's decisions of each TPC-H "
+                         "22 warm run to DIR/q<N>.jsonl")
     args = ap.parse_args()
+    # the link profile this run prices with is measured here, on this
+    # machine, never read from a store another machine may have written
+    os.environ["DAFT_TORCH_LINK_CACHE"] = "0"
+    if args.dispatch_log:
+        os.makedirs(args.dispatch_log, exist_ok=True)
     t_start = time.perf_counter()
 
     import torch
@@ -1740,6 +1861,15 @@ def main() -> int:
     log(f"card: {card}")
     bw = copy_bandwidth()
     log(f"device-to-device copy bandwidth: {bw / 1e9:.1f} GB/s")
+    from daft_tpu_torch.device import calibration, costmodel
+    t0 = time.perf_counter()
+    lp = costmodel.link_profile()
+    log("costmodel " + json.dumps({
+        "card": card, "link": {"rtt_s": lp.rtt_s, "up_bps": lp.up_bps,
+                               "down_bps": lp.down_bps},
+        "link_measure_s": time.perf_counter() - t0,
+        "constants": costmodel.constants(),
+        "calibrated": calibration.calibrated_names()}))
 
     t0 = time.perf_counter()
     cuda_build.library()
@@ -1765,7 +1895,7 @@ def main() -> int:
     # (one warm run: depth cut to make room for the pipeline phase)
     q3_path(root, 1, ref=q3["ref"], threshold=1 << 40,
             label="q3 forced broadcast")
-    t22 = tpch22_phase(root)
+    t22 = tpch22_phase(root, args.dispatch_log)
     tsql = tpchsql_phase(root, t22)
     krecs = main_path_kernel_timing(mp["rungs"], bw)
     krecs += main_path_kernel_timing(t22["rungs"], bw)
@@ -1784,6 +1914,9 @@ def main() -> int:
         "launches": k["launches"], "max_abs_err": k["max_abs_err"],
         "ms": k["ms"], "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
         "bound_by": "bytes", "path": k["path"],
+        # the run whose launches these are: the default (cost model) or
+        # the dispatch pass at the 4,096-row floor
+        "pass": k["pass_"],
         # device time of the counted run's launches at this rung, summed
         "main_path_ms_sum": k["main_path_ms_sum"],
         # no single PyTorch call computes a hash group-by with these
@@ -1800,7 +1933,7 @@ def main() -> int:
             "max_abs_err": 0.0,
             "ms": jrec[f"{pre}_ms"], "plain_ms": jrec[f"{pre}_plain_ms"],
             "bound_ms": jrec[f"{pre}_bound_ms"], "bound_by": "bytes",
-            "main_path_ms_sum": q3["kernel_ms"][kname],
+            "main_path_ms_sum": q3["kernel_ms"][kname], "pass": "default",
             # device activities (kernels, memsets) of one call, and the
             # host time of one call enqueued back to back
             "launches_per_call": jrec[f"{pre}_launches_per_call"],
@@ -1826,6 +1959,7 @@ def main() -> int:
                 "ms": j[f"{pre}_ms"], "plain_ms": j[f"{pre}_plain_ms"],
                 "bound_ms": j[f"{pre}_bound_ms"], "bound_by": "bytes",
                 "main_path_ms_sum": j["main_path_ms_sum"][kname],
+                "pass": "floor4096",
                 "host_ms": j[f"{pre}_host_ms"],
                 "sort_join_ms": j["sort_join_ms"], "library_ms": None})
     log(json.dumps({"kernels": kernels}))

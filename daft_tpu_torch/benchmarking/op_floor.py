@@ -1,5 +1,6 @@
 """The per-operator device paths against the host tier by batch size: where
-the row floor ``DAFT_TORCH_DEVICE_MIN_ROWS`` would sit for each operator.
+the row floor ``DAFT_TORCH_DEVICE_MIN_ROWS`` would sit for each operator,
+and what the cost model (``device/costmodel.py``) decides there.
 
     python3 -m daft_tpu_torch.benchmarking.op_floor [--out FILE]
 
@@ -17,19 +18,25 @@ the ``RecordBatch`` methods a query calls:
   strategy that ran);
 - ``agg_global``: sum, mean and max of ``x``.
 
-Each runs on the host tier (the floor above the batch) and on the device
-tier (the floor at 0), in turns host, device, device, host, for
+Each runs on the host tier (the floor above the batch), on the device
+tier (the floor at 0) and at the default knobs (the floor unset: the cost
+model decides), in turns host, device, model, model, device, host, for
 ``--reps`` rounds; the wall of one call is the median of its tier's
 calls (host clock: the device tier's call ends with its result on the
 host). The device tier includes the upload of the batch's planes and the
 fetch of the result, as on the main path. Each device call must count its
 dispatch, and its answer must equal the host tier's (permutations and
-masks exactly, groups as sets, floats at relative 1e-9).
+masks exactly, groups as sets, floats at relative 1e-9). Beside the
+walls, the cost model's decision for the batch (``model_device``) and the
+host and device seconds it predicted (``model_host_ms``,
+``model_dev_ms``, from its decision log), and whether it picked the tier
+whose measured wall was the smaller (``model_right``).
 
 Prints one JSON line per (operator, rows) and a last ``crossover`` line:
 per operator, the least row count measured from which the device tier's
 wall is below the host tier's at that count and every larger one (null
-if none). Runs on ``cuda`` unless ``DAFT_TORCH_DEVICE`` says otherwise.
+if none), and the sizes at which the cost model picked the slower tier.
+Runs on ``cuda`` unless ``DAFT_TORCH_DEVICE`` says otherwise.
 """
 
 from __future__ import annotations
@@ -39,6 +46,7 @@ import json
 import math
 import os
 import statistics
+import tempfile
 import time
 
 import numpy as np
@@ -73,6 +81,11 @@ OPS = {
          col("x").max().alias("mx")]),
 }
 
+#: the cost model's decision kind each operator's gate logs
+DECISIONS = {"projection": "row_output", "predicate": "row_output",
+             "argsort": "argsort", "agg_grouped": "agg_upload",
+             "agg_global": "agg_upload"}
+
 #: the dispatch counter(s) each operator's device path bumps
 COUNTERS = {"projection": ("projection",), "predicate": ("predicate",),
             "argsort": ("argsort",), "agg_grouped": ("agg_hash", "agg_sort"),
@@ -101,20 +114,45 @@ def _same(a: list, b: list) -> bool:
     return True
 
 
-def _call(op: str, batch: RecordBatch, floor: int):
-    """One call of ``op`` with the row floor at ``floor`` (the knob is
-    put back after): (answer, wall seconds)."""
-    saved = os.environ.get("DAFT_TORCH_DEVICE_MIN_ROWS")
-    os.environ["DAFT_TORCH_DEVICE_MIN_ROWS"] = str(floor)
+def _call(op: str, batch: RecordBatch, floor, log=None):
+    """One call of ``op`` with the row floor at ``floor`` (None: unset,
+    the cost model decides; its decisions go to ``log`` when given); the
+    knobs are put back after: (answer, wall seconds)."""
+    saved = {k: os.environ.get(k) for k in ("DAFT_TORCH_DEVICE_MIN_ROWS",
+                                            "DAFT_TORCH_DISPATCH_LOG")}
+    if floor is None:
+        os.environ.pop("DAFT_TORCH_DEVICE_MIN_ROWS", None)
+    else:
+        os.environ["DAFT_TORCH_DEVICE_MIN_ROWS"] = str(floor)
+    if log is not None:
+        os.environ["DAFT_TORCH_DISPATCH_LOG"] = log
     try:
         t0 = time.perf_counter()
         out = OPS[op](batch)
         return out, time.perf_counter() - t0
     finally:
-        if saved is None:
-            del os.environ["DAFT_TORCH_DEVICE_MIN_ROWS"]
-        else:
-            os.environ["DAFT_TORCH_DEVICE_MIN_ROWS"] = saved
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def _model_decision(op: str, batch: RecordBatch) -> dict:
+    """The cost model's decision for one call of ``op`` at the default
+    knobs, read back from its decision log."""
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "decisions.jsonl")
+        _call(op, batch, None, log=path)
+        recs = [json.loads(x) for x in open(path)] \
+            if os.path.exists(path) else []
+    mine = [r for r in recs if r["kind"] == DECISIONS[op]]
+    if len(mine) != 1:
+        raise AssertionError(f"{op} at {len(batch)} rows: {len(mine)} "
+                             f"{DECISIONS[op]} decisions ({recs})")
+    r = mine[0]
+    return dict(model_device=r["device"], model_host_ms=r["host_s"] * 1e3,
+                model_dev_ms=r["dev_s"] * 1e3)
 
 
 def measure(op: str, n: int, reps: int, seed: int) -> dict:
@@ -129,15 +167,27 @@ def measure(op: str, n: int, reps: int, seed: int) -> dict:
                              f"run ({runtime.counters()})")
     if not _same(_rows(dev_out), _rows(host_out)):
         raise AssertionError(f"{op} at {n} rows: device answer differs")
-    walls = {"host": [], "device": []}
+    model = _model_decision(op, batch)
+    walls = {"host": [], "device": [], "model": []}
+    floors = {"host": host_floor, "device": 0, "model": None}
     for _ in range(reps):
-        for tier in ("host", "device", "device", "host"):
-            _, t = _call(op, batch, host_floor if tier == "host" else 0)
+        for tier in ("host", "device", "model", "model", "device", "host"):
+            _, t = _call(op, batch, floors[tier])
             walls[tier].append(t)
     h, d = statistics.median(walls["host"]), statistics.median(walls["device"])
     return dict(op=op, rows=n, dispatch=ran[0], host_ms=h * 1e3,
                 device_ms=d * 1e3, device_over_host=d / h,
-                calls_per_tier=2 * reps)
+                model_ms=statistics.median(walls["model"]) * 1e3,
+                model_right=model["model_device"] == (d < h),
+                calls_per_tier=2 * reps, **model)
+
+
+def mispredicts(recs: list) -> dict:
+    """Per operator, the row counts at which the cost model picked the
+    tier whose measured wall was the larger."""
+    return {op: [r["rows"] for r in recs
+                 if r["op"] == op and not r.get("model_right", True)]
+            for op in OPS}
 
 
 def crossover(recs: list) -> dict:
@@ -167,7 +217,8 @@ def main() -> int:
             rec = measure(op, n, args.reps, args.seed)
             print(json.dumps(rec), flush=True)
             recs.append(rec)
-    line = json.dumps({"crossover": crossover(recs)})
+    line = json.dumps({"crossover": crossover(recs),
+                       "model_picked_slower": mispredicts(recs)})
     print(line, flush=True)
     if args.out:
         with open(args.out, "w") as f:

@@ -10,6 +10,7 @@ for the CPU raises — it never quietly runs somewhere else.
 
 from __future__ import annotations
 
+import functools
 from typing import Optional
 
 import torch
@@ -36,3 +37,29 @@ def resolve_device() -> Optional[torch.device]:
                 "set_execution_config(device='cpu'))")
         return torch.device(spec)
     raise ValueError(f"DAFT_TORCH_DEVICE={spec!r}: expected cuda, cpu or 0")
+
+
+def is_accelerator(device: Optional[torch.device] = None) -> bool:
+    """True when ``device`` (by default this query's, :func:`resolve_device`)
+    is a CUDA card: the hash kernels are compiled for it. The reference's
+    ``_hash_capable_backend`` rule: on CPU tensors the kernels' plain
+    versions stand in, for parity, not speed."""
+    if device is None:
+        device = resolve_device()
+    return device is not None and device.type == "cuda"
+
+
+def device_key(device: Optional[torch.device]) -> str:
+    """The name a measured profile is stored under: the card's name and
+    the host's (chip runs land on different machines), or ``cpu``."""
+    if device is None or device.type != "cuda":
+        return "cpu"
+    idx = device.index if device.index is not None \
+        else torch.cuda.current_device()
+    return _card_key(idx)
+
+
+@functools.lru_cache(maxsize=None)
+def _card_key(index: int) -> str:
+    import socket
+    return f"{torch.cuda.get_device_name(index)}@{socket.gethostname()}"

@@ -156,7 +156,24 @@ def on_stream(stream):
         else contextlib.nullcontext()
 
 
+_uncounted = threading.local()
+
+
+@contextlib.contextmanager
+def uncounted():
+    """Copies made inside, on this thread, bump no transfer counter: the
+    link measurement and the rate measurements are not query work."""
+    prev = getattr(_uncounted, "on", False)
+    _uncounted.on = True
+    try:
+        yield
+    finally:
+        _uncounted.on = prev
+
+
 def _count(name: str, n: int = 1) -> None:
+    if getattr(_uncounted, "on", False):
+        return
     from . import runtime
     runtime.count(name, n)
 

@@ -1,0 +1,650 @@
+"""Measured transfer-aware dispatch cost model of the torch tier.
+
+The torch rewrite of ``daft_tpu/device/costmodel.py``. Every decision the
+reference prices goes through here: the per-operator paths
+(``runtime.py``), the fused-agg gates (``execution/executor.py``,
+``fragment._max_out_cap``), the device join (``joins.py``), and the
+hash-vs-sort choice in front of the hash-agg and hash-join kernels. Each
+compares
+
+    device_time = bytes_up/up_bps + bytes_down/down_bps + round_trips·RTT
+                  + DEV_DISPATCH_S + work / DEV_* rate
+    host_time   = work / HOST_* rate
+
+and runs the op on whichever side is cheaper. The link terms are measured
+at the first decision on a card, through the path the port's transfers
+take (pinned staging buffers and the copy stream, ``column._upload``;
+``column.fetch_host``), once per process, and stored per card and host
+(``DAFT_TORCH_LINK_CACHE``). A CPU device shares host memory: a zero-cost
+link. A measurement that fails raises; there is no guessed profile.
+
+The ``HOST_*`` and ``DEV_*`` constants below were measured on an NVIDIA
+H100 80GB HBM3 at a 700.00 W power limit by
+``python3 -m daft_tpu_torch.benchmarking.calibrate`` (``PERF.md`` §6
+lists them beside the call that measured them): ``HOST_*`` from the
+port's host tier (pyarrow and numpy) on that machine's CPU, ``DEV_*`` from
+``mfu.report()`` (kernel rates on device-resident inputs) and
+``op_floor.py`` (``DEV_DISPATCH_S``: the host time of one per-operator
+device dispatch beyond its round trips).
+
+Env overrides:
+- ``DAFT_TORCH_LINK_RTT_MS`` / ``_UP_MBPS`` / ``_DOWN_MBPS``: skip the
+  measurement, use these numbers;
+- ``DAFT_TORCH_DEVICE_FORCE``: ``1`` the device always wins, ``0`` the
+  host;
+- ``DAFT_TORCH_DISPATCH_LOG``: one JSON line per decision.
+
+Not carried over yet (each waits for its caller's slice, ROADMAP):
+``fusion_serial_estimate`` / ``fusion_wins`` (A5), ``image_resize_wins``
+(A8), the shuffle, mesh, ICI and spill gates (A6/A7).
+"""
+
+from __future__ import annotations
+
+import json
+import math
+import os
+import threading
+import time
+from dataclasses import dataclass
+from typing import Optional, Tuple
+
+from .. import knobs
+
+# Measured at 2^20 rows (``calibrate --rows 1048576``) on an NVIDIA H100
+# 80GB HBM3 at 700.00 W and its host's CPU; PERF.md §6 has the unrounded
+# values beside the other runs, and the model's check by ``op_floor.py``.
+# host tier rates (the port's pyarrow/numpy host paths)
+HOST_VECTOR_BPS = 3.146e9       # projection / predicate, per byte touched
+HOST_AGG_BPS = 9.843e8          # grouped and global agg, per byte touched
+HOST_SORT_ROWS_PER_S = 8.972e6  # multi-key argsort, key-rows/s
+HOST_JOIN_ROWS_PER_S = 1.914e6  # equi-join index generation, rows/s
+
+# device tier rates (kernels on device-resident planes)
+DEV_VECTOR_BPS = 3.484e11     # compiled projection, per byte up + down
+DEV_AGG_BPS = 1.558e10        # sort-strategy grouped agg, per encoded byte
+DEV_AGG_HASH_BPS = 3.507e10   # hash-agg table build, per encoded byte
+DEV_AGG_DENSE_BPS = 9.429e9   # dense (direct-indexed) agg, per encoded byte
+DEV_SORT_ROWS_PER_S = 2.146e9       # packed-key argsort, key-rows/s
+DEV_JOIN_ROWS_PER_S = 1.971e9       # torch sort join, rows/s (both sides)
+DEV_JOIN_HASH_ROWS_PER_S = 7.032e9  # hash build + probe, rows/s
+DEV_DISPATCH_S = 1.023e-3     # host time of one per-operator dispatch
+#                               (encode, launches, fetch) beyond its two
+#                               round trips
+
+#: the most a cacheable upload may cost against one host pass (the
+#: reference's bounded-investment rule: a policy ratio, not a rate)
+INVEST_MAX_RATIO = 8.0
+
+
+@dataclass(frozen=True)
+class LinkProfile:
+    rtt_s: float
+    up_bps: float
+    down_bps: float
+
+    def device_seconds(self, bytes_up: float, bytes_down: float,
+                       round_trips: float, kernel_s: float = 0.0) -> float:
+        return (bytes_up / self.up_bps + bytes_down / self.down_bps
+                + round_trips * self.rtt_s + kernel_s)
+
+    def pipelined_seconds(self, bytes_up: float, bytes_down: float,
+                          round_trips: float, kernel_s: float = 0.0
+                          ) -> float:
+        """Steady-state per-dispatch cost with the async pipeline
+        overlapping the transfer legs with neighbour dispatches' compute:
+        the slower of (wire, kernel) plus one round trip, never more than
+        the serial chain."""
+        link_s = bytes_up / self.up_bps + bytes_down / self.down_bps
+        serial = link_s + round_trips * self.rtt_s + kernel_s
+        steady = max(link_s, kernel_s) + self.rtt_s
+        return min(serial, steady)
+
+
+_SHARED_MEMORY = LinkProfile(0.0, math.inf, math.inf)
+
+_lock = threading.Lock()
+#: the link profile of each device key (``backend.device_key``) this
+#: process has priced with
+_profiles: dict = {}
+
+
+def _cal(name: str, default: float) -> float:
+    """One constant through the calibration store: the learned value once
+    its sample floor is met and ``DAFT_TORCH_CALIBRATION`` is on, else the
+    measured default."""
+    from . import calibration
+    return calibration.const(name, default)
+
+
+def _env_profile() -> Optional[LinkProfile]:
+    rtt = knobs.env_opt_float("DAFT_TORCH_LINK_RTT_MS")
+    up = knobs.env_opt_float("DAFT_TORCH_LINK_UP_MBPS")
+    down = knobs.env_opt_float("DAFT_TORCH_LINK_DOWN_MBPS")
+    if rtt is None and up is None and down is None:
+        return None
+    return LinkProfile(
+        rtt_s=(rtt if rtt is not None else 1.0) / 1e3,
+        up_bps=(up if up is not None else 100.0) * 1e6,
+        down_bps=(down if down is not None else 100.0) * 1e6)
+
+
+def _measure(device) -> LinkProfile:
+    """One link measurement on a card, through the port's own transfer
+    path: pinned staging and the copy stream up (``column._upload``), one
+    packed copy into a pinned buffer down (``column.fetch_host``).
+
+    RTT: a 32-byte upload, a kernel and a fetch with its wait, median of
+    three after an untimed first pass (lazy init: the copy stream, the
+    pinned pool). Bandwidth: 8 MiB, two rounds; per round the fetch of a
+    resident plane (down), then a fresh host buffer uploaded, touched by a
+    kernel and fetched (up = that round trip less the down leg and one
+    RTT). The slower round wins: an optimistic link estimate buys device
+    mispredicts, a pessimistic one leaves an op on the host. The copies
+    count in no transfer counter."""
+    import statistics
+
+    import numpy as np
+    import torch
+
+    from . import column as dcol
+
+    def round_trip(host: np.ndarray) -> None:
+        (t,), _, _ = dcol._upload([host], len(host), device)
+        dcol.fetch_host([t + 1])
+
+    with dcol.uncounted():
+        tiny = np.zeros(8, dtype=np.float32)
+        round_trip(tiny)
+        rtts = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            round_trip(tiny)
+            rtts.append(time.perf_counter() - t0)
+        rtt = max(statistics.median(rtts), 1e-7)
+
+        nbytes = 1 << 23
+        big = np.zeros(nbytes // 4, dtype=np.float32)
+        (dev,), _, _ = dcol._upload([big], len(big), device)
+        dev = dev + 0
+        round_trip(big)   # untimed: pinned buffers of this size pooled
+        torch.cuda.synchronize(device)
+        down_best = up_best = 0.0
+        for rnd in range(2):
+            t0 = time.perf_counter()
+            dcol.fetch_host([dev])
+            down_s = max(time.perf_counter() - t0 - rtt / 2, 1e-7)
+            fresh = big + (1.0 + rnd)
+            t0 = time.perf_counter()
+            round_trip(fresh)
+            round_s = time.perf_counter() - t0
+            up_s = max(round_s - down_s - rtt, down_s / 10, 1e-7)
+            down_best = max(down_best, down_s)
+            up_best = max(up_best, up_s)
+    return LinkProfile(rtt_s=rtt, up_bps=nbytes / up_best,
+                       down_bps=nbytes / down_best)
+
+
+_LINK_CACHE_TTL_S = 1800.0      # reuse a stored profile this long
+_LINK_BLEND_MAX_S = 6 * 3600.0  # blend with a stale one up to this age
+
+
+def _link_cache_path() -> str:
+    p = knobs.env_raw("DAFT_TORCH_LINK_CACHE_PATH")
+    if p:
+        return p
+    return os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "_build", "link_profile.json")
+
+
+def _load_stored(key: str):
+    """(LinkProfile, age_s) stored for this card and host, or (None,
+    None): a missing file, or one stored for another card or host."""
+    path = _link_cache_path()
+    if not os.path.exists(path):
+        return None, None
+    try:
+        with open(path) as f:
+            d = json.load(f)
+        if d.get("backend") != key:
+            return None, None
+        return LinkProfile(rtt_s=float(d["rtt_s"]),
+                           up_bps=float(d["up_bps"]),
+                           down_bps=float(d["down_bps"])), \
+            time.time() - float(d["ts"])
+    except (ValueError, KeyError, TypeError, AttributeError):
+        return None, None   # a torn or foreign file: measure afresh
+
+
+def _store(key: str, p: LinkProfile) -> None:
+    path = _link_cache_path()
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    tmp = f"{path}.{os.getpid()}"
+    with open(tmp, "w") as f:
+        json.dump({"backend": key, "ts": time.time(), "rtt_s": p.rtt_s,
+                   "up_bps": p.up_bps, "down_bps": p.down_bps}, f)
+    os.replace(tmp, path)
+
+
+def link_profile() -> LinkProfile:
+    """The measured (or overridden) host↔device link of this query's
+    device. A CPU device (or the host tier) shares host memory: a
+    zero-cost link.
+
+    A card's profile is stored (``DAFT_TORCH_LINK_CACHE_PATH``, default
+    ``daft_tpu_torch/_build/link_profile.json``; ``DAFT_TORCH_LINK_CACHE=0``
+    to measure in every process) under the card's name and the host's
+    (``backend.device_key``), so a profile from another machine never
+    drives a decision. Within 30 minutes the stored profile is used as
+    is; after that a fresh measurement is blended geometrically with a
+    stored one up to 6 hours old, to damp sample noise."""
+    from . import backend
+    device = backend.resolve_device()
+    key = backend.device_key(device)
+    p = _profiles.get(key)
+    if p is not None:
+        return p
+    with _lock:
+        p = _profiles.get(key)
+        if p is not None:
+            return p
+        env = _env_profile()
+        if env is not None:
+            p = env
+        elif key == "cpu":
+            p = _SHARED_MEMORY
+        else:
+            use_cache = knobs.env_bool("DAFT_TORCH_LINK_CACHE")
+            stored, age = _load_stored(key) if use_cache else (None, None)
+            if stored is not None and age < _LINK_CACHE_TTL_S:
+                p = stored
+            else:
+                p = _measure(device)
+                if stored is not None and age < _LINK_BLEND_MAX_S:
+                    p = LinkProfile(
+                        rtt_s=math.sqrt(p.rtt_s * stored.rtt_s),
+                        up_bps=math.sqrt(p.up_bps * stored.up_bps),
+                        down_bps=math.sqrt(p.down_bps * stored.down_bps))
+                if use_cache:
+                    _store(key, p)
+        _profiles[key] = p
+        return p
+
+
+def constants() -> dict:
+    """Every constant the model prices with (calibrated values where
+    active), for the record beside a run's numbers."""
+    from . import calibration
+    out = {n: _cal(n, v) for n, v in calibration.costmodel_defaults()
+           .items() if n != "NDV_FOOTER_RATIO"}
+    out.update(HOST_VECTOR_BPS=HOST_VECTOR_BPS, HOST_AGG_BPS=HOST_AGG_BPS,
+               HOST_SORT_ROWS_PER_S=HOST_SORT_ROWS_PER_S,
+               HOST_JOIN_ROWS_PER_S=HOST_JOIN_ROWS_PER_S,
+               DEV_DISPATCH_S=DEV_DISPATCH_S,
+               INVEST_MAX_RATIO=INVEST_MAX_RATIO)
+    return out
+
+
+def reset_for_tests() -> None:
+    with _lock:
+        _profiles.clear()
+    with _counts_lock:
+        decision_counts.clear()
+    ledger_reset()
+    from . import calibration
+    calibration.reset_for_tests()
+
+
+# ------------------------------------------------- per-dispatch MFU ledger
+
+#: achieved-work accounting per kernel family, recorded at every real
+#: dispatch site; ``mfu.report()`` embeds a snapshot
+kernel_ledger: dict = {}
+_ledger_lock = threading.Lock()
+
+_LEDGER_RAW = ("dispatches", "rows", "bytes", "flops", "seconds")
+#: per-family strategy counts and the summed hash-table load factor
+_LEDGER_STRATEGY = ("strategy_hash", "strategy_sort", "strategy_dense",
+                    "lf_sum")
+
+
+def ledger_record(kind: str, *, rows: int = 0, nbytes: float = 0.0,
+                  flops: float = 0.0, seconds: float = 0.0,
+                  dispatches: int = 1, strategy: Optional[str] = None,
+                  load_factor: Optional[float] = None) -> None:
+    """Record one real dispatch's achieved work. ``seconds`` is the
+    dispatch's device time where a drain timed it with CUDA events (the
+    fused fragments), else its host wall to a host-visible result;
+    ``nbytes`` / ``flops`` are the ``mfu`` models of the kernel that ran.
+    Feeds the calibration store (a no-op unless it is on)."""
+    fields = [("dispatches", dispatches), ("rows", rows),
+              ("bytes", float(nbytes)), ("flops", float(flops)),
+              ("seconds", float(seconds))]
+    if strategy in ("hash", "sort", "dense"):
+        fields.append((f"strategy_{strategy}", dispatches))
+    if load_factor is not None:
+        fields.append(("lf_sum", float(load_factor) * dispatches))
+    with _ledger_lock:
+        d = kernel_ledger.setdefault(
+            kind, {k: 0 if k in ("dispatches", "rows") else 0.0
+                   for k in _LEDGER_RAW})
+        for f, v in fields:
+            d[f] = d.get(f, 0) + v
+    from . import calibration
+    calibration.observe_dispatch(kind, strategy, rows=rows, nbytes=nbytes,
+                                 seconds=seconds, dispatches=dispatches)
+
+
+def _derive(d: dict) -> dict:
+    from .mfu import HBM_BPS, PEAK_FLOPS
+    out = {k: v for k, v in d.items() if k not in _LEDGER_STRATEGY}
+    s = d.get("seconds", 0.0)
+    if s > 0 and d.get("bytes"):
+        out["achieved_gbps"] = d["bytes"] / s / 1e9
+        out["roofline_pct"] = 100.0 * d["bytes"] / s / HBM_BPS
+    if s > 0 and d.get("flops"):
+        out["achieved_tflops"] = d["flops"] / s / 1e12
+        out["mfu_pct"] = 100.0 * d["flops"] / s / PEAK_FLOPS
+    counts = {nm: int(d.get(f"strategy_{nm}", 0))
+              for nm in ("hash", "sort", "dense")}
+    ran = [nm for nm, c in counts.items() if c]
+    if ran:
+        out["strategy"] = ran[0] if len(ran) == 1 else "mixed"
+        if len(ran) > 1:
+            for nm in ran:
+                out[f"strategy_{nm}"] = counts[nm]
+    if counts["hash"] and d.get("lf_sum"):
+        out["load_factor"] = d["lf_sum"] / counts["hash"]
+    return out
+
+
+def ledger_snapshot(raw: bool = False) -> dict:
+    """Per-family sums; with derived GB/s and roofline / MFU percentages
+    unless ``raw`` (raw snapshots are what :func:`ledger_delta` diffs)."""
+    with _ledger_lock:
+        snap = {k: dict(v) for k, v in kernel_ledger.items()}
+    return snap if raw else {k: _derive(d) for k, d in snap.items()}
+
+
+def ledger_delta(before: dict, after: dict) -> dict:
+    """Derived ledger of the work between two raw snapshots."""
+    out = {}
+    for kind, d in after.items():
+        b = before.get(kind, {})
+        diff = {k: d.get(k, 0) - b.get(k, 0)
+                for k in _LEDGER_RAW + _LEDGER_STRATEGY}
+        if diff["dispatches"] > 0:
+            out[kind] = _derive(diff)
+    return out
+
+
+def ledger_reset() -> None:
+    with _ledger_lock:
+        kernel_ledger.clear()
+
+
+def _forced() -> Optional[bool]:
+    v = knobs.env_raw("DAFT_TORCH_DEVICE_FORCE")
+    if v is None:
+        return None
+    if v.lower() in ("1", "device", "on", "true"):
+        return True
+    if v.lower() in ("0", "host", "off", "false"):
+        return False
+    raise ValueError(f"DAFT_TORCH_DEVICE_FORCE={v!r}: expected 1/device "
+                     "or 0/host")
+
+
+# ------------------------------------------------------- decision logging
+
+#: in-process decision counters {kind: {"device": n, "host": n}};
+#: :func:`reset_for_tests` clears them
+decision_counts: dict = {}
+_counts_lock = threading.Lock()
+
+
+def decision_counts_snapshot() -> dict:
+    with _counts_lock:
+        return {k: dict(v) for k, v in decision_counts.items()}
+
+
+def reset_decision_counts() -> None:
+    with _counts_lock:
+        decision_counts.clear()
+
+
+def _log(kind: str, device: bool, host_s: float, dev_s: float,
+         **extras) -> None:
+    """Record one decision: always in :data:`decision_counts`; also as one
+    JSON line appended to ``DAFT_TORCH_DISPATCH_LOG`` when it names a file
+    (under the counts lock, so concurrent executor threads never
+    interleave partial lines)."""
+    path = knobs.env_raw("DAFT_TORCH_DISPATCH_LOG")
+    rec = None
+    if path:
+        rec = {"kind": kind, "device": bool(device), "host_s": host_s,
+               "dev_s": dev_s}
+        rec.update(extras)
+        rec = json.dumps(rec) + "\n"
+    with _counts_lock:
+        d = decision_counts.setdefault(kind, {"device": 0, "host": 0})
+        d["device" if device else "host"] += 1
+        if rec is not None:
+            with open(path, "a") as f:
+                f.write(rec)
+
+
+# ---------------------------------------------------------------- decisions
+
+def row_output_op_wins(bytes_up: float, bytes_down: float,
+                       round_trips: float = 2.0,
+                       host_bytes: Optional[float] = None) -> bool:
+    """Projection / predicate: the output is row-shaped; the host cost is
+    a vector pass over the touched bytes. ``bytes_up`` is encoded (wire)
+    bytes; ``host_bytes`` the Arrow bytes a host pass touches (defaults to
+    ``bytes_up``)."""
+    f = _forced()
+    if f is not None:
+        return f
+    host_s = ((host_bytes if host_bytes is not None else bytes_up)
+              + bytes_down) / HOST_VECTOR_BPS
+    kernel_s = DEV_DISPATCH_S + (bytes_up + bytes_down) \
+        / _cal("DEV_VECTOR_BPS", DEV_VECTOR_BPS)
+    dev_s = link_profile().device_seconds(
+        bytes_up, bytes_down, round_trips, kernel_s)
+    _log("row_output", dev_s < host_s, host_s, dev_s,
+         bytes_up=bytes_up, bytes_down=bytes_down)
+    return dev_s < host_s
+
+
+def argsort_wins(n_rows: int, key_bytes: float, n_keys: int) -> bool:
+    f = _forced()
+    if f is not None:
+        return f
+    host_s = n_rows * max(n_keys, 1) / HOST_SORT_ROWS_PER_S
+    bytes_down = n_rows * 8  # the permutation
+    kernel_s = DEV_DISPATCH_S + n_rows * max(n_keys, 1) \
+        / _cal("DEV_SORT_ROWS_PER_S", DEV_SORT_ROWS_PER_S)
+    dev_s = link_profile().device_seconds(key_bytes, bytes_down, 2.0,
+                                          kernel_s)
+    _log("argsort", dev_s < host_s, host_s, dev_s,
+         n_rows=n_rows, key_bytes=key_bytes)
+    return dev_s < host_s
+
+
+def agg_upload_wins(bytes_up: float, bytes_down: float,
+                    cacheable: bool, round_trips: float = 2.0,
+                    host_bytes: Optional[float] = None,
+                    strategy: str = "sort", window: int = 1,
+                    host_rescan_bytes: float = 0.0,
+                    kind: str = "agg_upload") -> bool:
+    """An aggregation whose inputs are not on the device yet. ``bytes_up``
+    is the wire cost (encoded bytes), ``host_bytes`` what a host pass
+    touches (Arrow bytes; defaults to ``bytes_up``).
+
+    A cacheable upload (a scan task whose working set fits the device
+    column cache) is an investment the cache repays on every later run:
+    it wins when a resident run (no upload) beats the host pass and the
+    fill costs at most ``INVEST_MAX_RATIO`` host passes
+    (``DAFT_TORCH_CACHE_INVEST=0``: it must beat the host outright). A
+    non-cacheable upload must beat a host pass at ``HOST_AGG_BPS``. The
+    kernel term follows the strategy the dispatch would take; with the
+    pipeline on (``window`` ≥ 2) the transfer is priced at its
+    steady-state overlap.
+
+    ``host_rescan_bytes`` is the port's one pricing term the reference
+    lacks (ROADMAP B0b): the bytes a later host run of a cacheable task
+    reads and decodes again (its file's uncompressed columns), which a
+    resident device run skips. The investment's host side adds them at
+    ``HOST_AGG_BPS``; at 0 (the default) the rule is the reference's.
+    Without it a scan task whose pushdown filter leaves few rows (TPC-H
+    Q6) prices only its small aggregation against the fill and is never
+    cached. ``kind`` names the decision in :data:`decision_counts` and
+    the log (``<kind>_invest`` for an investment)."""
+    f = _forced()
+    if f is not None:
+        return f
+    lp = link_profile()
+    host_s = (host_bytes if host_bytes is not None else bytes_up) \
+        / HOST_AGG_BPS
+    bps = _cal("DEV_AGG_HASH_BPS", DEV_AGG_HASH_BPS) if strategy == "hash" \
+        else _cal("DEV_AGG_DENSE_BPS", DEV_AGG_DENSE_BPS) \
+        if strategy == "dense" else _cal("DEV_AGG_BPS", DEV_AGG_BPS)
+    kernel_s = DEV_DISPATCH_S + bytes_up / bps
+    price = lp.pipelined_seconds if window >= 2 else lp.device_seconds
+    dev_s = price(bytes_up, bytes_down, round_trips, kernel_s)
+    if cacheable and knobs.env_bool("DAFT_TORCH_CACHE_INVEST"):
+        host_s += host_rescan_bytes / HOST_AGG_BPS
+        resident_s = price(0.0, bytes_down, round_trips, kernel_s)
+        win = resident_s < host_s and dev_s < INVEST_MAX_RATIO * host_s
+        _log(kind + "_invest", win, host_s, dev_s,
+             resident_s=resident_s, bytes_up=bytes_up,
+             bytes_down=bytes_down, round_trips=round_trips,
+             host_rescan_bytes=host_rescan_bytes, strategy=strategy)
+        return win
+    _log(kind, dev_s < host_s, host_s, dev_s,
+         bytes_up=bytes_up, bytes_down=bytes_down, round_trips=round_trips,
+         strategy=strategy)
+    return dev_s < host_s
+
+
+def join_wins(n_left: int, n_right: int, bytes_up: float,
+              bytes_down: float, window: int = 1) -> bool:
+    """An equi-join's index generation on the device (hash build and probe
+    when :func:`_join_strategy` picks it, else the torch sort join) against
+    the host's: one upload of both sides' codes, one dispatch, one fetch
+    of the pairs."""
+    f = _forced()
+    if f is not None:
+        return f
+    n = n_left + n_right
+    host_s = n / HOST_JOIN_ROWS_PER_S
+    rate = _cal("DEV_JOIN_HASH_ROWS_PER_S", DEV_JOIN_HASH_ROWS_PER_S) \
+        if _join_strategy(n_left, n_right) == "hash" \
+        else _cal("DEV_JOIN_ROWS_PER_S", DEV_JOIN_ROWS_PER_S)
+    kernel_s = DEV_DISPATCH_S + n / rate
+    lp = link_profile()
+    price = lp.pipelined_seconds if window >= 2 else lp.device_seconds
+    dev_s = price(bytes_up, bytes_down, 2.0, kernel_s)
+    _log("join", dev_s < host_s, host_s, dev_s,
+         n_left=n_left, n_right=n_right, bytes_up=bytes_up)
+    return dev_s < host_s
+
+
+# ------------------------------------------------------- kernel strategy
+
+def _hash_capable_backend(device=None) -> bool:
+    """The hash kernels are compiled for a card; on CPU tensors their
+    plain versions stand in for parity, not speed, so ``auto`` keeps the
+    torch sort path there (the reference's rule)."""
+    from . import backend
+    return backend.is_accelerator(device)
+
+
+def _join_strategy(n_left: int, n_right: int, device=None) -> str:
+    """Hash or sort for the device join, without logging (``join_wins``
+    prices with it; :func:`join_strategy` is the logged decision the
+    dispatch acts on). ``DAFT_TORCH_KERNEL_JOIN`` forces one; on a card
+    ``auto`` is hash. The reference also declines hash past
+    ``max_table_slots`` because its table and output planes must fit the
+    TPU's on-chip memory; the H100's build table and probe output live in
+    device memory (``join_kernels``: T = ``join_table_capacity``, twice
+    the build bucket), so the port's join has no slot ceiling."""
+    forced = knobs.env_str("DAFT_TORCH_KERNEL_JOIN").lower()
+    if forced in ("hash", "sort"):
+        return forced
+    if forced != "auto":
+        raise ValueError(f"DAFT_TORCH_KERNEL_JOIN={forced!r}: expected "
+                         "auto, hash or sort")
+    return "hash" if _hash_capable_backend(device) else "sort"
+
+
+def join_strategy(n_left: int, n_right: int, device=None) -> str:
+    """The join strategy of this dispatch, logged (``join_strategy`` in
+    decision_counts; "device" = hash)."""
+    s = _join_strategy(n_left, n_right, device)
+    _log("join_strategy", s == "hash", 0.0, 0.0,
+         n_left=n_left, n_right=n_right, strategy=s)
+    return s
+
+
+def forced_groupby() -> str:
+    """``DAFT_TORCH_KERNEL_GROUPBY``: ``auto``, or a forced ``dense`` /
+    ``hash`` / ``sort``."""
+    forced = knobs.env_str("DAFT_TORCH_KERNEL_GROUPBY").lower()
+    if forced not in ("auto", "dense", "hash", "sort"):
+        raise ValueError(f"DAFT_TORCH_KERNEL_GROUPBY={forced!r}")
+    return forced
+
+
+def groupby_strategy(rows: int, groups: Optional[float], key_dtypes,
+                     out_cap: int, log: bool = True,
+                     device=None) -> Tuple[str, float]:
+    """Hash or sort for one grouped-agg dispatch → ``(strategy,
+    est_load_factor)``. ``log=False`` for pricing-only asks (the upload
+    gates), so decision_counts tallies dispatches, not estimates.
+
+    Evidence, best first: the footer NDV (``groups``, damped by the
+    calibrated actual/footer ratio), else the group budget ``out_cap``.
+    Sort when the key set packs wider than the hash key budget
+    (``hash_kernels.hash_pack_words``), when the table passes
+    ``DAFT_TORCH_KERNEL_MAX_TABLE`` slots, when footer evidence shows
+    near-unique keys (``DAFT_TORCH_KERNEL_HASH_NDV_FRAC``), when the
+    device is not a card, or when the sort model moves fewer bytes.
+    ``DAFT_TORCH_KERNEL_GROUPBY=hash|sort`` forces one (hash still needs a
+    packable key set); ``dense`` is the fragments' own first choice and
+    leaves this one to the rule."""
+    from . import calibration, hash_kernels as hk, mfu
+    words = hk.hash_pack_words(key_dtypes) if key_dtypes else None
+    table = hk.table_capacity(max(out_cap, 1))
+    ndv = max(groups * calibration.ndv_ratio(), 1.0) if groups \
+        else float(out_cap)
+    lf = min(ndv / table, 1.0)
+    forced = forced_groupby()
+    if forced == "sort" or words is None:
+        s = "sort"
+    elif forced == "hash":
+        s = "hash"
+    elif not _hash_capable_backend(device):
+        s = "sort"
+    elif table > hk.max_table_slots():
+        s = "sort"
+    elif groups and rows > 0 and ndv / rows > knobs.env_float(
+            "DAFT_TORCH_KERNEL_HASH_NDV_FRAC"):
+        s = "sort"
+    else:
+        sort_bytes = mfu.grouped_agg_models(
+            rows, out_cap, max(len(key_dtypes), 1), 1)[1]
+        hash_bytes = mfu.hash_agg_models(rows, out_cap, table, words, 1)[1]
+        s = "hash" if hash_bytes < sort_bytes else "sort"
+    if log:
+        log_strategy_decision("groupby_strategy", s, rows=rows,
+                              groups=float(ndv), out_cap=out_cap,
+                              load_factor=lf)
+    return s, lf
+
+
+def log_strategy_decision(kind: str, strategy: str, **extras) -> None:
+    """Tally a kernel-strategy decision that was acted on: the dispatch
+    sites call this once the strategy really ran."""
+    _log(kind, strategy == "hash", 0.0, 0.0, strategy=strategy, **extras)

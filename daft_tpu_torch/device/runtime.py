@@ -8,14 +8,17 @@ The torch rewrite of ``daft_tpu/device/runtime.py``. Each ``try_*``
 returns None (the caller runs the host tier) in the cases where the
 reference declines: no device (``backend.resolve_device()`` is None), a
 projection that does not compile, an output that cannot be decoded, a
-Python-object column, an aggregation outside :data:`_DEVICE_AGGS`. The
-reference's link-priced gates (``costmodel.row_output_op_wins``,
-``argsort_wins``, ``agg_upload_wins``, ``groupby_strategy``) wait for the
-port's cost model; in their place one row floor applies,
-``DAFT_TORCH_DEVICE_MIN_ROWS`` (read at call time): a batch of fewer rows
-(and never fewer than one; two for an argsort) runs on the host and counts
-``host_ops``. Nothing else is caught: an error in a device path
-propagates.
+Python-object column, an aggregation outside :data:`_DEVICE_AGGS` — and
+where the cost model prices the host cheaper: ``costmodel.row_output_op_wins``
+for projections and predicates, ``argsort_wins``, and for aggregations
+``groupby_strategy`` then ``agg_upload_wins`` at the strategy the dispatch
+would take. An explicit ``DAFT_TORCH_DEVICE_MIN_ROWS`` replaces the
+pricing with its row floor (the reference's ``_min_rows_override``), and
+``DAFT_TORCH_DEVICE_FORCE`` trumps both. A per-operator call that goes to
+the host by floor or price counts ``host_ops``. Nothing else is caught: an
+error in a device path propagates. Each dispatch records its work in the
+cost model's ledger (``costmodel.ledger_record``, the ``mfu`` byte
+models, the host wall to the fetched result).
 
 A projection's decoded columns register their device planes in the
 pipeline's residency registry (``pipeline.note_decoded``), so a later
@@ -25,6 +28,7 @@ encode of the same Series reuses them (``column.encode_batch``).
 from __future__ import annotations
 
 import threading
+import time
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
@@ -97,14 +101,58 @@ def reset_counters() -> None:
     cache.get_cache().reset_counters()
 
 
-def _over_floor(n_rows: int, least: int = 1) -> bool:
-    """True when a batch of ``n_rows`` goes to the device (at least
-    ``DAFT_TORCH_DEVICE_MIN_ROWS`` and ``least`` rows); else counts
-    ``host_ops``."""
-    if n_rows >= max(knobs.env_int("DAFT_TORCH_DEVICE_MIN_ROWS"), least):
-        return True
-    count("host_ops")
-    return False
+def fused_unpriced() -> bool:
+    """True when an explicit ``DAFT_TORCH_DEVICE_MIN_ROWS`` puts the fused
+    fragment back on the rule it had before the cost model: every
+    non-empty batch whose columns have device planes runs on the card,
+    unpriced (the floor itself applies to the per-operator paths only).
+    ``DAFT_TORCH_DEVICE_FORCE`` trumps it: the pricing reads the force."""
+    return knobs.env_opt_int("DAFT_TORCH_DEVICE_MIN_ROWS") is not None \
+        and knobs.env_raw("DAFT_TORCH_DEVICE_FORCE") is None
+
+
+def _min_rows_override(n_rows: int) -> Optional[bool]:
+    """An explicit ``DAFT_TORCH_DEVICE_MIN_ROWS`` keeps its documented
+    meaning (the device runs at or above that many rows) and replaces the
+    pricing; ``DAFT_TORCH_DEVICE_FORCE`` trumps it. None: no override,
+    consult the cost model."""
+    env = knobs.env_opt_int("DAFT_TORCH_DEVICE_MIN_ROWS")
+    if env is None or knobs.env_raw("DAFT_TORCH_DEVICE_FORCE") is not None:
+        return None
+    return n_rows >= max(env, 1)
+
+
+def _gate(ok: bool) -> bool:
+    """Count ``host_ops`` for a per-operator call sent to the host."""
+    if not ok:
+        count("host_ops")
+    return ok
+
+
+def _series_nbytes(s: Series) -> int:
+    return int(s.to_arrow().nbytes)
+
+
+def _batch_cols_nbytes(batch, cols) -> int:
+    """Arrow bytes a host pass over these columns touches."""
+    return sum(_series_nbytes(batch.get_column(c)) for c in cols)
+
+
+def _row_output_profitable(batch, needs_cols, n_outputs: int,
+                           out_bytes_per_row: int = 8) -> bool:
+    """The gate of ops whose output is row-shaped (projection values,
+    predicate masks): the explicit floor when set, else
+    ``costmodel.row_output_op_wins`` (encoded bytes up, the outputs down,
+    against a host vector pass over the Arrow bytes)."""
+    from . import costmodel
+    n_rows = len(batch)
+    ov = _min_rows_override(n_rows)
+    if ov is not None:
+        return ov
+    return costmodel.row_output_op_wins(
+        dcol.encoded_nbytes(batch, needs_cols),
+        n_rows * out_bytes_per_row * max(n_outputs, 1),
+        host_bytes=_batch_cols_nbytes(batch, needs_cols))
 
 
 # ------------------------------------------------- projection compile cache
@@ -242,15 +290,25 @@ def try_eval_projection(batch, exprs: List[Expression]):
         return None
     c = _get_compiled(exprs, schema)
     if c is None or _host_only(batch, c.needs_cols) \
-            or not _over_floor(len(batch)):
+            or not _gate(_row_output_profitable(batch, c.needs_cols,
+                                                len(exprs))):
         return None
+    from . import costmodel
+    t0 = time.perf_counter()
     dt, outs = _run_compiled(c, batch, device)
     count("projection")
     named = [(f.name, dcol.DeviceColumn(v, m, f.dtype,
                                         key_dictionary(e, f, dt)))
              for e, f, (v, m) in zip(exprs, out_fields, outs)]
     # one device→host copy for every output plane
-    return RecordBatch.from_series(dcol.decode_columns(named, len(batch)))
+    out = RecordBatch.from_series(dcol.decode_columns(named, len(batch)))
+    n = len(batch)
+    costmodel.ledger_record(
+        "projection", rows=n,
+        nbytes=dcol.encoded_nbytes(batch, c.needs_cols)
+        + n * 8 * max(len(exprs), 1),
+        seconds=time.perf_counter() - t0)
+    return out
 
 
 def try_eval_predicate(batch, predicate: Expression) -> Optional[np.ndarray]:
@@ -260,7 +318,8 @@ def try_eval_predicate(batch, predicate: Expression) -> Optional[np.ndarray]:
         return None
     c = _get_compiled([predicate], batch.schema)
     if c is None or _host_only(batch, c.needs_cols) \
-            or not _over_floor(len(batch)):
+            or not _gate(_row_output_profitable(batch, c.needs_cols, 1,
+                                                out_bytes_per_row=1)):
         return None
     _, outs = _run_compiled(c, batch, device)
     count("predicate")
@@ -272,7 +331,7 @@ def try_eval_predicate(batch, predicate: Expression) -> Optional[np.ndarray]:
 def try_argsort(key_series: List[Series], descending: List[bool],
                 nulls_first: List[bool]) -> Optional[np.ndarray]:
     """A multi-key sort permutation on the device, or None (host)."""
-    from . import kernels
+    from . import costmodel, kernels, mfu
     if not key_series:
         return None
     device = resolve_device()
@@ -285,13 +344,17 @@ def try_argsort(key_series: List[Series], descending: List[bool],
         dt = s.datatype()
         if not (dt.is_device_representable() or dt.is_string()):
             return None
-    if not _over_floor(n, 2):
+    floor = _min_rows_override(n)
+    if not _gate(floor if floor is not None else costmodel.argsort_wins(
+            n, sum(_series_nbytes(s) for s in key_series),
+            len(key_series))):
         return None
     cap = dcol.bucket_capacity(n)
     try:
         cols = [dcol.encode_series(s, cap, device) for s in key_series]
     except (ValueError, pa.ArrowInvalid):
         return None
+    t0 = time.perf_counter()
     count("op_bytes_up", sum(c.data.nbytes + c.validity.nbytes
                              for c in cols))
     mask = torch.arange(cap, device=device) < n
@@ -300,46 +363,40 @@ def try_argsort(key_series: List[Series], descending: List[bool],
         tuple(bool(d) for d in descending),
         tuple(bool(x) for x in nulls_first))
     count("argsort")
-    return dcol.fetch_host([perm[:n]])[0].astype(np.int64)
+    out = dcol.fetch_host([perm[:n]])[0].astype(np.int64)
+    costmodel.ledger_record(
+        "argsort", rows=n,
+        nbytes=mfu.argsort_bytes_model(cap, [c.data.dtype for c in cols]),
+        seconds=time.perf_counter() - t0)
+    return out
 
 
-def forced_groupby() -> str:
-    """``DAFT_TORCH_KERNEL_GROUPBY``: ``auto``, or a forced ``dense`` /
-    ``hash`` / ``sort``."""
-    forced = knobs.env_str("DAFT_TORCH_KERNEL_GROUPBY").lower()
-    if forced not in ("auto", "dense", "hash", "sort"):
-        raise ValueError(f"DAFT_TORCH_KERNEL_GROUPBY={forced!r}")
-    return forced
-
-
-def agg_strategy(key_dtypes, out_cap: int) -> str:
-    """``hash`` or ``sort`` for a group-by of ``out_cap`` groups (a fused
-    fragment's rung, or a per-operator dispatch's whole capacity): sort
-    when ``DAFT_TORCH_KERNEL_GROUPBY=sort``, when the keys pack wider than
-    ``DAFT_TORCH_KERNEL_HASH_MAX_BITS``, or (unless hash is forced) when
-    the hash table would pass ``DAFT_TORCH_KERNEL_MAX_TABLE`` slots; else
-    hash. ``dense`` is the fragments' own first choice: forcing it leaves
-    this one to the rule."""
-    from . import hash_kernels as hk
-    forced = forced_groupby()
-    if forced == "sort" or hk.hash_pack_words(key_dtypes) is None:
-        return "sort"
-    if forced == "hash" or hk.table_capacity(out_cap) \
-            <= hk.max_table_slots():
-        return "hash"
-    return "sort"
+def key_plane_dtype(field) -> torch.dtype:
+    """The device dtype of a group key's plane, estimated from its field
+    before any encode (strings ride int32 dictionary codes), for the gates
+    that price the hash width before the planes exist."""
+    if field.dtype.is_string() or field.dtype.is_binary():
+        return torch.int32
+    rep = dcol.device_np_dtype(field.dtype.device_repr())
+    return torch.from_numpy(np.zeros(0, rep)).dtype
 
 
 def try_agg(batch, to_agg: List[Expression], group_by: List[Expression]):
     """Grouped or global aggregation on the device → RecordBatch, or None
     (host). Keyless: ``kernels.global_agg_impl``. Grouped: the hash table
     (``hash_kernels.hash_grouped_agg_impl``) or the sort strategy's
-    scatter form (``kernels.grouped_agg_impl``) by :func:`agg_strategy`,
-    either at a group budget of the whole capacity, so it never
-    overflows."""
+    scatter form (``kernels.grouped_agg_impl``) by
+    ``costmodel.groupby_strategy``, either at a group budget of the whole
+    capacity, so it never overflows. The gate: the explicit floor when
+    set (the port's documented meaning of ``DAFT_TORCH_DEVICE_MIN_ROWS``,
+    trumped by ``DAFT_TORCH_DEVICE_FORCE``), else
+    ``costmodel.agg_upload_wins`` for a one-shot upload (an in-memory batch
+    has no cache identity) at the strategy estimated from the key fields;
+    the dispatch takes the strategy of the compiled key planes."""
     from ..aggs import split_agg_expr
     from ..recordbatch import RecordBatch
-    from . import hash_kernels, kernels
+    from . import costmodel, hash_kernels, kernels, mfu
+    from .fragment import _OUT_CAP0, packed_bytes_per_group
     device = resolve_device()
     if device is None:
         return None
@@ -373,10 +430,25 @@ def try_agg(batch, to_agg: List[Expression], group_by: List[Expression]):
     proj = list(group_by) + child_exprs
     c = _get_compiled(proj, schema)
     if c is None or _host_only(batch, c.needs_cols) \
-            or not _over_floor(len(batch)):
+            or not _gate(len(batch) >= 1):
         return None
-    dt, outs = _run_compiled(c, batch, device)
+    # the gate prices the kernel the dispatch would take, estimated from
+    # the key fields' plane dtypes (unlogged: the dispatch logs what ran)
     nk = len(group_by)
+    cap = dcol.bucket_capacity(len(batch))
+    est = "sort" if nk == 0 else costmodel.groupby_strategy(
+        len(batch), None, [key_plane_dtype(f) for f in key_fields], cap,
+        log=False, device=device)[0]
+    floor = _min_rows_override(len(batch))
+    if not _gate(floor if floor is not None else costmodel.agg_upload_wins(
+            dcol.encoded_nbytes(batch, c.needs_cols),
+            packed_bytes_per_group(nk, len(to_agg)) * _OUT_CAP0,
+            cacheable=False,
+            host_bytes=_batch_cols_nbytes(batch, c.needs_cols),
+            strategy=est)):
+        return None
+    t0 = time.perf_counter()
+    dt, outs = _run_compiled(c, batch, device)
     ops = tuple(s[0] for s in specs)
     keys = tuple(v for v, _ in outs[:nk])
     kvalids = tuple(m for _, m in outs[:nk])
@@ -391,7 +463,10 @@ def try_agg(batch, to_agg: List[Expression], group_by: List[Expression]):
             _decode_scalar(name, f.dtype, host[2 * i], host[2 * i + 1])
             for i, ((_, _, name, _), f) in enumerate(zip(specs,
                                                          out_fields))])
-    strategy = agg_strategy([k.dtype for k in keys], dt.capacity)
+    # the dispatch's strategy from the compiled key planes themselves
+    strategy, load_factor = costmodel.groupby_strategy(
+        len(batch), None, [k.dtype for k in keys], cap, log=False,
+        device=device)
     if strategy == "hash":
         out = hash_kernels.hash_grouped_agg_impl(
             keys, kvalids, vals, vvalids, dt.row_mask, ops,
@@ -400,12 +475,27 @@ def try_agg(batch, to_agg: List[Expression], group_by: List[Expression]):
         out = kernels.grouped_agg_impl(keys, kvalids, vals, vvalids,
                                        dt.row_mask, ops)
     count("agg_" + strategy)
+    costmodel.log_strategy_decision("groupby_strategy", strategy,
+                                    rows=len(batch), out_cap=cap,
+                                    load_factor=load_factor)
     ok, okv, ov, ovv, g_t = out
     planes = [g_t.reshape(1)] + [x for pair in zip(ok, okv)
                                  for x in pair] \
         + [x for pair in zip(ov, ovv) for x in pair]
     host = dcol.fetch_host(planes)
     g = int(host[0][0])
+    if strategy == "hash":
+        words = hash_kernels.hash_pack_words([k.dtype for k in keys]) or 2
+        _, nbytes = mfu.hash_agg_models(
+            dt.capacity, dt.capacity,
+            hash_kernels.table_capacity(dt.capacity), words, len(ops))
+    else:
+        _, nbytes = mfu.grouped_agg_models(dt.capacity, dt.capacity, nk,
+                                           len(ops))
+    costmodel.ledger_record("grouped_agg", rows=len(batch), nbytes=nbytes,
+                            seconds=time.perf_counter() - t0,
+                            strategy=strategy,
+                            load_factor=load_factor or None)
     cols = []
     for i, (e, f) in enumerate(zip(group_by, key_fields)):
         cols.append(dcol.decode_np(f.name, f.dtype, host[1 + 2 * i][:g],

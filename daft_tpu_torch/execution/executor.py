@@ -95,9 +95,10 @@ def run_plan(builder) -> Iterator[MicroPartition]:
     """Optimize → translate → execute. The device is resolved here, once
     per query, so a query asked to run on a card that is not there fails
     before it reads anything."""
-    from ..device import backend
+    from ..device import backend, warmup
     from ..physical.translate import translate
     device = backend.resolve_device()
+    warmup.maybe_warmup_session()
     pplan = translate(builder.optimize().plan)
     return LocalExecutor(device).run(pplan)
 
@@ -254,32 +255,41 @@ class LocalExecutor:
 
     def _exec_DeviceFragmentAgg(self, node: pp.DeviceFragmentAgg):
         """The reference's shape (``executor.py:580``): over a
-        ``ScanSource``, the task-level path (:meth:`_fragment_scan_tasks`:
-        windows of scan tasks, the device column cache, one copy per
-        window); over any other child, the pipelined morsels
-        (:meth:`_pipelined_fragment_morsels`), or one morsel at a time
-        when the window is 0.
+        ``ScanSource`` whose groups the link affords
+        (:func:`_fragment_groups_affordable`), the task-level path
+        (:meth:`_fragment_scan_tasks`: windows of scan tasks, the device
+        column cache, one copy per window); over any other child, the
+        pipelined morsels (:meth:`_pipelined_fragment_morsels`), or one
+        morsel at a time when the window is 0.
 
-        The port's gate: the reference prices each upload and the group
-        block against a remote link (``costmodel.agg_upload_wins``,
-        ``_fragment_groups_affordable``); that cost model is ROADMAP A4.
-        Until then a batch goes to the device when it is not empty and
-        every column the program reads has a device plane, the rule the
-        fused fragment always had (``DAFT_TORCH_DEVICE_MIN_ROWS`` floors
-        the per-operator paths only)."""
+        Each batch not already on the device is priced
+        (``costmodel.agg_upload_wins``, reference ``executor.py:596-631``)
+        at the strategy its dispatch would take (``fragment.gate_strategy``
+        with the planner's footer NDV, ``node.group_ndv``), one-shot for a
+        morsel and as a cache investment for a scan task whose working set
+        fits the device column cache; with the pipeline on, at its
+        steady-state overlap; each decision is logged as
+        ``fused_agg_upload`` (``_invest`` for a cache investment). An
+        explicit ``DAFT_TORCH_DEVICE_MIN_ROWS`` leaves the fused fragment
+        unpriced (``runtime.fused_unpriced``: the rule it had before the
+        cost model). A batch the price sends to the host, an empty one, one
+        with a column or expression without a device form, and one whose
+        groups outgrow the link-priced ceiling (``fragment._max_out_cap``)
+        run the host chain and count ``host_morsels``."""
         from ..aggs import split_agg_expr
-        from ..device import column as dcol, fragment, pipeline as dpipe
-        from ..device import runtime as drt
+        from ..device import column as dcol, costmodel, fragment
+        from ..device import pipeline as dpipe, runtime as drt
         specs = [split_agg_expr(a) for a in node.aggs]
         child_exprs = [(c if c is not None else _lit_true())
                        .alias(f"__v{i}__")
                        for i, (op, c, nm, pr) in enumerate(specs)]
         ops = tuple(s[0] for s in specs)
         agg_cols = [col(s[2]) for s in specs]
+        groups = node.group_ndv
 
         def host_agg(rb: RecordBatch) -> MicroPartition:
-            # planning, not a fallback: the host tier was asked for, the
-            # batch is empty, or a column or expression has no device form
+            # planning, not a fallback: the host tier was asked for or
+            # priced cheaper, or the batch has no device form
             drt.count("host_morsels")
             if node.predicate is not None:
                 rb = rb.filter(node.predicate)
@@ -291,9 +301,9 @@ class LocalExecutor:
             return fragment.get_fused_agg(node.group_by, child_exprs, ops,
                                           node.predicate, schema)
 
-        def morsel_gate(rb: RecordBatch):
+        def morsel_gate(rb: RecordBatch, window: int = 0):
             """The fused program when the device takes this batch, else
-            None (host)."""
+            None (host). No device work happens here."""
             if self.device is None or len(rb) == 0:
                 return None
             prog = program(rb.schema)
@@ -301,11 +311,26 @@ class LocalExecutor:
                     dcol.has_device_plane(rb.get_column(n))
                     for n in prog.compiled.needs_cols):
                 return None
+            if drt.fused_unpriced():
+                return prog
+            # an in-memory batch: the upload is one-shot (no cache
+            # identity to invest in), it must beat the host outright
+            needs = prog.compiled.needs_cols
+            if not costmodel.agg_upload_wins(
+                    dcol.encoded_nbytes(rb, needs),
+                    fragment.packed_bytes_per_group(prog.nk, len(ops))
+                    * fragment._OUT_CAP0, cacheable=False,
+                    host_bytes=drt._batch_cols_nbytes(rb, needs),
+                    strategy=fragment.gate_strategy(prog, len(rb), groups,
+                                                    self.device),
+                    window=window, kind="fused_agg_upload"):
+                return None
             return prog
 
         src = node.children[0]
         if isinstance(src, pp.ScanSource) and src.tasks \
-                and self.device is not None:
+                and self.device is not None \
+                and _fragment_groups_affordable(node, src):
             prog = program(src.schema())
             if prog is not None:
                 yield from self._fragment_scan_tasks(node, prog, src,
@@ -323,12 +348,10 @@ class LocalExecutor:
         for p in child:
             rb = p.combined()
             prog = morsel_gate(rb)
-            if prog is None:
-                yield host_agg(rb)
-                continue
-            yield _to_partition(fragment.run_fused_agg(
+            out = None if prog is None else fragment.run_fused_agg(
                 prog, rb, node.group_by, agg_cols, node.schema(),
-                self.device), node)
+                self.device, groups)
+            yield host_agg(rb) if out is None else _to_partition(out, node)
 
     def _slot_stream(self):
         """A stream of the torch pool for one pipeline slot's work (None
@@ -350,7 +373,7 @@ class LocalExecutor:
 
         def submit(p, seq, gate):
             rb = p.combined()
-            prog = morsel_gate(rb)
+            prog = morsel_gate(rb, window)
             if prog is None:
                 return host_agg(rb)
             est = dcol.encoded_nbytes(rb, prog.compiled.needs_cols)
@@ -360,93 +383,122 @@ class LocalExecutor:
                 with dcol.on_stream(self._slot_stream()):
                     tok = fragment.submit_fused_agg(
                         prog, rb, node.group_by, agg_cols, node.schema(),
-                        self.device)
+                        self.device, node.group_ndv)
                 sub_s = time.perf_counter() - t0
             except BaseException:
                 dpipe.release_slot(slot)
                 raise
-            return dpipe.InflightItem(slot, tok, sub_s=sub_s)
+            return dpipe.InflightItem(slot, (tok, rb), sub_s=sub_s)
 
         def drain(ret, seq):
             if not isinstance(ret, dpipe.InflightItem):
                 return ret   # a host result, computed on the pool
-            return _to_partition(
-                fragment.drain_fused_agg_tables(ret.token)[0], node)
+            tok, rb = ret.token
+            out = fragment.drain_fused_agg_tables(tok)[0]
+            return host_agg(rb) if out is None else _to_partition(out, node)
 
         yield from dpipe.run_pipelined(child, submit, drain, window=window)
 
     def _fragment_scan_tasks(self, node, prog, src, agg_cols, host_agg):
         """Windows of scan tasks (reference ``executor.py:737``). Each task
-        of a window resolves to a device table (a cache hit, or loaded,
-        encoded and put in the cache) or to a host batch (empty, or a
-        column without a device plane); the window's fused programs are
-        dispatched and ALL their results come back in one device→host
-        copy; the partitions are emitted in task order. With a window
-        above 0, window N+1 loads, encodes and dispatches on the submit
-        pool (on its slot's stream) while window N's results come back
-        here."""
+        of a window resolves to a device table (a cache hit), to a host
+        batch (empty, or a column without a device plane) or to a
+        candidate; once the window is classified, each candidate is priced
+        (``costmodel.agg_upload_wins``: a cache investment when the whole
+        scan's working set fits the budget, with the bytes a host rerun
+        would decode again, the fetch's round trips shared by the window's
+        device tables; unpriced under ``runtime.fused_unpriced``) and
+        either goes to the host or is encoded and cached. The window's
+        fused programs are dispatched and ALL their results come back in
+        one device→host copy; the partitions are emitted in task order. A
+        table declined at the link-priced group ceiling is re-read and
+        aggregated on the host. With a window above 0, window N+1 loads,
+        encodes and dispatches on the submit pool (on its slot's stream)
+        while window N's results come back here."""
         import itertools
 
-        from ..device import cache as dcache, column as dcol, fragment
-        from ..device import pipeline as dpipe, runtime as drt
+        from ..device import cache as dcache, column as dcol, costmodel
+        from ..device import fragment, pipeline as dpipe, runtime as drt
         device = self.device
         needs = prog.compiled.needs_cols
         schema = src.schema()
         cache = dcache.get_cache()
         n_tasks = len(src.tasks)
+        groups = node.group_ndv
+        packed_out = fragment.packed_bytes_per_group(
+            prog.nk, len(prog.ops)) * fragment._OUT_CAP0
+        pwin = dpipe.inflight_window()
+        unpriced = drt.fused_unpriced()
 
         def classify(t):
             """A cache hit is a device table; an empty batch or one with a
             column without a device plane goes to the host; the rest are
-            candidates for encoding."""
+            candidates for the price."""
             fp = dcache.task_fingerprint(t, device)
             if fp is not None:
                 dt = cache.get_table(fp, needs)
                 if dt is not None:
-                    return ("dev", dt)
+                    return ("dev", dt, t)
             rb = _load_with_retry(t).combined()
-            if len(rb) == 0 or not all(dcol.has_device_plane(
-                    rb.get_column(n)) for n in needs):
-                return ("host", rb)
-            return ("cand", rb, fp)
+            if len(rb) == 0 or not all(
+                    dcol.has_device_plane(rb.get_column(n)) for n in needs):
+                return ("host", rb, t)
+            return ("cand", rb, t, fp)
 
-        def encode(c):
-            """Encode a candidate; cache it when the whole scan's working
-            set fits the budget (a slice of an oversized scan would only
-            evict entries other queries still repay)."""
-            _, rb, fp = c
+        def gate_encode(c, n_sharing):
+            """Price a candidate; encode it (and cache it when the whole
+            scan's working set fits the budget: a slice of an oversized
+            scan would only evict entries other queries still repay) when
+            the device wins."""
+            _, rb, t, fp = c
+            col_bytes = dcol.encoded_nbytes(rb, needs)
+            fits = col_bytes * n_tasks <= dcache.budget()
+            cacheable = fp is not None and fits
+            if not unpriced and not costmodel.agg_upload_wins(
+                    col_bytes, packed_out, cacheable=cacheable,
+                    round_trips=2.0 / max(1, n_sharing),
+                    host_bytes=drt._batch_cols_nbytes(rb, needs),
+                    strategy=fragment.gate_strategy(prog, len(rb), groups,
+                                                    device),
+                    window=pwin,
+                    host_rescan_bytes=_task_scan_bytes(t) if cacheable
+                    else 0.0, kind="fused_agg_upload"):
+                return ("host", rb, t)
             dt = dcol.encode_batch(rb, needs, device)
             drt.count("scan_bytes_up", dt.nbytes())
-            if fp is not None and dcol.encoded_nbytes(rb, needs) \
-                    * n_tasks <= dcache.budget():
+            if fp is not None and fits:
                 cache.put_table(fp, dt)
-            return ("dev", dt)
+            return ("dev", dt, t)
 
         def resolve(window_tasks, stream):
-            """Classify, then encode the candidates on ``stream``, on the
-            pool in task order."""
-            def one(t):
-                c = classify(t)
+            """Classify the window on the pool, then price and encode its
+            candidates on ``stream``, in task order."""
+            classified = list(_ordered_parallel(iter(window_tasks),
+                                                classify))
+            n_sharing = sum(1 for c in classified if c[0] != "host")
+
+            def one(c):
                 if c[0] != "cand":
                     return c
                 with dcol.on_stream(stream):
-                    return encode(c)
-            return list(_ordered_parallel(iter(window_tasks), one))
+                    return gate_encode(c, n_sharing)
+            return list(_ordered_parallel(iter(classified), one))
 
         def emit(resolved, outs):
             di = 0
-            for kind, val in resolved:
-                if kind == "dev":
-                    yield _to_partition(outs[di], node)
-                    di += 1
-                else:
+            for kind, val, t in resolved:
+                if kind != "dev":
                     yield host_agg(val)
+                    continue
+                out = outs[di]
+                di += 1
+                yield host_agg(_load_with_retry(t).combined()) \
+                    if out is None else _to_partition(out, node)
 
         def tables(resolved):
-            return [v for k, v in resolved if k == "dev"]
+            return [v for k, v, _ in resolved if k == "dev"]
 
         width = max(os.cpu_count() or 4, 4) * 2
-        pwin = dpipe.inflight_window()
         if pwin > 0:
             # enough windows to fill the in-flight ladder: window + 1
             width = max(1, min(width, -(-n_tasks // (pwin + 1))))
@@ -465,7 +517,7 @@ class LocalExecutor:
                 resolved = resolve(w, None)
                 outs = fragment.run_fused_agg_tables(
                     prog, tables(resolved), schema, node.group_by,
-                    agg_cols, node.schema())
+                    agg_cols, node.schema(), groups)
                 yield from emit(resolved, outs)
             return
 
@@ -479,7 +531,7 @@ class LocalExecutor:
                 with dcol.on_stream(stream):
                     tok = fragment.submit_fused_agg_tables(
                         prog, tables(resolved), schema, node.group_by,
-                        agg_cols, node.schema())
+                        agg_cols, node.schema(), groups)
             except BaseException:
                 dpipe.release_slot(slot)
                 raise
@@ -571,6 +623,82 @@ def _load_with_retry(task, tries: int = 2) -> MicroPartition:
             if attempt + 1 < tries:
                 time.sleep(min(0.2 * (2 ** attempt), 2.0))
     raise last
+
+
+def _task_column_ndv(tasks, name: str) -> Optional[float]:
+    """``max - min + 1`` of an int or date column over every task's parquet
+    footer (reference ``executor.py:1947``; the ranges of
+    ``logical/stats._footer_range``): one file's range would underestimate
+    a scan range-partitioned on the key. None when a footer lacks usable
+    statistics for it."""
+    import pyarrow.parquet as pq
+
+    from ..logical.stats import _footer_range
+    lo = hi = None
+    seen = set()
+    for t in tasks:
+        if t.path in seen:
+            continue
+        seen.add(t.path)
+        md = t.metadata if t.metadata is not None \
+            else pq.ParquetFile(t.path).metadata
+        rng = _footer_range(md, name)
+        if rng is None:
+            return None
+        lo = rng[0] if lo is None else min(lo, rng[0])
+        hi = rng[1] if hi is None else max(hi, rng[1])
+    return None if lo is None else float(hi - lo + 1)
+
+
+def _task_scan_bytes(task) -> int:
+    """Uncompressed bytes of the columns a scan task reads, from its
+    footer: what a host scan of it decodes."""
+    md = task.metadata
+    idx = {md.schema.column(i).name: i for i in range(md.num_columns)}
+    names = task.materialized_schema().column_names
+    groups = task.row_groups if task.row_groups is not None \
+        else range(md.num_row_groups)
+    return sum(md.row_group(g).column(idx[n]).total_uncompressed_size
+               for g in groups for n in names if n in idx)
+
+
+def _fragment_groups_affordable(node, src) -> bool:
+    """Up-front group-cardinality gate of the fused aggregation (reference
+    ``executor.py:1983``): estimate the groups from the footers and refuse
+    the device when fetching them would cost more than the host's own
+    aggregation of the scan (a non-reductive grouping ships a group block
+    rivalling its input). The rule ``fragment._max_out_cap`` applies at
+    run time, applied before any upload. A shared-memory link, a computed
+    key or a key without statistics (strings) passes."""
+    import math
+
+    from ..device import costmodel
+    from ..device.fragment import packed_bytes_per_group
+    p = costmodel.link_profile()
+    if p.down_bps == math.inf:
+        return True
+    ndvs = []
+    for g in node.group_by:
+        u = g._unalias()
+        if u.op != "col":
+            return True
+        ndv = _task_column_ndv(src.tasks, u.params[0])
+        if ndv is None:
+            return True
+        ndvs.append(ndv)
+    if not ndvs:
+        return True   # global aggregation: one scalar row
+    est_groups = 1.0
+    for n in ndvs:
+        est_groups *= n
+    rows = sum(t.num_rows() or 0 for t in src.tasks)
+    if rows:
+        est_groups = min(est_groups, float(rows))
+    size = sum(t.size_bytes() or 0 for t in src.tasks)
+    host_s = max(size, 1) / costmodel.HOST_AGG_BPS
+    return est_groups * packed_bytes_per_group(len(node.group_by),
+                                               len(node.aggs)) \
+        <= host_s * p.down_bps
 
 
 def _lit_true() -> Expression:

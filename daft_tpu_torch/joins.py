@@ -9,19 +9,23 @@ takes the columns through those pairs for inner/left/right/outer/semi/
 anti joins. NULL keys never match; right-side columns colliding with left
 names get a ``right.`` prefix; outer joins coalesce key columns.
 
-The port's device rule departs from the reference's cost model
-(``costmodel.join_wins``, the link-priced gate, waits for ROADMAP A7): a
-join's index generation runs on the device whenever
-``backend.resolve_device()`` gives one and the two sides hold at least
-:data:`DEVICE_MIN_ROWS` rows together (the reference's own floor); below
-it, on the host, counted as ``host_joins``. The strategy is ``hash`` (the
-build/probe kernels of ``device/join_kernels.py``) unless
-``DAFT_TORCH_KERNEL_JOIN=sort`` (the torch sort join of
-``device/kernels.py``). The reference also sends a join to the sort
-strategy when its hash table would pass 2^20 slots
-(``costmodel._join_strategy``), because its table planes must fit the
-TPU's on-chip memory; on the GPU they live in device memory, so the port
-has no such ceiling for joins.
+The device gate is the reference's (``daft_tpu/joins.py:118-137``):
+``DAFT_TORCH_DEVICE_JOIN=1`` / ``0`` forces the device / the host; unset,
+a join's index generation runs on the device when
+``backend.resolve_device()`` gives one, the two sides hold at least
+:data:`DEVICE_MIN_ROWS` rows together, and ``costmodel.join_wins`` prices
+the device cheaper (priced serially: the join runs inline on its calling
+thread, with no neighbour dispatch to hide its transfers behind); else on
+the host, counted as ``host_joins``. The strategy is the cost model's
+logged ``join_strategy``: on a card ``hash`` (the build/probe kernels of
+``device/join_kernels.py``), on CPU tensors ``sort`` (the torch sort join
+of ``device/kernels.py``), unless ``DAFT_TORCH_KERNEL_JOIN`` forces one.
+The reference also sends a join to the sort strategy when its hash table
+would pass 2^20 slots, because its table planes must fit the TPU's
+on-chip memory; on the H100 they live in device memory
+(``join_kernels.join_table_capacity``), so the port's hash join has no
+slot ceiling. Each device join records its build and probe work in the
+cost model's ledger.
 """
 
 from __future__ import annotations
@@ -37,8 +41,9 @@ from . import knobs
 from .expressions import Expression
 from .series import Series
 
-#: fewest rows (both sides together) whose index generation goes to the
-#: device (reference: ``daft_tpu/joins.py`` ``match_indices``)
+#: fewest rows (both sides together) whose index generation the cost
+#: model may send to the device (reference: ``daft_tpu/joins.py``
+#: ``match_indices``)
 DEVICE_MIN_ROWS = 8192
 
 # One join's device section at a time: the executor's pool threads share
@@ -117,16 +122,26 @@ def _factorize_pair(l_arrs: List[pa.Array], r_arrs: List[pa.Array]
     return gids[:n_l], gids[n_l:], l_valid, r_valid
 
 
-def join_strategy() -> str:
-    """The device join's strategy: ``hash`` unless
-    ``DAFT_TORCH_KERNEL_JOIN=sort``."""
-    s = knobs.env_str("DAFT_TORCH_KERNEL_JOIN").lower()
-    if s in ("auto", "hash"):
-        return "hash"
-    if s == "sort":
-        return "sort"
-    raise ValueError(f"DAFT_TORCH_KERNEL_JOIN={s!r}: expected auto, hash "
-                     "or sort")
+def _use_device(l_gids, r_gids, l_valid, r_valid):
+    """The device of this join's index generation, or None (host)."""
+    from .device import backend, costmodel
+    env = knobs.env_raw("DAFT_TORCH_DEVICE_JOIN")
+    if env is not None and env not in ("0", "1"):
+        raise ValueError(f"DAFT_TORCH_DEVICE_JOIN={env!r}: expected 0 or 1")
+    if env == "0":
+        return None
+    device = backend.resolve_device()
+    if device is None or env == "1":
+        return device
+    n_l, n_r = len(l_gids), len(r_gids)
+    if n_l + n_r < DEVICE_MIN_ROWS:
+        return None
+    # the output priced foreign-key shaped: about one pair per row of the
+    # larger side
+    est_out = 2 * 8 * max(n_l, n_r)
+    return device if costmodel.join_wins(
+        n_l, n_r, l_gids.nbytes + r_gids.nbytes + l_valid.nbytes
+        + r_valid.nbytes, est_out) else None
 
 
 def match_indices(l_gids: np.ndarray, r_gids: np.ndarray,
@@ -138,13 +153,12 @@ def match_indices(l_gids: np.ndarray, r_gids: np.ndarray,
     pairs (left-major, right rows ascending) plus per-left-row match
     counts. On the device when the rule of this module's docstring says
     so, else on the host."""
-    from .device import backend, runtime as drt
+    from .device import runtime as drt
     n_l = len(l_gids)
-    if n_l + len(r_gids) >= DEVICE_MIN_ROWS:
-        device = backend.resolve_device()
-        if device is not None:
-            return _device_match_indices(l_gids, r_gids, l_valid, r_valid,
-                                         device)
+    device = _use_device(l_gids, r_gids, l_valid, r_valid)
+    if device is not None:
+        return _device_match_indices(l_gids, r_gids, l_valid, r_valid,
+                                     device)
     drt.count("host_joins")
     r_idx = np.flatnonzero(r_valid)
     r_vals = r_gids[r_idx]
@@ -172,13 +186,16 @@ def _device_match_indices(l_gids, r_gids, l_valid, r_valid, device):
     and one re-dispatch at the bucket of the true total when the counts
     say it was too small (the hash strategy probes its table again).
     Fetches the counts, then only the ``[:total]`` pairs."""
+    import time
+
     import torch
 
-    from .device import join_kernels as jk, kernels as K, runtime as drt
+    from .device import costmodel, join_kernels as jk, kernels as K, mfu
+    from .device import runtime as drt
     from .device.column import bucket_capacity
 
-    strategy = join_strategy()
     n_l, n_r = len(l_gids), len(r_gids)
+    strategy = costmodel.join_strategy(n_l, n_r, device)
     c_l, c_r = bucket_capacity(n_l), bucket_capacity(n_r)
 
     def put(a: np.ndarray, cap: int, dtype) -> "torch.Tensor":
@@ -187,6 +204,7 @@ def _device_match_indices(l_gids, r_gids, l_valid, r_valid, device):
         return torch.from_numpy(out).to(device)
 
     with _device_lock:
+        t0 = time.perf_counter()
         left = (put(l_gids, c_l, np.int64), put(l_valid, c_l, np.bool_),
                 torch.arange(c_l, device=device) < n_l)
         right = (put(r_gids, c_r, np.int64), put(r_valid, c_r, np.bool_),
@@ -198,15 +216,31 @@ def _device_match_indices(l_gids, r_gids, l_valid, r_valid, device):
         else:
             dispatch = lambda cap: K.join_fused_impl(  # noqa: E731
                 *left, *right, out_capacity=cap)
-        cap = max(bucket_capacity(max(n_l, n_r, 1)), 1024)
+        caps = [max(bucket_capacity(max(n_l, n_r, 1)), 1024)]
         drt.count("join_" + strategy)
-        packed = dispatch(cap)
+        packed = dispatch(caps[0])
         counts = packed[2, :n_l].cpu().numpy().astype(np.int64)
         total = int(counts.sum())
-        if total > cap:  # many-to-many blowup past the estimate
+        if total > caps[0]:  # many-to-many blowup past the estimate
             drt.count("join_" + strategy)
-            packed = dispatch(bucket_capacity(total))
+            caps.append(bucket_capacity(total))
+            packed = dispatch(caps[-1])
         pairs = packed[:2, :total].cpu().numpy().astype(np.int64)
+        secs = time.perf_counter() - t0
+    if strategy == "hash":
+        nbytes = mfu.hash_join_build_bytes(c_r, jk.join_table_capacity(c_r),
+                                           int(r_valid.sum())) \
+            + sum(mfu.hash_join_probe_bytes(c_l, min(total, c),
+                                            int(l_valid.sum()))
+                  for c in caps)
+        # live build rows over the table's slots: at most 0.5 (T = 2 C_r)
+        lf = n_r / jk.join_table_capacity(c_r)
+    else:
+        nbytes = sum(mfu.join_bytes_model(c_l, c_r, c) for c in caps)
+        lf = None
+    costmodel.ledger_record("join", rows=n_l + n_r, nbytes=nbytes,
+                            seconds=secs, dispatches=len(caps),
+                            strategy=strategy, load_factor=lf)
     return pairs[0], pairs[1], counts
 
 

@@ -6,7 +6,7 @@ consumes whole each side it gathers."""
 
 from __future__ import annotations
 
-from typing import Any, List
+from typing import Any, List, Optional
 
 from ..expressions import Expression
 from ..schema import Schema
@@ -63,6 +63,10 @@ class Aggregate(PhysicalPlan):
         self.aggs = aggs
         self.group_by = group_by
         self.mode = mode
+        # estimates the translator sets on a final-mode agg: expected
+        # output rows and the group keys' footer NDV (advisory)
+        self.group_rows_est: Optional[int] = None
+        self.group_ndv: Optional[float] = None
 
 
 class DeviceFragmentAgg(PhysicalPlan):
@@ -76,6 +80,10 @@ class DeviceFragmentAgg(PhysicalPlan):
         self.aggs = aggs          # substituted over source columns
         self.group_by = group_by  # substituted over source columns
         self.mode = mode
+        # the final agg's estimates, carried over for the cost model's
+        # hash-vs-sort choice and upload gates (None: no evidence)
+        self.group_rows_est: Optional[int] = None
+        self.group_ndv: Optional[float] = None
 
 
 class Dedup(PhysicalPlan):

@@ -18,6 +18,7 @@ from ..aggs import AGG_DECOMPOSITION as _DECOMPOSABLE
 from ..datatype import DataType
 from ..expressions import Expression, col
 from ..logical import plan as lp
+from ..logical import stats as lstats
 from ..schema import Schema
 from . import plan as pp
 
@@ -180,6 +181,18 @@ def _translate_agg(node: lp.Aggregate) -> pp.PhysicalPlan:
     gb2 = [col(e.name()) for e in node.group_by]
     f_schema = _agg_schema(gb2, final_aggs, p1_schema)
     p2 = pp.Aggregate(p1, final_aggs, gb2, f_schema, "final")
+    # footer-backed output-cardinality estimate (the reference's
+    # translate.py:299-310; the max over keys is a lower bound on the
+    # groups) with the raw row estimate beside it; the fused fragment
+    # feeds it to the cost model's hash-vs-sort choice
+    est_rows = lstats.estimate(child).rows
+    ndvs = [v for v in (lstats.column_ndv_footer(child, e.name(),
+                                                 est_rows=est_rows)
+                        for e in node.group_by) if v is not None]
+    p2.group_ndv = max(ndvs) if ndvs else None
+    p2.group_rows_est = est_rows
+    if isinstance(p1, pp.DeviceFragmentAgg):
+        p1.group_ndv, p1.group_rows_est = p2.group_ndv, p2.group_rows_est
     proj = [col(e.name()) for e in node.group_by] + final_proj
     return pp.Project(p2, proj, node.schema())
 

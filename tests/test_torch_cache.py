@@ -26,6 +26,8 @@ CPU = torch.device("cpu")
 @pytest.fixture(autouse=True)
 def _clean(monkeypatch):
     monkeypatch.setenv("DAFT_TORCH_DEVICE", "cpu")
+    # the cost model would price these small files onto the host
+    monkeypatch.setenv("DAFT_TORCH_DEVICE_FORCE", "1")
     dcache.get_cache().clear()
     runtime.reset_counters()
     yield

@@ -26,6 +26,9 @@ from daft_tpu.analysis import plan_fuzzer
 def cpu(monkeypatch):
     from daft_tpu_torch.device import runtime
     monkeypatch.setenv("DAFT_TORCH_DEVICE", "cpu")
+    # every device path taken, as before the cost model (which prices these
+    # small batches onto the host)
+    monkeypatch.setenv("DAFT_TORCH_DEVICE_FORCE", "1")
     runtime.reset_counters()
     return runtime
 

@@ -55,6 +55,7 @@ def test_no_jax_or_daft_tpu_import_in_the_port_sources():
 _Q6_SCRIPT = r"""
 import os, sys, tempfile
 os.environ["DAFT_TORCH_DEVICE"] = "cpu"
+os.environ["DAFT_TORCH_DEVICE_FORCE"] = "1"
 from benchmarking.tpch.datagen import generate_tpch
 import daft_tpu_torch
 from daft_tpu_torch.benchmarking import tpch_queries as Q
@@ -85,6 +86,8 @@ def test_q6_runs_without_jax_or_daft_tpu_in_sys_modules():
 _Q3_SCRIPT = r"""
 import os, sys, tempfile
 os.environ["DAFT_TORCH_DEVICE"] = "cpu"
+os.environ["DAFT_TORCH_DEVICE_FORCE"] = "1"
+os.environ["DAFT_TORCH_KERNEL_JOIN"] = "hash"
 from benchmarking.tpch.datagen import generate_tpch
 import daft_tpu_torch
 from daft_tpu_torch.benchmarking import tpch_queries as Q
@@ -116,6 +119,7 @@ _OPS_SCRIPT = r"""
 import os, sys
 os.environ["DAFT_TORCH_DEVICE"] = "cpu"
 os.environ["DAFT_TORCH_DEVICE_MIN_ROWS"] = "0"
+os.environ["DAFT_TORCH_KERNEL_GROUPBY"] = "hash"
 import daft_tpu_torch
 from daft_tpu_torch import col
 from daft_tpu_torch.device import runtime
@@ -210,6 +214,7 @@ _PIPE_SCRIPT = r"""
 import os, sys, tempfile
 os.environ["DAFT_TORCH_DEVICE"] = "cpu"
 os.environ["DAFT_TORCH_DEVICE_INFLIGHT"] = "2"
+os.environ["DAFT_TORCH_DEVICE_FORCE"] = "1"
 from benchmarking.tpch.datagen import generate_tpch
 import daft_tpu_torch
 from daft_tpu_torch.benchmarking import tpch_queries as Q
@@ -238,6 +243,54 @@ def test_pipelined_cached_query_runs_without_jax():
     env = dict(os.environ)
     env["PYTHONPATH"] = REPO + os.pathsep + env.get("PYTHONPATH", "")
     r = subprocess.run([sys.executable, "-c", _PIPE_SCRIPT], cwd=REPO,
+                       env=env, capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stdout + r.stderr
+    assert "LEAKED []" in r.stdout
+
+
+_COSTMODEL_SCRIPT = r"""
+import json, os, sys, tempfile
+os.environ["DAFT_TORCH_DEVICE"] = "cpu"
+for k in ("DAFT_TORCH_DEVICE_MIN_ROWS", "DAFT_TORCH_DEVICE_FORCE",
+          "DAFT_TORCH_DEVICE_JOIN", "DAFT_TORCH_KERNEL_JOIN",
+          "DAFT_TORCH_KERNEL_GROUPBY"):
+    os.environ.pop(k, None)
+log = os.path.join(tempfile.mkdtemp(), "dispatch.jsonl")
+os.environ["DAFT_TORCH_DISPATCH_LOG"] = log
+from benchmarking.tpch.datagen import generate_tpch
+import daft_tpu_torch
+from daft_tpu_torch.benchmarking import tpch_queries as Q
+from daft_tpu_torch.device import costmodel
+root = tempfile.mkdtemp()
+generate_tpch(root, scale_factor=0.004, num_parts=1)
+get = lambda t: daft_tpu_torch.read_parquet(os.path.join(root, t))
+got = Q.q3(get).to_pydict()
+counts = costmodel.decision_counts_snapshot()
+with daft_tpu_torch.execution_config_ctx(device="0"):
+    host = Q.q3(get).to_pydict()
+assert got == host and len(got["o_orderkey"]) == 10, (got, host)
+for kind in ("row_output", "join", "agg_upload", "argsort"):
+    assert sum(counts.get(kind, {}).values()) > 0, (kind, counts)
+recs = [json.loads(x) for x in open(log)]
+assert len(recs) == sum(sum(v.values()) for v in counts.values())
+assert all({"kind", "device", "host_s", "dev_s"} <= set(r) for r in recs)
+leaked = sorted(m for m in sys.modules
+                if m in ("jax", "jaxlib", "daft_tpu")
+                or m.startswith(("jax.", "jaxlib.", "daft_tpu.")))
+print("LEAKED", leaked)
+assert leaked == [], leaked
+"""
+
+
+def test_cost_model_decides_without_jax():
+    """Q3 at the default knobs on CPU tensors: the per-operator paths
+    (projections, predicates, the aggregations' uploads, the argsorts) and
+    the lineitem join are priced by the port's cost model (``decision_counts`` and the JSONL log hold
+    every decision), the answer is the host tier's, and neither JAX nor
+    the daft_tpu package is imported."""
+    env = dict(os.environ)
+    env["PYTHONPATH"] = REPO + os.pathsep + env.get("PYTHONPATH", "")
+    r = subprocess.run([sys.executable, "-c", _COSTMODEL_SCRIPT], cwd=REPO,
                        env=env, capture_output=True, text=True, timeout=120)
     assert r.returncode == 0, r.stdout + r.stderr
     assert "LEAKED []" in r.stdout

@@ -29,7 +29,10 @@ HOWS = ["inner", "left", "right", "outer", "semi", "anti"]
 def _env(monkeypatch):
     monkeypatch.setenv("DAFT_TORCH_DEVICE", "cpu")
     monkeypatch.setenv("DAFT_TPU_DEVICE_JOIN", "0")
-    monkeypatch.delenv("DAFT_TORCH_KERNEL_JOIN", raising=False)
+    # the hash kernels asked for (`auto` on CPU tensors is the sort join)
+    # and the device priced in (joins of at least 8,192 rows)
+    monkeypatch.setenv("DAFT_TORCH_KERNEL_JOIN", "hash")
+    monkeypatch.setenv("DAFT_TORCH_DEVICE_FORCE", "1")
     runtime.reset_counters()
 
 

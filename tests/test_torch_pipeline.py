@@ -39,6 +39,8 @@ CPU = torch.device("cpu")
 def _clean(monkeypatch):
     monkeypatch.setenv("DAFT_TORCH_DEVICE", "cpu")
     monkeypatch.setenv("DAFT_TORCH_DEVICE_MIN_ROWS", "0")
+    # the fused fragment priced in for these small files
+    monkeypatch.setenv("DAFT_TORCH_DEVICE_FORCE", "1")
     dpipe.reset_residency()
     dcache.get_cache().clear()
     runtime.reset_counters()

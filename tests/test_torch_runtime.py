@@ -249,8 +249,9 @@ STRATEGIES = ["hash", "sort"]
 @pytest.mark.parametrize("keys", list(KEYSETS))
 @pytest.mark.parametrize("strategy", STRATEGIES)
 def test_grouped_agg_matches_reference(monkeypatch, keys, strategy):
-    if strategy == "sort":
-        monkeypatch.setenv("DAFT_TORCH_KERNEL_GROUPBY", "sort")
+    # asked for explicitly: `auto` on CPU tensors takes sort (the cost
+    # model's rule: the hash kernels are compiled for a card)
+    monkeypatch.setenv("DAFT_TORCH_KERNEL_GROUPBY", strategy)
     data = _agg_frame(np.random.default_rng(len(keys) * 7 + 1), 900)
     names = KEYSETS[keys]
     want = ref_rt.try_agg(RefBatch.from_pydict(data), _aggs(daft_tpu),
@@ -326,7 +327,8 @@ def test_scatter_form_matches_reference_kernel():
                                    err_msg=op)
 
 
-def test_aggregate_hook_runs_the_device_path():
+def test_aggregate_hook_runs_the_device_path(monkeypatch):
+    monkeypatch.setenv("DAFT_TORCH_KERNEL_GROUPBY", "hash")
     data = _agg_frame(np.random.default_rng(2), 300)
     c = daft_tpu_torch.col
     rb = PortBatch.from_pydict(data)

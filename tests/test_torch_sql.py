@@ -77,6 +77,8 @@ def test_tpch_sql_matches_reference_and_dataframe_form(tpch_root,
     from daft_tpu_torch.device import runtime
     monkeypatch.setenv("DAFT_TORCH_DEVICE", "cpu")
     monkeypatch.setenv("DAFT_TORCH_DEVICE_MIN_ROWS", "0")
+    # every priced decision (the fused fragment, the joins) on the device
+    monkeypatch.setenv("DAFT_TORCH_DEVICE_FORCE", "1")
     runtime.reset_counters()
     got = tpch_sql.run(q, _reader(daft_tpu_torch, tpch_root)).to_pydict()
     counts = runtime.counters()

@@ -35,6 +35,8 @@ def _port(root, q, device, monkeypatch):
     from daft_tpu_torch.device import runtime
     monkeypatch.setenv("DAFT_TORCH_DEVICE", device)
     monkeypatch.setenv("DAFT_TORCH_DEVICE_MIN_ROWS", "0")
+    # every priced decision (the fused fragment, the joins) on the device
+    monkeypatch.setenv("DAFT_TORCH_DEVICE_FORCE", "1")
     runtime.reset_counters()
     out = Q.ALL[q](_reader(daft_tpu_torch, root)).to_pydict()
     return out, runtime.counters()
@@ -71,9 +73,12 @@ def test_device_tier_dispatches_every_per_operator_path(tpch_root,
     """Over Q1, Q3, Q5 and Q14: every per-operator path dispatches, and
     Q1 keeps its fused dense route. Q1's one per-operator agg is its
     final merge, a sum over the partial counts, which rides an int64
-    plane since uint64 below 2^63 has one."""
+    plane since uint64 below 2^63 has one. Hash asked for past Q1:
+    ``auto`` on CPU tensors is sort (Q1's dense route needs ``auto``)."""
     total = {}
     for q in (1, 3, 5, 14):
+        monkeypatch.setenv("DAFT_TORCH_KERNEL_GROUPBY",
+                           "auto" if q == 1 else "hash")
         _, counts = _port(tpch_root, q, "cpu", monkeypatch)
         if q == 1:
             assert counts.get("dense", 0) > 0, counts

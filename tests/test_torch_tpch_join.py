@@ -59,8 +59,11 @@ def test_q3_matches_reference(tpch_root, ref_q3, monkeypatch, mode):
     import daft_tpu_torch
     from daft_tpu_torch.device import runtime
     monkeypatch.setenv("DAFT_TORCH_DEVICE", "0" if mode == "host" else "cpu")
+    # hash asked for (`auto` on CPU tensors is the sort join), and the
+    # joins priced onto the device
     monkeypatch.setenv("DAFT_TORCH_KERNEL_JOIN",
-                       "sort" if mode == "cpu-sort" else "auto")
+                       "sort" if mode == "cpu-sort" else "hash")
+    monkeypatch.setenv("DAFT_TORCH_DEVICE_FORCE", "1")
     threshold = 0 if mode == "cpu-gather_both" else 10 * 1024 * 1024
     runtime.reset_counters()
     with daft_tpu_torch.execution_config_ctx(
