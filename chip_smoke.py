@@ -88,15 +88,39 @@ Phases (any failure ends the run with a non-zero exit code):
    wall beside the DataFrame form's dispatch-pass wall, the counters,
    the join strategies and the cross joins left (must be 0); no fused
    morsel may fall to the host;
+7c. TPC-DS phase: all 99 TPC-DS queries as SQL
+   (``daft_tpu_torch/benchmarking/tpcds_sql.py``) over
+   ``benchmarking/tpcds/datagen.py`` at scale 1.0 (500,000
+   ``store_sales`` rows, into ``.cache/``), at the default knobs (the
+   cost model and ``DAFT_TORCH_FUSION=auto`` decide): per query a counted
+   cold run (the device column cache cleared), held to the port's host
+   tier (floats at relative 1e-9; rows sorted where the ORDER BY leaves
+   ties; a rank over float keys may break a tie the host kept where the
+   card summed the keys in another order, by less than the tie's size:
+   ``order`` says which held); one ``tpcds`` line per query with the
+   walls, counters, fusion-region counters and decisions;
+7d. TPC-DS dispatch pass: the 15 window queries, the 8 queries whose
+   plans hold join_agg fusion regions and TPC-H Q17 (SF1), with
+   ``DAFT_TORCH_DEVICE_FORCE=1`` and ``DAFT_TORCH_FUSION=1``, held to the
+   host tier as in 7c; one ``tpcds dispatch`` line per query (regions planned,
+   join_agg dispatches, climbs of each ladder, declines by cause); a
+   query whose planned region dispatched no time fails the phase; the
+   device launches of one join_agg dispatch (``torch.profiler``);
+7e. region phase: the chain and topk fusion regions over an in-memory
+   table of 2^22 rows (int64, float64, a dictionary string column; 32
+   partitions), with every region admitted, held to the same queries at
+   ``DAFT_TORCH_FUSION=0``; walls, dispatches and the launches of one
+   dispatch;
 8. the hash build against its plain version at the inputs of every
    distinct hash rung of the main path and of the TPC-H 22 phase's
    dispatch pass
-   (query, T, key words), and of every rung of the SQL phase whose shape
-   phase 7 did not hold; the join kernels at Q3's lineitem join and at
-   every distinct join rung of the TPC-H 22 phase (query, C_r, T, C_l,
-   cap) of that pass and every SQL-phase rung of a shape phase 7 did not
-   hold, each
-   checked as in the join-kernel phase, then timed;
+   (query, T, key words), and of every rung of the SQL phase, the TPC-DS
+   phase and its dispatch pass whose shape no earlier phase held; the
+   join kernels at Q3's lineitem join and at every distinct join rung of
+   the TPC-H 22 phase (query, C_r, T, C_l, cap) of that pass and every
+   SQL-phase and TPC-DS rung of a shape no earlier phase held, each
+   checked as in the join-kernel phase, then timed (rows name their
+   ``pass``: ``tpcds`` or ``tpcds_dispatch`` for the TPC-DS ones);
 9. a ``{"kernels": [...]}`` line with each kernel's launches, times and
    bound (one row per hash rung and per join rung; Q3's join rows also
    with their device activities and host time per call), the script's
@@ -1371,6 +1395,7 @@ def join_rung_timing(rungs, bw: float):
         rec = dict(query=query, C_r=C_r, live_r=c["n_live_r"], C_l=C_l,
                    live_l=int(c["l_live"].sum()), T=T, cap=cap,
                    keys=c["keys"], total=c["total"],
+                   pass_=r.get("pass_", "floor4096"),
                    launches=r["launches"], main_path_ms_sum=r["ms_sum"],
                    **time_join(c, bw))
         log("join kernels at tpch22 rung " + json.dumps(rec))
@@ -1416,7 +1441,7 @@ TPCH22_COUNTERS = ("projection", "predicate", "argsort", "agg_hash",
 
 def _same_answer(name: str, got: dict, ref: dict, rel: float = 1e-9):
     """Row for row: keys, counts, integers and strings exact, floats at
-    relative ``rel``."""
+    relative ``rel`` (NaN equal to NaN)."""
     if list(got) != list(ref):
         raise AssertionError(f"{name}: columns {list(got)} != {list(ref)}")
     for c in ref:
@@ -1424,10 +1449,86 @@ def _same_answer(name: str, got: dict, ref: dict, rel: float = 1e-9):
             raise AssertionError(f"{name}: {c} has {len(got[c])} rows, "
                                  f"not {len(ref[c])}")
         for a, b in zip(got[c], ref[c]):
-            ok = _close(a, b, rel) if isinstance(a, float) \
-                and isinstance(b, float) else a == b
+            ok = (_close(a, b, rel) or (a != a and b != b)) \
+                if isinstance(a, float) and isinstance(b, float) else a == b
             if not ok:
                 raise AssertionError(f"{name}: {c} {a!r} vs {b!r}")
+
+
+def _canonical_rows(d: dict) -> list:
+    """The rows of an answer sorted by a canonical key (floats rounded to
+    9 significant digits for the key only; None first)."""
+    def key(v):
+        if v is None:
+            return (0, "")
+        if isinstance(v, float):
+            return (1, float(f"{v:.9g}") if v == v else float("inf"))
+        return (2, repr(v))
+    cols = list(d)
+    rows = list(zip(*(d[c] for c in cols))) if cols else []
+    return sorted(rows, key=lambda r: tuple(key(v) for v in r))
+
+
+def _same_rows(name: str, got: dict, ref: dict, rel: float = 1e-9) -> str:
+    """``_same_answer`` row for row → ``"ordered"``; where that fails (a
+    query whose ORDER BY leaves ties orders tied rows by how they
+    arrived), the same rows sorted → ``"ties"``."""
+    try:
+        _same_answer(name, got, ref, rel)
+        return "ordered"
+    except AssertionError:
+        if list(got) != list(ref):
+            raise
+    cols = list(ref)
+    g, w = _canonical_rows(got), _canonical_rows(ref)
+    _same_answer(f"{name} (rows sorted)",
+                 {c: [r[i] for r in g] for i, c in enumerate(cols)},
+                 {c: [r[i] for r in w] for i, c in enumerate(cols)}, rel)
+    return "ties"
+
+
+def _same_rows_up_to_rank_ties(name: str, got: dict, ref: dict, tie=None,
+                               rel: float = 1e-9) -> str:
+    """``_same_rows``; or, for a query ``tpcds_sql.RANK_TIES`` names
+    (``tie`` = its rank column, partition columns and float order
+    columns), the answer its rank window gives where the card summed the
+    order values in another order (atomics) and so broke a tie the host
+    kept: every other column agrees (rows sorted, floats at relative
+    ``rel``), and each row's rank differs from the host's by less than
+    the number of host rows of its partition whose order values equal its
+    own within ``rel`` → ``"rank ties"``. Any other mismatch fails."""
+    try:
+        return _same_rows(name, got, ref, rel)
+    except AssertionError:
+        if tie is None or list(got) != list(ref):
+            raise
+        err = sys.exc_info()[1]
+    rank, part, order = tie
+    rest = [c for c in ref if c != rank]
+    if not order or not all(any(isinstance(v, float) for v in ref[c])
+                            for c in order):
+        raise AssertionError(f"{name}: the order columns {list(order)} of "
+                             f"{rank} hold no float") from err
+    g = _canonical_rows({c: got[c] for c in rest + [rank]})
+    w = _canonical_rows({c: ref[c] for c in rest + [rank]})
+    _same_answer(f"{name} (rows sorted, {rank} aside)",
+                 {c: [r[i] for r in g] for i, c in enumerate(rest)},
+                 {c: [r[i] for r in w] for i, c in enumerate(rest)}, rel)
+    pi = [rest.index(c) for c in part]
+    oi = [rest.index(c) for c in order]
+
+    def near(a, b):
+        return (a is None and b is None) or (
+            a is not None and b is not None and _close(a, b, rel))
+    for gr, wr in zip(g, w):
+        peers = sum(all(o[i] == wr[i] for i in pi)
+                    and all(near(o[i], wr[i]) for i in oi) for o in w)
+        a, b = gr[-1], wr[-1]
+        if (a is None) != (b is None) or (
+                a is not None and abs(a - b) >= peers):
+            raise AssertionError(f"{name}: {rank} {a} vs {b} with {peers} "
+                                 "tied rows in its partition") from err
+    return "rank ties"
 
 
 def _clear_device_cache():
@@ -1556,12 +1657,13 @@ class KernelRecorder:
             r["ms_sum"] += e0.elapsed_time(e1)
         return rungs
 
-    def check_totals(self, phase: str, totals: dict):
+    def check_totals(self, phase: str, totals: dict,
+                     require_each: bool = True):
         if totals["hash_agg_build"] != len(self.recorded):
             raise AssertionError(f"{phase}: hash launches != recorded "
                                  "builds")
         for k in ("hash_agg_build", "hash_join_build", "hash_join_probe"):
-            if totals[k] < 1:
+            if require_each and totals[k] < 1:
                 raise AssertionError(f"{phase}: {k} launched no time")
         for k in ("hash_join_build", "hash_join_probe"):
             if sum(r["launches"][k] for r in self.join_rungs.values()) \
@@ -1754,6 +1856,308 @@ def _join_rungs(query: str, builds: dict, probes: list, rungs: dict):
         raise AssertionError(f"{query}: a join table was never probed")
 
 
+# ------------------------------------------------------------ TPC-DS
+
+def tpcds_root(scale: float) -> str:
+    from benchmarking.tpcds.datagen import generate_tpcds
+    root = os.path.join(HERE, ".cache", f"tpcds_s{scale:g}")
+    ss = os.path.join(root, "store_sales")
+    if not (os.path.isdir(ss) and os.listdir(ss)):
+        t0 = time.perf_counter()
+        generate_tpcds(root, scale=scale, seed=0)
+        log(f"tpcds datagen scale={scale:g}: "
+            f"{time.perf_counter() - t0:.3f} s")
+    return root
+
+
+def _add(totals: dict, *items):
+    for d in items:
+        for k, v in d.items():
+            totals[k] = totals.get(k, 0) + v
+
+
+def _region_plan(df) -> list:
+    """The fusion regions the port's planner proposes for ``df``."""
+    from daft_tpu_torch.physical import plan as pp
+    from daft_tpu_torch.physical.translate import translate
+    found, seen = [], set()
+
+    def walk(n):
+        if id(n) in seen:
+            return
+        seen.add(id(n))
+        if isinstance(n, pp.FusedRegion):
+            found.append([n.shape, list(n.fused_ops)])
+        for c in n.children:
+            walk(c)
+    walk(translate(df.builder.optimize().plan))
+    return found
+
+
+def tpcds_phase(root: str):
+    """All 99 TPC-DS queries as SQL (``daft_tpu_torch/benchmarking/
+    tpcds_sql.py``) on the card at the default knobs (the cost model and
+    ``DAFT_TORCH_FUSION=auto`` decide): per query one counted cold run
+    (the device column cache cleared, every count zeroed just before and
+    read just after), then the host tier (``device="0"``) on the same
+    files; the answers equal row for row (floats at relative 1e-9). One
+    ``tpcds`` line per query: walls, counters, fusion-region counters,
+    the cost model's decisions, kernel launches."""
+    import daft_tpu_torch as dtt
+    from daft_tpu_torch.benchmarking import tpcds_sql as DS
+    get = lambda t: dtt.read_parquet(os.path.join(root, t))  # noqa: E731
+    rec_k = KernelRecorder("tpcds")
+    per_query, totals, answers = {}, {}, {}
+    for q in sorted(DS.ALL):
+        dev, dev_s, counts, launches = rec_k.counted(
+            f"tpcds q{q}", lambda: DS.run(q, get).to_pydict())
+        decisions = rec_k.decisions
+        with dtt.execution_config_ctx(device="0"):
+            t0 = time.perf_counter()
+            host = DS.run(q, get).to_pydict()
+            host_s = time.perf_counter() - t0
+        order = _same_rows_up_to_rank_ties(f"tpcds q{q}", dev, host,
+                                           DS.RANK_TIES.get(q))
+        answers[q] = host
+        rec = dict(query=q, order=order, device_s=dev_s, host_s=host_s,
+                   rows=len(next(iter(host.values()), [])),
+                   counters={k: counts.get(k, 0) for k in TPCH22_COUNTERS},
+                   regions=DS.region_counters(counts), decisions=decisions,
+                   launches=launches)
+        per_query[q] = rec
+        _add(totals, rec["counters"], launches, rec["regions"])
+        log("tpcds " + json.dumps(rec))
+    rec_k.check_totals("tpcds", totals, require_each=False)
+    sums = {k: sum(r[k] for r in per_query.values())
+            for k in ("device_s", "host_s")}
+    log("tpcds totals " + json.dumps(totals) + "; walls summed "
+        + json.dumps(sums) + "; window queries' walls summed "
+        + json.dumps({k: sum(per_query[q][k] for q in DS.WINDOW_QUERIES)
+                      for k in ("device_s", "host_s")}))
+    return dict(per_query=per_query, totals=totals, answers=answers,
+                rec=rec_k, sums=sums)
+
+
+def _replay_join_agg(tok):
+    """The fused program of a drained join_agg dispatch, on its final
+    rung's inputs, as a no-argument call."""
+    from daft_tpu_torch.device import fragment, runtime
+    prog, dt, build = tok.prog, tok.dt, tok.build
+    arrays = {n: c.data for n, c in dt.columns.items()}
+    valids = {n: c.validity for n, c in dt.columns.items()}
+    p_sc = runtime._prep_scalars(prog.c_pred, dt) \
+        if prog.c_pred is not None else ()
+    post = fragment._prep_scalars_joined(prog.c_post, dt, build.dt)
+    return lambda: prog.run_planes(arrays, valids, dt.row_mask, p_sc, build,
+                                   post, tok.W, tok.out_cap)
+
+
+def _replay_region(tok):
+    """The same for a drained chain/topk dispatch."""
+    from daft_tpu_torch.device import runtime
+    prog, dt = tok.prog, tok.dt
+    arrays = {n: c.data for n, c in dt.columns.items()}
+    valids = {n: c.validity for n, c in dt.columns.items()}
+    sc = runtime._prep_scalars(prog.compiled, dt)
+    return lambda: prog.run_planes(arrays, valids, dt.row_mask, sc,
+                                   tok.out_w)
+
+
+def region_dispatch_profile(label: str, call) -> dict:
+    """Device activities (``torch.profiler``) and the CUDA-event time of
+    one region dispatch replayed on its own inputs: how many launches one
+    fused torch program makes."""
+    acts = device_activities(call)
+    return dict(region=label, ms=cuda_ms(call),
+                launches_per_dispatch=sum(n for n, _ in acts.values()),
+                kernels_per_dispatch=sum(
+                    n for k, (n, _) in acts.items()
+                    if not k.startswith(("Memset", "Memcpy"))),
+                top=sorted(([k[:60], n, ms] for k, (n, ms) in acts.items()),
+                           key=lambda r: -r[2])[:5])
+
+
+class _Capture:
+    """Keeps the first token each query hands a region dispatcher (the
+    drain finishes it in place), so its program can be replayed."""
+
+    def __init__(self, owner, attr):
+        self.owner, self.attr, self.first = owner, attr, {}
+        self.orig = getattr(owner, attr)
+        self.query = None
+
+    def __enter__(self):
+        def wrapped(tok, _orig=self.orig):
+            self.first.setdefault(self.query, tok)
+            return _orig(tok)
+        setattr(self.owner, self.attr, wrapped)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.owner, self.attr, self.orig)
+
+
+def tpcds_dispatch_pass(root: str, ds_answers: dict, tpch: str,
+                        t22_answers: dict):
+    """The window queries and the fusion-region queries of TPC-DS, and
+    TPC-H Q17 (DataFrame form, SF1), with every priced decision on the
+    card (``DAFT_TORCH_DEVICE_FORCE=1``: each window's argsort too) and
+    every region admitted (``DAFT_TORCH_FUSION=1``), per query a counted
+    cold run held to the host tier's answer. One ``tpcds dispatch`` line
+    per query: the regions the planner proposed, the join_agg dispatches,
+    the climbs of each ladder and the declines by cause. A query whose
+    plan holds a region that dispatched no time fails the phase. Then the
+    torch launches of one join_agg dispatch (``torch.profiler``)."""
+    import daft_tpu_torch as dtt
+    from daft_tpu_torch.benchmarking import tpch_queries as Q
+    from daft_tpu_torch.benchmarking import tpcds_sql as DS
+    from daft_tpu_torch.device import fragment
+    ds_get = lambda t: dtt.read_parquet(os.path.join(root, t))  # noqa: E731
+    h_get = lambda t: dtt.read_parquet(os.path.join(tpch, t))  # noqa: E731
+    jobs = [(f"tpcds q{q}", lambda q=q: DS.run(q, ds_get), ds_answers[q],
+             DS.RANK_TIES.get(q))
+            for q in sorted(set(DS.WINDOW_QUERIES) | set(DS.REGION_QUERIES))]
+    jobs.append(("tpch q17", lambda: Q.ALL[17](h_get), t22_answers[17],
+                 None))
+    rec_k = KernelRecorder("tpcds_dispatch")
+    per_query, totals = {}, {}
+    with _env(DAFT_TORCH_DEVICE_FORCE="1", DAFT_TORCH_FUSION="1"), \
+            _Capture(fragment, "_dispatch_join_agg") as cap:
+        for name, make, want, tie in jobs:
+            planned = _region_plan(make())
+            cap.query = name
+            got, wall, counts, launches = rec_k.counted(
+                name, lambda: make().to_pydict())
+            order = _same_rows_up_to_rank_ties(f"dispatch {name}", got,
+                                               want, tie)
+            regions = DS.region_counters(counts)
+            rec = dict(query=name, order=order, cold_s=wall,
+                       planned_regions=planned,
+                       join_agg_dispatches=regions.get(
+                           "region_join_agg", 0),
+                       w_climbs=regions.get("region_join_agg_w_climbs", 0),
+                       group_climbs=regions.get(
+                           "region_join_agg_group_climbs", 0),
+                       declined={k[len("region_declined_"):]: v
+                                 for k, v in regions.items()
+                                 if k.startswith("region_declined_")},
+                       argsort=counts.get("argsort", 0),
+                       counters={k: counts.get(k, 0)
+                                 for k in TPCH22_COUNTERS},
+                       launches=launches)
+            per_query[name] = rec
+            _add(totals, rec["counters"], launches, regions)
+            log("tpcds dispatch " + json.dumps(rec))
+            if planned and not rec["join_agg_dispatches"]:
+                raise AssertionError(f"{name}: its plan holds {planned} "
+                                     "and no region dispatched")
+    rec_k.check_totals("tpcds dispatch", totals)
+    if not totals.get("region_join_agg"):
+        raise AssertionError("tpcds dispatch: no join_agg dispatch")
+    log("tpcds dispatch totals " + json.dumps(totals))
+    name, tok = max(cap.first.items(), key=lambda kv: kv[1].dt.capacity)
+    prof = region_dispatch_profile(f"join_agg ({name}, C="
+                                   f"{tok.dt.capacity}, W={tok.W}, "
+                                   f"out_cap={tok.out_cap})",
+                                   _replay_join_agg(tok))
+    log("region launches " + json.dumps(prof))
+    return dict(per_query=per_query, totals=totals, rec=rec_k,
+                profiles=[prof])
+
+
+REGION_ROWS = 1 << 22
+
+
+def region_phase(reps: int):
+    """The chain and topk regions, which the suites' plans never hold (the
+    optimizer pushes their predicates into the scans), over an in-memory
+    table of 2^22 rows (int64, float64 and a dictionary-encoded string
+    column; 32 morsels of 131,072 rows): a chain (a filter keeping ~1/4 of
+    the rows, then a projection) and a topk (a sort on the float column,
+    limit 100), each with every region admitted (``DAFT_TORCH_FUSION=1``)
+    and held to the same query at ``DAFT_TORCH_FUSION=0`` (the per-operator
+    tier); walls (median of ``reps`` after a warm-up), dispatches, and the
+    torch launches of one dispatch."""
+    import pyarrow as pa
+    import torch
+    import daft_tpu_torch as dtt
+    from daft_tpu_torch import col
+    from daft_tpu_torch.device import fragment, runtime
+    rng = np.random.default_rng(7)
+    n = REGION_ROWS
+    words = pa.array(["AAAA", "BBBB", "CCCC", "DDDD", "EEEE", "FFFF"])
+    tbl = pa.table({
+        "i": rng.integers(0, 1000, n).astype(np.int64),
+        "f": rng.normal(size=n),
+        "s": pa.DictionaryArray.from_arrays(
+            pa.array(rng.integers(0, len(words), n).astype(np.int32)),
+            words)})
+    # 32 in-memory partitions: one region dispatch each
+    from daft_tpu_torch.dataframe import DataFrame
+    from daft_tpu_torch.logical.builder import LogicalPlanBuilder
+    from daft_tpu_torch.micropartition import MicroPartition
+    step = n // 32
+    parts = [MicroPartition.from_arrow_table(tbl.slice(i, step))
+             for i in range(0, n, step)]
+    df = DataFrame(LogicalPlanBuilder.from_in_memory(parts,
+                                                     parts[0].schema))
+    queries = {
+        "chain": lambda: df.where(col("i") < 250).select(
+            (col("f") * 2.0 + 1.0).alias("f2"), col("i"), col("s")),
+        "topk": lambda: df.sort(col("f"), desc=True).limit(100)}
+    out = []
+    for name, make in queries.items():
+        planned = _region_plan(make())
+        if [r[0] for r in planned] != [name]:
+            raise AssertionError(f"region {name}: planned {planned}")
+        walls, answers, counts = {}, {}, {}
+        for mode in ("1", "0"):
+            with _env(DAFT_TORCH_FUSION=mode):
+                make().to_arrow()      # warm-up, not timed
+                ws = []
+                for _ in range(reps):
+                    runtime.reset_counters()
+                    t0 = time.perf_counter()
+                    # an Arrow table: the wall is the query's, not a
+                    # conversion of a million rows to Python objects
+                    answers[mode] = make().to_arrow()
+                    torch.cuda.synchronize()
+                    ws.append(time.perf_counter() - t0)
+                walls[mode], counts[mode] = ws, runtime.counters()
+        # the same expressions over the same rows: equal to the bit
+        if not answers["1"].equals(answers["0"]):
+            raise AssertionError(f"region {name}: the fused answer differs "
+                                 "from the per-operator tier's")
+        dispatched = counts["1"].get(f"region_{name}", 0)
+        if dispatched < 1 or any(k.startswith("region_")
+                                 for k in counts["0"]):
+            raise AssertionError(f"region {name}: {counts}")
+        with _env(DAFT_TORCH_FUSION="1"), \
+                _Capture(fragment, "_dispatch_region") as cap:
+            cap.query = name
+            make().to_arrow()
+        tok = cap.first[name]
+        prof = region_dispatch_profile(
+            f"{name} (C={tok.dt.capacity}, w={tok.out_w})",
+            _replay_region(tok))
+        rec = dict(region=name, rows=n, planned=planned,
+                   out_rows=answers["1"].num_rows,
+                   fused_walls_s=walls["1"],
+                   fused_median_s=statistics.median(walls["1"]),
+                   per_operator_walls_s=walls["0"],
+                   per_operator_median_s=statistics.median(walls["0"]),
+                   dispatches=dispatched,
+                   w_climbs=counts["1"].get("region_w_climbs", 0),
+                   declined={k: v for k, v in counts["1"].items()
+                             if k.startswith("region_declined_")},
+                   per_operator_counters={
+                       k: counts["0"].get(k, 0) for k in TPCH22_COUNTERS},
+                   profile=prof)
+        log("region " + json.dumps(rec))
+        out.append(rec)
+    return out
+
+
 def profile_phase(root: str):
     """One traced run of each main-path query and of Q3 (``--profile``):
     host-side time per stage (wall time spent inside each stage; scan
@@ -1897,12 +2301,35 @@ def main() -> int:
             label="q3 forced broadcast")
     t22 = tpch22_phase(root, args.dispatch_log)
     tsql = tpchsql_phase(root, t22)
+    ds_root = tpcds_root(1.0)
+    tds = tpcds_phase(ds_root)
+    tdp = tpcds_dispatch_pass(ds_root, tds["answers"], root, t22["answers"])
+    region_phase(args.reps)
+    # the TPC-DS rungs whose shape no earlier phase held
+    held = {k[1:] for r in (mp["rungs"], t22["rungs"], tsql["rungs"])
+            for k in r}
+    jheld = {k[1:] for r in (t22["join_rungs"], tsql["join_rungs"])
+             for k in r}
+    ds_rungs, ds_jrungs = {}, {}
+    for rec_k in (tds["rec"], tdp["rec"]):
+        for k, v in rec_k.hash_rungs().items():
+            if k[1:] not in held:
+                held.add(k[1:])
+                ds_rungs[k] = v
+        for k, v in rec_k.join_rungs.items():
+            if k[1:] not in jheld:
+                jheld.add(k[1:])
+                ds_jrungs[k] = dict(v, pass_=rec_k.pass_)
+    log(f"tpcds rungs not held by earlier phases: {len(ds_rungs)} hash, "
+        f"{len(ds_jrungs)} join")
     krecs = main_path_kernel_timing(mp["rungs"], bw)
     krecs += main_path_kernel_timing(t22["rungs"], bw)
     krecs += main_path_kernel_timing(tsql["rungs"], bw)
+    krecs += main_path_kernel_timing(ds_rungs, bw)
     jrec = join_main_path_timing(q3, bw)
     jrecs = join_rung_timing(t22["join_rungs"], bw)
     jrecs += join_rung_timing(tsql["join_rungs"], bw)
+    jrecs += join_rung_timing(ds_jrungs, bw)
     if args.profile:
         profile_phase(root)
 
@@ -1959,7 +2386,7 @@ def main() -> int:
                 "ms": j[f"{pre}_ms"], "plain_ms": j[f"{pre}_plain_ms"],
                 "bound_ms": j[f"{pre}_bound_ms"], "bound_by": "bytes",
                 "main_path_ms_sum": j["main_path_ms_sum"][kname],
-                "pass": "floor4096",
+                "pass": j.get("pass_", "floor4096"),
                 "host_ms": j[f"{pre}_host_ms"],
                 "sort_join_ms": j["sort_join_ms"], "library_ms": None})
     log(json.dumps({"kernels": kernels}))

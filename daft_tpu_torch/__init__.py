@@ -27,6 +27,7 @@ from .session import (
     list_tables, read_table, set_catalog, set_namespace, use, write_table,
 )
 from .udf import udf
+from .window import Window
 # Last, and as a from-import: the import machinery binds the ``sql``
 # submodule as a package attribute first, and this binding then replaces
 # it, so ``daft_tpu_torch.sql`` is the function, not the module.
@@ -37,7 +38,7 @@ __version__ = "0.1.0"
 __all__ = [
     "Catalog", "DataFrame", "DataType", "Expression", "Field", "Identifier",
     "NotFoundError", "RecordBatch", "Schema", "Series", "Session", "Table",
-    "TimeUnit", "attach", "attach_catalog", "attach_function",
+    "TimeUnit", "Window", "attach", "attach_catalog", "attach_function",
     "attach_table", "col", "create_namespace",
     "create_namespace_if_not_exists", "create_table",
     "create_table_if_not_exists", "create_temp_table", "current_catalog",

@@ -21,6 +21,11 @@ its numbers are the CPU's and name it). Prints one JSON line each for:
 - ``host_join``: the host tier's index generation
   (``joins.match_indices``, forced to the host) over two N-row sides of
   keys drawn from N / 2 values, median of 5;
+- ``region_join_agg``: the join_agg fusion region's program (one probe
+  partition of n rows joined to a 1,024-row build and summed into 64
+  groups, ``DAFT_TORCH_FUSION=1``) at ``REGION_ROWS``: the device time
+  of one dispatch (the ledger's ``region`` seconds over its dispatches),
+  median of ``--reps`` runs;
 - ``constants``: what the measurements give the cost model, each with its
   derivation — ``HOST_VECTOR_BPS`` (the median over the four
   ``host_vector`` expressions of (Arrow bytes in + bytes out) / wall),
@@ -30,7 +35,10 @@ its numbers are the CPU's and name it). Prints one JSON line each for:
   ``HOST_JOIN_ROWS_PER_S`` (rows of both sides / wall); ``DEV_*`` rates
   from ``mfu`` (encoded bytes or rows over kernel time); and
   ``DEV_DISPATCH_S``, the median over the five paths of the device wall
-  at 256 rows less two round trips.
+  at 256 rows less two round trips; ``DEV_REGION_DISPATCH_S`` and
+  ``DEV_REGION_JOIN_AGG_ROWS_PER_S``, the line through the region's two
+  points (its fixed time per dispatch, most of it the ~120 launches of
+  its torch ops, and its rate per probe row).
 """
 
 from __future__ import annotations
@@ -121,7 +129,53 @@ def host_join(n: int, reps: int = 5) -> dict:
     return {"rows": 2 * n, "host_s": statistics.median(walls)}
 
 
-def derive(link, rep, small, big, hv, hj, n: int) -> dict:
+#: the probe sizes of ``region_join_agg``: a small morsel, and the 128Ki
+#: rows of a TPC-DS scan morsel
+REGION_ROWS = (1 << 12, 1 << 17)
+
+
+def region_join_agg(n: int, reps: int) -> dict:
+    """Device seconds per dispatch of the join_agg region program over an
+    n-row probe (the ledger's ``region`` family, CUDA events around the
+    dispatch)."""
+    import os
+
+    import daft_tpu_torch as dtt
+    rng = np.random.default_rng(5)
+    probe = dtt.from_pydict({"k": rng.integers(0, 1024, n),
+                             "x": rng.random(n)})
+    build = dtt.from_pydict({"k2": np.arange(1024, dtype=np.int64),
+                             "g": np.arange(1024, dtype=np.int64) % 64,
+                             "w": rng.random(1024)})
+
+    def run():
+        j = probe.join(build, left_on=col("k"), right_on=col("k2"),
+                       how="inner")
+        j.groupby(col("g")).agg(
+            (col("x") * col("w")).sum().alias("s")).to_pydict()
+    saved = os.environ.get("DAFT_TORCH_FUSION")
+    os.environ["DAFT_TORCH_FUSION"] = "1"
+    try:
+        runtime.reset_counters()
+        run()
+        if not runtime.counters().get("region_join_agg"):
+            raise RuntimeError("calibrate: the join_agg region did not "
+                               "dispatch")
+        per = []
+        for _ in range(reps):
+            costmodel.ledger_reset()
+            run()
+            fam = costmodel.ledger_snapshot()["region"]
+            per.append(fam["seconds"] / fam["dispatches"])
+    finally:
+        if saved is None:
+            del os.environ["DAFT_TORCH_FUSION"]
+        else:
+            os.environ["DAFT_TORCH_FUSION"] = saved
+    return {"rows": n, "dispatch_s": statistics.median(per)}
+
+
+def derive(link, rep, small, big, hv, hj, n: int, reg) -> dict:
     """The constants, from the measurements (see the module docstring)."""
     batch = op_floor.make_batch(n, 0)
 
@@ -133,6 +187,9 @@ def derive(link, rep, small, big, hv, hj, n: int) -> dict:
 
     disp = [max(small[op]["device_ms"] / 1e3 - 2 * link.rtt_s, 1e-6)
             for op in op_floor.OPS]
+    region_s_per_row = max(
+        (reg[1]["dispatch_s"] - reg[0]["dispatch_s"])
+        / (reg[1]["rows"] - reg[0]["rows"]), 1e-12)
     return {
         "HOST_VECTOR_BPS": statistics.median(
             [r["bytes"] / r["host_s"] for r in hv]),
@@ -148,6 +205,9 @@ def derive(link, rep, small, big, hv, hj, n: int) -> dict:
         "DEV_JOIN_ROWS_PER_S": rep["join"]["rows_per_s"],
         "DEV_JOIN_HASH_ROWS_PER_S": rep["join_hash"]["rows_per_s"],
         "DEV_DISPATCH_S": statistics.median(disp),
+        "DEV_REGION_DISPATCH_S": max(
+            reg[0]["dispatch_s"] - reg[0]["rows"] * region_s_per_row, 0.0),
+        "DEV_REGION_JOIN_AGG_ROWS_PER_S": 1.0 / region_s_per_row,
     }
 
 
@@ -189,7 +249,9 @@ def main() -> int:
     emit("host_vector", hv)
     hj = host_join(args.rows)
     emit("host_join", hj)
-    emit("constants", derive(link, rep, small, big, hv, hj, args.rows))
+    reg = [region_join_agg(n, args.reps) for n in REGION_ROWS]
+    emit("region_join_agg", reg)
+    emit("constants", derive(link, rep, small, big, hv, hj, args.rows, reg))
     runtime.reset_counters()
     if args.out:
         with open(args.out, "w") as f:

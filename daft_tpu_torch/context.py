@@ -29,6 +29,12 @@ class ExecutionConfig:
     #: in-flight device slots of the fused-agg pipeline (0 = synchronous);
     #: ``DAFT_TORCH_DEVICE_INFLIGHT`` wins when set
     device_inflight: int = 2
+    #: fusion regions: ``auto`` (priced per morsel), ``1`` (admit every
+    #: one) or ``0`` (none planned); ``DAFT_TORCH_FUSION`` wins when set
+    fusion: str = "auto"
+    #: most operators one fusion region absorbs;
+    #: ``DAFT_TORCH_FUSION_MAX_OPS`` wins when set
+    fusion_max_ops: int = 8
 
 
 class Context:

@@ -5,8 +5,8 @@ logical plan via LogicalPlanBuilder; execution happens on collect/show/
 iteration through ``execution.executor.run_plan``. The port carries the
 methods of the grouped-aggregation, join, TPC-H and SQL slices (select/
 filter/with_column/sort/limit/distinct/agg/groupby/join, cross joins
-included, concat and the set operations, monotonically increasing ids);
-windows and writes come with later slices.
+included, concat and the set operations, monotonically increasing ids,
+window expressions routed into ``Window`` nodes); writes come later.
 """
 
 from __future__ import annotations
@@ -67,6 +67,22 @@ class DataFrame:
 
     # ---- transformations -------------------------------------------------
     def select(self, *columns: ColumnInput) -> "DataFrame":
+        rewritten, hoisted = _hoist_nested_windows(columns)
+        if hoisted:
+            # a window nested inside a scalar expression (``x * 100 /
+            # SUM(x) OVER (...)``) computes in its own Window node first;
+            # the outer expression then reads the temp column
+            wdf = self.with_columns(hoisted)
+            return DataFrame(wdf.select(*rewritten)._builder)
+        win = [c for c in columns if isinstance(c, Expression)
+               and c._unalias().op == "window"]
+        if win:
+            # window expressions go through Window nodes, then project
+            wdf = self.with_columns({e.name(): e for e in win})
+            keep = [col(c.name()) if (isinstance(c, Expression)
+                                      and c._unalias().op == "window") else c
+                    for c in columns]
+            return DataFrame(wdf._builder.select(keep))
         return DataFrame(self._builder.select(list(columns)))
 
     def with_column(self, name: str, expr: Expression) -> "DataFrame":
@@ -74,6 +90,23 @@ class DataFrame:
 
     def with_columns(self, columns: Dict[str, Expression]) -> "DataFrame":
         exprs = [e.alias(n) for n, e in columns.items()]
+        window_exprs = [e for e in exprs if e._unalias().op == "window"]
+        if window_exprs:
+            plain = [e for e in exprs if e._unalias().op != "window"]
+            b = self._builder
+            if plain:
+                b = b.with_columns(plain)
+            # one Window node per distinct spec, chained (the reference's
+            # ExtractWindowFunction groups by WindowSpec the same way)
+            by_spec: Dict[str, List[Expression]] = {}
+            for e in window_exprs:
+                by_spec.setdefault(repr(e._unalias().params[0]),
+                                   []).append(e)
+            for group in by_spec.values():
+                w = group[0]._unalias().params[0]
+                b = b.window(group, w._partition_by, w._order_by,
+                             w._descending, w._nulls_first, w._frame)
+            return DataFrame(b)
         return DataFrame(self._builder.with_columns(exprs))
 
     def with_column_renamed(self, old: str, new: str) -> "DataFrame":
@@ -380,6 +413,32 @@ def _flatten_exprs(to_agg) -> List[Expression]:
 
 # ---------------------------------------------------------------------------
 # constructors (daft.from_* family)
+
+
+def _hoist_nested_windows(columns):
+    """Hoist OVER() subtrees buried inside scalar expressions into temp
+    columns (the reference's ``ExtractWindowFunction``); top-level window
+    expressions stay for ``select``'s Window routing. → (rewritten
+    columns, {temp name: window expression})."""
+    hoisted: Dict[str, Expression] = {}
+
+    def walk(e: Expression, top: bool) -> Expression:
+        inner = e._unalias()
+        if inner.op == "window":
+            if top:
+                return e
+            name = f"__win_h{len(hoisted)}"
+            hoisted[name] = inner
+            return col(name)
+        new_args = tuple(walk(c, False) for c in e.args)
+        # identity compare: Expression.__eq__ builds an eq-expression
+        if all(a is b for a, b in zip(new_args, e.args)):
+            return e
+        return e.with_children(new_args)
+
+    out = [walk(c, True) if isinstance(c, Expression) else c
+           for c in columns]
+    return out, hoisted
 
 
 def from_pydict(data: Dict[str, Any]) -> DataFrame:

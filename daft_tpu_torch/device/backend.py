@@ -18,14 +18,25 @@ import torch
 from .. import knobs
 
 
-def resolve_device() -> Optional[torch.device]:
-    """The device of this query's fused fragments, or None for the host
-    tier. Raises when a CUDA device is asked for and none is present."""
+def device_spec() -> str:
+    """The asked-for device as written (``ExecutionConfig.device``, else
+    ``DAFT_TORCH_DEVICE``), normalized; nothing is probed."""
     from ..context import get_context
     spec = get_context().execution_config.device \
         or knobs.env_str("DAFT_TORCH_DEVICE")
-    spec = spec.strip().lower()
-    if spec in ("0", "host", "off"):
+    return spec.strip().lower()
+
+
+def host_tier_only() -> bool:
+    """True when the caller asked for the host tier (``0``)."""
+    return device_spec() in ("0", "host", "off")
+
+
+def resolve_device() -> Optional[torch.device]:
+    """The device of this query's fused fragments, or None for the host
+    tier. Raises when a CUDA device is asked for and none is present."""
+    spec = device_spec()
+    if host_tier_only():
         return None
     if spec == "cpu":
         return torch.device("cpu")

@@ -25,7 +25,8 @@ lists them beside the call that measured them): ``HOST_*`` from the
 port's host tier (pyarrow and numpy) on that machine's CPU, ``DEV_*`` from
 ``mfu.report()`` (kernel rates on device-resident inputs) and
 ``op_floor.py`` (``DEV_DISPATCH_S``: the host time of one per-operator
-device dispatch beyond its round trips).
+device dispatch beyond its round trips); ``DEV_REGION_*`` from the
+join_agg region's program (``calibrate``'s ``region_join_agg`` line).
 
 Env overrides:
 - ``DAFT_TORCH_LINK_RTT_MS`` / ``_UP_MBPS`` / ``_DOWN_MBPS``: skip the
@@ -35,8 +36,8 @@ Env overrides:
 - ``DAFT_TORCH_DISPATCH_LOG``: one JSON line per decision.
 
 Not carried over yet (each waits for its caller's slice, ROADMAP):
-``fusion_serial_estimate`` / ``fusion_wins`` (A5), ``image_resize_wins``
-(A8), the shuffle, mesh, ICI and spill gates (A6/A7).
+``image_resize_wins`` (A8), the shuffle, mesh, ICI and spill gates
+(A6/A7).
 """
 
 from __future__ import annotations
@@ -71,6 +72,11 @@ DEV_JOIN_HASH_ROWS_PER_S = 7.032e9  # hash build + probe, rows/s
 DEV_DISPATCH_S = 1.023e-3     # host time of one per-operator dispatch
 #                               (encode, launches, fetch) beyond its two
 #                               round trips
+# the join_agg fusion region's torch program (``calibrate``'s
+# ``region_join_agg`` line at 4,096 and 131,072 probe rows, every row
+# matching one of 1,024 build rows, 64 groups; 700.00 W as above)
+DEV_REGION_DISPATCH_S = 1.631e-3          # device time per dispatch
+DEV_REGION_JOIN_AGG_ROWS_PER_S = 4.949e6  # probe rows/s beyond it
 
 #: the most a cacheable upload may cost against one host pass (the
 #: reference's bounded-investment rule: a policy ratio, not a rate)
@@ -281,6 +287,8 @@ def constants() -> dict:
                HOST_SORT_ROWS_PER_S=HOST_SORT_ROWS_PER_S,
                HOST_JOIN_ROWS_PER_S=HOST_JOIN_ROWS_PER_S,
                DEV_DISPATCH_S=DEV_DISPATCH_S,
+               DEV_REGION_DISPATCH_S=DEV_REGION_DISPATCH_S,
+               DEV_REGION_JOIN_AGG_ROWS_PER_S=DEV_REGION_JOIN_AGG_ROWS_PER_S,
                INVEST_MAX_RATIO=INVEST_MAX_RATIO)
     return out
 
@@ -304,19 +312,29 @@ _ledger_lock = threading.Lock()
 
 _LEDGER_RAW = ("dispatches", "rows", "bytes", "flops", "seconds")
 #: per-family strategy counts and the summed hash-table load factor
+#: and the ``region`` family's fused operators, round trips saved and
+#: modelled serial seconds
 _LEDGER_STRATEGY = ("strategy_hash", "strategy_sort", "strategy_dense",
-                    "lf_sum")
+                    "lf_sum", "fused_ops", "rt_saved", "fusion_serial_s")
 
 
 def ledger_record(kind: str, *, rows: int = 0, nbytes: float = 0.0,
                   flops: float = 0.0, seconds: float = 0.0,
                   dispatches: int = 1, strategy: Optional[str] = None,
-                  load_factor: Optional[float] = None) -> None:
+                  load_factor: Optional[float] = None,
+                  fused_ops: Optional[int] = None,
+                  round_trips_saved: Optional[int] = None,
+                  fusion_serial_seconds: Optional[float] = None) -> None:
     """Record one real dispatch's achieved work. ``seconds`` is the
     dispatch's device time where a drain timed it with CUDA events (the
     fused fragments), else its host wall to a host-visible result;
     ``nbytes`` / ``flops`` are the ``mfu`` models of the kernel that ran.
-    Feeds the calibration store (a no-op unless it is on)."""
+    The ``region`` family (fusion regions) also carries ``fused_ops`` (the
+    operators its program runs), ``round_trips_saved`` (host round trips
+    the fusion removed against the per-operator chain) and
+    ``fusion_serial_seconds`` (:func:`fusion_serial_estimate`), from which
+    :func:`_derive` gives the ``fusion_x`` ratio. Feeds the calibration
+    store (a no-op unless it is on)."""
     fields = [("dispatches", dispatches), ("rows", rows),
               ("bytes", float(nbytes)), ("flops", float(flops)),
               ("seconds", float(seconds))]
@@ -324,6 +342,12 @@ def ledger_record(kind: str, *, rows: int = 0, nbytes: float = 0.0,
         fields.append((f"strategy_{strategy}", dispatches))
     if load_factor is not None:
         fields.append(("lf_sum", float(load_factor) * dispatches))
+    if fused_ops is not None:
+        fields.append(("fused_ops", int(fused_ops)))
+    if round_trips_saved is not None:
+        fields.append(("rt_saved", int(round_trips_saved)))
+    if fusion_serial_seconds is not None:
+        fields.append(("fusion_serial_s", float(fusion_serial_seconds)))
     with _ledger_lock:
         d = kernel_ledger.setdefault(
             kind, {k: 0 if k in ("dispatches", "rows") else 0.0
@@ -355,6 +379,17 @@ def _derive(d: dict) -> dict:
                 out[f"strategy_{nm}"] = counts[nm]
     if counts["hash"] and d.get("lf_sum"):
         out["load_factor"] = d["lf_sum"] / counts["hash"]
+    if d.get("fused_ops"):
+        out["fused_ops"] = int(d["fused_ops"])
+    if d.get("rt_saved"):
+        out["round_trips_saved"] = int(d["rt_saved"])
+    fser = d.get("fusion_serial_s", 0.0)
+    if fser and s > 0:
+        # modelled per-operator serial seconds against the region's wall:
+        # above 1.0, running the chain as one program beat dispatching it
+        # an operator at a time
+        out["fusion_serial_s"] = fser
+        out["fusion_x"] = fser / s
     return out
 
 
@@ -492,8 +527,9 @@ def agg_upload_wins(bytes_up: float, bytes_down: float,
     pipeline on (``window`` ≥ 2) the transfer is priced at its
     steady-state overlap.
 
-    ``host_rescan_bytes`` is the port's one pricing term the reference
-    lacks (ROADMAP B0b): the bytes a later host run of a cacheable task
+    ``host_rescan_bytes`` is one of the port's two pricing terms the
+    reference lacks (ROADMAP B0b; the other is :func:`fusion_wins`'
+    join_agg alternative): the bytes a later host run of a cacheable task
     reads and decodes again (its file's uncompressed columns), which a
     resident device run skips. The investment's host side adds them at
     ``HOST_AGG_BPS``; at 0 (the default) the rule is the reference's.
@@ -528,6 +564,20 @@ def agg_upload_wins(bytes_up: float, bytes_down: float,
     return dev_s < host_s
 
 
+def _join_seconds(n_left: int, n_right: int, bytes_up: float,
+                  bytes_down: float, window: int = 1) -> Tuple[float, float]:
+    """The host's and the card's modelled seconds of one join's index
+    generation (:func:`join_wins`' two sides)."""
+    n = n_left + n_right
+    rate = _cal("DEV_JOIN_HASH_ROWS_PER_S", DEV_JOIN_HASH_ROWS_PER_S) \
+        if _join_strategy(n_left, n_right) == "hash" \
+        else _cal("DEV_JOIN_ROWS_PER_S", DEV_JOIN_ROWS_PER_S)
+    lp = link_profile()
+    price = lp.pipelined_seconds if window >= 2 else lp.device_seconds
+    return n / HOST_JOIN_ROWS_PER_S, price(bytes_up, bytes_down, 2.0,
+                                           DEV_DISPATCH_S + n / rate)
+
+
 def join_wins(n_left: int, n_right: int, bytes_up: float,
               bytes_down: float, window: int = 1) -> bool:
     """An equi-join's index generation on the device (hash build and probe
@@ -537,17 +587,69 @@ def join_wins(n_left: int, n_right: int, bytes_up: float,
     f = _forced()
     if f is not None:
         return f
-    n = n_left + n_right
-    host_s = n / HOST_JOIN_ROWS_PER_S
-    rate = _cal("DEV_JOIN_HASH_ROWS_PER_S", DEV_JOIN_HASH_ROWS_PER_S) \
-        if _join_strategy(n_left, n_right) == "hash" \
-        else _cal("DEV_JOIN_ROWS_PER_S", DEV_JOIN_ROWS_PER_S)
-    kernel_s = DEV_DISPATCH_S + n / rate
-    lp = link_profile()
-    price = lp.pipelined_seconds if window >= 2 else lp.device_seconds
-    dev_s = price(bytes_up, bytes_down, 2.0, kernel_s)
+    host_s, dev_s = _join_seconds(n_left, n_right, bytes_up, bytes_down,
+                                  window)
     _log("join", dev_s < host_s, host_s, dev_s,
          n_left=n_left, n_right=n_right, bytes_up=bytes_up)
+    return dev_s < host_s
+
+
+def fusion_serial_estimate(rows: int, n_ops: int) -> float:
+    """Modelled wall of the per-operator chain a fusion region replaced:
+    each of the ``n_ops`` operators would pay its own dispatch, transfer
+    legs and round trips. Recorded per region dispatch into the ledger's
+    ``region`` family, where :func:`_derive` turns it into ``fusion_x``."""
+    lp = link_profile()
+    b = max(rows, 1) * 8.0
+    per_op = lp.device_seconds(
+        b, b, 2.0,
+        DEV_DISPATCH_S + b / _cal("DEV_VECTOR_BPS", DEV_VECTOR_BPS))
+    return max(n_ops, 1) * per_op
+
+
+def fusion_wins(shape: str, rows: int, bytes_up: float, bytes_down: float,
+                n_ops: int, host_bytes: Optional[float] = None,
+                window: int = 1, build_rows: int = 0) -> bool:
+    """Admission of one fusion-region morsel: the one fused dispatch (one
+    upload, one program, one packed fetch) against the chain a declined
+    morsel runs instead. A chain is ``n_ops`` vectorized host passes, a
+    topk adds the host sort. A join_agg morsel declined runs the
+    per-operator chain: the join's index generation where
+    :func:`join_wins` would put it (the card or the host, whichever it
+    prices cheaper; on the host under the join's row floor), then the
+    host agg pass; the fused program is priced with its own measured
+    constants (``DEV_REGION_*``), not the hash kernels'.
+    ``DAFT_TORCH_FUSION=1`` skips this gate (the executor admits every
+    morsel); ``auto`` calls it per morsel. Logged as ``fusion``."""
+    f = _forced()
+    if f is not None:
+        return f
+    lp = link_profile()
+    price = lp.pipelined_seconds if window >= 2 else lp.device_seconds
+    hb = host_bytes if host_bytes is not None else bytes_up
+    if shape == "join_agg":
+        from ..joins import DEVICE_MIN_ROWS
+        join_host_s, join_dev_s = _join_seconds(
+            rows, build_rows, (rows + build_rows) * 9.0,
+            16.0 * max(rows, build_rows), window)
+        if rows + build_rows < DEVICE_MIN_ROWS:
+            join_dev_s = join_host_s
+        host_s = min(join_host_s, join_dev_s) + hb / HOST_AGG_BPS
+        kernel_s = DEV_REGION_DISPATCH_S \
+            + rows / DEV_REGION_JOIN_AGG_ROWS_PER_S
+    elif shape == "topk":
+        host_s = hb / HOST_VECTOR_BPS * max(n_ops - 1, 1) \
+            + rows / HOST_SORT_ROWS_PER_S
+        kernel_s = DEV_DISPATCH_S \
+            + rows / _cal("DEV_SORT_ROWS_PER_S", DEV_SORT_ROWS_PER_S) \
+            + bytes_up / _cal("DEV_VECTOR_BPS", DEV_VECTOR_BPS)
+    else:
+        host_s = hb / HOST_VECTOR_BPS * max(n_ops, 1)
+        kernel_s = DEV_DISPATCH_S \
+            + bytes_up / _cal("DEV_VECTOR_BPS", DEV_VECTOR_BPS)
+    dev_s = price(bytes_up, bytes_down, 2.0, kernel_s)
+    _log("fusion", dev_s < host_s, host_s, dev_s,
+         shape=shape, rows=rows, n_ops=n_ops, build_rows=build_rows)
     return dev_s < host_s
 
 

@@ -34,10 +34,18 @@ Each dispatch is timed by two CUDA events on its stream, read at the
 drain (which already waits for the window's copy), and recorded in the
 cost model's ledger with its ``mfu`` byte model (:func:`_ledger_grouped`);
 its strategy is logged (``costmodel.log_strategy_decision``) once it ran.
+
+The second half holds the fusion-region programs (``physical/fusion.py``;
+reference ``fragment.py:820-1397``): chain and topk
+(:class:`FusedRegionProgram`) and join_agg (:class:`FusedJoinAggProgram`,
+with its once-per-query :class:`RegionBuild`), each a torch program over
+the ported kernels with one fetch per dispatch and its overflow ladders.
+They are torch programs, not hand-written kernels: ROADMAP B1's rule.
 """
 
 from __future__ import annotations
 
+import threading
 import time
 from typing import List, Optional, Tuple
 
@@ -50,6 +58,11 @@ from . import column as dcol
 from . import compiler, costmodel, hash_kernels, kernels, mfu, runtime
 
 _OUT_CAP0 = 128
+
+#: what compiling a program raises for an expression without a device
+#: lowering: the caller runs the host chain (or a region's fallback)
+_COMPILE_ERRORS = (compiler.NotCompilable, NotImplementedError, ValueError,
+                   TypeError, KeyError, OverflowError)
 
 #: dense-strategy slot ceiling: K = prod(dim + 1) slots per dispatch
 DENSE_MAX_SLOTS = 4096
@@ -128,8 +141,7 @@ def get_fused_agg(group_exprs: List[Expression],
         ([predicate] if predicate is not None else [])
     try:
         c = compiler.compile_projection(proj, schema)
-    except (compiler.NotCompilable, NotImplementedError, ValueError,
-            TypeError, KeyError, OverflowError):
+    except _COMPILE_ERRORS:
         return None
     nk = len(group_exprs)
     srcs = []
@@ -511,3 +523,520 @@ def run_fused_agg(prog: FusedAggProgram, batch, group_exprs, agg_exprs,
     return drain_fused_agg_tables(submit_fused_agg(
         prog, batch, group_exprs, agg_exprs, out_schema, device,
         groups))[0]
+
+
+# ---------------------------------------------------------------------------
+# fusion-region programs (``physical/fusion.py``; reference
+# ``daft_tpu/device/fragment.py:820-1397``)
+#
+# - chain: predicate + projection + a stable compaction (``kernels.
+#   compaction_perm``); the survivors come back at a power-of-two width
+#   bucket, and a count past it re-dispatches at the grown bucket;
+# - topk: the same, with the packed argsort (``kernels._packed_argsort``
+#   over ``_sort_codes``) in place of the compaction; only the static
+#   ``bucket_capacity(limit)`` head comes back;
+# - join_agg: the broadcast build side is encoded and key-sorted ONCE per
+#   query (``kernels.join_sort_impl``) and stays on the card; each probe
+#   morsel runs predicate → searchsorted join → gather of the joined
+#   planes → post projection → partial grouped agg (the sort strategy) as
+#   one dispatch, with two overflow ladders read from its head: the pair
+#   width W from the join's true total, the group bucket from the count.
+#
+# Each dispatch's output is a list of planes, head first (the live count;
+# for join_agg the group count and the pair total), fetched in ONE
+# device→host copy (``column.fetch_host_async``).
+
+_region_cache: dict = {}
+_region_lock = threading.Lock()
+
+#: join pair-width ceiling: past this the joined planes cost more device
+#: memory than the morsel itself, and the host join is the right tool
+_REGION_MAX_W = 1 << 22
+
+
+class FusedRegionProgram:
+    """One chain or topk region program."""
+
+    def __init__(self, shape: str, compiled: compiler.Compiled, nout: int,
+                 has_pred: bool, fused_ops: Tuple[str, ...], limit: int,
+                 descending: Tuple[bool, ...],
+                 nulls_first: Tuple[bool, ...], in_schema: Schema):
+        self.shape = shape              # chain | topk
+        self.compiled = compiled
+        self.nout = nout
+        self.has_pred = has_pred
+        self.fused_ops = fused_ops
+        self.limit = limit
+        self.descending = descending
+        self.nulls_first = nulls_first
+        self.in_schema = in_schema
+        #: per input capacity, the survivor bucket of the last drain: the
+        #: ladder's learned first rung (a race costs at most one climb)
+        self.w_hint: dict = {}
+
+    def run_planes(self, arrays, valids, row_mask, scalars, out_w: int
+                   ) -> List[torch.Tensor]:
+        """The region over one table → ``[live count]``, then ``out_w``
+        rows of each output value plane, then of each validity plane."""
+        outs = self.compiled.fn(arrays, valids, row_mask, scalars)
+        if self.has_pred:
+            pv, pm = outs[-1]
+            row_mask = row_mask & pv.to(torch.bool) & pm
+            outs = outs[:-1]
+        C = row_mask.shape[0]
+        n = self.nout
+        live = row_mask.sum()
+        if self.shape == "topk":
+            skeys = tuple(v for v, _ in outs[n:])
+            svalids = tuple(m for _, m in outs[n:])
+            perm = kernels._packed_argsort(kernels._sort_codes(
+                skeys, svalids, row_mask, self.descending,
+                self.nulls_first), C)
+            live = torch.clamp(live, max=self.limit)
+            outs = outs[:n]
+        else:
+            perm = kernels.compaction_perm(row_mask)
+        w = min(out_w, C)
+        idx = perm[:w]
+        sel = torch.arange(w, device=row_mask.device) < live
+        return [live.to(torch.int64).reshape(1)] \
+            + [v[idx] for v, _ in outs] + [m[idx] & sel for _, m in outs]
+
+
+def get_fused_region(exprs, predicate, schema: Schema, sort_by=(),
+                     descending=(), nulls_first=(),
+                     limit: Optional[int] = None,
+                     fused_ops: Tuple[str, ...] = ()
+                     ) -> Optional[FusedRegionProgram]:
+    """Compile (or fetch) a chain/topk region program; None when an
+    expression has no device lowering (the executor runs the region's
+    fallback subtree)."""
+    shape = "topk" if sort_by else "chain"
+    key = ("region", shape, tuple(e._key() for e in exprs),
+           predicate._key() if predicate is not None else None,
+           tuple(e._key() for e in sort_by), tuple(descending),
+           tuple(nulls_first), limit, runtime._schema_key(schema))
+    with _region_lock:
+        hit = _region_cache.get(key)
+    if hit is not None:
+        return hit if isinstance(hit, FusedRegionProgram) else None
+    proj = list(exprs) + list(sort_by) + \
+        ([predicate] if predicate is not None else [])
+    try:
+        c = compiler.compile_projection(proj, schema)
+    except _COMPILE_ERRORS:
+        prog = False
+    else:
+        prog = FusedRegionProgram(
+            shape, c, len(exprs), predicate is not None, tuple(fused_ops),
+            int(limit or 0), tuple(bool(d) for d in descending),
+            tuple(bool(x) for x in nulls_first), schema)
+    return _cache_region(key, prog)
+
+
+def _cache_region(key, prog):
+    """Store a compiled program (False: it does not lower) unless another
+    thread stored one first → the cached program, or None."""
+    with _region_lock:
+        return _region_cache.setdefault(key, prog) or None
+
+
+def region_start_w(prog: FusedRegionProgram, dt: dcol.DeviceTable) -> int:
+    """The first width rung. Top-k fetches its static k bucket; an
+    unfiltered chain cannot shrink, so it fetches whole; a filtered chain
+    bets on a quarter of the rows, or the rung its last drain at this
+    capacity learned (one climb costs a dispatch, not a scan)."""
+    if prog.shape == "topk":
+        return min(dcol.bucket_capacity(max(prog.limit, 1)), dt.capacity)
+    if not prog.has_pred:
+        return dt.capacity
+    hint = prog.w_hint.get(dt.capacity)
+    if hint is not None:
+        return min(hint, dt.capacity)
+    return min(dcol.bucket_capacity(
+        max(min(dt.capacity, dt.row_count) // 4, _OUT_CAP0)), dt.capacity)
+
+
+class InflightRegion:
+    """One chain/topk dispatch in flight: its planes, its fetch, and the
+    ladder state a climb needs."""
+
+    def __init__(self, prog, dt, exprs, fields, out_w, stream):
+        self.prog = prog
+        self.dt = dt
+        self.exprs = exprs
+        self.fields = fields
+        self.out_w = out_w
+        self.stream = stream
+        self.timers: list = []
+        self.fetch = None
+
+
+def _current_stream(device: torch.device):
+    return torch.cuda.current_stream(device) \
+        if device.type == "cuda" else None
+
+
+def _dispatch_region(tok: InflightRegion) -> None:
+    prog, dt = tok.prog, tok.dt
+    arrays = {n: c.data for n, c in dt.columns.items()}
+    valids = {n: c.validity for n, c in dt.columns.items()}
+    scalars = runtime._prep_scalars(prog.compiled, dt)
+    timer = _Timer(dt.device)
+    planes = prog.run_planes(arrays, valids, dt.row_mask, scalars,
+                             tok.out_w)
+    timer.stop()
+    tok.timers.append(timer)
+    tok.fetch = dcol.fetch_host_async(planes)
+
+
+def submit_region(prog: FusedRegionProgram, batch, exprs, out_schema: Schema,
+                  device: torch.device) -> Optional[InflightRegion]:
+    """Encode one morsel and dispatch the region on the current stream; no
+    wait. None when a needed column has no device plane or its encode
+    fails: the region declines this morsel (the executor runs its host
+    chain). An error in the dispatch itself propagates."""
+    needs = prog.compiled.needs_cols
+    if not all(dcol.has_device_plane(batch.get_column(n)) for n in needs):
+        return None
+    try:
+        dt = dcol.encode_batch(batch, needs, device)
+    except (ValueError, TypeError):
+        return None
+    dcol.use_on_current_stream(dt)
+    fields = [out_schema[e.name()] for e in exprs]
+    tok = InflightRegion(prog, dt, exprs, fields, region_start_w(prog, dt),
+                         _current_stream(dt.device))
+    _dispatch_region(tok)
+    runtime.count("region_" + prog.shape)
+    return tok
+
+
+def drain_region(tok: InflightRegion):
+    """Wait for the dispatch's one copy and decode the survivors into a
+    RecordBatch, climbing the width ladder (one dispatch and one copy a
+    step) while the live count outgrows the bucket."""
+    from ..recordbatch import RecordBatch
+    prog = tok.prog
+    while True:
+        host = tok.fetch.wait()
+        live = int(host[0][0])
+        w = min(tok.out_w, tok.dt.capacity)
+        if live <= w:
+            break
+        tok.out_w = min(dcol.bucket_capacity(live), tok.dt.capacity)
+        runtime.count("region_w_climbs")
+        with dcol.on_stream(tok.stream):
+            _dispatch_region(tok)
+    n = prog.nout
+    cols = []
+    for i, (e, f) in enumerate(zip(tok.exprs, tok.fields)):
+        cols.append(dcol.decode_np(
+            f.name, f.dtype, host[1 + i][:live],
+            host[1 + n + i][:live].astype(np.bool_),
+            runtime.key_dictionary(e, f, tok.dt)))
+    out = RecordBatch.from_series(cols)
+    if prog.has_pred and prog.shape != "topk":
+        prog.w_hint[tok.dt.capacity] = min(
+            dcol.bucket_capacity(max(live, _OUT_CAP0)), tok.dt.capacity)
+    tok.dt.staging = None
+    n_ops = max(len(prog.fused_ops), 2)
+    costmodel.ledger_record(
+        "region", rows=tok.dt.row_count,
+        nbytes=(1 + 2 * n) * 8 * w,
+        seconds=sum(t.seconds() for t in tok.timers),
+        dispatches=len(tok.timers), fused_ops=n_ops,
+        round_trips_saved=n_ops - 1,
+        fusion_serial_seconds=costmodel.fusion_serial_estimate(
+            tok.dt.row_count, n_ops))
+    return out
+
+
+class FusedJoinAggProgram:
+    """One join_agg region program: probe predicate → searchsorted join
+    against the key-sorted build side → gather of the joined planes →
+    post projection → partial grouped agg, in one dispatch."""
+
+    def __init__(self, c_pred, c_post, lkey: str, rkey: str, probe_needs,
+                 build_needs, nk: int, ops: Tuple[str, ...],
+                 has_post_pred: bool, fused_ops: Tuple[str, ...],
+                 src_schema: Schema, build_schema: Schema):
+        self.c_pred = c_pred            # probe-side predicate (or None)
+        self.c_post = c_post            # joined-namespace projection
+        self.lkey = lkey
+        self.rkey = rkey
+        self.probe_needs = probe_needs  # probe planes the gather feeds
+        self.build_needs = build_needs
+        self.nk = nk
+        self.ops = ops
+        self.has_post_pred = has_post_pred
+        self.fused_ops = fused_ops
+        self.src_schema = src_schema
+        self.build_schema = build_schema
+
+    def probe_cols(self) -> List[str]:
+        """The probe columns one dispatch encodes."""
+        return list(dict.fromkeys(
+            [self.lkey] + list(self.probe_needs)
+            + list(self.c_pred.needs_cols if self.c_pred is not None
+                   else ())))
+
+    def run_planes(self, p_arrays, p_valids, p_mask, p_scalars, build,
+                   post_scalars, W: int, out_cap: int
+                   ) -> List[torch.Tensor]:
+        """One probe table → ``[group count, pair total]``, then one
+        ``[out_cap]`` plane per key, key validity, value, value
+        validity."""
+        b = build.dt
+        if self.c_pred is not None:
+            pv, pm = self.c_pred.fn(p_arrays, p_valids, p_mask,
+                                    p_scalars)[-1]
+            p_mask = p_mask & pv.to(torch.bool) & pm
+        counts, starts, total = kernels.join_count_impl(
+            p_arrays[self.lkey], p_valids[self.lkey], p_mask,
+            build.sorted_key, build.live_count)
+        owner, ridx, pair_valid = kernels.join_expand_impl(
+            counts, starts, build.perm, W)
+        owner, ridx = owner.long(), ridx.long()
+        j_arrays, j_valids = {}, {}
+        for nm in self.probe_needs:
+            j_arrays[nm] = p_arrays[nm][owner]
+            j_valids[nm] = p_valids[nm][owner] & pair_valid
+        for nm in self.build_needs:
+            c = b.columns[nm]
+            j_arrays[nm] = c.data[ridx]
+            j_valids[nm] = c.validity[ridx] & pair_valid
+        outs = self.c_post.fn(j_arrays, j_valids, pair_valid, post_scalars)
+        mask = pair_valid
+        if self.has_post_pred:
+            qv, qm = outs[-1]
+            mask = mask & qv.to(torch.bool) & qm
+            outs = outs[:-1]
+        nk = self.nk
+        ok, okv, ov, ovv, g = kernels.grouped_agg_block_impl(
+            tuple(v for v, _ in outs[:nk]), tuple(m for _, m in outs[:nk]),
+            tuple(v for v, _ in outs[nk:]), tuple(m for _, m in outs[nk:]),
+            mask, self.ops, out_cap)
+        head = torch.stack([torch.as_tensor(g, device=mask.device)
+                            .to(torch.int64).reshape(()),
+                            total.to(torch.int64).reshape(())])
+        return [head] + list(ok) + list(okv) + list(ov) + list(ovv)
+
+
+class RegionBuild:
+    """The join_agg build side, encoded and key-sorted once per query;
+    every probe dispatch reads these planes."""
+
+    __slots__ = ("dt", "sorted_key", "perm", "live_count")
+
+    def __init__(self, dt, sorted_key, perm, live_count):
+        self.dt = dt
+        self.sorted_key = sorted_key
+        self.perm = perm
+        self.live_count = live_count
+
+
+def prepare_region_build(prog: FusedJoinAggProgram, build_rb,
+                         device: torch.device) -> Optional[RegionBuild]:
+    """Encode the broadcast build side and sort its key plane, one
+    dispatch for the whole query. None when a needed column has no device
+    plane, its encode fails, or it does not fit the card: the region
+    declines (the executor runs its fallback subtree)."""
+    cols = list(dict.fromkeys([prog.rkey] + list(prog.build_needs)))
+    if not all(dcol.has_device_plane(build_rb.get_column(n)) for n in cols):
+        return None
+    if device.type == "cuda":
+        free, _ = torch.cuda.mem_get_info(device)
+        if dcol.encoded_nbytes(build_rb, cols) * 3 > free:
+            return None
+    try:
+        dt = dcol.encode_batch(build_rb, cols, device)
+    except (ValueError, TypeError):
+        return None
+    dcol.use_on_current_stream(dt)
+    k = dt.columns[prog.rkey]
+    sorted_key, perm, live = kernels.join_sort_impl(k.data, k.validity,
+                                                    dt.row_mask)
+    runtime.count("region_builds")
+    return RegionBuild(dt, sorted_key, perm, live)
+
+
+def get_fused_join_agg(group_exprs, child_exprs, ops: Tuple[str, ...],
+                       probe_pred, post_pred, lkey: str, rkey: str,
+                       src_schema: Schema, build_schema: Schema,
+                       fused_ops: Tuple[str, ...] = ()
+                       ) -> Optional[FusedJoinAggProgram]:
+    """Compile (or fetch) the join_agg region program; None when it does
+    not lower (the executor runs the region's fallback subtree)."""
+    key = ("region_ja", tuple(e._key() for e in group_exprs),
+           tuple(e._key() for e in child_exprs), ops,
+           probe_pred._key() if probe_pred is not None else None,
+           post_pred._key() if post_pred is not None else None,
+           lkey, rkey, runtime._schema_key(src_schema),
+           runtime._schema_key(build_schema))
+    with _region_lock:
+        hit = _region_cache.get(key)
+    if hit is not None:
+        return hit if isinstance(hit, FusedJoinAggProgram) else None
+    from ..schema import Field
+    src_names = set(src_schema.column_names)
+    joined_schema = Schema(
+        [Field(f.name, f.dtype) for f in src_schema]
+        + [Field(f.name, f.dtype) for f in build_schema])
+    proj = list(group_exprs) + list(child_exprs) + \
+        ([post_pred] if post_pred is not None else [])
+    try:
+        c_post = compiler.compile_projection(proj, joined_schema)
+        c_pred = compiler.compile_projection([probe_pred], src_schema) \
+            if probe_pred is not None else None
+    except _COMPILE_ERRORS:
+        prog = False
+    else:
+        prog = FusedJoinAggProgram(
+            c_pred, c_post, lkey, rkey,
+            tuple(nm for nm in c_post.needs_cols if nm in src_names),
+            tuple(nm for nm in c_post.needs_cols if nm not in src_names),
+            len(group_exprs), tuple(ops), post_pred is not None,
+            tuple(fused_ops), src_schema, build_schema)
+    return _cache_region(key, prog)
+
+
+class InflightJoinAgg:
+    """One join_agg dispatch in flight, with both ladders' state."""
+
+    def __init__(self, prog, dt, build, group_exprs, key_fields, agg_fields,
+                 W, out_cap, stream):
+        self.prog = prog
+        self.dt = dt
+        self.build = build
+        self.group_exprs = group_exprs
+        self.key_fields = key_fields
+        self.agg_fields = agg_fields
+        self.W = W
+        self.out_cap = out_cap
+        self.stream = stream
+        self.timers: list = []
+        self.fetch = None
+
+
+def _prep_scalars_joined(c: compiler.Compiled, p_dt: dcol.DeviceTable,
+                         b_dt: dcol.DeviceTable):
+    """Scalar prep over the joined namespace: each spec's dictionary comes
+    from whichever side encoded its column."""
+    import pyarrow as pa
+    scalars = []
+    for spec in c.scalar_specs:
+        src = p_dt.columns.get(spec.col) or b_dt.columns.get(spec.col)
+        d = src.dictionary if src is not None else None
+        if d is None:
+            d = pa.array([], type=pa.large_string())
+        scalars.append(torch.as_tensor(spec.fn(d), device=p_dt.device))
+    return tuple(scalars)
+
+
+def _dispatch_join_agg(tok: InflightJoinAgg) -> None:
+    prog, dt, build = tok.prog, tok.dt, tok.build
+    p_arrays = {n: c.data for n, c in dt.columns.items()}
+    p_valids = {n: c.validity for n, c in dt.columns.items()}
+    p_scalars = runtime._prep_scalars(prog.c_pred, dt) \
+        if prog.c_pred is not None else ()
+    post_scalars = _prep_scalars_joined(prog.c_post, dt, build.dt)
+    timer = _Timer(dt.device)
+    planes = prog.run_planes(p_arrays, p_valids, dt.row_mask, p_scalars,
+                             build, post_scalars, tok.W, tok.out_cap)
+    timer.stop()
+    tok.timers.append(timer)
+    tok.fetch = dcol.fetch_host_async(planes)
+
+
+def submit_join_agg(prog: FusedJoinAggProgram, batch, build: RegionBuild,
+                    group_exprs, agg_exprs, out_schema: Schema,
+                    device: torch.device, start_out_cap: int = _OUT_CAP0
+                    ) -> Optional[InflightJoinAgg]:
+    """Encode one probe morsel and dispatch on the current stream; no
+    wait. None when a needed column has no device plane or its encode
+    fails (the morsel's host chain runs). An error in the dispatch
+    propagates."""
+    need = prog.probe_cols()
+    if not all(dcol.has_device_plane(batch.get_column(n)) for n in need):
+        return None
+    try:
+        dt = dcol.encode_batch(batch, need, device)
+    except (ValueError, TypeError):
+        return None
+    dcol.use_on_current_stream(dt)
+    key_fields = [out_schema[e.name()] for e in group_exprs]
+    agg_fields = [out_schema[e.name()] for e in agg_exprs]
+    # at most one build match per probe row (a foreign-key join) starts
+    # the pair bucket at the probe capacity; the head's total grows it
+    W = dt.capacity
+    tok = InflightJoinAgg(
+        prog, dt, build, group_exprs, key_fields, agg_fields, W,
+        min(dcol.bucket_capacity(max(start_out_cap, _OUT_CAP0)),
+            dcol.bucket_capacity(W)), _current_stream(dt.device))
+    _dispatch_join_agg(tok)
+    runtime.count("region_join_agg")
+    return tok
+
+
+def drain_join_agg(tok: InflightJoinAgg):
+    """Wait for the dispatch's one copy and decode the partial groups →
+    ``(RecordBatch, group count)``, climbing both ladders (pair width W,
+    group bucket) while the head says a bucket overflowed. None when W
+    would pass :data:`_REGION_MAX_W` or the groups the probe's capacity
+    (the morsel's host chain runs)."""
+    from ..recordbatch import RecordBatch
+    prog = tok.prog
+    while True:
+        host = tok.fetch.wait()
+        g, total = int(host[0][0]), int(host[0][1])
+        grown = False
+        if total > tok.W:
+            if total > _REGION_MAX_W:
+                runtime.count("region_declined_ladder")
+                return None
+            tok.W = dcol.bucket_capacity(total)
+            runtime.count("region_join_agg_w_climbs")
+            grown = True
+        if g > tok.out_cap:
+            cap_limit = dcol.bucket_capacity(max(tok.W, tok.dt.capacity))
+            if g > cap_limit:
+                runtime.count("region_declined_ladder")
+                return None
+            tok.out_cap = min(dcol.bucket_capacity(g), cap_limit)
+            runtime.count("region_join_agg_group_climbs")
+            grown = True
+        if not grown:
+            break
+        with dcol.on_stream(tok.stream):
+            _dispatch_join_agg(tok)
+    nk, nv = prog.nk, len(tok.agg_fields)
+    rows = host[1:]
+    cols = []
+    for i, f in enumerate(tok.key_fields):
+        cols.append(dcol.decode_np(f.name, f.dtype, rows[i][:g],
+                                   rows[nk + i][:g].astype(np.bool_)))
+    for i, f in enumerate(tok.agg_fields):
+        cols.append(dcol.decode_np(f.name, f.dtype, rows[2 * nk + i][:g],
+                                   rows[2 * nk + nv + i][:g]
+                                   .astype(np.bool_)))
+    out = RecordBatch.from_series(cols)
+    tok.dt.staging = None
+    n_ops = max(len(prog.fused_ops), 3)
+    costmodel.ledger_record(
+        "region", rows=tok.dt.row_count,
+        nbytes=(1 + 2 * (nk + nv)) * 8 * tok.out_cap,
+        seconds=sum(t.seconds() for t in tok.timers),
+        dispatches=len(tok.timers), fused_ops=n_ops,
+        round_trips_saved=n_ops - 1,
+        fusion_serial_seconds=costmodel.fusion_serial_estimate(
+            tok.dt.row_count, n_ops))
+    return out, g
+
+
+def fused_region_programs() -> list:
+    """Every region program compiled so far: what
+    ``warmup.warmup_regions`` launches."""
+    with _region_lock:
+        return [p for p in _region_cache.values()
+                if isinstance(p, (FusedRegionProgram, FusedJoinAggProgram))]

@@ -18,9 +18,13 @@ torch strategy per capacity class, off the query path:
   literals) or a column type without a zero plane are skipped and
   counted: their shapes are not knowable ahead of data.
 
+- :func:`warmup_regions` — every fusion-region program compiled so far
+  (``fragment.fused_region_programs()``) at each shape's first width
+  rung; a join_agg program on the probe = build diagonal of its capacity
+  grid (other pairs launch cold in their query).
+
 A failure raises: a kernel that does not launch at warm-up would not
-launch in a query either. ``warmup_regions`` waits for the fusion regions
-(ROADMAP A5).
+launch in a query either.
 """
 
 from __future__ import annotations
@@ -145,9 +149,68 @@ def warmup_fragments(classes: List[int], device: torch.device,
     return {"programs": programs, "skipped": skipped}
 
 
+def warmup_regions(classes: List[int], device: torch.device,
+                   progs: Optional[list] = None) -> Dict[str, int]:
+    """One dispatch of every fusion-region program seen so far per
+    capacity class (reference ``warmup.py:120``): chain and topk at their
+    first width rung, join_agg with a zeroed build side of the same
+    capacity (W = the capacity, the first group bucket). Programs whose
+    inputs are dictionary-shaped (string literals, string columns) are
+    skipped and counted."""
+    from . import column as dcol, fragment, kernels
+    progs = fragment.fused_region_programs() if progs is None else progs
+    programs = skipped = 0
+    for prog in progs:
+        is_join = isinstance(prog, fragment.FusedJoinAggProgram)
+        if is_join:
+            needs = prog.probe_cols()
+            bneeds = list(dict.fromkeys([prog.rkey]
+                                        + list(prog.build_needs)))
+            specs = list(prog.c_post.scalar_specs) + list(
+                prog.c_pred.scalar_specs if prog.c_pred is not None
+                else ())
+            zero_ok = _zero_batch(prog.src_schema, needs, 1) is not None \
+                and _zero_batch(prog.build_schema, bneeds, 1) is not None
+        else:
+            needs = prog.compiled.needs_cols
+            specs = prog.compiled.scalar_specs
+            zero_ok = _zero_batch(prog.in_schema, needs, 1) is not None
+        if specs or not zero_ok:
+            skipped += 1
+            continue
+        for cap in classes:
+            with dcol.uncounted():
+                if is_join:
+                    dt = dcol.encode_batch(_zero_batch(
+                        prog.src_schema, needs, cap), needs, device)
+                    bdt = dcol.encode_batch(_zero_batch(
+                        prog.build_schema, bneeds, cap), bneeds, device)
+                else:
+                    dt = dcol.encode_batch(_zero_batch(
+                        prog.in_schema, needs, cap), needs, device)
+            dcol.use_on_current_stream(dt)
+            arrays = {n: c.data for n, c in dt.columns.items()}
+            valids = {n: c.validity for n, c in dt.columns.items()}
+            if is_join:
+                dcol.use_on_current_stream(bdt)
+                k = bdt.columns[prog.rkey]
+                build = fragment.RegionBuild(bdt, *kernels.join_sort_impl(
+                    k.data, k.validity, bdt.row_mask))
+                prog.run_planes(arrays, valids, dt.row_mask, (), build, (),
+                                cap, min(fragment._OUT_CAP0, cap))
+            else:
+                prog.run_planes(arrays, valids, dt.row_mask, (),
+                                fragment.region_start_w(prog, dt))
+            programs += 1
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    return {"programs": programs, "skipped": skipped}
+
+
 def warmup_session(max_capacity: int = _DEFAULT_MAX_CAPACITY,
                    min_capacity: int = _DEFAULT_MIN_CAPACITY,
                    kernels: bool = True, fragments: bool = True,
+                   regions: bool = True,
                    device: Optional[torch.device] = None
                    ) -> Dict[str, object]:
     """The whole warm-up on ``device`` (default: this query's), over the
@@ -168,6 +231,8 @@ def warmup_session(max_capacity: int = _DEFAULT_MAX_CAPACITY,
         stats["kernels"] = warmup_kernels(classes, device)
     if fragments:
         stats["fragments"] = warmup_fragments(classes, device)
+    if regions:
+        stats["regions"] = warmup_regions(classes, device)
     stats["seconds"] = time.perf_counter() - t0
     return stats
 

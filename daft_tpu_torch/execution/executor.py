@@ -587,6 +587,305 @@ class LocalExecutor:
         yield _gather_all_or_empty(self._exec(node.children[0]),
                                    node.schema()).distinct(node.on)
 
+    # windows ----------------------------------------------------------
+    def _exec_Exchange(self, node: pp.Exchange):
+        """In memory (reference ``executor.py:1505``, whose streaming spill
+        stores come with ROADMAP A6): ``gather`` concatenates the child's
+        stream into one partition; ``hash`` splits each incoming morsel
+        by the hash of ``by`` and emits one partition per bucket, each
+        holding its pieces in arrival order. No admission budget holds
+        the buffered pieces: ``self.mem`` budgets the device slots' bytes,
+        and a host buffer past that budget could only wait on its own
+        bytes; the reference's breaker budget comes with A6's spill
+        stores."""
+        kind, n = node.kind, node.num_partitions
+        if kind not in ("hash", "gather"):
+            raise NotImplementedError(
+                f"exchange kind {kind!r} is not ported yet (ROADMAP A6/A7)")
+        child = self._exec(node.children[0])
+        schema = node.schema()
+        if kind == "gather" or n <= 1:
+            yield _gather_all_or_empty(child, schema)
+            return
+        buckets: List[List[RecordBatch]] = [[] for _ in range(n)]
+        for mp in child:
+            for j, piece in enumerate(mp.partition_by_hash(list(node.by),
+                                                           n)):
+                if len(piece):
+                    rb = piece.combined()
+                    buckets[j].append(rb if rb.schema == schema
+                                      else rb.cast_to_schema(schema))
+        for batches in buckets:
+            yield MicroPartition.from_recordbatches(batches, schema) \
+                if batches else MicroPartition.empty(schema)
+
+    def _exec_Window(self, node: pp.Window):
+        from ..window_exec import run_window
+        child = self._exec(node.children[0])
+        yield from _ordered_parallel(
+            child, lambda p: MicroPartition.from_recordbatch(
+                run_window(p.combined(), node)))
+
+    # fusion regions ---------------------------------------------------
+    def _exec_FusedRegion(self, node: pp.FusedRegion):
+        """A planner-proposed fusion region (reference ``executor.py:
+        927``): the region's operators run as ONE device program per
+        morsel (submit = encode and dispatch, drain = one fetch), through
+        the pipeline's slots when the window is above 0. A region whose
+        program does not lower runs its untouched ``fallback`` subtree
+        (``region_declined_lowering``), and so does a join_agg region whose
+        largest morsel the cost model declines under ``auto``
+        (``region_declined_gate``, :meth:`_largest_morsel_admitted`); a
+        morsel the cost model prices
+        onto the host (``costmodel.fusion_wins``; ``DAFT_TORCH_FUSION=1``
+        admits every one), or whose columns do not encode, or whose
+        ladder passes its ceiling, runs the region's host chain
+        (``region_declined_gate`` / ``_encode`` / ``_ladder``). An error
+        while a region dispatches propagates."""
+        from ..physical import fusion as pfusion
+        mode = pfusion.fusion_mode(self.cfg)
+        if mode == "0" or self.device is None:
+            yield from self._exec(node.fallback)
+            return
+        if node.shape == "join_agg":
+            yield from self._exec_region_join_agg(node, mode)
+            return
+        yield from self._exec_region_chain(node, mode)
+
+    def _region_gate(self, mode: str, rb: RecordBatch, price) -> bool:
+        """Admission of one region morsel (reference ``executor.py:
+        979``): empty batches and batches under an explicit
+        ``DAFT_TORCH_DEVICE_MIN_ROWS`` stay on the host, mode ``1`` admits
+        the rest, ``auto`` asks ``price()``."""
+        from ..device import runtime as drt
+        floor = knobs.env_opt_int("DAFT_TORCH_DEVICE_MIN_ROWS") or 1
+        ok = len(rb) >= max(floor, 1) and (mode == "1" or price())
+        if not ok:
+            drt.count("region_declined_gate")
+        return ok
+
+    def _run_region(self, child, gate, device_submit, device_drain,
+                    host_run, est_bytes):
+        """Drive region morsels through the pipeline (or one at a time
+        when the window is 0). ``device_submit(rb)`` → token or None (the
+        morsel declines: its host chain runs); ``device_drain(token)`` →
+        MicroPartition or None (a ladder past its ceiling)."""
+        from ..device import column as dcol, pipeline as dpipe
+        from ..device import runtime as drt
+
+        def declined_encode(rb):
+            drt.count("region_declined_encode")
+            return host_run(rb)
+
+        window = dpipe.inflight_window()
+        if window > 0:
+            def submit(p, seq, wgate):
+                rb = p.combined()
+                if not gate(rb, window):
+                    return host_run(rb)
+                slot = dpipe.acquire_slot(wgate, seq, self.mem,
+                                          est_bytes(rb))
+                try:
+                    t0 = time.perf_counter()
+                    with dcol.on_stream(self._slot_stream()):
+                        tok = device_submit(rb)
+                    sub_s = time.perf_counter() - t0
+                except BaseException:
+                    dpipe.release_slot(slot)
+                    raise
+                if tok is None:
+                    dpipe.release_slot(slot)
+                    return declined_encode(rb)
+                return dpipe.InflightItem(slot, (tok, rb), sub_s=sub_s)
+
+            def drain(ret, seq):
+                if not isinstance(ret, dpipe.InflightItem):
+                    return ret
+                tok, rb = ret.token
+                out = device_drain(tok)
+                return out if out is not None else host_run(rb)
+
+            yield from dpipe.run_pipelined(child, submit, drain,
+                                           window=window)
+            return
+        for p in child:
+            rb = p.combined()
+            if not gate(rb, 0):
+                yield host_run(rb)
+                continue
+            tok = device_submit(rb)
+            if tok is None:
+                yield declined_encode(rb)
+                continue
+            out = device_drain(tok)
+            yield out if out is not None else host_run(rb)
+
+    def _exec_region_chain(self, node: pp.FusedRegion, mode: str):
+        """chain / topk (reference ``executor.py:947``): predicate,
+        projection (and for topk the argsort) and a compaction in one
+        dispatch, the survivors back in one fetch; a topk's per-morsel
+        heads meet in one host merge."""
+        from ..device import column as dcol, costmodel, fragment
+        from ..device import runtime as drt
+        topk = node.shape == "topk"
+        prog = fragment.get_fused_region(
+            node.exprs, node.predicate, node.source.schema(),
+            sort_by=node.sort_by, descending=node.descending,
+            nulls_first=node.nulls_first, limit=node.limit,
+            fused_ops=node.fused_ops)
+        if prog is None:
+            drt.count("region_declined_lowering")
+            yield from self._exec(node.fallback)
+            return
+        n_ops = max(len(node.fused_ops) - 1, 2)
+        needs = prog.compiled.needs_cols
+
+        def host_run(rb: RecordBatch) -> MicroPartition:
+            if node.predicate is not None:
+                rb = rb.filter(node.predicate)
+            rb = rb.eval_expression_list(node.exprs) \
+                .cast_to_schema(node.schema())
+            if topk:
+                # per-morsel top-k over the output columns (the TopN's
+                # sort keys name them); merged below
+                rb = rb.top_n(node.fallback.sort_by, node.limit,
+                              node.descending, node.nulls_first)
+            return MicroPartition.from_recordbatch(rb)
+
+        def gate(rb: RecordBatch, window: int) -> bool:
+            def price():
+                est_w = dcol.bucket_capacity(max(node.limit or 0, 1)) \
+                    if topk else dcol.bucket_capacity(max(len(rb), 1))
+                return costmodel.fusion_wins(
+                    node.shape, len(rb), dcol.encoded_nbytes(rb, needs),
+                    (1 + 2 * prog.nout) * 8 * est_w, n_ops,
+                    host_bytes=drt._batch_cols_nbytes(rb, needs),
+                    window=window)
+            return self._region_gate(mode, rb, price)
+
+        def device_submit(rb: RecordBatch):
+            return fragment.submit_region(prog, rb, node.exprs,
+                                          node.schema(), self.device)
+
+        def device_drain(tok) -> MicroPartition:
+            return _to_partition(fragment.drain_region(tok), node)
+
+        outs = self._run_region(
+            self._exec(node.source), gate, device_submit, device_drain,
+            host_run, lambda rb: dcol.encoded_nbytes(rb, needs))
+        if not topk:
+            yield from outs
+            return
+        merged = _gather_all_or_empty(outs, node.schema())
+        yield MicroPartition.from_recordbatch(
+            merged.combined().top_n(node.fallback.sort_by, node.limit,
+                                    node.descending, node.nulls_first))
+
+    def _largest_morsel_admitted(self, node: pp.FusedRegion, need,
+                                 n_planes: int, n_ops: int) -> bool:
+        """``auto``, before a join_agg region runs (a port-only step,
+        ROADMAP B0b): the price of its largest probe morsel (the source's
+        biggest partition, cut to ``default_morsel_size`` as
+        :meth:`_morselize` cuts it) against a build of the build subplan's
+        source rows, both bounds from above. The fused program's fixed time per dispatch makes a
+        smaller morsel no better a bet, so on a decline the region runs
+        its ``fallback`` subtree whole, the plan each of whose operators
+        keeps its own device decision. True when a size is unknown (each
+        morsel's gate decides)."""
+        from ..device import column as dcol, costmodel, fragment
+        from ..device import pipeline as dpipe
+        probe, build = _source_rows(node.source), _source_rows(node.build)
+        if not probe or build is None:
+            return True
+        m = int(self.cfg.default_morsel_size or 0)
+        rows = max(n if m <= 0 or n <= m + m // 2 else m for n in probe)
+        nbytes = 9.0 * rows * len(need)
+        return costmodel.fusion_wins(
+            "join_agg", rows, nbytes,
+            (1 + 2 * n_planes) * 8 * dcol.bucket_capacity(fragment._OUT_CAP0),
+            n_ops, host_bytes=nbytes, window=dpipe.inflight_window(),
+            build_rows=sum(build))
+
+    def _exec_region_join_agg(self, node: pp.FusedRegion, mode: str):
+        """join_agg (reference ``executor.py:1073``): the broadcast build
+        side materializes once on the host and is encoded and key-sorted
+        once on the card; each probe morsel then joins, projects and
+        partially aggregates in one dispatch. The output is partial group
+        blocks, cast to the partial schema the parent final Aggregate
+        merges."""
+        from ..aggs import split_agg_expr
+        from ..device import column as dcol, costmodel, fragment
+        from ..device import runtime as drt
+        specs = [split_agg_expr(a) for a in node.aggs]
+        child_exprs = [(c if c is not None else _lit_true())
+                       .alias(f"__v{i}__")
+                       for i, (op, c, nm, pr) in enumerate(specs)]
+        ops = tuple(s[0] for s in specs)
+        agg_cols = [col(s[2]) for s in specs]
+        post_pred = node.post_predicate
+        prog = fragment.get_fused_join_agg(
+            node.group_by, child_exprs, ops, node.predicate, post_pred,
+            node.left_on[0].name(), node.right_on[0].name(),
+            node.source.schema(), node.build.schema(),
+            fused_ops=node.fused_ops)
+        if prog is None:
+            drt.count("region_declined_lowering")
+            yield from self._exec(node.fallback)
+            return
+        n_ops = max(len(node.fused_ops), 3)
+        nk, nv = len(node.group_by), len(ops)
+        need = prog.probe_cols()
+        if mode == "auto" and not self._largest_morsel_admitted(
+                node, need, nk + nv, n_ops):
+            drt.count("region_declined_gate")
+            yield from self._exec(node.fallback)
+            return
+        build_rb = _gather_all_or_empty(self._exec(node.build),
+                                        node.build.schema()).combined()
+        build = fragment.prepare_region_build(prog, build_rb, self.device)
+        if build is None:
+            drt.count("region_declined_build")
+            yield from self._exec(node.fallback)
+            return
+        # the next morsel's first group bucket: the last drained count
+        g_hint = [fragment._OUT_CAP0]
+
+        def host_run(rb: RecordBatch) -> MicroPartition:
+            if node.predicate is not None:
+                rb = rb.filter(node.predicate)
+            joined = rb.hash_join(build_rb, list(node.left_on),
+                                  list(node.right_on), "inner")
+            if post_pred is not None:
+                joined = joined.filter(post_pred)
+            return MicroPartition.from_recordbatch(
+                joined.agg(list(node.aggs), list(node.group_by))
+                .cast_to_schema(node.schema()))
+
+        def gate(rb: RecordBatch, window: int) -> bool:
+            return self._region_gate(mode, rb, lambda: costmodel.fusion_wins(
+                "join_agg", len(rb), dcol.encoded_nbytes(rb, need),
+                (1 + 2 * (nk + nv)) * 8
+                * dcol.bucket_capacity(max(g_hint[0], 1)),
+                n_ops, host_bytes=drt._batch_cols_nbytes(rb, need),
+                window=window, build_rows=len(build_rb)))
+
+        def device_submit(rb: RecordBatch):
+            return fragment.submit_join_agg(
+                prog, rb, build, node.group_by, agg_cols, node.schema(),
+                self.device, start_out_cap=g_hint[0])
+
+        def device_drain(tok) -> Optional[MicroPartition]:
+            res = fragment.drain_join_agg(tok)
+            if res is None:
+                return None
+            out, g = res
+            g_hint[0] = max(g, fragment._OUT_CAP0)
+            return _to_partition(out, node)
+
+        yield from self._run_region(
+            self._exec(node.source), gate, device_submit, device_drain,
+            host_run, lambda rb: dcol.encoded_nbytes(rb, need))
+
     # sorts ------------------------------------------------------------
     def _exec_Sort(self, node: pp.Sort):
         yield _gather_all_or_empty(self._exec(node.children[0]),
@@ -699,6 +998,19 @@ def _fragment_groups_affordable(node, src) -> bool:
     return est_groups * packed_bytes_per_group(len(node.group_by),
                                                len(node.aggs)) \
         <= host_s * p.down_bps
+
+
+def _source_rows(plan) -> Optional[List[int]]:
+    """At most the rows of each partition the source under ``plan``'s
+    Filters and Projects yields (in-memory partitions; scan tasks' footers,
+    before their pushdown filters); None for any other subplan."""
+    while isinstance(plan, (pp.Filter, pp.Project)):
+        plan = plan.children[0]
+    if isinstance(plan, pp.InMemorySource):
+        return [len(p) for p in plan.partitions]
+    if isinstance(plan, pp.ScanSource):
+        return [t.max_rows() for t in plan.tasks]
+    return None
 
 
 def _lit_true() -> Expression:

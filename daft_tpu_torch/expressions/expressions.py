@@ -261,6 +261,21 @@ class Expression:
     def shift_left(self, other): return Expression("shift_left", (self, Expression._to_expression(other)))
     def shift_right(self, other): return Expression("shift_right", (self, Expression._to_expression(other)))
 
+    # -- window ------------------------------------------------------------
+    def over(self, window) -> "Expression":
+        """Attach a window spec (reference: ``Expr::Over``)."""
+        return Expression("window", (self,), (window,))
+
+    def lag(self, offset: int = 1, default=None) -> "Expression":
+        args = (self,) if default is None \
+            else (self, Expression._to_expression(default))
+        return Expression("winfn.lag", args, (offset,))
+
+    def lead(self, offset: int = 1, default=None) -> "Expression":
+        args = (self,) if default is None \
+            else (self, Expression._to_expression(default))
+        return Expression("winfn.lead", args, (offset,))
+
     # -- namespaces --------------------------------------------------------
     @property
     def dt(self) -> "ExpressionDatetimeNamespace":

@@ -129,6 +129,14 @@ def infer_field(e, schema: Schema) -> Field:
     child_fields = [infer_field(a, schema) for a in e.args]
     name = child_fields[0].name if child_fields else op
 
+    if op == "window":
+        from ..window_exec import window_field
+        return window_field(e, schema)
+    if op in ("winfn.row_number", "winfn.rank", "winfn.dense_rank"):
+        return Field(op[6:], DataType.uint64())
+    if op in ("winfn.lag", "winfn.lead"):
+        return Field(child_fields[0].name, child_fields[0].dtype)
+
     if op in ("add", "sub", "mul", "div", "floordiv", "mod", "pow"):
         l, r = child_fields[0].dtype, child_fields[1].dtype
         if op == "add" and l.is_string() and r.is_string():

@@ -71,6 +71,13 @@ class ScanTask:
             return min(self._num_rows, self.pushdowns.limit)
         return self._num_rows
 
+    def max_rows(self) -> int:
+        """The rows the task can yield at most: its footer's, or its limit
+        (the pushdown filter only removes rows)."""
+        if self.pushdowns.limit is not None:
+            return min(self._num_rows, self.pushdowns.limit)
+        return self._num_rows
+
     def size_bytes(self) -> int:
         return self._size_bytes
 

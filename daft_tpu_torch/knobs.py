@@ -86,9 +86,18 @@ REGISTRY = {
         0.2, "EWMA weight of one new observation (clamped to [1e-3, 1])"),
     "DAFT_TORCH_CALIBRATION_MIN_SAMPLES": (
         8, "observations before a learned value replaces its default"),
+    "DAFT_TORCH_FUSION": (
+        None, "fusion regions (`physical/fusion.py`): `auto` prices each "
+        "region morsel (`costmodel.fusion_wins`), `1` admits every one, "
+        "`0` plans none; unset defers to `ExecutionConfig.fusion` "
+        "(default `auto`)"),
+    "DAFT_TORCH_FUSION_MAX_OPS": (
+        None, "most operators one fusion region absorbs (at least 2); "
+        "unset defers to `ExecutionConfig.fusion_max_ops` (default 8)"),
     "DAFT_TORCH_AOT_WARMUP": (
         "0", "`1`: `warmup.maybe_warmup_session` builds the CUDA library "
-        "and launches each kernel and strategy once per capacity class"),
+        "and launches each kernel and strategy once per capacity class, "
+        "and every fusion region program seen so far"),
 }
 
 

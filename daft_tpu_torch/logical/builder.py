@@ -115,6 +115,13 @@ class LogicalPlanBuilder:
         return self._wrap(lp.Distinct(self._plan,
                                       _to_exprs(on) if on else None))
 
+    def window(self, window_exprs, partition_by, order_by=(), descending=(),
+               nulls_first=(), frame=None) -> "LogicalPlanBuilder":
+        return self._wrap(lp.Window(self._plan, list(window_exprs),
+                                    _to_exprs(partition_by),
+                                    _to_exprs(order_by), list(descending),
+                                    list(nulls_first), frame))
+
     def join(self, right: "LogicalPlanBuilder", left_on, right_on,
              how: str = "inner", strategy: Optional[str] = None,
              prefix: Optional[str] = None,

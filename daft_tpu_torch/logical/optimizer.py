@@ -7,8 +7,9 @@ the pushdowns (filter, projection, limit, also into and through joins), the
 join rules (EliminateCrossJoin, SimplifyNullFilteredJoin,
 PushDownAntiSemiJoin, PushDownJoinPredicate, FilterNullJoinKey,
 ReorderJoins, SemiJoinReduction) and MaterializeScans, so a query plans to
-the reference's join tree. DropRepartition waits for ``Repartition``
-(ROADMAP A5).
+the reference's join tree. A ``Window`` node takes the reference's
+generic arms (every column required below it, no filter pushed through
+it). DropRepartition waits for ``Repartition`` (ROADMAP A5b).
 """
 
 from __future__ import annotations

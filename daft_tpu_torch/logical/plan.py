@@ -2,10 +2,10 @@
 
 Reference: ``src/daft-logical-plan/src/logical_plan.rs:25`` — the LogicalPlan
 enum — and ``partitioning.rs`` (ClusteringSpec). The port carries the nodes
-of the grouped-aggregation, join, TPC-H and SQL slices: Source/Project/
-Filter/Limit/Sort/TopN/Distinct/Aggregate/Join (equi and cross)/Concat/
-MonotonicallyIncreasingId. Windows, pivots and the rest come with later
-slices (ROADMAP A5).
+of the grouped-aggregation, join, TPC-H, SQL and TPC-DS slices: Source/
+Project/Filter/Limit/Sort/TopN/Distinct/Aggregate/Join (equi and cross)/
+Window/Concat/MonotonicallyIncreasingId. Pivot, Unpivot, Explode, Sample
+and Repartition come with ROADMAP A5b.
 """
 
 from __future__ import annotations
@@ -347,6 +347,41 @@ class Join(LogicalPlan):
         return [f"Join[{self.how}] on "
                 f"{[repr(e) for e in self.left_on]} = "
                 f"{[repr(e) for e in self.right_on]}"]
+
+
+class Window(LogicalPlan):
+    """Window expressions of one spec appended to the child's columns
+    (reference: ``daft_tpu/logical/plan.py:Window``); row-preserving."""
+
+    def __init__(self, child, window_exprs: List[Expression],
+                 partition_by, order_by, descending, nulls_first, frame=None):
+        super().__init__([child])
+        self.window_exprs = list(window_exprs)
+        self.partition_by = list(partition_by)
+        self.order_by = list(order_by)
+        self.descending = list(descending)
+        self.nulls_first = list(nulls_first)
+        self.frame = frame
+
+    def _compute_schema(self) -> Schema:
+        from ..window_exec import window_field
+        s = self._children[0].schema()
+        fields = list(s.fields)
+        for e in self.window_exprs:
+            fields.append(window_field(e, s))
+        return Schema(fields)
+
+    def with_children(self, children):
+        return Window(children[0], self.window_exprs, self.partition_by,
+                      self.order_by, self.descending, self.nulls_first,
+                      self.frame)
+
+    def _params(self):
+        return (tuple(e._key() for e in self.window_exprs),
+                tuple(e._key() for e in self.partition_by),
+                tuple(e._key() for e in self.order_by),
+                tuple(self.descending), tuple(self.nulls_first),
+                repr(self.frame))
 
 
 class Concat(LogicalPlan):

@@ -159,6 +159,12 @@ class MicroPartition:
             batches.extend(o.batches())
         return MicroPartition.from_recordbatches(batches, self._schema)
 
+    def partition_by_hash(self, exprs, num_partitions
+                          ) -> List["MicroPartition"]:
+        return [MicroPartition.from_recordbatch(b)
+                for b in self.combined().partition_by_hash(exprs,
+                                                           num_partitions)]
+
     def cast_to_schema(self, schema: Schema) -> "MicroPartition":
         if self._batches is None:
             return MicroPartition(schema, scan_task=self._scan_task,

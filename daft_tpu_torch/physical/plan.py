@@ -1,12 +1,13 @@
 """Physical plan nodes (reference: ``src/daft-local-plan/src/plan.rs:20``).
 
-The port is single-node: there are no exchange nodes, and a final-mode
-Aggregate, Sort or TopN consumes its whole input stream, as a HashJoin
-consumes whole each side it gathers."""
+The port is single-node: a final-mode Aggregate, Sort or TopN consumes its
+whole input stream, as a HashJoin consumes whole each side it gathers. The
+one exchange is a window's (``Exchange``, kinds ``hash`` and ``gather``,
+in memory); ``FusedRegion`` is a fusion region (``physical/fusion.py``)."""
 
 from __future__ import annotations
 
-from typing import Any, List, Optional
+from typing import Any, List, Optional, Tuple
 
 from ..expressions import Expression
 from ..schema import Schema
@@ -144,3 +145,84 @@ class MonotonicallyIncreasingId(PhysicalPlan):
     def __init__(self, child, column_name: str, schema: Schema):
         super().__init__([child], schema)
         self.column_name = column_name
+
+
+class Window(PhysicalPlan):
+    """Window expressions over partition-clustered input: the child is an
+    ``Exchange`` that puts every row of one window partition in one
+    MicroPartition (``window_exec.run_window`` per partition)."""
+
+    def __init__(self, child, window_exprs, partition_by, order_by,
+                 descending, nulls_first, frame, schema):
+        super().__init__([child], schema)
+        self.window_exprs = window_exprs
+        self.partition_by = partition_by
+        self.order_by = order_by
+        self.descending = descending
+        self.nulls_first = nulls_first
+        self.frame = frame
+
+
+class Exchange(PhysicalPlan):
+    """Repartition boundary (reference: ``daft_tpu/physical/plan.py:
+    Exchange``). ``hash``: ``num_partitions`` partitions by the hash of
+    ``by`` (``MicroPartition.partition_by_hash``); ``gather``: one
+    partition. The port runs both in memory; ``random``, ``range`` and
+    ``split`` and the spill stores come with ROADMAP A6/A7."""
+
+    def __init__(self, child, kind: str, num_partitions: int,
+                 by: Tuple = ()):
+        super().__init__([child], child.schema())
+        self.kind = kind
+        self.num_partitions = num_partitions
+        self.by = by
+
+
+class FusedRegion(PhysicalPlan):
+    """A maximal device-eligible operator chain run as ONE torch program
+    per morsel (``physical/fusion.py``, reference ``daft_tpu/physical/
+    plan.py:FusedRegion``). ``shape``:
+
+    - ``chain`` — Filter*/Project* over a source: predicate, projections
+      and a compaction in one dispatch, one packed fetch of the survivors;
+    - ``topk`` — a chain with a TopN tail: the argsort runs in the program
+      and only a static top-k bucket comes back;
+    - ``join_agg`` — partial grouped Aggregate ← Project*/Filter* ← inner
+      single-key broadcast HashJoin ← chain over the probe source: the
+      build side is encoded and key-sorted once, and each probe morsel
+      joins, projects and partially aggregates in one dispatch.
+
+    ``fallback`` keeps the unfused subtree: the executor runs it whenever
+    the region declines (cost gate, no lowering, encode failure), so
+    fusion is an execution strategy, never a change of semantics."""
+
+    def __init__(self, shape: str, source, exprs, predicate, schema,
+                 fallback, fused_ops: Tuple[str, ...] = (),
+                 sort_by=(), descending=(), nulls_first=(), limit=None,
+                 build=None, left_on=(), right_on=(),
+                 aggs=(), group_by=(), mode: str = "partial"):
+        children = [source] + ([build] if build is not None else [])
+        super().__init__(children, schema)
+        self.shape = shape            # chain | topk | join_agg
+        self.source = source          # probe-side ScanSource/InMemorySource
+        self.exprs = exprs            # outputs, substituted over source cols
+        self.predicate = predicate    # combined row-local conjuncts (or None)
+        self.fallback = fallback      # original unfused subtree root
+        self.fused_ops = fused_ops    # operator names folded into the region
+        # topk tail
+        self.sort_by = sort_by
+        self.descending = descending
+        self.nulls_first = nulls_first
+        self.limit = limit
+        # join_agg spine
+        self.build = build            # broadcast build-side subplan
+        self.left_on = left_on        # probe-side join keys
+        self.right_on = right_on      # build-side join keys
+        self.aggs = aggs              # partial aggs over joined columns
+        self.group_by = group_by      # group keys over joined columns
+        self.mode = mode
+        #: the join_agg's post-join conjuncts over the joined columns
+        self.post_predicate = None
+        # estimates carried over from the folded Aggregate
+        self.group_rows_est: Optional[int] = None
+        self.group_ndv: Optional[float] = None

@@ -6,7 +6,9 @@ Aggregate → partial/final split) and
 (``populate_aggregation_stages``), and the join strategy choice of
 ``daft_tpu/physical/translate.py``. The port is single-node: the final
 aggregate consumes the whole partial stream and a hash join gathers both
-sides, so no exchange is inserted.
+sides, so the one exchange is a window's (hash by its partition keys, or
+gather). The outermost call then proposes fusion regions
+(``physical/fusion.py``), as the reference does.
 """
 
 from __future__ import annotations
@@ -39,7 +41,14 @@ def translate(plan: lp.LogicalPlan) -> pp.PhysicalPlan:
         _tl.active = True
         _tl.memo = {}
     try:
-        return _t(plan)
+        out = _t(plan)
+        if fresh:
+            # grow device-eligible operator chains into FusedRegion nodes,
+            # outermost call only (reference translate.py:49-52)
+            from ..context import get_context
+            from . import fusion
+            out = fusion.fuse_regions(out, get_context().execution_config)
+        return out
     finally:
         if fresh:
             _tl.active = False
@@ -84,6 +93,17 @@ def _t_node(node: lp.LogicalPlan) -> pp.PhysicalPlan:
         return _translate_agg(node)
     if isinstance(node, lp.Join):
         return _translate_join(node)
+    if isinstance(node, lp.Window):
+        child = _t(node.children[0])
+        if node.partition_by:
+            child = pp.Exchange(child, "hash",
+                                max(node.children[0].num_partitions(), 1),
+                                tuple(node.partition_by))
+        else:
+            child = pp.Exchange(child, "gather", 1)
+        return pp.Window(child, node.window_exprs, node.partition_by,
+                         node.order_by, node.descending, node.nulls_first,
+                         node.frame, node.schema())
     if isinstance(node, lp.Concat):
         return pp.Concat(_t(node.children[0]), _t(node.children[1]))
     if isinstance(node, lp.MonotonicallyIncreasingId):

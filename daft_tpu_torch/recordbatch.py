@@ -285,6 +285,27 @@ class RecordBatch:
     # ---- explode ---------------------------------------------------------
 
     # ---- partitioning ----------------------------------------------------
+    def partition_by_hash(self, exprs: Sequence[Expression],
+                          num_partitions: int) -> List["RecordBatch"]:
+        """Rows split by ``hash(keys) % num_partitions``, each piece in
+        row order (reference: ``daft_tpu/recordbatch.py:partition_by_hash``,
+        the same hash, so a row lands in the same partition)."""
+        if self._len == 0:
+            return [self.slice(0, 0) for _ in range(num_partitions)]
+        keys = [self.eval_expression(e) for e in exprs]
+        h = keys[0].hash()
+        for k in keys[1:]:
+            h = k.hash(seed=h)
+        pid = (h.to_numpy() % np.uint64(num_partitions)).astype(np.int64)
+        return self._split_by_pid(pid, num_partitions)
+
+    def _split_by_pid(self, pid: np.ndarray, n: int) -> List["RecordBatch"]:
+        order = np.argsort(pid, kind="stable")
+        counts = np.bincount(pid, minlength=n)
+        sorted_batch = self.take(order)
+        offsets = np.concatenate([[0], np.cumsum(counts)])
+        return [sorted_batch.slice(int(offsets[i]), int(offsets[i + 1]))
+                for i in range(n)]
 
     # ---- misc ------------------------------------------------------------
 

@@ -263,6 +263,18 @@ class Series:
             out = self._arrow.cast(target, safe=False)
         return Series(self._name, dtype, arrow=out)
 
+    # ---- hashing (partitioning) ------------------------------------------
+    def hash(self, seed: Optional["Series"] = None) -> "Series":
+        """64-bit hash per row (reference: ``daft_tpu/series.py:hash``):
+        splitmix64 over the fixed-width bits, XXH64 (seed 0) over the bytes
+        of a string or binary value, a null row the hash of b"null". With
+        ``seed``, ``splitmix64(h ^ seed)``: how a multi-column key folds."""
+        h = _hash_array(self)
+        if seed is not None:
+            sv = seed.to_numpy().astype(np.uint64)
+            h = _splitmix64(h ^ sv)
+        return Series(self._name, DataType.uint64(), arrow=pa.array(h))
+
     # ---- repr ------------------------------------------------------------
     def __repr__(self):
         preview = self.to_pylist()[:10]
@@ -270,3 +282,158 @@ class Series:
 
     def __iter__(self):
         return iter(self.to_pylist())
+
+
+# ---- hashing --------------------------------------------------------------
+
+_NULL_HASH = np.uint64(0x6E756C6C)   # b"null"
+
+_P1 = np.uint64(0x9E3779B185EBCA87)
+_P2 = np.uint64(0xC2B2AE3D27D4EB4F)
+_P3 = np.uint64(0x165667B19E3779F9)
+_P4 = np.uint64(0x85EBCA77C2B2AE63)
+_P5 = np.uint64(0x27D4EB2F165667C5)
+
+
+def _splitmix64(x: np.ndarray) -> np.ndarray:
+    with np.errstate(over="ignore"):
+        x = (x + np.uint64(0x9E3779B97F4A7C15)).astype(np.uint64)
+        x = ((x ^ (x >> np.uint64(30)))
+             * np.uint64(0xBF58476D1CE4E5B9)).astype(np.uint64)
+        x = ((x ^ (x >> np.uint64(27)))
+             * np.uint64(0x94D049BB133111EB)).astype(np.uint64)
+        return (x ^ (x >> np.uint64(31))).astype(np.uint64)
+
+
+def _rotl(x: np.ndarray, r: int) -> np.ndarray:
+    return (x << np.uint64(r)) | (x >> np.uint64(64 - r))
+
+
+def _xxh_round(acc: np.ndarray, lane: np.ndarray) -> np.ndarray:
+    return _rotl(acc + lane * _P2, 31) * _P1
+
+
+def _xxh64_var(offsets: np.ndarray, data: np.ndarray) -> np.ndarray:
+    """XXH64 with seed 0 of each row's bytes ``data[offsets[i]:
+    offsets[i+1]]``, vectorized across rows: the reference hashes strings
+    with its native library's XXH64, and a row must land in the same
+    partition in both packages."""
+    n = len(offsets) - 1
+    start = offsets[:-1].astype(np.int64)
+    length = (offsets[1:] - offsets[:-1]).astype(np.int64)
+    buf = np.concatenate([data, np.zeros(8, dtype=np.uint8)])
+    lanes8 = np.arange(8, dtype=np.int64)
+
+    def read(pos: np.ndarray, width: int) -> np.ndarray:
+        b = buf[pos[:, None] + lanes8[:width]].astype(np.uint64)
+        out = np.zeros(len(pos), dtype=np.uint64)
+        for j in range(width):
+            out |= b[:, j] << np.uint64(8 * j)
+        return out
+
+    h = np.full(n, _P5, dtype=np.uint64)
+    pos = start.copy()
+    with np.errstate(over="ignore"):
+        stripes = length // 32
+        big = np.flatnonzero(stripes > 0)
+        if len(big):
+            v = [np.full(len(big), _P1 + _P2, dtype=np.uint64),
+                 np.full(len(big), _P2, dtype=np.uint64),
+                 np.zeros(len(big), dtype=np.uint64),
+                 np.full(len(big), np.uint64(0) - _P1, dtype=np.uint64)]
+            p = pos[big]
+            ns = stripes[big]
+            for k in range(int(ns.max())):
+                sel = ns > k
+                for lane in range(4):
+                    v[lane][sel] = _xxh_round(
+                        v[lane][sel], read(p[sel] + 8 * lane, 8))
+                p = np.where(sel, p + 32, p)
+            hb = _rotl(v[0], 1) + _rotl(v[1], 7) + _rotl(v[2], 12) \
+                + _rotl(v[3], 18)
+            for lane in range(4):
+                hb = (hb ^ _xxh_round(np.zeros_like(hb), v[lane])) * _P1 + _P4
+            h[big] = hb
+            pos[big] = p
+        h = h + length.astype(np.uint64)
+        end = start + length
+        n8 = (end - pos) // 8
+        for k in range(int(n8.max()) if n else 0):
+            sel = np.flatnonzero(n8 > k)
+            lane = _xxh_round(np.zeros(len(sel), dtype=np.uint64),
+                              read(pos[sel], 8))
+            h[sel] = _rotl(h[sel] ^ lane, 27) * _P1 + _P4
+            pos[sel] += 8
+        sel = np.flatnonzero(end - pos >= 4)
+        if len(sel):
+            h[sel] = _rotl(h[sel] ^ (read(pos[sel], 4) * _P1), 23) * _P2 + _P3
+            pos[sel] += 4
+        for _ in range(3):
+            sel = np.flatnonzero(pos < end)
+            if not len(sel):
+                break
+            h[sel] = _rotl(h[sel] ^ (buf[pos[sel]].astype(np.uint64) * _P5),
+                           11) * _P1
+            pos[sel] += 1
+        h ^= h >> np.uint64(33)
+        h *= _P2
+        h ^= h >> np.uint64(29)
+        h *= _P3
+        h ^= h >> np.uint64(32)
+    return h
+
+
+def _repr_hashes(values) -> np.ndarray:
+    return np.array([np.uint64(hash(repr(v)) & 0xFFFFFFFFFFFFFFFF)
+                     for v in values], dtype=np.uint64)
+
+
+def _hash_array(s: Series) -> np.ndarray:
+    n = len(s)
+    if s.is_pyobject():
+        return _repr_hashes(s._pyobjs)
+    arr = s.to_arrow()
+    dt = s.dtype
+    valid = np.asarray(pc.is_valid(arr).to_numpy(zero_copy_only=False),
+                       dtype=np.bool_)
+    if dt.is_null():
+        return np.full(n, _NULL_HASH, dtype=np.uint64)
+    if dt.is_string() or dt.is_binary():
+        enc = arr.cast(pa.large_binary())
+        buffers = enc.buffers()
+        offsets = np.frombuffer(buffers[1], dtype=np.int64,
+                                count=len(enc) + 1, offset=enc.offset * 8)
+        data = np.frombuffer(buffers[2], dtype=np.uint8) \
+            if buffers[2] is not None else np.empty(0, dtype=np.uint8)
+        out = _xxh64_var(offsets, data)
+    else:
+        phys = dt.to_physical()
+        if phys.device_repr() is None:
+            return _repr_hashes(arr.to_pylist())
+        sp = s if phys == dt else s.cast(phys)
+        if valid.all():
+            vals = sp.to_numpy()
+        else:
+            # nulls filled with a typed zero, so a valid row hashes by its
+            # own physical bits whatever the column's null mask
+            a = sp.to_arrow()
+            try:
+                fill = pa.scalar(
+                    False if pa.types.is_boolean(a.type) else 0, type=a.type)
+                vals = pc.fill_null(a, fill).to_numpy(zero_copy_only=False)
+            except (pa.ArrowInvalid, pa.ArrowNotImplementedError, TypeError):
+                vals = sp.to_numpy()
+        vals = np.ascontiguousarray(
+            np.nan_to_num(vals) if vals.dtype.kind == "f" else vals)
+        if vals.dtype.kind == "O":
+            out = _repr_hashes(vals)
+        elif vals.dtype.itemsize <= 8:
+            as_u64 = vals.view({1: np.uint8, 2: np.uint16, 4: np.uint32,
+                                8: np.uint64}[vals.dtype.itemsize]
+                               ).astype(np.uint64)
+            out = _splitmix64(as_u64)
+        else:
+            out = np.array([np.uint64(hash(v) & 0xFFFFFFFFFFFFFFFF)
+                            for v in vals], dtype=np.uint64)
+    out[~valid] = _NULL_HASH
+    return out

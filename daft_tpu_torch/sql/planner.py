@@ -8,10 +8,12 @@ CAST, BETWEEN, IN, LIKE, IS NULL, EXTRACT, INTERVAL, date literals), and a
 function library mapped onto the expression DSL. No third-party SQL dependency
 exists in this environment, so the parser is first-party.
 
-The port's copy of ``daft_tpu/sql/planner.py``. What the port does not carry
-yet raises ``NotImplementedError`` naming its ROADMAP item: window functions
-(``OVER``, A5), the ``read_csv`` / ``read_json`` table functions and the
-SQL functions whose expression families are not ported (A8).
+The port's copy of ``daft_tpu/sql/planner.py``, window functions (``OVER``:
+partition and order keys, ``ROWS`` / ``RANGE`` frames, windows over
+aggregates and over grouping sets) included. What the port does not carry
+yet raises ``NotImplementedError`` naming its ROADMAP item: the
+``read_csv`` / ``read_json`` table functions and the SQL functions whose
+expression families are not ported (A8).
 """
 
 from __future__ import annotations
@@ -734,6 +736,57 @@ class SQLPlanner:
             out.append(self._expr(scope))
         return out
 
+    def _pull_window_aggs(self, exprs):
+        """Decompose select items that mix GROUP BY aggregates with OVER()
+        windows — ``SUM(SUM(x)) OVER (…)``, ``RANK() OVER (ORDER BY
+        SUM(x))``, ``SUM(x)*100/SUM(SUM(x)) OVER (PARTITION BY c)`` —
+        into hidden aggregate outputs plus a post-aggregation expression
+        that references them. Returns (new exprs, hidden agg exprs).
+        Reference treats windows-over-aggregates the same way: the inner
+        aggregate runs at the groupby, the window over the grouped frame
+        (``src/daft-sql/src/modules/window.rs``)."""
+        hidden: List[Expression] = []
+
+        def mk_hidden(a: Expression) -> Expression:
+            for h in hidden:
+                if h._unalias().structurally_eq(a):
+                    return col(h.name())
+            nm = f"__wagg{len(hidden)}__"
+            hidden.append(a.alias(nm))
+            return col(nm)
+
+        def pull_below(e):
+            if not isinstance(e, Expression):
+                return e
+            if e.op.startswith("agg."):
+                return mk_hidden(e)
+            if not e.args:
+                return e
+            return e.with_children([pull_below(a) for a in e.args])
+
+        def fix(e: Expression) -> Expression:
+            if e.op == "window":
+                inner = e.args[0]
+                # the window's own function node stays (it computes over
+                # the grouped frame); aggregates in its ARGUMENTS ran at
+                # the groupby and become hidden columns
+                if inner.args:
+                    inner = inner.with_children(
+                        [pull_below(a) for a in inner.args])
+                spec = e.params[0]._copy()
+                spec._partition_by = [pull_below(p)
+                                      for p in spec._partition_by]
+                spec._order_by = [pull_below(o) for o in spec._order_by]
+                return Expression("window", (inner,), (spec,))
+            if e.op.startswith("agg."):
+                return mk_hidden(e)
+            if not e.args:
+                return e
+            return e.with_children([fix(a) for a in e.args])
+
+        out = [fix(e) if _contains_window(e) else e for e in exprs]
+        return out, hidden
+
     def _lower_aggregate(self, df, gb_keys, exprs, having):
         """GROUP BY lowering for ONE grouping-key set: groupby + aggregate
         + HAVING filter + output projection (group keys by name, aggregates
@@ -745,7 +798,8 @@ class SQLPlanner:
         the residual predicate — subqueries included — applies as a WHERE
         over the grouped frame via the unnest machinery."""
         from ..logical import subquery as subq
-        agg_exprs = [e for e in exprs if _has_agg(e)]
+        exprs, wagg_hidden = self._pull_window_aggs(exprs)
+        agg_exprs = [e for e in exprs if _has_agg(e)] + wagg_hidden
         having_resid = None
         if having is not None:
             if subq.contains_subquery(having):
@@ -798,7 +852,16 @@ class SQLPlanner:
         (reference: planner.rs:390-401 lowers ROLLUP the same way). Keys
         absent from a set surface as typed NULLs — SQL's super-aggregate
         rows — and ``GROUPING(key)`` resolves to a literal 0/1 per branch,
-        composing with any downstream expression for free."""
+        composing with any downstream expression for free.
+
+        Window items (TPC-DS Q70/Q86's ``RANK() OVER (PARTITION BY
+        GROUPING(a)+GROUPING(b) …)``) must rank over the UNION of
+        branches, so each window's inputs (aggregates, grouping literals,
+        spec expressions) are computed per branch as hidden columns and
+        the window itself evaluates after the union."""
+        if any(_contains_window(e) for e in exprs):
+            return self._lower_grouping_sets_windows(df, all_keys, sets,
+                                                     exprs, having)
         schema = df.schema()
         frames = []
         for S in sets:
@@ -814,6 +877,81 @@ class SQLPlanner:
         for f in frames[1:]:
             out = out.union_all_by_name(f)
         return out
+
+    def _lower_grouping_sets_windows(self, df, all_keys, sets, exprs,
+                                     having):
+        """Grouping-sets lowering when the select list holds window items:
+        1. pull aggregates out of window nodes (hidden agg columns),
+        2. extract each window's spec/argument expressions into hidden
+           per-branch projections (GROUPING() → per-branch literal there),
+        3. per-branch aggregate over [non-window items + hidden columns],
+        4. union branches, evaluate the rebuilt windows, project."""
+        exprs, wagg_hidden = self._pull_window_aggs(exprs)
+        subs: List[Expression] = []
+        spec_cols: set = set()  # plain columns referenced only in specs
+
+        def mk_sub(e: Expression) -> Expression:
+            if e.op == "col":
+                spec_cols.add(e.params[0])
+                return e  # already a frame column (hidden agg or key)
+            for h in subs:
+                if h._unalias().structurally_eq(e):
+                    return col(h.name())
+            nm = f"__wsub{len(subs)}__"
+            subs.append(e.alias(nm))
+            return col(nm)
+
+        def extract(e: Expression) -> Expression:
+            if e.op == "window":
+                inner = e.args[0]
+                if inner.args:
+                    inner = inner.with_children(
+                        [mk_sub(a) for a in inner.args])
+                spec = e.params[0]._copy()
+                spec._partition_by = [mk_sub(p)
+                                      for p in spec._partition_by]
+                spec._order_by = [mk_sub(o) for o in spec._order_by]
+                return Expression("window", (inner,), (spec,))
+            if not e.args:
+                return e
+            return e.with_children([extract(a) for a in e.args])
+
+        final: List[Expression] = []       # post-union projection
+        branch_items: List[Expression] = []  # per-branch select items
+        for e in exprs:
+            if _contains_window(e):
+                final.append(extract(e)._unalias().alias(e.name()))
+            else:
+                branch_items.append(e)
+                final.append(col(e.name()))
+        # window items may also reference plain columns (keys, hidden agg
+        # outputs) — ensure every free column of the rebuilt windows is in
+        # the branch output
+        have = {e.name() for e in branch_items} | \
+               {e.name() for e in wagg_hidden} | \
+               {e.name() for e in subs}
+        need = set(spec_cols)  # Expression.column_names() walks args,
+        for e in final:        # not the window spec stored in params
+            need |= set(e.column_names())
+        for c in sorted(need - have):
+            branch_items.append(col(c))
+        branch_items = branch_items + wagg_hidden + subs
+
+        schema = df.schema()
+        frames = []
+        for S in sets:
+            present = list(S)
+            exprs_b = [self._subst_rollup(e, all_keys, present, schema)
+                       for e in branch_items]
+            having_b = self._subst_rollup(having, all_keys, present,
+                                          schema) if having is not None \
+                else None
+            frames.append(self._lower_aggregate(df, list(S), exprs_b,
+                                                having_b))
+        out = frames[0]
+        for f in frames[1:]:
+            out = out.union_all_by_name(f)
+        return out.select(*final)
 
     def _subst_rollup(self, e, all_keys, present, schema):
         """Per-branch rewrite: GROUPING(k) → 0/1 literal; references to
@@ -1465,11 +1603,99 @@ class SQLPlanner:
             raise
 
     # -- window functions --------------------------------------------------
+    _WINDOW_FNS = {"row_number", "rank", "dense_rank", "lag", "lead",
+                   "sum", "avg", "mean", "min", "max", "count", "ntile"}
+
     def _window_call(self, fn: str, args: List[Expression],
                      scope) -> Expression:
-        raise NotImplementedError(
-            f"window function {fn}(…) OVER (…): windows are not ported "
-            "yet (ROADMAP A5)")
+        """``fn(args) OVER (PARTITION BY … ORDER BY … [frame])`` →
+        Expression.over(Window) on the DataFrame window path
+        (reference: ``src/daft-sql/src/modules/window.rs``)."""
+        from ..window import Window
+        self._kw("OVER")
+        self._expect("(")
+        w = Window()
+        if self._kw("PARTITION"):
+            self._expect("BY")
+            parts = []
+            while True:
+                parts.append(self._expr(scope))
+                if not self._kw(","):
+                    break
+            w = w.partition_by(*parts)
+        if self._kw("ORDER"):
+            self._expect("BY")
+            obs, descs = [], []
+            while True:
+                obs.append(self._expr(scope))
+                if self._kw("DESC"):
+                    descs.append(True)
+                else:
+                    self._kw("ASC")
+                    descs.append(False)
+                if not self._kw(","):
+                    break
+            w = w.order_by(*obs, desc=descs)
+        if self._peek_kw("ROWS") or self._peek_kw("RANGE"):
+            mode = self._next().text.lower()
+            w = self._window_frame(w, mode)
+        self._expect(")")
+
+        if fn not in self._WINDOW_FNS:
+            raise ValueError(f"unsupported window function {fn!r}")
+        if fn == "row_number":
+            from ..functions import row_number
+            return row_number().over(w)
+        if fn == "rank":
+            from ..functions import rank
+            return rank().over(w)
+        if fn == "dense_rank":
+            from ..functions import dense_rank
+            return dense_rank().over(w)
+        if fn in ("lag", "lead"):
+            if not args:
+                raise ValueError(f"{fn} requires an argument")
+            offset = 1
+            default = None
+            if len(args) >= 2:
+                if args[1].op != "lit":
+                    raise ValueError(f"{fn} offset must be a literal")
+                offset = int(args[1].params[0])
+            if len(args) >= 3:
+                default = args[2]
+            base = args[0]
+            e = base.lag(offset, default) if fn == "lag" \
+                else base.lead(offset, default)
+            return e.over(w)
+        # windowed aggregates
+        agg = _apply_function("avg" if fn == "mean" else fn, args, False)
+        return agg.over(w)
+
+    def _window_frame(self, w, mode: str):
+        from ..window import Window
+        self._expect("BETWEEN")
+
+        def bound():
+            if self._kw("UNBOUNDED"):
+                if self._kw("PRECEDING"):
+                    return Window.unbounded_preceding
+                self._expect("FOLLOWING")
+                return Window.unbounded_following
+            if self._kw("CURRENT"):
+                self._expect("ROW")
+                return 0
+            n = int(self._next().text)
+            if self._kw("PRECEDING"):
+                return -n
+            self._expect("FOLLOWING")
+            return n
+
+        lo = bound()
+        self._expect("AND")
+        hi = bound()
+        if mode == "rows":
+            return w.rows_between(lo, hi)
+        return w.range_between(lo, hi)
 
 class _LenientScope:
     """ORDER BY may reference projection output aliases not yet in scope."""
@@ -1693,6 +1919,15 @@ def _apply_function(fn: str, args: List[Expression],
         return args[1].dt.truncate(args[0].params[0])
     if fn == "if" or fn == "iif":
         return a.if_else(args[1], args[2])
+    if fn == "row_number":
+        from ..functions import row_number
+        return row_number()
+    if fn == "rank":
+        from ..functions import rank
+        return rank()
+    if fn == "dense_rank":
+        from ..functions import dense_rank
+        return dense_rank()
     if fn in _NOT_PORTED_FUNCTIONS:
         raise NotImplementedError(
             f"SQL function {fn!r}: {_NOT_PORTED_FUNCTIONS[fn]}")
@@ -1707,15 +1942,23 @@ _NOT_PORTED_FUNCTIONS = {
                   "normalize", "count_matches", "tokenize_encode",
                   "tokenize_decode", "to_date", "greatest", "least",
                   "hash", "list_value_counts")},
-    **{fn: "a window function; windows are not ported yet (ROADMAP A5)"
-       for fn in ("row_number", "rank", "dense_rank")},
 }
 
 
 def _has_agg(e: Expression) -> bool:
+    # an aggregate INSIDE an OVER(...) window is not a groupby aggregate —
+    # it rides the Window plan node instead
+    if e.op == "window":
+        return False
     if e.op.startswith("agg."):
         return True
     return any(_has_agg(c) for c in e.args)
+
+
+def _contains_window(e: Expression) -> bool:
+    if e.op == "window":
+        return True
+    return any(_contains_window(c) for c in e.args)
 
 
 def _split_join_condition(cond: Expression, left_scope: Scope,

@@ -798,3 +798,51 @@ def test_ledger_delta_accounts_the_work_between_snapshots():
     assert d["join"]["achieved_gbps"] == pytest.approx(2.0)
     snap = cm.ledger_snapshot()["join"]
     assert snap["strategy"] == "mixed" and snap["load_factor"] == 0.25
+
+
+# ----------------------- fusion_wins: the join_agg region's port-only price
+
+@pytest.fixture
+def h100_link(monkeypatch):
+    """The H100 machine's link (0.303 ms RTT, 5.64 GB/s up, 46.8 GB/s
+    down: PERF.md §6)."""
+    _set_link(monkeypatch, 0.303, 5640, 46800)
+
+
+@pytest.mark.parametrize("rows, build_rows",
+                         [(2048, 1024), (4096, 1024), (131072, 1024),
+                          (131072, 65536)])
+def test_join_agg_gate_prices_the_per_operator_chain(
+        h100_link, tmp_path, monkeypatch, rows, build_rows):
+    """A join_agg morsel: the fused program at the region's own constants
+    against the chain a declined morsel runs, the join where
+    ``join_wins`` would put it (the host under the join's row floor) and
+    then the host agg pass; both sides logged as ``fusion``."""
+    log = tmp_path / "d.jsonl"
+    monkeypatch.setenv("DAFT_TORCH_DISPATCH_LOG", str(log))
+    up, down, hb = rows * 24.0, 9 * 8 * 1024.0, rows * 24.0
+    win = cm.fusion_wins("join_agg", rows, up, down, 3, host_bytes=hb,
+                         build_rows=build_rows)
+    rec = json.loads(log.read_text().splitlines()[-1])
+    jh, jd = cm._join_seconds(rows, build_rows, (rows + build_rows) * 9.0,
+                              16.0 * max(rows, build_rows))
+    join_s = jh if rows + build_rows < 8192 else min(jh, jd)
+    assert rec["kind"] == "fusion" and rec["build_rows"] == build_rows
+    assert rec["host_s"] == pytest.approx(join_s + hb / cm.HOST_AGG_BPS)
+    assert rec["dev_s"] == pytest.approx(cm.link_profile().device_seconds(
+        up, down, 2.0, cm.DEV_REGION_DISPATCH_S
+        + rows / cm.DEV_REGION_JOIN_AGG_ROWS_PER_S))
+    assert win == (rec["dev_s"] < rec["host_s"])
+
+
+def test_join_agg_gate_follows_the_region_constants(h100_link, monkeypatch):
+    """At the measured constants a 128Ki-row morsel stays on the
+    per-operator chain (its join on the card); a program a hundred times
+    faster would take it."""
+    args = ("join_agg", 131072, 131072 * 24.0, 9 * 8 * 1024.0, 3)
+    assert not cm.fusion_wins(*args, build_rows=1024)
+    monkeypatch.setattr(cm, "DEV_REGION_DISPATCH_S",
+                        cm.DEV_REGION_DISPATCH_S / 100)
+    monkeypatch.setattr(cm, "DEV_REGION_JOIN_AGG_ROWS_PER_S",
+                        cm.DEV_REGION_JOIN_AGG_ROWS_PER_S * 100)
+    assert cm.fusion_wins(*args, build_rows=1024)

@@ -294,3 +294,49 @@ def test_cost_model_decides_without_jax():
                        env=env, capture_output=True, text=True, timeout=120)
     assert r.returncode == 0, r.stdout + r.stderr
     assert "LEAKED []" in r.stdout
+
+
+_WINDOW_REGION_SCRIPT = r"""
+import os, sys
+os.environ["DAFT_TORCH_DEVICE"] = "cpu"
+os.environ["DAFT_TORCH_DEVICE_FORCE"] = "1"
+os.environ["DAFT_TORCH_FUSION"] = "1"
+import numpy as np
+import daft_tpu_torch
+from daft_tpu_torch import col
+from daft_tpu_torch.device import runtime
+t = daft_tpu_torch.from_pydict({"g": ["a", "a", "b", "b", "b"],
+                                "v": [3.0, 1.0, 5.0, 4.0, 6.0]})
+out = daft_tpu_torch.sql(
+    "SELECT g, v, rank() OVER (PARTITION BY g ORDER BY v DESC) AS r, "
+    "sum(v) OVER (PARTITION BY g) AS s FROM t ORDER BY g, v",
+    t=t).to_pydict()
+assert out["r"] == [2, 1, 3, 2, 1] and out["s"] == [4.0, 4.0, 15.0,
+                                                    15.0, 15.0], out
+rng = np.random.default_rng(0)
+probe = daft_tpu_torch.from_pydict({
+    "k": rng.integers(0, 20, 5000).astype(np.int64),
+    "x": rng.normal(size=5000)})
+build = daft_tpu_torch.from_pydict({
+    "k2": np.arange(20, dtype=np.int64),
+    "g": np.arange(20, dtype=np.int64) % 3})
+q = probe.join(build, left_on=col("k"), right_on=col("k2")).groupby(
+    "g").agg(col("x").count().alias("n")).sort("g")
+assert sum(q.to_pydict()["n"]) == 5000
+assert runtime.counters().get("region_join_agg", 0) >= 1, runtime.counters()
+leaked = sorted(m for m in sys.modules
+                if m in ("jax", "jaxlib", "daft_tpu")
+                or m.startswith(("jax.", "jaxlib.", "daft_tpu.")))
+print("LEAKED", leaked)
+assert leaked == [], leaked
+"""
+
+
+def test_window_and_fused_region_run_without_jax():
+    env = dict(os.environ)
+    env["PYTHONPATH"] = REPO + os.pathsep + env.get("PYTHONPATH", "")
+    r = subprocess.run([sys.executable, "-c", _WINDOW_REGION_SCRIPT],
+                       cwd=REPO, env=env, capture_output=True, text=True,
+                       timeout=120)
+    assert r.returncode == 0, r.stdout + r.stderr
+    assert "LEAKED []" in r.stdout
