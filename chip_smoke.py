@@ -40,7 +40,8 @@ Phases (any failure ends the run with a non-zero exit code):
    against pyarrow on the same files, and the port's counters must show
    the kernels ran, every query went through the pipeline and no morsel
    fell to the host tier;
-5b. pipeline phase: the same four queries three ways, 3 runs each:
+5b. pipeline phase: the same four queries three ways, 2 runs each (a
+   depth cut that makes room for the memory-bounded phase):
    window 0 (the synchronous path) and window 2 with the device column
    cache cleared before each run (cold walls, comparable with the warm
    walls of versions without the cache), then window 2 on a warm cache
@@ -53,7 +54,7 @@ Phases (any failure ends the run with a non-zero exit code):
    ways 1 and 2 (the card's idle share, ``pipeline trace`` lines);
 6. join path: TPC-H Q3 at SF1 (customer ⋈ orders ⋈ lineitem, then a
    group-by and a top 10) through the same entry points, one counted cold
-   run and warm repeats (one for the forced-broadcast variant); the
+   run and 2 warm repeats (one for the forced-broadcast variant); the
    answer is held against pyarrow (``pa.Table.join`` plus ``group_by``)
    and the counters must show every
    join on the device with the hash strategy (no host join), one build
@@ -61,22 +62,26 @@ Phases (any failure ends the run with a non-zero exit code):
 7. TPC-H 22 phase: all 22 queries as DataFrame code
    (``daft_tpu_torch/benchmarking/tpch_queries.py``) at the same SF1
    data, at the default knobs (the cost model decides host against card
-   and hash against sort): per query a counted cold run and a warm run
-   (the device column cache cleared before each, so the walls keep their
-   meaning), each held to the port's host tier (``device="0"``) on the
+   and hash against sort): per query a counted cold run (the device
+   column cache cleared before it; no warm run: a depth cut that makes
+   room for the memory-bounded phase), held to the port's host tier
+   (``device="0"``) on the
    same files in the same process (keys, counts and strings exact,
    floats at relative 1e-9), then a counted dispatch pass with
    ``DAFT_TORCH_DEVICE_MIN_ROWS=4096`` (the per-operator paths at the
    row floor the port had before its cost model) held to the same
    answer; one line per query with the walls, the dispatch counters, the
    cost model's decision counts and the kernel launches of both counted
-   runs (``--dispatch-log DIR`` also writes each warm run's decisions
+   runs (``--dispatch-log DIR`` also writes each cold run's decisions
    as JSON lines, one file per query). Q1 keeps its 8 dense dispatches;
    the fused morsels of a default run on the host are exactly those the
    cost model priced there (``fused_agg_upload`` decisions); in the
    dispatch pass (where the explicit floor also leaves the fused fragment
    unpriced, its rule before the cost model) no fused morsel falls to the
-   host, Q3's group-by runs on the card, and an argsort and a
+   host, Q3's group-by never takes the hash table and runs on the card
+   with sort (at a 1-row floor when the pass keeps each of its partial
+   aggregates, one per co-partitioned join pair, under 4,096 rows), and
+   an argsort and a
    per-operator hash group-by are dispatched;
 7b. TPC-H SQL phase: the same 22 queries as SQL text through
    ``daft_tpu_torch.sql`` (``daft_tpu_torch/benchmarking/tpch_sql.py``:
@@ -109,18 +114,35 @@ Phases (any failure ends the run with a non-zero exit code):
 7e. region phase: the chain and topk fusion regions over an in-memory
    table of 2^22 rows (int64, float64, a dictionary string column; 32
    partitions), with every region admitted, held to the same queries at
-   ``DAFT_TORCH_FUSION=0``; walls, dispatches and the launches of one
-   dispatch;
+   ``DAFT_TORCH_FUSION=0``; walls (medians of 2 runs, a depth cut that
+   makes room for the memory-bounded phase), dispatches and the launches
+   of one dispatch;
+7f. memory-bounded phase (the push engine, ``cuda``, the SF1 files):
+   under ``DAFT_TORCH_MEMORY_LIMIT=64MiB`` TPC-H Q1, Q3, Q9, Q18, Q21 and
+   a full ``ORDER BY l_orderkey, l_linenumber`` over lineitem (the
+   external sort), each held to the same query unbounded in this process
+   (floats at relative 1e-9, the rest exact); each spills bytes (Q1 takes
+   the spilling reducer, whose 4 groups never outgrow it), and Q3, Q9 and
+   Q21 join bucket pairs on the card, every join priced onto the card run
+   there; Q3 with its lineitem join at ``strategy="sort_merge"`` equal to
+   the hash plan (its bucket pairs launch the join kernels); Q5 and Q8 at
+   ``enable_aqe=True`` equal to the default run with at least one
+   re-plan; Q1 and Q3 under ``push`` and ``interp`` (``ooc`` lines with
+   the walls, spill counters, launches and counters); the hash and join
+   rungs of these runs that no earlier phase held go to phase 8 (``pass``
+   ``spill``);
 8. the hash build against its plain version at the inputs of every
    distinct hash rung of the main path and of the TPC-H 22 phase's
    dispatch pass
    (query, T, key words), and of every rung of the SQL phase, the TPC-DS
-   phase and its dispatch pass whose shape no earlier phase held; the
+   phase and its dispatch pass and the memory-bounded phase whose shape
+   no earlier phase held; the
    join kernels at Q3's lineitem join and at every distinct join rung of
    the TPC-H 22 phase (query, C_r, T, C_l, cap) of that pass and every
-   SQL-phase and TPC-DS rung of a shape no earlier phase held, each
-   checked as in the join-kernel phase, then timed (rows name their
-   ``pass``: ``tpcds`` or ``tpcds_dispatch`` for the TPC-DS ones);
+   SQL-phase, TPC-DS and memory-bounded rung of a shape no earlier phase
+   held, each checked as in the join-kernel phase, then timed (rows name
+   their ``pass``: ``tpcds`` or ``tpcds_dispatch`` for the TPC-DS ones,
+   ``spill`` for the memory-bounded ones);
 9. a ``{"kernels": [...]}`` line with each kernel's launches, times and
    bound (one row per hash rung and per join rung; Q3's join rows also
    with their device activities and host time per call), the script's
@@ -1042,6 +1064,22 @@ def traced_idle(fn):
                 activities=len(spans))
 
 
+def _scan_task_count(df) -> int:
+    """The scan tasks of ``df``'s physical plan: its files merged or split
+    to the configured task sizes, as the reference plans them."""
+    from daft_tpu_torch.physical import plan as pp
+    from daft_tpu_torch.physical.translate import translate
+    n = [0]
+
+    def walk(node):
+        if isinstance(node, pp.ScanSource):
+            n[0] += len(node.tasks)
+        for c in node.children:
+            walk(c)
+    walk(translate(df.builder.optimize().plan))
+    return n[0]
+
+
 def pipeline_phase(root: str, ref: dict, reps: int):
     """Q1, ``l_suppkey``, ``l_shipdate`` and Q6 at SF1, each run three
     ways, ``reps`` runs each: window 0 (the synchronous path) and window 2
@@ -1098,11 +1136,12 @@ def pipeline_phase(root: str, ref: dict, reps: int):
             bad.append("slots unbalanced")
         if c.get("host_morsels", 0):
             bad.append("host morsels")
-        if way == "piped_warm" and (c.get("cache_hits", 0) != 8
+        tasks = n_tasks[name]
+        if way == "piped_warm" and (c.get("cache_hits", 0) != tasks
                                     or c.get("cache_misses", 0)
                                     or c.get("scan_bytes_up", 0)):
             bad.append("not every task served from the cache")
-        if way != "piped_warm" and c.get("cache_misses", 0) != 8:
+        if way != "piped_warm" and c.get("cache_misses", 0) != tasks:
             bad.append("cache not cleared")
         if window and c.get("pipeline_slots", 0) < 1:
             bad.append("no pipeline slot")
@@ -1127,6 +1166,11 @@ def pipeline_phase(root: str, ref: dict, reps: int):
 
     rows = ref["rows"]
     walls, answers, stats = {}, {}, {}
+    # one cache entry set per scan task: a filtered scan keeps its 8
+    # files apart, an unfiltered one merges them (``io/scan.py``)
+    n_tasks = {name: _scan_task_count(Q.QUERIES[name](get))
+               for name in ("q1", "suppkey_agg", "shipdate_agg", "q6")}
+    log("pipeline scan tasks " + json.dumps(n_tasks))
     column._upload, hk.hash_agg_build = watch_upload, first_build
     try:
         # per query the three ways in turn: the warm way runs on the cache
@@ -1675,16 +1719,18 @@ class KernelRecorder:
 def tpch22_phase(root: str, dispatch_log=None):
     """All 22 TPC-H queries as DataFrame code on the card. At the default
     knobs (the cost model decides): per query a counted cold run (every
-    count zeroed just before, read just after) and one warm run, both
+    count zeroed just before, read just after; no warm run, for time),
     held to the port's host tier on the same files in the same process.
     Then the dispatch pass, per query a counted cold run with
     ``DISPATCH_PASS``, held to the same answer: its hash-agg builds and
     join builds and probes are recorded per rung for the kernel timing.
     Asserts Q1 kept its 8 dense dispatches, the host morsels of each
     default run are exactly those the cost model priced there, and in the
-    dispatch pass no fused morsel fell to the host, Q3's group-by ran on
-    the device, an argsort was dispatched and a per-operator group-by took
-    the hash table."""
+    dispatch pass no fused morsel fell to the host, Q3's group-by never
+    took the hash table and ran on the device with the sort strategy
+    (in the pass, or in one more run at a 1-row floor when the pass kept
+    every partial aggregate under its floor), an argsort was dispatched
+    and a per-operator group-by took the hash table."""
     import torch
     import daft_tpu_torch as dtt
     from daft_tpu_torch.benchmarking import tpch_queries as Q
@@ -1694,20 +1740,13 @@ def tpch22_phase(root: str, dispatch_log=None):
     for q in range(1, 23):
         name = f"q{q}"
         run = lambda: Q.ALL[q](get).to_pydict()  # noqa: E731
-        cold, cold_s, counts, launches = rec_d.counted(f"tpch22 {name}", run)
-        decisions = rec_d.decisions
-        # the device column cache cleared, as for the cold run: these
-        # walls keep the meaning they had before the cache (cached walls:
-        # the pipeline phase)
-        _clear_device_cache()
         logged = _env(DAFT_TORCH_DISPATCH_LOG=os.path.join(
             dispatch_log, f"{name}.jsonl")) if dispatch_log else _env()
         with logged:
-            t0 = time.perf_counter()
-            warm = run()
-            torch.cuda.synchronize()
-            warm_s = time.perf_counter() - t0
-        # the host tier after the card's runs, so its files are as warm
+            cold, cold_s, counts, launches = rec_d.counted(
+                f"tpch22 {name}", run)
+        decisions = rec_d.decisions
+        # the host tier after the card's run, so its files are as warm
         with dtt.execution_config_ctx(device="0"):
             t0 = time.perf_counter()
             host = run()
@@ -1716,11 +1755,10 @@ def tpch22_phase(root: str, dispatch_log=None):
             fl, fl_s, fcounts, flaunches = rec_k.counted(
                 f"tpch22 {name}", run)
         _same_answer(f"{name} cold", cold, host)
-        _same_answer(f"{name} warm", warm, host)
         _same_answer(f"{name} dispatch pass", fl, host)
         _priced_host_morsels(f"{name} cold", counts, decisions)
-        answers[q] = warm
-        rec = dict(query=name, warm_s=warm_s, cold_s=cold_s, host_s=host_s,
+        answers[q] = cold
+        rec = dict(query=name, cold_s=cold_s, host_s=host_s,
                    rows=len(next(iter(host.values()))),
                    counters={k: counts.get(k, 0) for k in TPCH22_COUNTERS},
                    decisions=decisions, launches=launches,
@@ -1741,9 +1779,25 @@ def tpch22_phase(root: str, dispatch_log=None):
         raise AssertionError(f"q1 changed route: {q1}")
     # Q3's three group keys (int64, date, int32) pack 131 bits, past the
     # hash table's 128: its group-by takes the sort strategy on the card,
-    # as the reference's width check routes it
-    if q3["agg_sort"] < 1 or q3["agg_hash"]:
-        raise AssertionError(f"q3's group-by did not run on the card: {q3}")
+    # as the reference's width check routes it. Since the port plans the
+    # reference's exchanges its partial aggregates run per co-partitioned
+    # join pair, each under the pass's 4,096-row floor at SF1, so when the
+    # pass keeps them all on the host one run at a 1-row floor holds the
+    # route
+    if q3["agg_hash"]:
+        raise AssertionError(f"q3's group-by took the hash table: {q3}")
+    if q3["agg_sort"] < 1:
+        from daft_tpu_torch.device import runtime
+        runtime.reset_counters()
+        with _env(DAFT_TORCH_DEVICE_MIN_ROWS="1"):
+            got = Q.q3(get).to_pydict()
+        c = runtime.counters()
+        _same_answer("q3 at a 1-row floor", got, answers[3])
+        log("tpch22 q3 at a 1-row floor " + json.dumps(
+            {k: c.get(k, 0) for k in TPCH22_COUNTERS}))
+        if c.get("agg_sort", 0) < 1 or c.get("agg_hash", 0):
+            raise AssertionError(f"q3's group-by did not run on the card "
+                                 f"with the sort strategy: {c}")
     for k in ("argsort", "agg_hash", "projection", "predicate"):
         if ftotals[k] < 1:
             raise AssertionError(f"tpch22: no {k} dispatch ({ftotals})")
@@ -1752,7 +1806,7 @@ def tpch22_phase(root: str, dispatch_log=None):
                              f"({ftotals})")
     rec_k.check_totals("tpch22", ftotals)
     sums = {k: sum(r[k] for r in per_query.values())
-            for k in ("warm_s", "cold_s", "host_s", "floor4096_cold_s")}
+            for k in ("cold_s", "host_s", "floor4096_cold_s")}
     log("tpch22 totals " + json.dumps(totals) + "; dispatch pass "
         + json.dumps(ftotals) + "; walls summed " + json.dumps(sums))
     return dict(per_query=per_query, totals=totals, floor_totals=ftotals,
@@ -1854,6 +1908,187 @@ def _join_rungs(query: str, builds: dict, probes: list, rungs: dict):
             r["ms_sum"]["hash_join_build"] += b0.elapsed_time(b1)
     if len(first_probe) != len(builds):
         raise AssertionError(f"{query}: a join table was never probed")
+
+
+# ------------------------------------------------- memory-bounded phase
+
+#: phase 7f's host budget (``DAFT_TORCH_MEMORY_LIMIT``): small enough
+#: that every breaker of the spilled queries outgrows it at SF1
+OOC_LIMIT = "64MiB"
+
+
+def _q3_sort_merge(get):
+    """TPC-H Q3 with its lineitem join at ``strategy="sort_merge"``."""
+    import daft_tpu_torch as dtt
+    col, lit = dtt.col, dtt.lit
+    cust = get("customer").where(col("c_mktsegment") == "BUILDING")
+    orders = get("orders").where(col("o_orderdate") < lit(Q3_DATE))
+    li = get("lineitem").where(col("l_shipdate") > lit(Q3_DATE))
+    return (cust.join(orders, left_on="c_custkey", right_on="o_custkey")
+            .join(li, left_on="o_orderkey", right_on="l_orderkey",
+                  strategy="sort_merge")
+            .with_column("volume",
+                         col("l_extendedprice") * (1 - col("l_discount")))
+            .groupby(col("o_orderkey"), col("o_orderdate"),
+                     col("o_shippriority"))
+            .agg(col("volume").sum().alias("revenue"))
+            .sort([col("revenue"), col("o_orderdate")], desc=[True, False])
+            .limit(10)
+            .select("o_orderkey", "revenue", "o_orderdate",
+                    "o_shippriority"))
+
+
+def _order_by_lineitem(get):
+    return get("lineitem").sort(["l_orderkey", "l_linenumber"])
+
+
+def ooc_phase(root: str):
+    """Memory-bounded execution on the SF1 files of phases 5-7, push
+    engine, ``cuda``. Forced spill: under ``DAFT_TORCH_MEMORY_LIMIT``
+    (``OOC_LIMIT``) TPC-H Q1, Q3, Q9, Q18 and Q21 and a full ``ORDER BY
+    l_orderkey, l_linenumber`` over lineitem (the external sort), each
+    held to the same query unbounded in this process (keys, counts and
+    strings exact, floats at relative 1e-9; the sort's Arrow table
+    equal); each must spill bytes (Q1 instead must take the spilling
+    reducer: its one breaker holds 4 groups, which no budget can spill),
+    and Q3, Q9 and Q21 must join pairs on the card (join launches > 0) with
+    every join the cost model priced onto the card run there. Then Q3
+    with its lineitem join at ``strategy="sort_merge"`` against the hash
+    plan's answer (its bucket pairs launch the join kernels); Q5 and Q8
+    at ``enable_aqe=True`` against the default run, with at least one
+    re-plan; Q1 and Q3 under ``push`` and ``interp``, walls side by side.
+    Slots acquired = released in every counted run. Every counted run's
+    hash and join dispatches are recorded per rung (``pass`` ``spill``)."""
+    import torch
+    import daft_tpu_torch as dtt
+    from daft_tpu_torch import joins
+    from daft_tpu_torch.benchmarking import tpch_queries as Q
+    from daft_tpu_torch.execution import memory
+    from daft_tpu_torch.physical import adaptive
+    get = lambda t: dtt.read_parquet(os.path.join(root, t))  # noqa: E731
+    rec = KernelRecorder("spill")
+    device_joins = [0]
+    orig_m = joins._device_match_indices
+
+    def counted_join(*a, **k):
+        device_joins[0] += 1
+        return orig_m(*a, **k)
+
+    def wall(fn):
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    def slots_balanced(name, counts):
+        if counts.get("pipeline_slots_acquired", 0) \
+                != counts.get("pipeline_slots_released", 0):
+            raise AssertionError(f"{name}: device slots unbalanced "
+                                 f"({counts})")
+
+    def counted(name, fn):
+        """``rec.counted`` of ``fn`` with the spill counters and the
+        device joins diffed over the same run."""
+        device_joins[0] = 0
+        joins._device_match_indices = counted_join
+        b0 = memory.spill_counters_snapshot()
+        try:
+            out, s, counts, launches = rec.counted(name, fn)
+        finally:
+            joins._device_match_indices = orig_m
+        return out, s, counts, launches, memory.spill_counters_delta(b0), \
+            device_joins[0]
+
+    t_phase = time.perf_counter()
+    spilled = [("q1", Q.q1), ("q3", Q.q3), ("q9", Q.q9), ("q18", Q.q18),
+               ("q21", Q.q21), ("order_by", _order_by_lineitem)]
+    answers = {}
+    for name, q in spilled:
+        sort = name == "order_by"
+        run = (lambda q=q: q(get).to_arrow()) if sort \
+            else (lambda q=q: q(get).to_pydict())
+        _clear_device_cache()
+        want, unbounded_s = wall(run)
+        with _env(DAFT_TORCH_MEMORY_LIMIT=OOC_LIMIT):
+            got, s, counts, launches, spill, djoins = counted(
+                f"ooc {name}", run)
+        decisions = rec.decisions
+        if sort:
+            if not got.equals(want):
+                raise AssertionError("ooc order_by: the spilled sort differs "
+                                     "from the unbounded one")
+        else:
+            _same_answer(f"ooc {name}", got, want)
+            answers[name] = want
+        if name == "q1":
+            if not spill.get("agg_reducers_spilling"):
+                raise AssertionError(f"ooc q1: the spilling reducer did not "
+                                     f"run ({spill})")
+        elif spill.get("bytes_written", 0) <= 0:
+            raise AssertionError(f"ooc {name}: nothing spilled under "
+                                 f"{OOC_LIMIT} ({spill})")
+        priced = decisions.get("join", {}).get("device", 0)
+        if name in ("q3", "q9", "q21"):
+            if launches["hash_join_build"] < 1 or djoins < 1:
+                raise AssertionError(f"ooc {name}: no join pair on the card "
+                                     f"({launches}, {counts})")
+        if djoins != priced:
+            raise AssertionError(f"ooc {name}: {priced} joins priced onto "
+                                 f"the card, {djoins} ran there")
+        slots_balanced(f"ooc {name}", counts)
+        log("ooc " + json.dumps(dict(
+            query=name, limit=OOC_LIMIT, spilled_s=s,
+            unbounded_s=unbounded_s, spill=spill, device_joins=djoins,
+            launches=launches,
+            counters={k: counts.get(k, 0) for k in TPCH22_COUNTERS},
+            decisions=decisions)))
+    # ---- the sort-merge join
+    _clear_device_cache()
+    got, s, counts, launches, spill, djoins = counted(
+        "ooc q3 sort_merge", lambda: _q3_sort_merge(get).to_pydict())
+    _same_answer("ooc q3 sort_merge", got, answers["q3"])
+    if launches["hash_join_build"] < 1 or launches["hash_join_probe"] < 1:
+        raise AssertionError(f"ooc q3 sort_merge: the bucket pairs launched "
+                             f"no join kernel ({launches}, {counts})")
+    slots_balanced("ooc q3 sort_merge", counts)
+    log("ooc " + json.dumps(dict(
+        query="q3 sort_merge", wall_s=s, spill=spill, device_joins=djoins,
+        launches=launches,
+        counters={k: counts.get(k, 0) for k in TPCH22_COUNTERS})))
+    # ---- AQE
+    for q in (5, 8):
+        _clear_device_cache()
+        want, default_s = wall(lambda: Q.ALL[q](get).to_pydict())
+        a0 = adaptive.counters_snapshot()
+        with dtt.execution_config_ctx(enable_aqe=True):
+            got, s, counts, launches, spill, djoins = counted(
+                f"ooc aqe q{q}", lambda: Q.ALL[q](get).to_pydict())
+        replans = adaptive.counters_delta(a0)
+        _same_answer(f"ooc aqe q{q}", got, want)
+        if replans.get("replans", 0) < 1:
+            raise AssertionError(f"ooc aqe q{q}: no re-plan ({replans})")
+        slots_balanced(f"ooc aqe q{q}", counts)
+        log("ooc " + json.dumps(dict(
+            query=f"q{q} aqe", aqe_s=s, default_s=default_s,
+            adaptive=replans, report=adaptive.last_planner()
+            .explain_analyze().splitlines()[1:], launches=launches)))
+    # ---- push against interp
+    for name in ("q1", "q3"):
+        row = {}
+        for engine in ("push", "interp"):
+            _clear_device_cache()
+            with _env(DAFT_TORCH_LOCAL_EXECUTOR=engine):
+                got, s, counts, launches, spill, djoins = counted(
+                    f"ooc {name} {engine}", lambda: Q.QUERIES[name](get)
+                    .to_pydict())
+            _same_answer(f"ooc {name} {engine}", got, answers[name])
+            slots_balanced(f"ooc {name} {engine}", counts)
+            row[engine] = dict(wall_s=s, launches=launches,
+                               counters={k: counts.get(k, 0)
+                                         for k in TPCH22_COUNTERS})
+        log("ooc " + json.dumps(dict(query=f"{name} push vs interp", **row)))
+    log(f"ooc phase wall: {time.perf_counter() - t_phase:.3f} s")
+    return dict(rec=rec)
 
 
 # ------------------------------------------------------------ TPC-DS
@@ -2240,7 +2475,7 @@ def main() -> int:
                          "of Q3")
     ap.add_argument("--dispatch-log", default=None, metavar="DIR",
                     help="write the cost model's decisions of each TPC-H "
-                         "22 warm run to DIR/q<N>.jsonl")
+                         "22 cold run to DIR/q<N>.jsonl")
     args = ap.parse_args()
     # the link profile this run prices with is measured here, on this
     # machine, never read from a store another machine may have written
@@ -2286,32 +2521,47 @@ def main() -> int:
                 or "registers" in line:
             log(f"  {line.strip()}")
 
+    def done(phase: str) -> None:
+        log(f"phase {phase} done at "
+            f"{time.perf_counter() - t_start:.3f} s")
+
     rng = np.random.default_rng(args.seed)
     kernel_phase(rng, bw, MAIN_C, MAIN_LIVE)
     join_kernel_phase(rng, bw)
+    done("3-4")
 
     root = tpch_root(args.sf)
     mp = main_path(root)
-    pipeline_phase(root, mp["ref"], args.reps)
-    q3 = q3_path(root, args.reps)
+    # depth cut for the memory-bounded phase: at most 2 runs per way
+    pipeline_phase(root, mp["ref"], min(args.reps, 2))
+    done("5-5b")
+    # depth cut for the memory-bounded phase: at most 2 warm repeats
+    q3 = q3_path(root, min(args.reps, 2))
     # every join forced to broadcast: the broadcast side's table is
     # rebuilt for each morsel of the other side, as in the reference
     # (one warm run: depth cut to make room for the pipeline phase)
     q3_path(root, 1, ref=q3["ref"], threshold=1 << 40,
             label="q3 forced broadcast")
+    done("6")
     t22 = tpch22_phase(root, args.dispatch_log)
+    done("7")
     tsql = tpchsql_phase(root, t22)
+    done("7b")
     ds_root = tpcds_root(1.0)
     tds = tpcds_phase(ds_root)
+    done("7c")
     tdp = tpcds_dispatch_pass(ds_root, tds["answers"], root, t22["answers"])
-    region_phase(args.reps)
-    # the TPC-DS rungs whose shape no earlier phase held
+    region_phase(min(args.reps, 2))  # depth cut, as above
+    done("7d-7e")
+    ooc = ooc_phase(root)
+    done("7f")
+    # the TPC-DS and memory-bounded rungs whose shape no earlier phase held
     held = {k[1:] for r in (mp["rungs"], t22["rungs"], tsql["rungs"])
             for k in r}
     jheld = {k[1:] for r in (t22["join_rungs"], tsql["join_rungs"])
              for k in r}
     ds_rungs, ds_jrungs = {}, {}
-    for rec_k in (tds["rec"], tdp["rec"]):
+    for rec_k in (tds["rec"], tdp["rec"], ooc["rec"]):
         for k, v in rec_k.hash_rungs().items():
             if k[1:] not in held:
                 held.add(k[1:])
@@ -2320,8 +2570,8 @@ def main() -> int:
             if k[1:] not in jheld:
                 jheld.add(k[1:])
                 ds_jrungs[k] = dict(v, pass_=rec_k.pass_)
-    log(f"tpcds rungs not held by earlier phases: {len(ds_rungs)} hash, "
-        f"{len(ds_jrungs)} join")
+    log(f"tpcds and ooc rungs not held by earlier phases: {len(ds_rungs)} "
+        f"hash, {len(ds_jrungs)} join")
     krecs = main_path_kernel_timing(mp["rungs"], bw)
     krecs += main_path_kernel_timing(t22["rungs"], bw)
     krecs += main_path_kernel_timing(tsql["rungs"], bw)

@@ -18,7 +18,7 @@ import pyarrow as pa
 import pyarrow.compute as pc
 
 from .datatype import DataType
-from .expressions import Expression
+from .expressions import Expression, col
 from .series import Series
 
 
@@ -66,12 +66,29 @@ AGG_DECOMPOSITION: Dict[str, Tuple[Tuple[str, ...], str]] = {
     "var": (("sum", "count", "sumsq"), "sum"),
 }
 
-#: aggregations with no partial/merge split — their whole input must meet
-#: in one place (the planner gathers or co-partitions the raw rows)
-
 #: merge-stage ops that are associative SELF-merges: re-applying the op
 #: over its own output column correctly merges two batches of state
 #: (derived from the table above — every merge op is one)
+SELF_MERGE_OPS = frozenset(m for _, m in AGG_DECOMPOSITION.values())
+
+
+def merge_exprs_for(aggs: List[Expression]) -> Optional[List[Expression]]:
+    """For final-stage aggs shaped ``op(col(p)).alias(out)`` whose ops are
+    all self-merges, the expressions that merge two batches of FINAL-schema
+    state: ``op(col(out)).alias(out)`` (the partitioned-agg reducer's
+    shape, ``execution/pipeline.py``; reference ``aggs.merge_exprs_for``
+    with ``alias_to="out"``). None when any agg is not a single-column
+    self-merge."""
+    out: List[Expression] = []
+    for a in aggs:
+        u = a._unalias()
+        if not u.op.startswith("agg.") or u.op[4:] not in SELF_MERGE_OPS \
+                or len(u.args) != 1 or u.args[0]._unalias().op != "col":
+            return None
+        out.append(Expression(u.op, (col(a.name()),), u.params)
+                   .alias(a.name()))
+    return out
+
 
 
 def agg_recordbatch(batch, to_agg: List[Expression], group_by: List[Expression]):

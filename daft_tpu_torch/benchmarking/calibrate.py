@@ -2,6 +2,7 @@
 machine: the card's link and kernel rates and the host tier's rates.
 
     python3 -m daft_tpu_torch.benchmarking.calibrate [--rows N] [--out FILE]
+        [--only spill_disk]
 
 Runs on ``cuda`` (``--device cpu`` rehearses the script on CPU tensors:
 its numbers are the CPU's and name it). Prints one JSON line each for:
@@ -26,6 +27,14 @@ its numbers are the CPU's and name it). Prints one JSON line each for:
   groups, ``DAFT_TORCH_FUSION=1``) at ``REGION_ROWS``: the device time
   of one dispatch (the ledger's ``region`` seconds over its dispatches),
   median of ``--reps`` runs;
+- ``spill_disk``: one N-row batch (``op_floor.make_batch`` plus a
+  dictionary-coded string column) written to an Arrow IPC spill file
+  through ``execution.memory.SpillBuffer`` (budget 1 byte, so every
+  append spills; the default codec, lz4) and read back, medians of
+  ``--reps``; ``SPILL_DISK_BPS`` is the batch's logical bytes over the
+  mean of the write and read walls (per byte per direction, as
+  ``costmodel.spill_plan_wins`` charges it). ``--only spill_disk`` runs
+  the card line and this line alone;
 - ``constants``: what the measurements give the cost model, each with its
   derivation — ``HOST_VECTOR_BPS`` (the median over the four
   ``host_vector`` expressions of (Arrow bytes in + bytes out) / wall),
@@ -175,7 +184,40 @@ def region_join_agg(n: int, reps: int) -> dict:
     return {"rows": n, "dispatch_s": statistics.median(per)}
 
 
-def derive(link, rep, small, big, hv, hj, n: int, reg) -> dict:
+def spill_disk(n: int, reps: int) -> dict:
+    """Write and read walls of one n-row batch through a spilling
+    ``SpillBuffer`` (see the module docstring)."""
+    import pyarrow as pa
+
+    from ..execution import memory
+    from ..micropartition import MicroPartition
+    from ..recordbatch import RecordBatch
+    t = op_floor.make_batch(n, 0).to_arrow_table()
+    words = pa.array([f"w{i % 4096}" for i in range(n)]).dictionary_encode()
+    mp = MicroPartition.from_recordbatch(
+        RecordBatch.from_arrow_table(t.append_column("s", words)))
+    nbytes = mp.size_bytes()
+    writes, reads = [], []
+    for _ in range(reps):
+        with memory.SpillBuffer(budget=1) as buf:
+            t0 = time.perf_counter()
+            buf.append(mp)
+            writes.append(time.perf_counter() - t0)
+            if not buf.bytes_spilled:
+                raise RuntimeError("calibrate: the batch did not spill")
+            t0 = time.perf_counter()
+            back = buf[0]
+            reads.append(time.perf_counter() - t0)
+            if len(back) != n:
+                raise RuntimeError("calibrate: the spilled batch came back "
+                                   f"with {len(back)} rows, not {n}")
+    w, r = statistics.median(writes), statistics.median(reads)
+    return {"rows": n, "bytes": nbytes, "codec": memory.spill_compression(),
+            "write_s": w, "read_s": r,
+            "SPILL_DISK_BPS": nbytes / ((w + r) / 2)}
+
+
+def derive(link, rep, small, big, hv, hj, n: int, reg, sd) -> dict:
     """The constants, from the measurements (see the module docstring)."""
     batch = op_floor.make_batch(n, 0)
 
@@ -208,6 +250,7 @@ def derive(link, rep, small, big, hv, hj, n: int, reg) -> dict:
         "DEV_REGION_DISPATCH_S": max(
             reg[0]["dispatch_s"] - reg[0]["rows"] * region_s_per_row, 0.0),
         "DEV_REGION_JOIN_AGG_ROWS_PER_S": 1.0 / region_s_per_row,
+        "SPILL_DISK_BPS": sd["SPILL_DISK_BPS"],
     }
 
 
@@ -218,6 +261,8 @@ def main() -> int:
     ap.add_argument("--reps", type=int, default=5)
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--out", default=None)
+    ap.add_argument("--only", choices=("spill_disk",), default=None,
+                    help="run the card line and this line alone")
     args = ap.parse_args()
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
@@ -232,6 +277,10 @@ def main() -> int:
         lines.append(line)
 
     emit("card", card_line(device))
+    sd = spill_disk(args.rows, args.reps)
+    emit("spill_disk", sd)
+    if args.only == "spill_disk":
+        return _write(args.out, lines)
     if device.type == "cuda":
         link = costmodel._measure(device)
     else:
@@ -251,10 +300,15 @@ def main() -> int:
     emit("host_join", hj)
     reg = [region_join_agg(n, args.reps) for n in REGION_ROWS]
     emit("region_join_agg", reg)
-    emit("constants", derive(link, rep, small, big, hv, hj, args.rows, reg))
+    emit("constants", derive(link, rep, small, big, hv, hj, args.rows, reg,
+                             sd))
     runtime.reset_counters()
-    if args.out:
-        with open(args.out, "w") as f:
+    return _write(args.out, lines)
+
+
+def _write(out, lines) -> int:
+    if out:
+        with open(out, "w") as f:
             f.write("\n".join(lines) + "\n")
     return 0
 

@@ -1,21 +1,23 @@
-"""TPC-H 22 warm walls of one checkout of this repo, for an A/B of two
-commits on one card.
+"""TPC-H warm walls of one checkout of this repo, for an A/B of two
+commits, or of two local engines, on one card.
 
     python3 daft_tpu_torch/benchmarking/tpch22_ab.py [--tree DIR]
-        [--reps N] [--host] [--label NAME] [--out FILE]
+        [--engine push|interp] [--queries 1,3,...] [--reps N] [--host]
+        [--label NAME] [--out FILE]
 
 Imports ``daft_tpu_torch`` and ``chip_smoke.py`` from ``DIR`` (default:
 the checkout this file is in), so an older commit unpacked with ``git
 archive`` runs its own code; the SF1 data comes from ``DIR/.cache``
 (``chip_smoke.tpch_root``; link both trees' ``.cache`` to one directory
-to generate it once). Runs each of the 22 queries of
-``benchmarking/tpch_queries.py`` once untimed, then ``N`` times at the
-default knobs with the device column cache cleared before each run
-(chip_smoke's phase 7 warm runs), and with ``--host`` ``N`` times on the
-host tier (``device="0"``). Prints one JSON line per query (the walls and
-their medians) and a last ``totals`` line (the sums of the medians). Run
-the trees in separate processes, in turns: parent, change, change,
-parent, ...
+to generate it once). ``--engine`` sets ``DAFT_TORCH_LOCAL_EXECUTOR``
+(a commit older than the push engine ignores it). Runs each query of
+``benchmarking/tpch_queries.py`` (default: all 22) once untimed, then
+``N`` times at the default knobs with the device column cache cleared
+before each run (chip_smoke's phase 7 warm runs), and with ``--host``
+``N`` times on the host tier (``device="0"``). Prints one JSON line per
+query (the walls and their medians) and a last ``totals`` line (the sums
+of the medians). Run the trees and engines in separate processes, in
+turns: parent, change, change, parent, ...
 """
 
 from __future__ import annotations
@@ -34,12 +36,16 @@ HERE = os.path.dirname(os.path.dirname(os.path.dirname(
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--tree", default=HERE)
+    ap.add_argument("--engine", default=None, choices=("push", "interp"))
+    ap.add_argument("--queries", default=",".join(map(str, range(1, 23))))
     ap.add_argument("--reps", type=int, default=3)
     ap.add_argument("--host", action="store_true")
     ap.add_argument("--label", default=None)
     ap.add_argument("--out", default=None)
     args = ap.parse_args()
     tree = os.path.abspath(args.tree)
+    if args.engine is not None:
+        os.environ["DAFT_TORCH_LOCAL_EXECUTOR"] = args.engine
     sys.path.insert(0, tree)
     import torch
     if not torch.cuda.is_available():
@@ -53,7 +59,7 @@ def main() -> int:
         raise SystemExit(f"tpch22_ab: imported {dtt.__file__}, not {tree}")
     root = chip_smoke.tpch_root(1.0)
     get = lambda t: dtt.read_parquet(os.path.join(root, t))  # noqa: E731
-    label = args.label or tree
+    label = args.label or " ".join(filter(None, (tree, args.engine)))
 
     def wall(q: int) -> float:
         cache.get_cache().clear()
@@ -63,7 +69,7 @@ def main() -> int:
         return time.perf_counter() - t0
 
     lines, sums = [], {"warm_s": 0.0, "host_s": 0.0}
-    for q in range(1, 23):
+    for q in [int(x) for x in args.queries.split(",")]:
         wall(q)
         rec = {"label": label, "query": f"q{q}",
                "warm_walls": [wall(q) for _ in range(args.reps)]}

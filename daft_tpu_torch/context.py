@@ -1,8 +1,8 @@
 """Global context: the frozen-per-query execution config.
 
 Reference: ``src/common/daft-config/src/lib.rs:40-100`` and
-``daft/context.py:156-269``. The port keeps the fields its slice reads and
-the one runner it has (``execution/executor.py:run_plan``).
+``daft/context.py:156-269``. The port keeps the fields its engine reads; queries
+run through ``runners/native_runner.py``.
 """
 
 from __future__ import annotations
@@ -17,8 +17,14 @@ from typing import Optional
 class ExecutionConfig:
     """Frozen-per-query execution knobs."""
 
+    #: a scan merges small adjacent files into one task until it holds
+    #: this many bytes (footer sizes), never past the maximum; a whole
+    #: file above the maximum splits into row-group ranges
+    #: (``io/scan.py``)
+    scan_tasks_min_size_bytes: int = 96 * 1024 * 1024
+    scan_tasks_max_size_bytes: int = 384 * 1024 * 1024
     #: rows per morsel for host operators; a device fragment takes one
-    #: whole source-file batch instead (see ``_exec_DeviceFragmentAgg``)
+    #: whole scan task's batch instead (see ``_exec_DeviceFragmentAgg``)
     default_morsel_size: int = 128 * 1024
     #: ``"cuda"`` / ``"cpu"`` / ``"0"`` (host tier only); None defers to
     #: ``DAFT_TORCH_DEVICE`` and then to ``"cuda"``
@@ -35,6 +41,34 @@ class ExecutionConfig:
     #: most operators one fusion region absorbs;
     #: ``DAFT_TORCH_FUSION_MAX_OPS`` wins when set
     fusion_max_ops: int = 8
+    #: the local engine: ``push`` (``execution/pipeline.py``) or
+    #: ``interp`` (``execution/executor.py`` alone);
+    #: ``DAFT_TORCH_LOCAL_EXECUTOR`` wins when set
+    local_executor: str = "push"
+    #: the runner's stage-by-stage re-planning loop and the executor's
+    #: adaptive join demotion and shuffle coalescing
+    enable_aqe: bool = False
+    #: keys sampled per morsel for a sort's or range exchange's boundaries
+    sample_size_for_sort: int = 20
+    #: a streaming breaker's bucket size target (also AQE's shuffle target)
+    target_partition_size_bytes: int = 512 * 1024 * 1024
+    #: hash exchange strategy: ``auto``/``naive`` (the bucket store) or
+    #: ``spill_cache`` (every bucket on disk)
+    shuffle_algorithm: str = "auto"
+    #: the most partitions an aggregation's hash exchange fans out to
+    shuffle_aggregation_default_partitions: int = 200
+    #: out of core (``execution/out_of_core.py``); the ``DAFT_TORCH_SPILL_*``
+    #: knobs win when set
+    spill_join: str = "auto"
+    spill_agg: str = "auto"
+    spill_partitions: int = 0
+    spill_max_depth: int = 3
+    spill_compression: str = ""
+    spill_io_parallelism: int = 4
+    #: the RSS governor's watermarks (``execution/governor.py``);
+    #: ``DAFT_TORCH_GOVERNOR_HIGH`` / ``_LOW`` win when set
+    governor_high: float = 0.85
+    governor_low: float = 0.70
 
 
 class Context:

@@ -2,11 +2,13 @@
 
 Reference: ``daft/dataframe/dataframe.py:108``. Each method extends the
 logical plan via LogicalPlanBuilder; execution happens on collect/show/
-iteration through ``execution.executor.run_plan``. The port carries the
-methods of the grouped-aggregation, join, TPC-H and SQL slices (select/
-filter/with_column/sort/limit/distinct/agg/groupby/join, cross joins
-included, concat and the set operations, monotonically increasing ids,
-window expressions routed into ``Window`` nodes); writes come later.
+iteration through the runner (``runners/native_runner.py``: optimize,
+translate, then the push pipeline or the interpreter). The port carries
+the methods of the grouped-aggregation, join, TPC-H, SQL and out-of-core
+slices (select/filter/with_column/sort/limit/distinct/agg/groupby/join,
+cross joins included, concat and the set operations, repartition,
+into_partitions and sample, monotonically increasing ids, window
+expressions routed into ``Window`` nodes); writes come later.
 """
 
 from __future__ import annotations
@@ -19,7 +21,7 @@ import pyarrow as pa
 from .expressions import Expression, col, lit
 from .logical.builder import LogicalPlanBuilder
 from .micropartition import MicroPartition
-from .execution.executor import PartitionSet, run_plan
+from .runners.runner import PartitionSet
 from .schema import Schema
 
 ColumnInput = Union[str, Expression]
@@ -143,6 +145,24 @@ class DataFrame:
     def distinct(self, *on: ColumnInput) -> "DataFrame":
         """Rows unique over ``on`` (every column when none is given)."""
         return DataFrame(self._builder.distinct(list(on) if on else None))
+
+    def sample(self, fraction: Optional[float] = None,
+               size: Optional[int] = None, with_replacement: bool = False,
+               seed: Optional[int] = None) -> "DataFrame":
+        return DataFrame(self._builder.sample(fraction, size,
+                                              with_replacement, seed))
+
+    def repartition(self, num: Optional[int],
+                    *cols: ColumnInput) -> "DataFrame":
+        """``num`` partitions by the hash of ``cols``, or at random when
+        no column is given."""
+        if cols:
+            return DataFrame(self._builder.hash_repartition(num, list(cols)))
+        return DataFrame(self._builder.random_shuffle(num))
+
+    def into_partitions(self, num: int) -> "DataFrame":
+        """``num`` partitions split by position, row order kept."""
+        return DataFrame(self._builder.into_partitions(num))
 
     def pipe(self, func, *args, **kwargs):
         """``df.pipe(f, ...)`` → ``f(df, ...)`` (reference parity)."""
@@ -269,8 +289,8 @@ class DataFrame:
     # ---- execution -------------------------------------------------------
     def collect(self, num_preview_rows: Optional[int] = 8) -> "DataFrame":
         if self._result is None:
-            self._result = PartitionSet(list(run_plan(self._builder)),
-                                        self._builder.schema())
+            from .runners.native_runner import get_runner
+            self._result = get_runner().run(self._builder)
             # downstream queries read from the materialized result
             self._builder = LogicalPlanBuilder.from_in_memory(
                 self._result.partitions, self._result.schema)
@@ -284,7 +304,8 @@ class DataFrame:
         if self._result is not None:
             yield from self._result.partitions
             return
-        yield from run_plan(self._builder)
+        from .runners.native_runner import get_runner
+        yield from get_runner().run_iter(self._builder)
 
     def iter_rows(self) -> Iterator[Dict[str, Any]]:
         for p in self.iter_partitions():

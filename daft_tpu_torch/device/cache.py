@@ -33,16 +33,19 @@ def budget() -> int:
 
 def task_fingerprint(task, device: torch.device) -> Optional[Tuple]:
     """Stable identity of a scan task's loaded rows on ``device``, or None
-    when the file cannot be stat-ed."""
+    when one of its files cannot be stat-ed."""
     try:
-        st = os.stat(task.path)
+        stats = []
+        for p in task.paths:
+            st = os.stat(p)
+            stats.append((p, st.st_size, st.st_mtime_ns))
     except (OSError, TypeError):
         return None
     pd = task.pushdowns
     filt = pd.filters._key() if pd.filters is not None else None
-    rg = tuple(task.row_groups) if task.row_groups is not None else None
-    return ((task.path, st.st_size, st.st_mtime_ns), rg, filt, pd.limit,
-            str(device))
+    rg = tuple(tuple(r) if r is not None else None
+               for r in task.row_groups) if task.row_groups else None
+    return (tuple(stats), rg, filt, pd.limit, str(device))
 
 
 class DeviceColumnCache:

@@ -10,6 +10,8 @@ The torch rewrite of ``daft_tpu/device/calibration.py``. Calibrated names
   dispatch through ``costmodel.ledger_record``;
 - ``DEV_SORT_ROWS_PER_S`` / ``DEV_JOIN_ROWS_PER_S`` /
   ``DEV_JOIN_HASH_ROWS_PER_S`` — achieved rows/s, same chokepoint;
+- ``SPILL_DISK_BPS`` — the spill tier's IPC rate (measured by
+  ``calibrate``'s ``spill_disk`` line; no dispatch observes it);
 - ``NDV_FOOTER_RATIO`` — observed actual-groups / footer-NDV ratio, which
   damps footer NDV evidence in ``costmodel.groupby_strategy``.
 
@@ -300,6 +302,7 @@ def costmodel_defaults() -> Dict[str, float]:
             "DEV_SORT_ROWS_PER_S": cm.DEV_SORT_ROWS_PER_S,
             "DEV_JOIN_ROWS_PER_S": cm.DEV_JOIN_ROWS_PER_S,
             "DEV_JOIN_HASH_ROWS_PER_S": cm.DEV_JOIN_HASH_ROWS_PER_S,
+            "SPILL_DISK_BPS": cm.SPILL_DISK_BPS,
             "NDV_FOOTER_RATIO": 1.0}
 
 

@@ -35,9 +35,11 @@ Env overrides:
   host;
 - ``DAFT_TORCH_DISPATCH_LOG``: one JSON line per decision.
 
+``SPILL_DISK_BPS`` (the spill tier's IPC rate, :func:`spill_plan_wins`)
+comes from ``calibrate``'s ``spill_disk`` line on the same machine.
+
 Not carried over yet (each waits for its caller's slice, ROADMAP):
-``image_resize_wins`` (A8), the shuffle, mesh, ICI and spill gates
-(A6/A7).
+``image_resize_wins`` (A8), the shuffle, mesh and ICI gates (A7).
 """
 
 from __future__ import annotations
@@ -576,6 +578,43 @@ def _join_seconds(n_left: int, n_right: int, bytes_up: float,
     price = lp.pipelined_seconds if window >= 2 else lp.device_seconds
     return n / HOST_JOIN_ROWS_PER_S, price(bytes_up, bytes_down, 2.0,
                                            DEV_DISPATCH_S + n / rate)
+
+
+# --------------------------------------------- out-of-core spill pricing
+
+#: the spill tier's Arrow IPC rate, per logical byte per direction
+#: (``SpillBuffer`` write and read of one spilled 2^22-row batch, lz4;
+#: ``calibrate --only spill_disk --rows 4194304`` on the H100 machine,
+#: NVIDIA H100 80GB HBM3 at 700.00 W, its host's disk)
+SPILL_DISK_BPS = 1.202e9
+
+
+def spill_plan_wins(nbytes: float, resident_budget: float) -> bool:
+    """Price a spill-partitioned plan (the grace join's pairwise phase)
+    against the in-memory single-unit plan for ``nbytes`` of materialized
+    input with ``resident_budget`` bytes allowed resident (reference
+    ``costmodel.py:1000``).
+
+    Past the resident budget the in-memory plan is infeasible (an OOM
+    has infinite cost) and the partitioned plan wins outright; under it
+    the partitioned plan would spill nothing but still forfeit the
+    whole-input pass, so the in-memory plan wins. Under governor pressure
+    the budget halves (``governor.budget_scale``). Logged under
+    ``spill_plan`` ("device" = the partitioned plan)."""
+    from ..execution import governor
+    scale = governor.budget_scale()
+    if scale != 1.0:
+        resident_budget = resident_budget * scale
+    agg_s = nbytes / HOST_AGG_BPS
+    if nbytes > resident_budget:
+        part_s = agg_s + 2.0 * (nbytes - resident_budget) \
+            / _cal("SPILL_DISK_BPS", SPILL_DISK_BPS)
+        _log("spill_plan", True, 1e12, part_s,
+             nbytes=nbytes, budget=resident_budget)
+        return True
+    _log("spill_plan", False, agg_s, agg_s,
+         nbytes=nbytes, budget=resident_budget)
+    return False
 
 
 def join_wins(n_left: int, n_right: int, bytes_up: float,

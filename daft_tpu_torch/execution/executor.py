@@ -2,18 +2,25 @@
 MicroPartitions.
 
 Reference: ``daft_tpu/execution/executor.py`` (the pull-generator
-interpreter). The port runs single-node: a final aggregate, sort or top-n
-gathers its whole input, and the fused device fragment
-(``_exec_DeviceFragmentAgg``) takes one source-file batch per dispatch,
-through windows of scan tasks served from the device column cache and
-the bounded in-flight pipeline (``device/pipeline.py``). A hash join
-gathers both sides and joins once; a broadcast join gathers one side and
-joins it against each morsel of the other (``_exec_HashJoin``; the index
-generation goes to the device per ``joins.py``); a cross join gathers its
-right side and pairs it with each morsel of the left, and a distinct
-gathers its input. A device error propagates; only a batch that is empty
-or whose expressions or columns have no device form runs the host chain,
-and it is counted.
+interpreter; the push pipeline, ``execution/pipeline.py``, inherits every
+handler from here and only rewires them). Pipelined operators run on a
+shared pool with an in-order window; the pipeline breakers stream their
+input through spill stores under the breaker budget
+(``execution/memory.py``): the external sort samples its keys while it
+spills, then range-buckets and sorts bucket by bucket; hash, random and
+range exchanges fan each morsel into a bucket store; a hash join over two
+hash exchanges joins the co-partitioned pairs, and one without them runs
+the grace hash join (``execution/out_of_core.py``); the sort-merge join
+range-buckets both sides on one sampled boundary set. Every breaker polls
+the query's cancel token in its drain loop.
+
+The fused device fragment (``_exec_DeviceFragmentAgg``) takes one
+source-file batch per dispatch, through windows of scan tasks served from
+the device column cache and the bounded in-flight pipeline
+(``device/pipeline.py``); a join's index generation goes to the device per
+``joins.py``. A device error propagates; only a batch that is empty or
+whose expressions or columns have no device form runs the host chain, and
+it is counted.
 """
 
 from __future__ import annotations
@@ -24,13 +31,15 @@ import threading
 import time
 from typing import Callable, Iterator, List, Optional
 
+import numpy as np
+
 from .. import knobs
 from ..context import get_context
 from ..expressions import Expression, col
 from ..micropartition import MicroPartition
 from ..physical import plan as pp
 from ..recordbatch import RecordBatch
-from ..schema import Schema
+from . import cancellation, memory
 from .memory import MemoryManager
 
 _POOL: Optional[cf.ThreadPoolExecutor] = None
@@ -71,36 +80,11 @@ def _ordered_parallel(inputs: Iterator, fn: Callable,
         yield pending.pop(0).result()
 
 
-class PartitionSet:
-    """Materialized query result: an ordered list of MicroPartitions."""
-
-    def __init__(self, partitions: List[MicroPartition], schema: Schema):
-        self.partitions = partitions
-        self.schema = schema
-
-    def __len__(self) -> int:
-        return sum(len(p) for p in self.partitions)
-
-    def to_recordbatch(self) -> RecordBatch:
-        batches = []
-        for p in self.partitions:
-            batches.extend(p.batches())
-        batches = [b for b in batches if len(b)] or batches[:1]
-        if not batches:
-            return RecordBatch.empty(self.schema)
-        return RecordBatch.concat(batches).cast_to_schema(self.schema)
-
-
 def run_plan(builder) -> Iterator[MicroPartition]:
-    """Optimize → translate → execute. The device is resolved here, once
-    per query, so a query asked to run on a card that is not there fails
-    before it reads anything."""
-    from ..device import backend, warmup
-    from ..physical.translate import translate
-    device = backend.resolve_device()
-    warmup.maybe_warmup_session()
-    pplan = translate(builder.optimize().plan)
-    return LocalExecutor(device).run(pplan)
+    """Run a logical plan through the runner (optimize, translate, the
+    local engine; ``runners/native_runner.py``)."""
+    from ..runners.native_runner import get_runner
+    return get_runner().run_iter(builder)
 
 
 class LocalExecutor:
@@ -111,19 +95,64 @@ class LocalExecutor:
     def __init__(self, device=None):
         self.cfg = get_context().execution_config
         self.device = device
-        self._shared: dict = {}
-        self._shared_lock = threading.Lock()
+        # cooperative cancellation: the caller installs the query's token
+        # (cancellation.cancel_scope); captured here, it rides the
+        # executor into every stage thread
+        self.cancel_token = cancellation.current_token()
         #: admission of the pipeline's slots: the bytes they keep on the
         #: device, held to the device cache's budget
         self.mem = MemoryManager(
             knobs.env_int("DAFT_TORCH_DEVICE_CACHE_BYTES"))
+        #: admission of host bytes: scan-task loads and the out-of-core
+        #: work units (join bucket pairs), held to DAFT_TORCH_MEMORY_LIMIT
+        self.host_mem = MemoryManager(memory.memory_limit_bytes())
+        #: stage-input bindings (``StageInput``); none until ROADMAP A7
+        self.stage_inputs: dict = {}
+        self._aqe_planner = None
+        self._shared: dict = {}
+        self._shared_lock = threading.Lock()
 
-    def run(self, plan: pp.PhysicalPlan) -> Iterator[MicroPartition]:
-        return self._exec(plan)
+    def _aqe(self):
+        if self._aqe_planner is None:
+            from ..physical import adaptive
+            self._aqe_planner = adaptive.new_planner(self.cfg)
+        return self._aqe_planner
+
+    def _poll_cancel(self) -> None:
+        """Cancellation poll for blocking drain loops: a pipeline breaker
+        drains its whole child before it yields anything, so the check at
+        each yield would not see a cancel until the drain ended."""
+        tok = self.cancel_token
+        if tok is not None:
+            tok.check()
+
+    def run(self, plan: pp.PhysicalPlan,
+            stage_inputs=None) -> Iterator[MicroPartition]:
+        if stage_inputs:
+            self.stage_inputs = stage_inputs
+
+        def gen():
+            tok = self.cancel_token
+            it = self._exec(plan)
+            try:
+                while True:
+                    if tok is not None:
+                        tok.check()
+                    try:
+                        item = next(it)
+                    except StopIteration:
+                        break
+                    yield item
+            finally:
+                it.close()
+        return gen()
 
     def _exec(self, node: pp.PhysicalPlan) -> Iterator[MicroPartition]:
         if getattr(node, "shared_consumers", 1) > 1:
             return self._shared_stream(node)
+        return self._exec_node(node)
+
+    def _exec_node(self, node: pp.PhysicalPlan) -> Iterator[MicroPartition]:
         h = getattr(self, "_exec_" + type(node).__name__, None)
         if h is None:
             raise NotImplementedError(f"executor for {type(node).__name__}")
@@ -131,19 +160,21 @@ class LocalExecutor:
 
     def _shared_stream(self, node) -> Iterator[MicroPartition]:
         """A subplan with several consumers (``translate``) runs ONCE into
-        a list of partitions that every consumer then streams; the last
-        consumer to finish drops it."""
+        a breaker-budget buffer that every consumer then streams; the last
+        consumer to finish closes it (its memory and spill files go at
+        once, not at GC). Thread-safe: the push executor's stages race
+        here, the first builds and the rest wait."""
         with self._shared_lock:
             ent = self._shared.get(id(node))
             build = ent is None
             if build:
                 ent = self._shared[id(node)] = {
-                    "done": threading.Event(), "parts": None, "err": None,
+                    "done": threading.Event(), "buf": None, "err": None,
                     "remaining": node.shared_consumers}
         if build:
             try:
-                h = getattr(self, "_exec_" + type(node).__name__)
-                ent["parts"] = list(h(node))
+                ent["buf"] = memory.materialize(
+                    self._exec_node(node), memory.breaker_budget_bytes())
             except BaseException as exc:
                 ent["err"] = exc
                 raise
@@ -156,12 +187,15 @@ class LocalExecutor:
 
         def serve():
             try:
-                yield from ent["parts"]
+                yield from iter(ent["buf"])
             finally:
                 with self._shared_lock:
                     ent["remaining"] -= 1
-                    if ent["remaining"] <= 0:
+                    last = ent["remaining"] <= 0
+                    if last:
                         self._shared.pop(id(node), None)
+                if last:
+                    ent["buf"].close()
         return serve()
 
     # sources ----------------------------------------------------------
@@ -182,14 +216,27 @@ class LocalExecutor:
                 yield MicroPartition.from_recordbatch(
                     rb.slice(start, min(start + morsel, n)))
 
+    def _load_task(self, task) -> MicroPartition:
+        """Load one scan task under host admission (its estimated bytes
+        against ``DAFT_TORCH_MEMORY_LIMIT``), after the governor's bounded
+        throttle (reference ``executor.py:_exec_ScanSource``)."""
+        from . import governor
+        governor.throttle("scan")
+        est = task.size_bytes() or 0
+        self.host_mem.acquire(est)
+        try:
+            return _load_with_retry(task)
+        finally:
+            self.host_mem.release(est)
+
     def _scan_files(self, node: pp.ScanSource) -> Iterator[MicroPartition]:
-        """One partition per scan task (one source file), loaded on the
-        pool in task order."""
+        """One partition per scan task (one file, or several small ones
+        merged), loaded on the pool in task order."""
         if not node.tasks:
             yield MicroPartition.empty(node.schema())
             return
 
-        yield from _ordered_parallel(iter(node.tasks), _load_with_retry)
+        yield from _ordered_parallel(iter(node.tasks), self._load_task)
 
     def _exec_ScanSource(self, node: pp.ScanSource):
         yield from self._morselize(self._scan_files(node))
@@ -200,6 +247,18 @@ class LocalExecutor:
             return
         yield from iter(node.partitions)
 
+    def _exec_StageInput(self, node: pp.StageInput):
+        """Another stage's output, from ``run``'s bindings (reference
+        ``executor.py:436``); the port binds none until ROADMAP A7, so the
+        stage reads as empty."""
+        parts = self.stage_inputs.get(node.stage_id)
+        got = False
+        for p in parts or ():
+            got = True
+            yield p
+        if not got:
+            yield MicroPartition.empty(node.schema())
+
     # pipelined maps ---------------------------------------------------
     def _exec_Project(self, node: pp.Project):
         child = self._exec(node.children[0])
@@ -209,6 +268,10 @@ class LocalExecutor:
     def _exec_Filter(self, node: pp.Filter):
         child = self._exec(node.children[0])
         yield from _ordered_parallel(child, lambda p: p.filter(node.predicate))
+
+    def _exec_Sample(self, node: pp.Sample):
+        child = self._exec(node.children[0])
+        yield from _ordered_parallel(child, _sample_kernel(node))
 
     def _exec_Limit(self, node: pp.Limit):
         remaining = node.limit
@@ -241,17 +304,67 @@ class LocalExecutor:
             yield p.add_monotonically_increasing_id(i, node.column_name)
 
     # aggregation ------------------------------------------------------
+    def _streamed_agg_input(self, node) -> bool:
+        """True when this Aggregate's child is a StageInput bound to a
+        STREAMING fetch: the binding yields one morsel per map source (not
+        hash-disjoint), so per-morsel aggregation would duplicate groups
+        and :meth:`_merge_agg_stream` re-merges instead. No binding
+        streams until ROADMAP A7."""
+        ch = node.children[0] if node.children else None
+        if not isinstance(ch, pp.StageInput):
+            return False
+        return getattr(self.stage_inputs.get(ch.stage_id),
+                       "streaming", False)
+
     def _exec_Aggregate(self, node: pp.Aggregate):
-        child = self._exec(node.children[0])
-        if node.mode == "partial":
-            yield from _ordered_parallel(
-                child, lambda p: p.agg(node.aggs, node.group_by)
-                .cast_to_schema(node.schema()))
+        """Per partition: a partial aggregates each morsel; a final or
+        single aggregate sits on a hash exchange (every group in one
+        partition) or a gather."""
+        if self._streamed_agg_input(node):
+            yield from self._merge_agg_stream(node,
+                                              self._exec(node.children[0]))
             return
-        # single node: the final (or single-stage) aggregate sees every
-        # partial in one place
-        yield _gather_all_or_empty(child, node.children[0].schema()) \
-            .agg(node.aggs, node.group_by).cast_to_schema(node.schema())
+        child = self._exec(node.children[0])
+        yield from _ordered_parallel(
+            child, lambda p: p.agg(node.aggs, node.group_by)
+            .cast_to_schema(node.schema()))
+
+    _MERGE_AGG_REAGG_ROWS = 1 << 17
+
+    def _merge_agg_stream(self, node: pp.Aggregate, stream):
+        """Streaming merge over a multi-morsel input that is not
+        hash-disjoint: aggregate the arriving morsels and merge the states
+        with the self-merge table (``aggs.merge_exprs_for``) once the
+        buffer rivals the state, emitting ONE state morsel (reference
+        ``executor.py:529``)."""
+        from ..aggs import merge_exprs_for
+        merge_aggs = merge_exprs_for(node.aggs)
+        state: Optional[MicroPartition] = None
+        buf: List[MicroPartition] = []
+        rows = 0
+
+        def merge():
+            nonlocal state, buf, rows
+            if not buf:
+                return
+            fresh = buf[0].concat(buf[1:]) if len(buf) > 1 else buf[0]
+            fresh = fresh.agg(node.aggs, node.group_by) \
+                .cast_to_schema(node.schema())
+            state = fresh if state is None else \
+                state.concat([fresh]).agg(merge_aggs, node.group_by) \
+                .cast_to_schema(node.schema())
+            buf, rows = [], 0
+
+        for mp in stream:
+            self._poll_cancel()
+            buf.append(mp)
+            rows += len(mp)
+            if rows >= max(self._MERGE_AGG_REAGG_ROWS,
+                           0 if state is None else len(state)):
+                merge()
+        merge()
+        yield state if state is not None \
+            else MicroPartition.empty(node.schema())
 
     def _exec_DeviceFragmentAgg(self, node: pp.DeviceFragmentAgg):
         """The reference's shape (``executor.py:580``): over a
@@ -439,7 +552,7 @@ class LocalExecutor:
                 dt = cache.get_table(fp, needs)
                 if dt is not None:
                     return ("dev", dt, t)
-            rb = _load_with_retry(t).combined()
+            rb = self._load_task(t).combined()
             if len(rb) == 0 or not all(
                     dcol.has_device_plane(rb.get_column(n)) for n in needs):
                 return ("host", rb, t)
@@ -492,7 +605,7 @@ class LocalExecutor:
                     continue
                 out = outs[di]
                 di += 1
-                yield host_agg(_load_with_retry(t).combined()) \
+                yield host_agg(self._load_task(t).combined()) \
                     if out is None else _to_partition(out, node)
 
         def tables(resolved):
@@ -550,8 +663,28 @@ class LocalExecutor:
 
     # joins ------------------------------------------------------------
     def _exec_HashJoin(self, node: pp.HashJoin):
+        """Reference ``executor.py:1732``: broadcast joins gather one side
+        and join it with each morsel of the other; ``sort_merge`` runs
+        :meth:`_sort_merge_join`; a hash join over hash exchanges on the
+        join keys of both sides joins the co-partitioned pairs (a pair past
+        the pair budget re-partitions, ``out_of_core``), else the grace hash
+        join streams both sides into rotated-radix stores;
+        ``DAFT_TORCH_SPILL_JOIN=0`` materializes both sides and re-fans
+        them instead. Under AQE a planned hash join whose measured side
+        fits the broadcast threshold is demoted
+        (:meth:`_adaptive_hash_join`)."""
+        from . import out_of_core as ooc
         how = node.how
         lnode, rnode = node.children
+        if node.strategy == "sort_merge":
+            yield from self._sort_merge_join(node)
+            return
+        if node.strategy == "hash" and self.cfg.enable_aqe \
+                and getattr(lnode, "join_side", False) \
+                and getattr(rnode, "join_side", False):
+            yield from self._adaptive_hash_join(node, lnode.children[0],
+                                                rnode.children[0])
+            return
         if node.strategy == "broadcast_right":
             right = _gather_all_or_empty(self._exec(rnode), rnode.schema())
             yield from _ordered_parallel(
@@ -564,10 +697,190 @@ class LocalExecutor:
                 self._exec(rnode), lambda p: left.hash_join(
                     p, node.left_on, node.right_on, how))
             return
-        # hash: single node, so both sides gather and join once
-        lall = _gather_all_or_empty(self._exec(lnode), lnode.schema())
-        rall = _gather_all_or_empty(self._exec(rnode), rnode.schema())
-        yield lall.hash_join(rall, node.left_on, node.right_on, how)
+        copart = (isinstance(lnode, pp.Exchange) and lnode.kind == "hash"
+                  and isinstance(rnode, pp.Exchange) and rnode.kind == "hash"
+                  and lnode.num_partitions == rnode.num_partitions
+                  # both sides fanned by the join keys' hash chain: only
+                  # then do equal partition indices pair up
+                  and [e._key() for e in lnode.by]
+                  == [e._key() for e in node.left_on]
+                  and [e._key() for e in rnode.by]
+                  == [e._key() for e in node.right_on])
+        if copart:
+            # each exchange is a streaming bucket store emitting exactly n
+            # partitions in index order: zip and join pairwise, one pair
+            # (plus the stores' bounded buffers) resident at a time
+            for outs in _ordered_parallel(
+                    zip(self._exec(lnode), self._exec(rnode)),
+                    lambda lr: ooc.join_copartitioned_pair(
+                        self, lr[0], lr[1], node, lnode.schema(),
+                        rnode.schema())):
+                yield from outs
+            return
+        if ooc.spill_join_mode(self.cfg) != "0":
+            yield from ooc.grace_hash_join(self, node)
+            return
+        # DAFT_TORCH_SPILL_JOIN=0: materialize both sides, then re-fan
+        # (no recursion; an oversized bucket pair loads whole)
+        with memory.materialize(self._exec(lnode),
+                                memory.breaker_budget_bytes()) as lbuf, \
+                memory.materialize(self._exec(rnode),
+                                   memory.breaker_budget_bytes()) as rbuf:
+            # fanout sized from BOTH sides: a tiny left must not gather an
+            # arbitrarily large right
+            n = max(self._breaker_fanout(lbuf.total_bytes),
+                    self._breaker_fanout(rbuf.total_bytes))
+            if n <= 1:
+                lall = _gather_all_or_empty(iter(lbuf), lnode.schema())
+                rall = _gather_all_or_empty(iter(rbuf), rnode.schema())
+                yield lall.hash_join(rall, node.left_on, node.right_on, how)
+                return
+            n = max(n, min(max(len(lbuf), len(rbuf)), 16))
+            lstore = self._key_bucket_store(iter(lbuf),
+                                            list(node.left_on), n)
+            lbuf.close()
+            try:
+                rstore = self._key_bucket_store(iter(rbuf),
+                                                list(node.right_on), n)
+            except BaseException:
+                lstore.close()
+                raise
+            rbuf.close()
+            try:
+                yield from _ordered_parallel(
+                    zip(self._emit_buckets(lstore, lnode.schema()),
+                        self._emit_buckets(rstore, rnode.schema())),
+                    lambda lr: lr[0].hash_join(lr[1], node.left_on,
+                                               node.right_on, how))
+            finally:
+                lstore.close()
+                rstore.close()
+
+    def _sort_merge_join(self, node: pp.HashJoin):
+        """Sort-merge join (reference ``executor.py:1684``, the aligned-
+        boundary SortMergeJoin): sample BOTH sides' keys while spilling
+        each under the breaker budget, derive ONE shared set of range
+        boundaries, range-bucket both sides with it (co-ranged, not
+        co-hashed), then join bucket pairs — one pair resident at a time.
+        The output comes out range-clustered by key."""
+        how = node.how
+        left_on, right_on = list(node.left_on), list(node.right_on)
+        lbuf, lsamp = self._consume_sampling(self._exec(node.children[0]),
+                                             left_on)
+        try:
+            rbuf, rsamp = self._consume_sampling(
+                self._exec(node.children[1]), right_on)
+        except BaseException:
+            lbuf.close()
+            raise
+        try:
+            n = max(self._breaker_fanout(lbuf.total_bytes),
+                    self._breaker_fanout(rbuf.total_bytes),
+                    min(max(len(lbuf), len(rbuf)), 16))
+            names = [e.name() for e in left_on]
+            # right-side key names take the left's, so the samples concat
+            # into one boundary table (the comparison is positional)
+            samples = lsamp + [
+                RecordBatch.from_series([c.rename(nm) for c, nm in
+                                         zip(rb.columns(), names)])
+                for rb in rsamp]
+            desc = [False] * len(left_on)
+            boundaries = sample_boundaries(samples, names, desc, desc, n) \
+                if n > 1 and samples else None
+            if boundaries is None:
+                lall = _gather_all_or_empty(iter(lbuf),
+                                            node.children[0].schema())
+                rall = _gather_all_or_empty(iter(rbuf),
+                                            node.children[1].schema())
+                yield lall.hash_join(rall, left_on, right_on, how)
+                return
+            yield from _ordered_parallel(
+                zip(self._stream_range_buckets(
+                        lbuf, left_on, boundaries, desc, desc, n,
+                        node.children[0].schema()),
+                    self._stream_range_buckets(
+                        rbuf, right_on, boundaries, desc, desc, n,
+                        node.children[1].schema())),
+                lambda lr: lr[0].hash_join(lr[1], left_on, right_on, how))
+        finally:
+            lbuf.close()
+            rbuf.close()
+
+    def _key_bucket_store(self, stream, by, n: int):
+        """Drain a stream into an n-bucket store hashed on ``by``. The
+        store closes itself when the drain fails; the caller owns it once
+        it is returned whole."""
+        store = memory.PartitionedSpillStore(n)
+        try:
+            for mp in stream:
+                self._poll_cancel()
+                for j, piece in enumerate(mp.partition_by_hash(by, n)):
+                    if len(piece):
+                        store.push(j, piece.combined())
+            store.finalize()
+        except BaseException:
+            store.close()
+            raise
+        return store
+
+    def _adaptive_hash_join(self, node: pp.HashJoin, li, ri):
+        """AQE join-strategy demotion (reference ``executor.py:1855``;
+        AdaptivePlanner re-planning joins from materialized stats,
+        ``planner.rs:451-640``): materialize each join input BELOW its
+        planned hash exchange, and if the measured bytes of an eligible
+        side fit the broadcast threshold, skip both shuffles and broadcast
+        it; otherwise fan both materialized sides out as planned."""
+        how = node.how
+        threshold = self.cfg.broadcast_join_size_bytes_threshold
+        with memory.materialize(self._exec(li),
+                                memory.breaker_budget_bytes()) as lparts:
+            if lparts.total_bytes <= threshold and how in ("inner",
+                                                           "right"):
+                self._aqe().record_join("hash→broadcast_left",
+                                        lparts.total_bytes)
+                left = _gather_all_or_empty(iter(lparts), li.schema())
+                lparts.close()
+                yield from _ordered_parallel(
+                    self._exec(ri), lambda p: left.hash_join(
+                        p, node.left_on, node.right_on, how))
+                return
+            with memory.materialize(
+                    self._exec(ri),
+                    memory.breaker_budget_bytes()) as rparts:
+                if rparts.total_bytes <= threshold \
+                        and how in ("inner", "left", "semi", "anti"):
+                    self._aqe().record_join("hash→broadcast_right",
+                                            rparts.total_bytes)
+                    right = _gather_all_or_empty(iter(rparts), ri.schema())
+                    rparts.close()
+                    yield from _ordered_parallel(
+                        iter(lparts), lambda p: p.hash_join(
+                            right, node.left_on, node.right_on, how))
+                    return
+                n = node.children[0].num_partitions
+                self._aqe().record_join(
+                    "hash", lparts.total_bytes + rparts.total_bytes)
+                yield from _ordered_parallel(
+                    zip(self._refan(lparts, list(node.left_on), n,
+                                    li.schema()),
+                        self._refan(rparts, list(node.right_on), n,
+                                    ri.schema())),
+                    lambda lr: lr[0].hash_join(lr[1], node.left_on,
+                                               node.right_on, how))
+
+    def _refan(self, parts, by: List[Expression], n: int, schema):
+        """Key-hash a (possibly spilled) partition buffer into n buckets
+        and emit them in order, one bucket resident at a time."""
+        store = self._key_bucket_store(iter(parts), by, n)
+        if isinstance(parts, memory.SpillBuffer):
+            parts.close()
+
+        def emit():
+            try:
+                yield from self._emit_buckets(store, schema)
+            finally:
+                store.close()
+        return emit()
 
     def _exec_CrossJoin(self, node: pp.CrossJoin):
         lnode, rnode = node.children
@@ -583,42 +896,201 @@ class LocalExecutor:
                                      lambda p: p.cross_join(right))
 
     def _exec_Dedup(self, node: pp.Dedup):
-        # single node: the whole input meets in one place
-        yield _gather_all_or_empty(self._exec(node.children[0]),
-                                   node.schema()).distinct(node.on)
+        """Per partition: the hash exchange below puts every duplicate of
+        ``on`` in one partition."""
+        yield from _ordered_parallel(self._exec(node.children[0]),
+                                     lambda p: p.distinct(node.on))
 
-    # windows ----------------------------------------------------------
+    # exchanges --------------------------------------------------------
     def _exec_Exchange(self, node: pp.Exchange):
-        """In memory (reference ``executor.py:1505``, whose streaming spill
-        stores come with ROADMAP A6): ``gather`` concatenates the child's
-        stream into one partition; ``hash`` splits each incoming morsel
-        by the hash of ``by`` and emits one partition per bucket, each
-        holding its pieces in arrival order. No admission budget holds
-        the buffered pieces: ``self.mem`` budgets the device slots' bytes,
-        and a host buffer past that budget could only wait on its own
-        bytes; the reference's breaker budget comes with A6's spill
-        stores."""
+        """Streaming shuffles (reference ``executor.py:1505``): hash,
+        random and range fan every incoming morsel into an n-bucket
+        :class:`memory.PartitionedSpillStore` (RAM under the breaker
+        budget, whole-bucket spill past it) — the child is never
+        materialized as a unit. gather and split reshape partition
+        boundaries by global position, so they drain into a breaker-budget
+        SpillBuffer."""
         kind, n = node.kind, node.num_partitions
-        if kind not in ("hash", "gather"):
-            raise NotImplementedError(
-                f"exchange kind {kind!r} is not ported yet (ROADMAP A6/A7)")
-        child = self._exec(node.children[0])
-        schema = node.schema()
-        if kind == "gather" or n <= 1:
-            yield _gather_all_or_empty(child, schema)
+        algo = self.cfg.shuffle_algorithm
+        if algo not in ("auto", "naive", "spill_cache"):
+            raise ValueError(
+                f"shuffle_algorithm {algo!r}: expected 'auto', 'naive' or "
+                f"'spill_cache'")
+        if kind == "hash" and n > 1:
+            if algo == "spill_cache":
+                yield from self._spill_cache_hash_exchange(node, n)
+            else:
+                yield from self._hash_exchange_streaming(node, n)
             return
-        buckets: List[List[RecordBatch]] = [[] for _ in range(n)]
-        for mp in child:
-            for j, piece in enumerate(mp.partition_by_hash(list(node.by),
-                                                           n)):
-                if len(piece):
-                    rb = piece.combined()
-                    buckets[j].append(rb if rb.schema == schema
-                                      else rb.cast_to_schema(schema))
-        for batches in buckets:
+        if kind == "random" and n > 1:
+            yield from self._fan_exchange_streaming(
+                node, n, lambda mp, i: mp.partition_by_random(n, seed=i))
+            return
+        if kind == "range":
+            yield from self._range_exchange_streaming(node, n)
+            return
+        if kind not in ("gather", "hash", "random", "split"):
+            raise NotImplementedError(f"exchange kind {kind}")
+        parts = memory.materialize(self._exec(node.children[0]),
+                                   memory.breaker_budget_bytes())
+        try:
+            if len(parts) == 0:
+                yield MicroPartition.empty(node.schema())
+            elif kind == "split" and n > 1:
+                yield from self._split(list(parts), n)
+            else:
+                # gather, and hash/random/split at n == 1: one partition
+                yield _gather_all_or_empty(iter(parts), node.schema())
+        finally:
+            parts.close()
+
+    def _hash_exchange_streaming(self, node, n: int):
+        """The reference's hash exchange without its device-mesh branch
+        (an all_to_all over the mesh, ROADMAP A7)."""
+        by = list(node.by)
+        yield from self._fan_exchange_streaming(
+            node, n, lambda mp, i: mp.partition_by_hash(by, n))
+
+    def _fan_exchange_streaming(self, node, n: int, fan, stream=None):
+        """Shared streaming fanout: morsel → n pieces → bucket store; under
+        AQE an engine-inserted shuffle may coalesce consecutive buckets
+        from the measured totals (growing past the planned n would re-hash
+        spilled buckets, so adaptation only shrinks)."""
+        store = memory.PartitionedSpillStore(n)
+        try:
+            for i, mp in enumerate(stream if stream is not None
+                                   else self._exec(node.children[0])):
+                self._poll_cancel()
+                for j, piece in enumerate(fan(mp, i)):
+                    if len(piece):
+                        store.push(j, piece.combined())
+            store.finalize()
+            groups = None
+            if self.cfg.enable_aqe and node.engine_inserted:
+                n2 = min(self._aqe().adapt_partition_count(
+                    n, sum(store.nbytes), sum(store.rows)), n)
+                if n2 < n:
+                    bounds = [round(j * n / n2) for j in range(n2 + 1)]
+                    groups = [list(range(bounds[j], bounds[j + 1]))
+                              for j in range(n2)]
+            yield from self._emit_buckets(store, node.schema(), groups)
+        finally:
+            store.close()
+
+    def _range_exchange_streaming(self, node, n: int):
+        by = list(node.by)
+        desc = list(node.descending) or [False] * len(by)
+        buf, samples = self._consume_sampling(
+            self._exec(node.children[0]), by)
+        try:
+            boundaries = None
+            if n > 1 and samples:
+                boundaries = sample_boundaries(
+                    samples, [e.name() for e in by], desc, desc, n)
+            if boundaries is None:
+                yield _gather_all_or_empty(iter(buf), node.schema())
+                for _ in range(max(n - 1, 0)):
+                    yield MicroPartition.empty(node.schema())
+                return
+            yield from self._stream_range_buckets(buf, by, boundaries,
+                                                  desc, desc, n,
+                                                  node.schema())
+        finally:
+            buf.close()
+
+    def _spill_cache_hash_exchange(self, node, n: int):
+        """``shuffle_algorithm="spill_cache"``: every morsel's pieces go
+        straight to their bucket's spill file (a store with no resident
+        budget; reference ``shuffle_cache.rs:14-80``'s map → spill →
+        fetch), and the buckets stream back one at a time."""
+        by = list(node.by)
+        store = memory.PartitionedSpillStore(n, budget=0)
+        try:
+            for mp in self._exec(node.children[0]):
+                self._poll_cancel()
+                for i, piece in enumerate(mp.partition_by_hash(by, n)):
+                    if len(piece):
+                        store.push(i, piece.combined())
+            store.finalize()
+            yield from self._emit_buckets(store, node.schema())
+        finally:
+            store.close()
+
+    def _split(self, parts: List[MicroPartition], n: int):
+        """Split/coalesce to exactly n partitions, order kept."""
+        total = sum(len(p) for p in parts)
+        target = max((total + n - 1) // max(n, 1), 1)
+        combined = parts[0].concat(parts[1:]) if len(parts) > 1 \
+            else parts[0]
+        rb = combined.combined()
+        start = 0
+        for out in range(n):
+            end = min(start + target, len(rb)) if out < n - 1 else len(rb)
+            yield MicroPartition.from_recordbatch(rb.slice(start, end))
+            start = end
+
+    # breaker helpers --------------------------------------------------
+    def _consume_sampling(self, stream, by: List[Expression]):
+        """Drain a child ONCE into a breaker-budget SpillBuffer while
+        sampling ``sample_size_for_sort`` key rows of each morsel."""
+        k = self.cfg.sample_size_for_sort
+        buf = memory.SpillBuffer(memory.breaker_budget_bytes())
+        samples: List[RecordBatch] = []
+        try:
+            for p in stream:
+                self._poll_cancel()
+                rb = p.combined()
+                if len(rb):
+                    s = rb.sample(size=min(k, len(rb)))
+                    samples.append(s.eval_expression_list(by))
+                buf.append(p)
+        except BaseException:
+            buf.close()  # a failed drain must not leak the spill files
+            raise
+        return buf, samples
+
+    def _breaker_fanout(self, total_bytes: int) -> int:
+        """Bucket count for a streaming breaker: each bucket must fit
+        comfortably in the breaker budget (it is loaded whole at read
+        time), and stay near the configured partition size."""
+        target = min(self.cfg.target_partition_size_bytes,
+                     max(memory.breaker_budget_bytes() // 4, 1))
+        return max(1, min(1024, -(-int(total_bytes) // max(target, 1))))
+
+    def _stream_range_buckets(self, buf, by, boundaries, desc, nulls_first,
+                              n, schema):
+        """Re-stream a spilled buffer, range-fanning each morsel into an
+        n-bucket store; emit the buckets in range order."""
+        store = memory.PartitionedSpillStore(n)
+        try:
+            for mp in buf:
+                self._poll_cancel()
+                for i, piece in enumerate(mp.partition_by_range(
+                        by, boundaries, desc, nulls_first)):
+                    if len(piece):
+                        store.push(i, piece.combined())
+            buf.close()  # the input's spill goes before bucket reads begin
+            store.finalize()
+            yield from self._emit_buckets(store, schema)
+        finally:
+            store.close()
+
+    def _emit_buckets(self, store, schema, groups=None):
+        """One MicroPartition per bucket (or per group of consecutive
+        buckets, for AQE-coalesced shuffles). A batch read back from a
+        spill file is cast to the declared schema: concat casts to the
+        FIRST batch's dtypes, so every batch must match it."""
+        for grp in (groups if groups is not None
+                    else [[i] for i in range(store.n)]):
+            batches = []
+            for i in grp:
+                batches.extend(store.bucket_batches(i))
+            batches = [b if b.schema == schema else b.cast_to_schema(schema)
+                       for b in batches if len(b)]
             yield MicroPartition.from_recordbatches(batches, schema) \
                 if batches else MicroPartition.empty(schema)
 
+    # windows ----------------------------------------------------------
     def _exec_Window(self, node: pp.Window):
         from ..window_exec import run_window
         child = self._exec(node.children[0])
@@ -888,9 +1360,38 @@ class LocalExecutor:
 
     # sorts ------------------------------------------------------------
     def _exec_Sort(self, node: pp.Sort):
-        yield _gather_all_or_empty(self._exec(node.children[0]),
-                                   node.schema()).sort(
-            node.sort_by, node.descending, node.nulls_first)
+        """Streaming external sort (reference ``executor.py:1388``, the
+        blocking sink of ``sinks/blocking_sink.rs:32-55``): ONE pass over
+        the child spills morsels under the breaker budget while sampling
+        keys; boundaries from the sample range-fan the spilled stream into
+        per-bucket stores; each bucket then sorts on its own — peak memory
+        ≈ the breaker budget plus one bucket, never the whole child. The
+        range partitioning places nulls by ``nulls_first``, so each bucket
+        holds a contiguous run of the sorted order."""
+        by = list(node.sort_by)
+        desc, nf = list(node.descending), list(node.nulls_first)
+        buf, samples = self._consume_sampling(
+            self._exec(node.children[0]), by)
+        try:
+            if len(buf) == 0:
+                yield MicroPartition.empty(node.schema())
+                return
+            n = self._breaker_fanout(buf.total_bytes)
+            boundaries = None
+            if n > 1 and len(buf) > 1 and samples:
+                boundaries = sample_boundaries(
+                    samples, [e.name() for e in by], desc, nf, n)
+            if boundaries is None:
+                yield _gather_all_or_empty(iter(buf), node.schema()).sort(
+                    node.sort_by, node.descending, node.nulls_first)
+                return
+            yield from _ordered_parallel(
+                self._stream_range_buckets(buf, by, boundaries, desc, nf, n,
+                                           node.schema()),
+                lambda p: p.sort(node.sort_by, node.descending,
+                                 node.nulls_first))
+        finally:
+            buf.close()
 
     def _exec_TopN(self, node: pp.TopN):
         child = self._exec(node.children[0])
@@ -902,6 +1403,41 @@ class LocalExecutor:
         yield MicroPartition.from_recordbatch(
             merged.combined().top_n(node.sort_by, node.limit,
                                     node.descending, node.nulls_first))
+
+
+def _sample_kernel(node):
+    """A ``Sample`` node's per-morsel function (shared with the push
+    pipeline's map stage)."""
+    if node.fraction is not None:
+        return lambda p: p.sample(fraction=node.fraction, size=None,
+                                  with_replacement=node.with_replacement,
+                                  seed=node.seed)
+    return lambda p: p.head(node.size)
+
+
+def sample_boundaries(sampled_keys: List[RecordBatch],
+                      key_names: List[str], descending: List[bool],
+                      nulls_first: List[bool], n: int
+                      ) -> Optional[RecordBatch]:
+    """Concatenated key samples → n-1 range boundaries (sorted, null-free),
+    or None when there is nothing to sample (reference
+    ``executor.py:2142``)."""
+    merged = RecordBatch.concat(sampled_keys)
+    by = [col(nm) for nm in key_names]
+    merged = merged.filter(~_any_null(by)) if len(merged) else merged
+    if len(merged) == 0:
+        return None
+    merged_sorted = merged.sort(by, descending, nulls_first)
+    idx = [min(int(len(merged_sorted) * (i + 1) / n),
+               len(merged_sorted) - 1) for i in range(n - 1)]
+    return merged_sorted.take(np.asarray(idx, dtype=np.int64))
+
+
+def _any_null(by: List[Expression]) -> Expression:
+    e = col(by[0].name()).is_null()
+    for b in by[1:]:
+        e = e | col(b.name()).is_null()
+    return e
 
 
 def _to_partition(out: RecordBatch, node) -> MicroPartition:
@@ -930,35 +1466,36 @@ def _task_column_ndv(tasks, name: str) -> Optional[float]:
     ``logical/stats._footer_range``): one file's range would underestimate
     a scan range-partitioned on the key. None when a footer lacks usable
     statistics for it."""
-    import pyarrow.parquet as pq
-
     from ..logical.stats import _footer_range
     lo = hi = None
     seen = set()
     for t in tasks:
-        if t.path in seen:
-            continue
-        seen.add(t.path)
-        md = t.metadata if t.metadata is not None \
-            else pq.ParquetFile(t.path).metadata
-        rng = _footer_range(md, name)
-        if rng is None:
-            return None
-        lo = rng[0] if lo is None else min(lo, rng[0])
-        hi = rng[1] if hi is None else max(hi, rng[1])
+        for path, md, _ in t.files():
+            # split tasks share a file: one footer per path
+            if path in seen:
+                continue
+            seen.add(path)
+            rng = _footer_range(md, name)
+            if rng is None:
+                return None
+            lo = rng[0] if lo is None else min(lo, rng[0])
+            hi = rng[1] if hi is None else max(hi, rng[1])
     return None if lo is None else float(hi - lo + 1)
 
 
 def _task_scan_bytes(task) -> int:
     """Uncompressed bytes of the columns a scan task reads, from its
-    footer: what a host scan of it decodes."""
-    md = task.metadata
-    idx = {md.schema.column(i).name: i for i in range(md.num_columns)}
+    footers: what a host scan of it decodes."""
     names = task.materialized_schema().column_names
-    groups = task.row_groups if task.row_groups is not None \
-        else range(md.num_row_groups)
-    return sum(md.row_group(g).column(idx[n]).total_uncompressed_size
-               for g in groups for n in names if n in idx)
+    total = 0
+    for _, md, groups in task.files():
+        idx = {md.schema.column(i).name: i for i in range(md.num_columns)}
+        for g in (groups if groups is not None
+                  else range(md.num_row_groups)):
+            rg = md.row_group(g)
+            total += sum(rg.column(idx[n]).total_uncompressed_size
+                         for n in names if n in idx)
+    return total
 
 
 def _fragment_groups_affordable(node, src) -> bool:
@@ -1003,14 +1540,22 @@ def _fragment_groups_affordable(node, src) -> bool:
 def _source_rows(plan) -> Optional[List[int]]:
     """At most the rows of each partition the source under ``plan``'s
     Filters and Projects yields (in-memory partitions; scan tasks' footers,
-    before their pushdown filters); None for any other subplan."""
-    while isinstance(plan, (pp.Filter, pp.Project)):
+    before their pushdown filters), all in one partition behind a gather
+    exchange (a broadcast side's); None for any other subplan."""
+    gather = False
+    while isinstance(plan, (pp.Filter, pp.Project, pp.Exchange)):
+        if isinstance(plan, pp.Exchange):
+            if plan.kind != "gather":
+                return None
+            gather = True
         plan = plan.children[0]
     if isinstance(plan, pp.InMemorySource):
-        return [len(p) for p in plan.partitions]
-    if isinstance(plan, pp.ScanSource):
-        return [t.max_rows() for t in plan.tasks]
-    return None
+        rows = [len(p) for p in plan.partitions]
+    elif isinstance(plan, pp.ScanSource):
+        rows = [t.max_rows() for t in plan.tasks]
+    else:
+        return None
+    return [sum(rows)] if gather else rows
 
 
 def _lit_true() -> Expression:

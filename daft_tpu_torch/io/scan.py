@@ -5,7 +5,9 @@ Reference: ``src/common/scan-info/src/scan_operator.rs:12-37`` (Pushdowns),
 ``src/daft-scan/src/lib.rs:417-436`` (ScanTask), ``src/daft-scan/src/glob.rs:28``
 (GlobScanOperator with schema inference from the first file) and
 ``src/daft-parquet/src/statistics`` (row-group pruning). The port reads local
-parquet only: one ScanTask per file, streamed as one RecordBatch per file.
+parquet only. Small files merge into one ScanTask and an oversized file splits
+into row-group ranges, as in the reference (``scan_tasks_min_size_bytes``,
+``scan_tasks_max_size_bytes``); a task streams one RecordBatch per file.
 """
 
 from __future__ import annotations
@@ -13,7 +15,7 @@ from __future__ import annotations
 import dataclasses
 import glob as _glob
 import os
-from typing import Iterator, List, Optional, Sequence, Tuple
+from typing import Any, Iterator, List, Optional, Sequence, Tuple
 
 import pyarrow.parquet as pq
 
@@ -42,21 +44,42 @@ class Pushdowns:
         return dataclasses.replace(self, filters=filters)
 
 
-class ScanTask:
-    """One parquet file (optionally pruned to some row groups) plus the
-    pushdowns to apply while reading it."""
+#: the most files one merged task reads, and the most oversized files a
+#: scan splits into row-group ranges (the reference's config defaults,
+#: ``max_sources_per_scan_task`` and ``parquet_split_row_groups_max_files``)
+MAX_FILES_PER_TASK = 10
+SPLIT_MAX_FILES = 10
 
-    def __init__(self, path: str, schema: Schema, pushdowns: Pushdowns,
+
+class ScanTask:
+    """One unit of scan work: one or more parquet files (each optionally
+    pruned to some row groups) plus the pushdowns to apply while reading
+    them. Small adjacent files share a task and an oversized file splits
+    into row-group ranges (:func:`merge_scan_tasks`,
+    :func:`split_scan_tasks`)."""
+
+    def __init__(self, paths: List[str], schema: Schema, pushdowns: Pushdowns,
                  num_rows: int, size_bytes: int,
-                 row_groups: Optional[List[int]] = None, metadata=None):
-        self.path = path
-        #: the file's parquet footer, read once at planning
-        self.metadata = metadata
+                 row_groups: Optional[List[Optional[List[int]]]] = None,
+                 metadata: Optional[list] = None):
+        self.paths = list(paths)
+        #: each file's parquet footer, read once at planning
+        self.metadata = metadata if metadata is not None \
+            else [None] * len(self.paths)
         self.schema = schema
         self.pushdowns = pushdowns
         self._num_rows = num_rows
         self._size_bytes = size_bytes
+        #: per file, the row groups to read (None: all of them); None for
+        #: a task that reads every file whole
         self.row_groups = row_groups
+
+    def files(self) -> Iterator[Tuple[str, Any, Optional[List[int]]]]:
+        """``(path, footer, row groups or None)`` for each file, in order."""
+        for i, p in enumerate(self.paths):
+            rg = self.row_groups[i] if self.row_groups is not None else None
+            md = self.metadata[i]
+            yield p, md if md is not None else pq.ParquetFile(p).metadata, rg
 
     def materialized_schema(self) -> Schema:
         if self.pushdowns.columns is not None:
@@ -72,7 +95,7 @@ class ScanTask:
         return self._num_rows
 
     def max_rows(self) -> int:
-        """The rows the task can yield at most: its footer's, or its limit
+        """The rows the task can yield at most: its footers', or its limit
         (the pushdown filter only removes rows)."""
         if self.pushdowns.limit is not None:
             return min(self._num_rows, self.pushdowns.limit)
@@ -82,26 +105,34 @@ class ScanTask:
         return self._size_bytes
 
     def stream_batches(self) -> Iterator[RecordBatch]:
-        """The file as one RecordBatch, with the residual filter and limit
-        applied. Yields nothing when every row is filtered out."""
-        f = pq.ParquetFile(self.path)
-        cols = None
-        if self.pushdowns.columns is not None:
-            names = set(f.schema_arrow.names)
-            cols = [c for c in self.pushdowns.columns if c in names]
-        if self.row_groups is None:
-            t = f.read(columns=cols)
-        elif self.row_groups:
-            t = f.read_row_groups(self.row_groups, columns=cols)
-        else:
-            return
-        b = RecordBatch.from_arrow_table(t)
-        if self.pushdowns.filters is not None:
-            b = b.filter(self.pushdowns.filters)
-        if self.pushdowns.limit is not None:
-            b = b.head(self.pushdowns.limit)
-        if len(b):
-            yield b
+        """One RecordBatch per file, with the residual filter applied and
+        the limit counted across the files (a satisfied limit reads no
+        further file). Yields nothing when every row is filtered out."""
+        remaining = self.pushdowns.limit
+        for i, path in enumerate(self.paths):
+            if remaining is not None and remaining <= 0:
+                return
+            f = pq.ParquetFile(path)
+            cols = None
+            if self.pushdowns.columns is not None:
+                names = set(f.schema_arrow.names)
+                cols = [c for c in self.pushdowns.columns if c in names]
+            groups = self.row_groups[i] if self.row_groups is not None \
+                else None
+            if groups is None:
+                t = f.read(columns=cols)
+            elif groups:
+                t = f.read_row_groups(groups, columns=cols)
+            else:
+                continue
+            b = RecordBatch.from_arrow_table(t)
+            if self.pushdowns.filters is not None:
+                b = b.filter(self.pushdowns.filters)
+            if remaining is not None:
+                b = b.head(remaining)
+                remaining -= len(b)
+            if len(b):
+                yield b
 
     def execute(self) -> List[RecordBatch]:
         out = list(self.stream_batches())
@@ -110,7 +141,7 @@ class ScanTask:
         return out
 
     def __repr__(self):
-        return (f"ScanTask({self.path}, rows={self._num_rows}, "
+        return (f"ScanTask({len(self.paths)} files, rows={self._num_rows}, "
                 f"pushdowns={self.pushdowns})")
 
 
@@ -130,6 +161,10 @@ class GlobScanOperator:
                 f"{'…' if len(self._paths) > 3 else ''}"]
 
     def to_scan_tasks(self, pushdowns: Pushdowns) -> List[ScanTask]:
+        """One task per file, then oversized files split and small ones
+        merged to the configured sizes (reference ``io/scan.py:306``)."""
+        from ..context import get_context
+        cfg = get_context().execution_config
         tasks = []
         for p in self._paths:
             md = pq.ParquetFile(p).metadata
@@ -137,11 +172,87 @@ class GlobScanOperator:
             keep = groups if groups is not None \
                 else range(md.num_row_groups)
             tasks.append(ScanTask(
-                p, self._schema, pushdowns,
+                [p], self._schema, pushdowns,
                 sum(md.row_group(g).num_rows for g in keep),
-                sum(md.row_group(g).total_byte_size for g in keep), groups,
-                md))
-        return tasks
+                sum(md.row_group(g).total_byte_size for g in keep),
+                [groups] if groups is not None else None, [md]))
+        tasks = split_scan_tasks(tasks, cfg.scan_tasks_max_size_bytes,
+                                 SPLIT_MAX_FILES)
+        return merge_scan_tasks(tasks, cfg.scan_tasks_min_size_bytes,
+                                cfg.scan_tasks_max_size_bytes,
+                                MAX_FILES_PER_TASK)
+
+
+def split_scan_tasks(tasks: List[ScanTask], max_size: int,
+                     max_files: int) -> List[ScanTask]:
+    """Split a whole-file task above ``max_size`` into row-group-range
+    tasks of at most ``max_size`` each (reference ``io/scan.py:327``).
+    Only the first ``max_files`` oversized files split; a limit pushdown
+    keeps the file whole (the limit is served from its head)."""
+    out: List[ScanTask] = []
+    budget = max_files
+    for t in tasks:
+        if (len(t.paths) != 1 or t.pushdowns.limit is not None
+                or t.row_groups is not None or t.size_bytes() <= max_size
+                or budget <= 0):
+            out.append(t)
+            continue
+        budget -= 1
+        path, md, _ = next(t.files())
+        if md.num_row_groups <= 1:
+            out.append(t)
+            continue
+        group: List[int] = []
+        gsize = grows = 0
+        for g in range(md.num_row_groups):
+            rg = md.row_group(g)
+            if group and gsize + rg.total_byte_size > max_size:
+                out.append(ScanTask([path], t.schema, t.pushdowns, grows,
+                                    gsize, [group], [md]))
+                group, gsize, grows = [], 0, 0
+            group.append(g)
+            gsize += rg.total_byte_size
+            grows += rg.num_rows
+        if group:
+            out.append(ScanTask([path], t.schema, t.pushdowns, grows, gsize,
+                                [group], [md]))
+    return out
+
+
+def merge_scan_tasks(tasks: List[ScanTask], min_size: int, max_size: int,
+                     max_sources: int) -> List[ScanTask]:
+    """Merge small adjacent whole-file tasks until one reaches
+    ``min_size``, never past ``max_size`` or ``max_sources`` files
+    (reference ``io/scan.py:372``): the scan's partition count follows
+    the data's size, not its file count."""
+    out: List[ScanTask] = []
+    acc: Optional[ScanTask] = None
+    acc_size = 0
+    for t in tasks:
+        sz = t.size_bytes() or max_size  # an empty file stays alone
+        limited = t.pushdowns.limit is not None
+        if (acc is not None and not limited
+                and acc_size + sz <= max_size
+                and len(acc.paths) + len(t.paths) <= max_sources
+                and acc.row_groups is None and t.row_groups is None):
+            acc = ScanTask(acc.paths + t.paths, acc.schema, acc.pushdowns,
+                           acc._num_rows + t._num_rows, acc_size + sz, None,
+                           acc.metadata + t.metadata)
+            acc_size += sz
+            if acc_size >= min_size:
+                out.append(acc)
+                acc, acc_size = None, 0
+            continue
+        if acc is not None:
+            out.append(acc)
+            acc, acc_size = None, 0
+        if sz >= min_size or limited:
+            out.append(t)
+        else:
+            acc, acc_size = t, sz
+    if acc is not None:
+        out.append(acc)
+    return out
 
 
 def glob_paths(path_or_paths) -> List[str]:

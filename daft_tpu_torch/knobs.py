@@ -98,6 +98,45 @@ REGISTRY = {
         "0", "`1`: `warmup.maybe_warmup_session` builds the CUDA library "
         "and launches each kernel and strategy once per capacity class, "
         "and every fusion region program seen so far"),
+    "DAFT_TORCH_LOCAL_EXECUTOR": (
+        None, "`push` (the push pipeline, `execution/pipeline.py`) or "
+        "`interp` (the pull interpreter); unset defers to "
+        "`ExecutionConfig.local_executor` (default `push`)"),
+    "DAFT_TORCH_MEMORY_LIMIT": (
+        None, "host byte budget of the pipeline breakers (e.g. `4GB`, "
+        "`512MiB`, `400KB`); past it they spill to Arrow IPC files; unset: "
+        "a quarter of physical RAM; a malformed value is an error"),
+    "DAFT_TORCH_SPILL_DIR": (
+        None, "directory of the spill files (default: a fresh temporary "
+        "directory)"),
+    "DAFT_TORCH_SPILL_JOIN": (
+        None, "`auto` (the cost model's `spill_plan` decision), `1` (force "
+        "the grace hash join's partitioned pairs) or `0` (materialize "
+        "both sides and re-fan them); unset defers to "
+        "`ExecutionConfig.spill_join`"),
+    "DAFT_TORCH_SPILL_AGG": (
+        None, "`auto`, `1` (force the spilling partitioned-agg reducer) or "
+        "`0` (decline it); unset defers to `ExecutionConfig.spill_agg`"),
+    "DAFT_TORCH_SPILL_PARTITIONS": (
+        None, "non-zero: the first-level radix fanout of a grace join or "
+        "spilling reducer (0 or unset: planner evidence decides)"),
+    "DAFT_TORCH_SPILL_MAX_DEPTH": (
+        None, "rotated-radix recursion bound of an oversized bucket "
+        "(default `ExecutionConfig.spill_max_depth`, 3)"),
+    "DAFT_TORCH_SPILL_COMPRESSION": (
+        None, "spill-file codec: `lz4` (default), `zstd` or `none`"),
+    "DAFT_TORCH_SPILL_IO_PARALLELISM": (
+        None, "concurrent spill writes and bucket reads (default 4, at "
+        "most 8); `0`: serial writes under the store lock"),
+    "DAFT_TORCH_GOVERNOR": (
+        "1", "`0` turns the RSS governor off (it acts only under a memory "
+        "limit)"),
+    "DAFT_TORCH_GOVERNOR_HIGH": (
+        None, "RSS fraction of the memory limit that enters the pressured "
+        "state (default 0.85)"),
+    "DAFT_TORCH_GOVERNOR_LOW": (
+        None, "RSS fraction that leaves it again (default 0.70, clamped "
+        "under the high mark)"),
 }
 
 

@@ -111,6 +111,27 @@ class LogicalPlanBuilder:
             node = lp.Project(node, gb_cols + final_exprs)
         return self._wrap(node)
 
+    def hash_repartition(self, num_partitions: Optional[int],
+                         by: Sequence) -> "LogicalPlanBuilder":
+        n = num_partitions or self._plan.num_partitions()
+        return self._wrap(lp.Repartition(
+            self._plan, lp.ClusteringSpec("hash", n, tuple(_to_exprs(by)))))
+
+    def random_shuffle(self, num_partitions: Optional[int]
+                       ) -> "LogicalPlanBuilder":
+        n = num_partitions or self._plan.num_partitions()
+        return self._wrap(lp.Repartition(
+            self._plan, lp.ClusteringSpec("random", n)))
+
+    def into_partitions(self, num_partitions: int) -> "LogicalPlanBuilder":
+        return self._wrap(lp.Repartition(
+            self._plan, lp.ClusteringSpec("unknown", num_partitions)))
+
+    def sample(self, fraction=None, size=None, with_replacement=False,
+               seed=None) -> "LogicalPlanBuilder":
+        return self._wrap(lp.Sample(self._plan, fraction, size,
+                                    with_replacement, seed))
+
     def distinct(self, on: Optional[Sequence] = None) -> "LogicalPlanBuilder":
         return self._wrap(lp.Distinct(self._plan,
                                       _to_exprs(on) if on else None))

@@ -9,7 +9,8 @@ PushDownAntiSemiJoin, PushDownJoinPredicate, FilterNullJoinKey,
 ReorderJoins, SemiJoinReduction) and MaterializeScans, so a query plans to
 the reference's join tree. A ``Window`` node takes the reference's
 generic arms (every column required below it, no filter pushed through
-it). DropRepartition waits for ``Repartition`` (ROADMAP A5b).
+it), and so does ``Sample``; ``Repartition`` takes the reference's arms
+and DropRepartition.
 """
 
 from __future__ import annotations
@@ -44,7 +45,8 @@ class Optimizer:
                                 SimplifyNullFilteredJoin(),
                                 PushDownFilter(),
                                 PushDownAntiSemiJoin(),
-                                PushDownProjection(), PushDownLimit()],
+                                PushDownProjection(), PushDownLimit(),
+                                DropRepartition()],
                   "fixed_point"),
             # key-derived filters once pushdowns settle: they ADD filters,
             # so they run in their own once-batch (idempotent by structural
@@ -241,7 +243,7 @@ class PushDownFilter(Rule):
                     return lp.Project(
                         lp.Filter(child.children[0], new_pred), child.exprs)
             # through ops that don't change rows' values
-            if isinstance(child, (lp.Sort, lp.Concat)):
+            if isinstance(child, (lp.Sort, lp.Repartition, lp.Concat)):
                 pushed = [lp.Filter(c, pred) for c in child.children]
                 return child.with_children(pushed)
             if isinstance(child, lp.Join) and child.how in (
@@ -369,6 +371,11 @@ class PushDownProjection(Rule):
                 required | {c for e in node.sort_by for c in e.column_names()}
             return node.with_children(
                 [self._prune(node.children[0], child_req)])
+        if isinstance(node, lp.Repartition):
+            child_req = None if required is None else \
+                required | {c for e in node.spec.by for c in e.column_names()}
+            return node.with_children(
+                [self._prune(node.children[0], child_req)])
         # other nodes: require everything below
         return node.with_children(
             [self._prune(c, None) for c in node.children])
@@ -422,6 +429,27 @@ class PushDownLimit(Rule):
                     else min(pd.limit, node.limit)
                 return lp.Limit(child.with_pushdowns(pd.with_limit(new_l)),
                                 node.limit)
+            return node
+        return plan.transform_up(fn)
+
+
+class DropRepartition(Rule):
+    """``repartition(repartition(x))`` → ``repartition(x)``; a hash
+    repartition onto the clustering its child already has → the child."""
+    name = "drop_repartition"
+
+    def apply(self, plan):
+        def fn(node):
+            if isinstance(node, lp.Repartition):
+                child = node.children[0]
+                if isinstance(child, lp.Repartition):
+                    return lp.Repartition(child.children[0], node.spec)
+                cs = child.clustering_spec()
+                if (node.spec.kind == "hash" and cs.kind == "hash"
+                        and cs.num_partitions == node.spec.num_partitions
+                        and [e._key() for e in cs.by]
+                        == [e._key() for e in node.spec.by]):
+                    return child
             return node
         return plan.transform_up(fn)
 

@@ -3,9 +3,9 @@
 Reference: ``src/daft-logical-plan/src/logical_plan.rs:25`` — the LogicalPlan
 enum — and ``partitioning.rs`` (ClusteringSpec). The port carries the nodes
 of the grouped-aggregation, join, TPC-H, SQL and TPC-DS slices: Source/
-Project/Filter/Limit/Sort/TopN/Distinct/Aggregate/Join (equi and cross)/
-Window/Concat/MonotonicallyIncreasingId. Pivot, Unpivot, Explode, Sample
-and Repartition come with ROADMAP A5b.
+Project/Filter/Limit/Sort/TopN/Repartition/Distinct/Aggregate/Join (equi
+and cross)/Window/Concat/Sample/MonotonicallyIncreasingId. Pivot, Unpivot
+and Explode come with ROADMAP A5b.
 """
 
 from __future__ import annotations
@@ -252,6 +252,55 @@ class TopN(LogicalPlan):
     def _params(self):
         return (tuple(e._key() for e in self.sort_by), tuple(self.descending),
                 tuple(self.nulls_first), self.limit)
+
+
+class Repartition(LogicalPlan):
+    """Rows redistributed per ``spec``: ``hash`` by ``spec.by``,
+    ``random``, ``range``, or ``unknown`` (``into_partitions``: split by
+    position, order kept)."""
+
+    def __init__(self, child, spec: ClusteringSpec):
+        super().__init__([child])
+        self.spec = spec
+
+    def _compute_schema(self) -> Schema:
+        return self._children[0].schema()
+
+    def with_children(self, children):
+        return Repartition(children[0], self.spec)
+
+    def clustering_spec(self) -> ClusteringSpec:
+        return self.spec
+
+    def _params(self):
+        return (self.spec.kind, self.spec.num_partitions,
+                tuple(e._key() for e in self.spec.by))
+
+    def multiline_display(self):
+        return [f"Repartition[{self.spec.kind}] n={self.spec.num_partitions}"]
+
+
+class Sample(LogicalPlan):
+    """A ``fraction`` of each partition's rows (or its first ``size``),
+    drawn from ``seed``."""
+
+    def __init__(self, child, fraction: Optional[float], size: Optional[int],
+                 with_replacement: bool, seed: Optional[int]):
+        super().__init__([child])
+        self.fraction = fraction
+        self.size = size
+        self.with_replacement = with_replacement
+        self.seed = seed
+
+    def _compute_schema(self) -> Schema:
+        return self._children[0].schema()
+
+    def with_children(self, children):
+        return Sample(children[0], self.fraction, self.size,
+                      self.with_replacement, self.seed)
+
+    def _params(self):
+        return (self.fraction, self.size, self.with_replacement, self.seed)
 
 
 class Distinct(LogicalPlan):

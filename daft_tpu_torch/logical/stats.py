@@ -47,8 +47,15 @@ def _scan_tasks(node: lp.Source):
 
 def _source_stats(node: lp.Source) -> Stats:
     if node.partitions is not None:
-        rows = sum(len(p) for p in node.partitions)
-        size = sum(p.size_bytes() or 0 for p in node.partitions)
+        parts = node.partitions
+        # a SpillBuffer (the runner's AQE actuals) counts at append time:
+        # summing would reload its spilled entries from disk
+        rows = getattr(parts, "total_rows", None)
+        size = getattr(parts, "total_bytes", None)
+        if rows is None:
+            rows = sum(len(p) for p in parts)
+        if size is None:
+            size = sum(p.size_bytes() or 0 for p in parts)
         return Stats(float(rows), float(size) or None)
     tasks = _scan_tasks(node)
     if not tasks:
@@ -99,6 +106,10 @@ def estimate(node: lp.LogicalPlan) -> Stats:
         s = kids[0]
         rows = node.limit if s.rows is None else min(s.rows, node.limit)
         return Stats(float(rows), s.size_bytes)
+    if isinstance(node, lp.Sample):
+        if node.fraction is not None:
+            return kids[0].scaled(node.fraction)
+        return Stats(float(node.size), None)
     if isinstance(node, lp.Aggregate):
         if not node.group_by:
             return Stats(1.0, 256.0)
@@ -220,16 +231,14 @@ def _source_column_range(node: lp.Source, name: str) -> Optional[float]:
     out = None
     tasks = _scan_tasks(node) if node.scan_op is not None else None
     if tasks:
-        import pyarrow.parquet as pq
         lo = hi = None
         seen_paths = set()
-        for t in tasks:
+        files = ((p, md) for t in tasks for p, md, _ in t.files())
+        for path, md in files:
             # split tasks share a file: one footer per path
-            if t.path in seen_paths:
+            if path in seen_paths:
                 continue
-            seen_paths.add(t.path)
-            md = t.metadata if t.metadata is not None \
-                else pq.ParquetFile(t.path).metadata
+            seen_paths.add(path)
             rng = _footer_range(md, name)
             if rng is None:
                 lo = None

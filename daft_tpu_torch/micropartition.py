@@ -165,6 +165,17 @@ class MicroPartition:
                 for b in self.combined().partition_by_hash(exprs,
                                                            num_partitions)]
 
+    def partition_by_random(self, num_partitions, seed
+                            ) -> List["MicroPartition"]:
+        return [MicroPartition.from_recordbatch(b) for b in
+                self.combined().partition_by_random(num_partitions, seed)]
+
+    def partition_by_range(self, keys, boundaries, descending,
+                           nulls_first=None) -> List["MicroPartition"]:
+        return [MicroPartition.from_recordbatch(b) for b in
+                self.combined().partition_by_range(keys, boundaries,
+                                                   descending, nulls_first)]
+
     def cast_to_schema(self, schema: Schema) -> "MicroPartition":
         if self._batches is None:
             return MicroPartition(schema, scan_task=self._scan_task,

@@ -1,9 +1,11 @@
-"""Physical plan nodes (reference: ``src/daft-local-plan/src/plan.rs:20``).
+"""Physical plan nodes (reference: ``src/daft-local-plan/src/plan.rs:20``
+and ``daft_tpu/physical/plan.py``).
 
-The port is single-node: a final-mode Aggregate, Sort or TopN consumes its
-whole input stream, as a HashJoin consumes whole each side it gathers. The
-one exchange is a window's (``Exchange``, kinds ``hash`` and ``gather``,
-in memory); ``FusedRegion`` is a fusion region (``physical/fusion.py``)."""
+The translator places the reference's exchanges (``Exchange``: hash,
+random, range, split, gather) under partitioned joins, two-phase
+aggregates, ``Dedup``, windows and repartitions; the executor streams each
+through spill stores under the breaker budget (``execution/memory.py``).
+``FusedRegion`` is a fusion region (``physical/fusion.py``)."""
 
 from __future__ import annotations
 
@@ -88,7 +90,9 @@ class DeviceFragmentAgg(PhysicalPlan):
 
 
 class Dedup(PhysicalPlan):
-    """Rows unique over ``on``: single node, so over the gathered input."""
+    """Rows unique over ``on``, per partition of its child: the translator
+    puts a hash ``Exchange`` on ``on`` under it, so every duplicate meets
+    in one partition."""
 
     def __init__(self, child, on: List[Expression]):
         super().__init__([child], child.schema())
@@ -114,8 +118,10 @@ class TopN(PhysicalPlan):
 
 class HashJoin(PhysicalPlan):
     """Equi-join. strategy: ``broadcast_right`` (gather the right side,
-    stream the left), ``broadcast_left`` (the mirror), or ``hash`` (gather
-    both sides, one join)."""
+    stream the left), ``broadcast_left`` (the mirror), ``hash``
+    (co-partitioned pairs over hash exchanges on both sides, else the
+    grace hash join) or ``sort_merge`` (both sides range-bucketed on one
+    sampled boundary set, joined pair by pair)."""
 
     def __init__(self, left, right, left_on, right_on, how, schema,
                  strategy: str = "hash"):
@@ -124,6 +130,10 @@ class HashJoin(PhysicalPlan):
         self.right_on = right_on
         self.how = how
         self.strategy = strategy
+        # planner byte estimates of the two sides (the grace join's
+        # first-level radix fanout, ``out_of_core.plan_partitions``)
+        self.left_bytes_est: Optional[int] = None
+        self.right_bytes_est: Optional[int] = None
 
 
 class CrossJoin(PhysicalPlan):
@@ -165,17 +175,47 @@ class Window(PhysicalPlan):
 
 class Exchange(PhysicalPlan):
     """Repartition boundary (reference: ``daft_tpu/physical/plan.py:
-    Exchange``). ``hash``: ``num_partitions`` partitions by the hash of
-    ``by`` (``MicroPartition.partition_by_hash``); ``gather``: one
-    partition. The port runs both in memory; ``random``, ``range`` and
-    ``split`` and the spill stores come with ROADMAP A6/A7."""
+    Exchange``, ``ops/shuffle_exchange.rs:41-58``). ``kind``: ``hash``
+    (``num_partitions`` partitions by the hash of ``by``), ``random``,
+    ``range`` (by ``by`` and ``descending``, on sampled boundaries),
+    ``split`` (by position, order kept) or ``gather`` (one partition).
+    ``engine_inserted`` marks the planner's own shuffles (agg and distinct
+    co-partitioning), which AQE may coalesce; ``join_side`` marks a hash
+    join's two sides."""
 
     def __init__(self, child, kind: str, num_partitions: int,
-                 by: Tuple = ()):
+                 by: Tuple = (), descending: Tuple = (),
+                 engine_inserted: bool = False):
         super().__init__([child], child.schema())
         self.kind = kind
         self.num_partitions = num_partitions
         self.by = by
+        self.descending = descending
+        self.engine_inserted = engine_inserted
+        self.join_side = False
+
+
+class Sample(PhysicalPlan):
+    """A ``fraction`` of each morsel's rows (drawn from ``seed``), or each
+    morsel's first ``size`` rows."""
+
+    def __init__(self, child, fraction, size, with_replacement, seed):
+        super().__init__([child], child.schema())
+        self.fraction = fraction
+        self.size = size
+        self.with_replacement = with_replacement
+        self.seed = seed
+
+
+class StageInput(PhysicalPlan):
+    """Leaf standing for another stage's exchanged output (reference:
+    flotilla's PreviousStageScan seam). The executor resolves it from the
+    stage-input bindings given to ``run``; the port's only binding is
+    empty until the distributed runner (ROADMAP A7)."""
+
+    def __init__(self, stage_id: int, schema: Schema):
+        super().__init__([], schema)
+        self.stage_id = stage_id
 
 
 class FusedRegion(PhysicalPlan):

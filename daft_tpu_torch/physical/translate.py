@@ -4,10 +4,13 @@ Reference: ``src/daft-local-plan/src/translate.rs:19-434`` (direct lowering,
 Aggregate → partial/final split) and
 ``src/daft-physical-plan/src/physical_planner/translate.rs:639``
 (``populate_aggregation_stages``), and the join strategy choice of
-``daft_tpu/physical/translate.py``. The port is single-node: the final
-aggregate consumes the whole partial stream and a hash join gathers both
-sides, so the one exchange is a window's (hash by its partition keys, or
-gather). The outermost call then proposes fusion regions
+``daft_tpu/physical/translate.py``, whose exchange placement the port
+keeps: hash exchanges under partitioned joins (marked ``join_side``), under
+two-phase aggregates (the partial, then a hash exchange over
+``min(nparts, shuffle_aggregation_default_partitions)``, then the final)
+and under ``Dedup``; ``Repartition`` as a hash, random, range or split
+exchange; a gather under a broadcast side, a cross join's right side and a
+global aggregate. The outermost call then proposes fusion regions
 (``physical/fusion.py``), as the reference does.
 """
 
@@ -55,14 +58,29 @@ def translate(plan: lp.LogicalPlan) -> pp.PhysicalPlan:
             _tl.memo = {}
 
 
+def _nondeterministic(node: lp.LogicalPlan) -> bool:
+    """True when the subtree's output is not a pure function of its
+    inputs (an unseeded Sample): such subtrees never merge, two identical
+    ``.sample()`` calls are independent draws."""
+    if isinstance(node, lp.Sample) and node.seed is None:
+        return True
+    return any(_nondeterministic(c) for c in node.children)
+
+
 def _t(node: lp.LogicalPlan) -> pp.PhysicalPlan:
     key = node.semantic_id()
     hit = _tl.memo.get(key)
     if hit is not None:
         hit.shared_consumers = getattr(hit, "shared_consumers", 1) + 1
         return hit
-    out = _tl.memo[key] = _t_node(node)
+    out = _t_node(node)
+    if not _nondeterministic(node):
+        _tl.memo[key] = out
     return out
+
+
+def _nparts(node: lp.LogicalPlan) -> int:
+    return max(node.num_partitions(), 1)
 
 
 def _t_node(node: lp.LogicalPlan) -> pp.PhysicalPlan:
@@ -86,9 +104,21 @@ def _t_node(node: lp.LogicalPlan) -> pp.PhysicalPlan:
     if isinstance(node, lp.TopN):
         return pp.TopN(_t(node.children[0]), node.sort_by,
                        node.descending, node.nulls_first, node.limit)
+    if isinstance(node, lp.Sample):
+        return pp.Sample(_t(node.children[0]), node.fraction, node.size,
+                         node.with_replacement, node.seed)
+    if isinstance(node, lp.Repartition):
+        spec = node.spec
+        kind = {"hash": "hash", "random": "random", "range": "range",
+                "unknown": "split"}[spec.kind]
+        return pp.Exchange(_t(node.children[0]), kind, spec.num_partitions,
+                           spec.by, spec.descending)
     if isinstance(node, lp.Distinct):
         on = node.on or [col(n) for n in node.schema().column_names]
-        return pp.Dedup(_t(node.children[0]), on)
+        ex = pp.Exchange(_t(node.children[0]), "hash",
+                         _nparts(node.children[0]), tuple(on),
+                         engine_inserted=True)
+        return pp.Dedup(ex, on)
     if isinstance(node, lp.Aggregate):
         return _translate_agg(node)
     if isinstance(node, lp.Join):
@@ -116,6 +146,10 @@ def _estimate_size(node: lp.LogicalPlan) -> Optional[int]:
     """Best-effort size estimate (bytes) for the join strategy choice."""
     if isinstance(node, lp.Source):
         if node.partitions is not None:
+            # a SpillBuffer (AQE actuals) knows its bytes without a reload
+            sz = getattr(node.partitions, "total_bytes", None)
+            if sz is not None:
+                return sz
             return sum(p.size_bytes() or 0 for p in node.partitions)
         tasks = getattr(node, "materialized_tasks", None)
         if tasks is None:
@@ -123,7 +157,7 @@ def _estimate_size(node: lp.LogicalPlan) -> Optional[int]:
                 node.scan_op.to_scan_tasks(node.pushdowns)
         sizes = [t.size_bytes() for t in tasks]
         return sum(sizes) if all(s is not None for s in sizes) else None
-    if isinstance(node, lp.Filter):
+    if isinstance(node, (lp.Filter, lp.Sample)):
         base = _estimate_size(node.children[0])
         return None if base is None else int(base * 0.2)
     if isinstance(node, lp.Limit):
@@ -145,16 +179,18 @@ def _estimate_size(node: lp.LogicalPlan) -> Optional[int]:
 def _translate_join(node: lp.Join) -> pp.PhysicalPlan:
     """Broadcast a side estimated at most
     ``broadcast_join_size_bytes_threshold`` bytes (the right one first,
-    where the join type allows), else gather both sides. A cross join
-    gathers its right side (``CrossJoin``)."""
+    where the join type allows) behind a gather exchange; else a hash
+    join, over hash exchanges on both sides when either input has more
+    than one partition; or the sort-merge join when asked for. A cross
+    join gathers its right side."""
     from ..context import get_context
     left, right = node.children
     pl, pr = _t(left), _t(right)
     if node.how == "cross":
-        return pp.CrossJoin(pl, pr, node.schema())
+        return pp.CrossJoin(pl, pp.Exchange(pr, "gather", 1), node.schema())
+    lsize, rsize = _estimate_size(left), _estimate_size(right)
     strategy = node.strategy
     if strategy is None:
-        lsize, rsize = _estimate_size(left), _estimate_size(right)
         threshold = get_context().execution_config \
             .broadcast_join_size_bytes_threshold
         if (rsize is not None and rsize <= threshold
@@ -168,10 +204,11 @@ def _translate_join(node: lp.Join) -> pp.PhysicalPlan:
     elif strategy == "broadcast":
         strategy = "broadcast_right" if node.how in (
             "inner", "left", "semi", "anti") else "hash"
-    if strategy not in ("hash", "broadcast_right", "broadcast_left"):
-        raise NotImplementedError(
-            f"join strategy {strategy!r} is not ported yet (ROADMAP A2: "
-            "sort-merge join)")
+    if strategy not in ("hash", "broadcast_right", "broadcast_left",
+                        "sort_merge"):
+        raise ValueError(f"join strategy {strategy!r}: expected hash, "
+                         "broadcast, broadcast_right, broadcast_left or "
+                         "sort_merge")
     # a broadcast side is joined once per morsel of the other, so it must
     # be a side whose unmatched rows the join drops
     if (strategy == "broadcast_right" and node.how in ("right", "outer")) \
@@ -179,17 +216,51 @@ def _translate_join(node: lp.Join) -> pp.PhysicalPlan:
                 and node.how not in ("inner", "right")):
         raise ValueError(f"join strategy {strategy!r} cannot run a "
                          f"{node.how!r} join")
-    return pp.HashJoin(pl, pr, node.left_on, node.right_on, node.how,
+    if strategy == "sort_merge":
+        # no exchanges: the executor samples both sides and range-buckets
+        # them on one shared boundary set (reference translate.py:224)
+        return pp.HashJoin(pl, pr, node.left_on, node.right_on, node.how,
+                           node.schema(), "sort_merge")
+    if strategy == "hash" and (_nparts(left) > 1 or _nparts(right) > 1):
+        n = max(_nparts(left), _nparts(right))
+        # join-side exchanges keep identical counts on both sides (never
+        # coalesced), but AQE may demote the pair to a broadcast join from
+        # measured sizes (``executor._adaptive_hash_join``)
+        pl = pp.Exchange(pl, "hash", n, tuple(node.left_on))
+        pr = pp.Exchange(pr, "hash", n, tuple(node.right_on))
+        pl.join_side = True
+        pr.join_side = True
+    elif strategy == "broadcast_right":
+        pr = pp.Exchange(pr, "gather", 1)
+    elif strategy == "broadcast_left":
+        pl = pp.Exchange(pl, "gather", 1)
+    join = pp.HashJoin(pl, pr, node.left_on, node.right_on, node.how,
                        node.schema(), strategy)
+    # size evidence for the grace hash join's first-level radix fanout
+    join.left_bytes_est = lsize
+    join.right_bytes_est = rsize
+    return join
 
 
 def _translate_agg(node: lp.Aggregate) -> pp.PhysicalPlan:
     from ..aggs import split_agg_expr
+    from ..context import get_context
+    cfg = get_context().execution_config
     child = node.children[0]
     pchild = _t(child)
+    nparts = _nparts(child)
     specs = [split_agg_expr(e) for e in node.aggs]
     if not all(op in _DECOMPOSABLE for op, _, _, _ in specs):
-        return pp.Aggregate(pchild, node.aggs, node.group_by, node.schema(),
+        # no partial/merge split: every row of a group meets in one
+        # partition, then one aggregate
+        if node.group_by:
+            ex = pp.Exchange(
+                pchild, "hash",
+                min(nparts, cfg.shuffle_aggregation_default_partitions),
+                tuple(node.group_by), engine_inserted=True)
+        else:
+            ex = pp.Exchange(pchild, "gather", 1)
+        return pp.Aggregate(ex, node.aggs, node.group_by, node.schema(),
                             "single")
 
     partial_aggs, final_aggs, final_proj = _split_aggs(node, child.schema())
@@ -200,21 +271,42 @@ def _translate_agg(node: lp.Aggregate) -> pp.PhysicalPlan:
                           "partial")
     gb2 = [col(e.name()) for e in node.group_by]
     f_schema = _agg_schema(gb2, final_aggs, p1_schema)
-    p2 = pp.Aggregate(p1, final_aggs, gb2, f_schema, "final")
-    # footer-backed output-cardinality estimate (the reference's
-    # translate.py:299-310; the max over keys is a lower bound on the
-    # groups) with the raw row estimate beside it; the fused fragment
-    # feeds it to the cost model's hash-vs-sort choice
     est_rows = lstats.estimate(child).rows
-    ndvs = [v for v in (lstats.column_ndv_footer(child, e.name(),
-                                                 est_rows=est_rows)
-                        for e in node.group_by) if v is not None]
-    p2.group_ndv = max(ndvs) if ndvs else None
-    p2.group_rows_est = est_rows
-    if isinstance(p1, pp.DeviceFragmentAgg):
-        p1.group_ndv, p1.group_rows_est = p2.group_ndv, p2.group_rows_est
+    p2 = _try_mesh_exchange_agg(p1, final_aggs, gb2, f_schema)
+    if p2 is None:
+        if node.group_by:
+            ex = pp.Exchange(
+                p1, "hash",
+                min(nparts, cfg.shuffle_aggregation_default_partitions)
+                if nparts > 1 else 1,
+                tuple(col(e.name()) for e in node.group_by),
+                engine_inserted=True)
+        else:
+            ex = pp.Exchange(p1, "gather", 1)
+        p2 = pp.Aggregate(ex, final_aggs, gb2, f_schema, "final")
+        # footer-backed output-cardinality estimate (the reference's
+        # translate.py:299-310; the max over keys is a lower bound on the
+        # groups) with the raw row estimate beside it; the fused fragment
+        # feeds it to the cost model's hash-vs-sort choice, the push
+        # executor to its partitioned-agg admission
+        ndvs = [v for v in (lstats.column_ndv_footer(child, e.name(),
+                                                     est_rows=est_rows)
+                            for e in node.group_by) if v is not None]
+        p2.group_ndv = max(ndvs) if ndvs else None
+        p2.group_rows_est = est_rows
+        if isinstance(p1, pp.DeviceFragmentAgg):
+            p1.group_ndv, p1.group_rows_est = p2.group_ndv, est_rows
     proj = [col(e.name()) for e in node.group_by] + final_proj
     return pp.Project(p2, proj, node.schema())
+
+
+def _try_mesh_exchange_agg(p1, final_aggs, gb2, f_schema: Schema
+                           ) -> Optional[pp.PhysicalPlan]:
+    """The reference's shuffle and final merge as one collective program
+    over a device mesh (``DeviceExchangeAgg``). The port has no mesh until
+    the distributed slice (ROADMAP A7), so the host exchange and final
+    aggregate always run."""
+    return None
 
 
 def _try_fuse_partial(pchild: pp.PhysicalPlan, partial_aggs, group_by,

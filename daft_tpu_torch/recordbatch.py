@@ -299,7 +299,62 @@ class RecordBatch:
         pid = (h.to_numpy() % np.uint64(num_partitions)).astype(np.int64)
         return self._split_by_pid(pid, num_partitions)
 
+    def partition_by_random(self, num_partitions: int,
+                            seed: int) -> List["RecordBatch"]:
+        """Rows to partitions drawn uniformly from ``seed`` (reference
+        ``daft_tpu/recordbatch.py:partition_by_random``: the same draws)."""
+        rng = np.random.default_rng(seed)
+        pid = rng.integers(0, num_partitions, size=self._len)
+        return self._split_by_pid(pid, num_partitions)
+
+    def partition_by_range(self, partition_keys: Sequence[Expression],
+                           boundaries: "RecordBatch",
+                           descending: List[bool],
+                           nulls_first: Optional[List[bool]] = None
+                           ) -> List["RecordBatch"]:
+        """``len(boundaries) + 1`` partitions: row r goes to the number of
+        boundaries it sorts strictly after, in the order of ``descending``
+        and ``nulls_first`` (default: nulls last ascending, first
+        descending — the reference's ``_cmp_vals``). The reference compares
+        row by row in Python (``daft_tpu/recordbatch.py:354``); here the
+        rows and boundaries sort together once (rows before equal
+        boundaries), and each row's partition is the count of boundaries
+        ahead of it — the same assignment."""
+        nparts = len(boundaries) + 1
+        if self._len == 0:
+            return [self.slice(0, 0) for _ in range(nparts)]
+        if nparts == 1:
+            return [self]
+        keys = [self.eval_expression(e) for e in partition_keys]
+        nulls_first = list(nulls_first) if nulls_first is not None \
+            else list(descending)
+        nb = len(boundaries)
+        cols, order_keys = {}, []
+        for j, (k, d, nf) in enumerate(zip(keys, descending, nulls_first)):
+            b = boundaries.columns()[j].cast(k.datatype()).to_arrow()
+            arr = pa.concat_arrays([_plain(k.to_arrow()), _plain(b)])
+            cols[f"n{j}"] = pc.if_else(pc.is_valid(arr),
+                                       pa.scalar(1 if nf else 0, pa.int8()),
+                                       pa.scalar(0 if nf else 1, pa.int8()))
+            cols[f"k{j}"] = arr
+            order_keys.append((f"n{j}", "ascending"))
+            order_keys.append((f"k{j}", "descending" if d else "ascending"))
+        # the tie-break: a row sorts before a boundary equal to it
+        cols["b"] = pa.array(np.concatenate(
+            [np.zeros(self._len, np.int8), np.ones(nb, np.int8)]))
+        order_keys.append(("b", "ascending"))
+        order = pc.sort_indices(pa.table(cols),
+                                sort_keys=order_keys).to_numpy()
+        is_b = order >= self._len
+        ahead = np.cumsum(is_b) - is_b
+        pid = np.empty(self._len, dtype=np.int64)
+        pid[order[~is_b]] = ahead[~is_b]
+        return self._split_by_pid(pid, nparts)
+
     def _split_by_pid(self, pid: np.ndarray, n: int) -> List["RecordBatch"]:
+        # a 16-bit key takes numpy's radix sort (stable, linear)
+        if n <= 1 << 16:
+            pid = pid.astype(np.uint16)
         order = np.argsort(pid, kind="stable")
         counts = np.bincount(pid, minlength=n)
         sorted_batch = self.take(order)
@@ -330,3 +385,12 @@ class RecordBatch:
     def __repr__(self):
         return repr(self.to_pandas()) if self._len <= 20 else \
             repr(self.head(10).to_pandas()) + f"\n… ({self._len} rows)"
+
+
+def _plain(arr):
+    """``arr`` without dictionary encoding (a sort key's values)."""
+    if isinstance(arr, pa.ChunkedArray):
+        arr = arr.combine_chunks()
+    if pa.types.is_dictionary(arr.type):
+        arr = arr.dictionary_decode()
+    return arr

@@ -30,7 +30,10 @@ def _clean(monkeypatch):
     monkeypatch.setenv("DAFT_TORCH_DEVICE_FORCE", "1")
     dcache.get_cache().clear()
     runtime.reset_counters()
-    yield
+    # one scan task (one cache entry set) per file: the scan would merge
+    # these small files into one task
+    with dtt.execution_config_ctx(scan_tasks_min_size_bytes=0):
+        yield
     dcache.get_cache().clear()
     runtime.reset_counters()
 
@@ -77,7 +80,7 @@ def _run(root, monkeypatch, where=None):
     execute = scan.ScanTask.execute
 
     def counted(self, *a, **k):
-        read.append(os.path.basename(self.path))
+        read.extend(os.path.basename(p) for p in self.paths)
         return execute(self, *a, **k)
     monkeypatch.setattr(scan.ScanTask, "execute", counted)
     runtime.reset_counters()
@@ -183,19 +186,19 @@ def test_fingerprint_covers_the_task_and_the_device(pq_dir):
     from daft_tpu_torch.schema import Schema
     path = os.path.join(pq_dir, "part0.parquet")
     schema = Schema.from_arrow(pq.read_schema(path))
-    base = scan.ScanTask(path, schema, scan.Pushdowns(), 1000, 1)
+    base = scan.ScanTask([path], schema, scan.Pushdowns(), 1000, 1)
     fp = dcache.task_fingerprint(base, CPU)
     assert fp == dcache.task_fingerprint(
-        scan.ScanTask(path, schema, scan.Pushdowns(), 1000, 1), CPU)
+        scan.ScanTask([path], schema, scan.Pushdowns(), 1000, 1), CPU)
     others = [
-        scan.ScanTask(path, schema, scan.Pushdowns(limit=5), 1000, 1),
-        scan.ScanTask(path, schema, scan.Pushdowns(), 1000, 1,
-                      row_groups=[0]),
-        scan.ScanTask(path, schema,
+        scan.ScanTask([path], schema, scan.Pushdowns(limit=5), 1000, 1),
+        scan.ScanTask([path], schema, scan.Pushdowns(), 1000, 1,
+                      row_groups=[[0]]),
+        scan.ScanTask([path], schema,
                       scan.Pushdowns(filters=col("qty") > 1.0), 1000, 1)]
     for t in others:
         assert dcache.task_fingerprint(t, CPU) != fp
     assert dcache.task_fingerprint(base, torch.device("cuda", 0)) != fp
-    missing = scan.ScanTask(os.path.join(pq_dir, "gone.parquet"), schema,
+    missing = scan.ScanTask([os.path.join(pq_dir, "gone.parquet")], schema,
                             scan.Pushdowns(), 1, 1)
     assert dcache.task_fingerprint(missing, CPU) is None

@@ -340,3 +340,54 @@ def test_window_and_fused_region_run_without_jax():
                        timeout=120)
     assert r.returncode == 0, r.stdout + r.stderr
     assert "LEAKED []" in r.stdout
+
+
+_OUT_OF_CORE_SCRIPT = r"""
+import os, sys, tempfile
+os.environ["DAFT_TORCH_DEVICE"] = "cpu"
+os.environ["DAFT_TORCH_MEMORY_LIMIT"] = "400KB"
+os.environ["DAFT_TORCH_SPILL_DIR"] = tempfile.mkdtemp()
+os.environ["DAFT_TORCH_LOCAL_EXECUTOR"] = "push"
+import numpy as np
+import daft_tpu_torch
+from daft_tpu_torch import col
+from daft_tpu_torch.execution import memory
+from daft_tpu_torch.physical import adaptive
+rng = np.random.default_rng(0)
+n = 40_000
+left = daft_tpu_torch.from_pydict({"k": rng.integers(0, 5_000, n),
+                                   "v": np.arange(n)})
+right = daft_tpu_torch.from_pydict({"k": np.arange(5_000),
+                                    "w": np.arange(5_000) * 2})
+b0 = memory.spill_counters_snapshot()
+j = left.join(right, on="k", strategy="hash").to_pydict()
+assert len(j["k"]) == n, len(j["k"])
+s = left.sort(["k", "v"]).to_pydict()
+assert s["k"] == sorted(s["k"])
+d = memory.spill_counters_delta(b0)
+assert d.get("joins_partitioned", 0) >= 1 and d.get("bytes_written", 0) > 0, d
+daft_tpu_torch.set_execution_config(enable_aqe=True)
+a = left.into_partitions(4).join(right.into_partitions(2), on="k",
+                                 strategy="hash").groupby("w") \
+    .agg(col("v").count()).to_pydict()
+assert sum(a["v"]) == n, a
+assert adaptive.counters_snapshot().get("replans", 0) >= 1
+leaked = sorted(m for m in sys.modules
+                if m in ("jax", "jaxlib", "daft_tpu")
+                or m.startswith(("jax.", "jaxlib.", "daft_tpu.")))
+print("LEAKED", leaked)
+assert leaked == [], leaked
+"""
+
+
+def test_spilled_grace_join_sort_and_aqe_run_without_jax():
+    """A grace join and an external sort under a 400KB budget and an AQE
+    query, all through the push executor, import neither JAX nor
+    daft_tpu."""
+    env = dict(os.environ)
+    env["PYTHONPATH"] = REPO + os.pathsep + env.get("PYTHONPATH", "")
+    r = subprocess.run([sys.executable, "-c", _OUT_OF_CORE_SCRIPT],
+                       cwd=REPO, env=env, capture_output=True, text=True,
+                       timeout=120)
+    assert r.returncode == 0, r.stdout + r.stderr
+    assert "LEAKED []" in r.stdout

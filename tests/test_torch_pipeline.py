@@ -44,7 +44,10 @@ def _clean(monkeypatch):
     dpipe.reset_residency()
     dcache.get_cache().clear()
     runtime.reset_counters()
-    yield
+    # one scan task (one window slot) per file: the scan would merge these
+    # small files into one task
+    with dtt.execution_config_ctx(scan_tasks_min_size_bytes=0):
+        yield
     dpipe.reset_residency()
     dcache.get_cache().clear()
     runtime.reset_counters()

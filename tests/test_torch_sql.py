@@ -123,7 +123,7 @@ def test_sql_shared_cte_runs_once(tpch_root, monkeypatch):
     execute = scan.ScanTask.execute
 
     def counted(self, *a, **k):
-        paths.append(self.path)
+        paths.extend(self.paths)
         return execute(self, *a, **k)
     monkeypatch.setattr(scan.ScanTask, "execute", counted)
     # an empty device column cache: a cached lineitem task is not read

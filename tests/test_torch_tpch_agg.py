@@ -159,8 +159,10 @@ def test_hash_strategy_climbs_the_overflow_ladder(tpch_root, monkeypatch):
     from daft_tpu_torch.benchmarking import tpch_queries as Q
     from daft_tpu_torch.device import runtime
     runtime.reset_counters()
-    out = Q.shipdate_agg(lambda t: daft_tpu_torch.read_parquet(
-        f"{tpch_root}/{t}/*.parquet")).to_pydict()
+    # one scan task per file (the scan would merge the two)
+    with daft_tpu_torch.execution_config_ctx(scan_tasks_min_size_bytes=0):
+        out = Q.shipdate_agg(lambda t: daft_tpu_torch.read_parquet(
+            f"{tpch_root}/{t}/*.parquet")).to_pydict()
     files = 2
     assert runtime.counters().get("hash", 0) == 2 * files
     assert runtime.counters().get("sort", 0) == files

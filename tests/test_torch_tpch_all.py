@@ -68,13 +68,44 @@ def test_query_matches_reference_and_host_tier(tpch_root, monkeypatch, q):
     assert not any(host_counts.get(k) for k in device_keys), host_counts
 
 
+def _q1_reducers(root):
+    """The reducers of Q1's final aggregate that hold some of its four
+    groups: the groups' keys hashed as its hash exchange hashes them (the
+    reference's plan: partial, hash exchange, final), over that
+    exchange's partition count."""
+    import daft_tpu_torch
+    from daft_tpu_torch.benchmarking import tpch_queries as Q
+    from daft_tpu_torch.physical import plan as pp
+    from daft_tpu_torch.physical.translate import translate
+    from daft_tpu_torch.recordbatch import RecordBatch
+    exchanges = []
+
+    def walk(n):
+        if isinstance(n, pp.Exchange) and n.kind == "hash":
+            exchanges.append(n)
+        for c in n.children:
+            walk(c)
+    walk(translate(Q.q1(_reader(daft_tpu_torch, root)).builder.optimize()
+                   .plan))
+    (ex,) = exchanges
+    groups = RQ.q1(_reader(daft_tpu, root)).to_pydict()
+    keys = RecordBatch.from_pydict({c: groups[c] for c in
+                                    ("l_returnflag", "l_linestatus")})
+    assert len(keys) == 4
+    return sum(1 for p in keys.partition_by_hash(list(ex.by),
+                                                 ex.num_partitions)
+               if len(p))
+
+
 def test_device_tier_dispatches_every_per_operator_path(tpch_root,
                                                         monkeypatch):
     """Over Q1, Q3, Q5 and Q14: every per-operator path dispatches, and
-    Q1 keeps its fused dense route. Q1's one per-operator agg is its
-    final merge, a sum over the partial counts, which rides an int64
-    plane since uint64 below 2^63 has one. Hash asked for past Q1:
-    ``auto`` on CPU tensors is sort (Q1's dense route needs ``auto``)."""
+    Q1 keeps its fused dense route. Q1's per-operator aggs are its final
+    merges, sums over the partial counts, which ride an int64 plane since
+    uint64 below 2^63 has one: one for each reducer of the final
+    aggregate that holds some of Q1's groups (:func:`_q1_reducers`). Hash
+    asked for past Q1: ``auto`` on CPU tensors is sort (Q1's dense route
+    needs ``auto``)."""
     total = {}
     for q in (1, 3, 5, 14):
         monkeypatch.setenv("DAFT_TORCH_KERNEL_GROUPBY",
@@ -83,7 +114,7 @@ def test_device_tier_dispatches_every_per_operator_path(tpch_root,
         if q == 1:
             assert counts.get("dense", 0) > 0, counts
             assert counts.get("agg_hash", 0) \
-                + counts.get("agg_sort", 0) == 1, counts
+                + counts.get("agg_sort", 0) == _q1_reducers(tpch_root), counts
         for k, v in counts.items():
             total[k] = total.get(k, 0) + v
     for k in ("projection", "predicate", "argsort", "agg_hash", "agg_sort",
@@ -132,7 +163,7 @@ def test_shared_subplan_runs_once(tpch_root, monkeypatch):
     execute = scan.ScanTask.execute
 
     def counted(self, *a, **k):
-        paths.append(self.path)
+        paths.extend(self.paths)
         return execute(self, *a, **k)
     monkeypatch.setattr(scan.ScanTask, "execute", counted)
     # an empty device column cache: a cached lineitem task is not read
