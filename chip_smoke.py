@@ -99,10 +99,14 @@ Phases (any failure ends the run with a non-zero exit code):
    ``store_sales`` rows, into ``.cache/``), at the default knobs (the
    cost model and ``DAFT_TORCH_FUSION=auto`` decide): per query a counted
    cold run (the device column cache cleared), held to the port's host
-   tier (floats at relative 1e-9; rows sorted where the ORDER BY leaves
-   ties; a rank over float keys may break a tie the host kept where the
-   card summed the keys in another order, by less than the tie's size:
-   ``order`` says which held); one ``tpcds`` line per query with the
+   tier by the query's ``ORDER BY`` keys (``tpcds_sql.ORDER_KEYS``): the
+   keys row for row, the rows inside each run of equal keys as a multiset
+   (the push executor orders tied rows by their arrival), and, only where
+   the host tier's answer without the ``LIMIT`` shows the cut splitting a
+   run of equal keys, the last run as a multiset drawn from that whole
+   run (floats at relative 1e-9; a rank over float keys may break a tie the host kept
+   where the card summed the keys in another order, by less than the
+   tie's size: ``order`` says which held); one ``tpcds`` line per query with the
    walls, counters, fusion-region counters and decisions;
 7d. TPC-DS dispatch pass: the 15 window queries, the 8 queries whose
    plans hold join_agg fusion regions and TPC-H Q17 (SF1), with
@@ -131,6 +135,25 @@ Phases (any failure ends the run with a non-zero exit code):
    the walls, spill counters, launches and counters); the hash and join
    rungs of these runs that no earlier phase held go to phase 8 (``pass``
    ``spill``);
+7g. pivot phase (the SF1 ``lineitem``, about 6M rows): group by
+   ``l_returnflag``, pivot on ``l_shipmode`` (7 values) with
+   ``sum(l_extendedprice)``, then unpivot the 7 columns back; the card's
+   wide answer held to the host tier's (``device="0"``: keys exact, sums
+   at relative 1e-9), the long one to a plain ``groupby(l_returnflag,
+   l_shipmode)`` on the card; the same pivot with
+   ``DAFT_TORCH_KERNEL_GROUPBY=hash`` must launch the hash-agg kernel and
+   give the same answer; ``pivot`` lines with the walls, the
+   pre-aggregation's strategy counters and its launches (its new rungs:
+   ``pass`` ``pivot``);
+7h. fuzz phase: the differential plan fuzzer
+   (``daft_tpu_torch/analysis/plan_fuzzer.py``) in the modes optimized,
+   device, bounded, fused and replanned on the card, each against the
+   port's own unoptimized host run, at least 100 seeds per mode and
+   about 60 s in all; any mismatch or error fails the script after its
+   minimized repro is printed; the device mode must launch every kernel;
+   one ``fuzz`` line per mode (seeds, mismatches, errors, launches, wall)
+   and a ``fuzz new rungs`` line (its kernel rungs that no earlier phase
+   held, ``pass`` ``fuzz``);
 8. the hash build against its plain version at the inputs of every
    distinct hash rung of the main path and of the TPC-H 22 phase's
    dispatch pass
@@ -142,7 +165,10 @@ Phases (any failure ends the run with a non-zero exit code):
    SQL-phase, TPC-DS and memory-bounded rung of a shape no earlier phase
    held, each checked as in the join-kernel phase, then timed (rows name
    their ``pass``: ``tpcds`` or ``tpcds_dispatch`` for the TPC-DS ones,
-   ``spill`` for the memory-bounded ones);
+   ``spill`` for the memory-bounded ones, ``pivot`` and ``fuzz`` for the
+   last two phases); every entry point
+   ``analysis/dispatch_registry.py`` declares must have launched and been
+   held against its plain twin in the run;
 9. a ``{"kernels": [...]}`` line with each kernel's launches, times and
    bound (one row per hash rung and per join rung; Q3's join rows also
    with their device activities and host time per call), the script's
@@ -1513,25 +1539,41 @@ def _canonical_rows(d: dict) -> list:
     return sorted(rows, key=lambda r: tuple(key(v) for v in r))
 
 
-def _same_rows(name: str, got: dict, ref: dict, rel: float = 1e-9) -> str:
-    """``_same_answer`` row for row → ``"ordered"``; where that fails (a
-    query whose ORDER BY leaves ties orders tied rows by how they
-    arrived), the same rows sorted → ``"ties"``."""
+def _same_rows(name: str, got: dict, ref: dict, keys=(), limit=None,
+               rel: float = 1e-9, unlimited=None) -> str:
+    """Held by the query's ``ORDER BY`` keys (``tpcds_sql.same_order``):
+    the keys row for row, and the rows inside each run of equal keys as a
+    multiset (the push executor orders tied rows by their arrival) →
+    ``"ordered"`` when no run holds two rows, else ``"ties"``. Where that
+    fails on an answer that reaches the query's ``LIMIT``, ``unlimited()``
+    (the host tier's answer without the ``LIMIT``) must show a run of
+    equal keys that the cut splits; then the last run's rows are held as a
+    multiset drawn from that whole run (``tpcds_sql.cut_run``) →
+    ``"cut ties"``. Any other difference fails. Never sorts whole rows."""
+    from daft_tpu_torch.benchmarking import tpcds_sql as DS
+    n = len(next(iter(ref.values()), []))
     try:
-        _same_answer(name, got, ref, rel)
-        return "ordered"
-    except AssertionError:
-        if list(got) != list(ref):
-            raise
-    cols = list(ref)
-    g, w = _canonical_rows(got), _canonical_rows(ref)
-    _same_answer(f"{name} (rows sorted)",
-                 {c: [r[i] for r in g] for i, c in enumerate(cols)},
-                 {c: [r[i] for r in w] for i, c in enumerate(cols)}, rel)
-    return "ties"
+        runs = DS.same_order(got, ref, keys, rel)
+    except AssertionError as e:
+        pool = None
+        if limit is not None and n == limit and unlimited is not None:
+            pool = DS.cut_run(unlimited(), keys, limit, rel)
+        if pool is None:
+            raise AssertionError(f"{name}: {e}") from None
+        try:
+            DS.same_order(got, ref, keys, rel, cut_pool=pool)
+        except AssertionError as e2:
+            raise AssertionError(
+                f"{name} (the LIMIT {limit} cuts a run of {len(pool)} tied "
+                f"rows): {e2}") from None
+        log(f"{name}: the LIMIT {limit} cuts a run of {len(pool)} rows "
+            "tied on the ORDER BY keys; the last run held against it")
+        return "cut ties"
+    return "ties" if any(e - s > 1 for s, e in runs) else "ordered"
 
 
 def _same_rows_up_to_rank_ties(name: str, got: dict, ref: dict, tie=None,
+                               keys=(), limit=None, unlimited=None,
                                rel: float = 1e-9) -> str:
     """``_same_rows``; or, for a query ``tpcds_sql.RANK_TIES`` names
     (``tie`` = its rank column, partition columns and float order
@@ -1542,7 +1584,7 @@ def _same_rows_up_to_rank_ties(name: str, got: dict, ref: dict, tie=None,
     the number of host rows of its partition whose order values equal its
     own within ``rel`` → ``"rank ties"``. Any other mismatch fails."""
     try:
-        return _same_rows(name, got, ref, rel)
+        return _same_rows(name, got, ref, keys, limit, rel, unlimited)
     except AssertionError:
         if tie is None or list(got) != list(ref):
             raise
@@ -2091,6 +2133,142 @@ def ooc_phase(root: str):
     return dict(rec=rec)
 
 
+# ------------------------------------------------------------ pivot
+
+def _by_flag(d: dict, modes) -> dict:
+    """A pivot's answer with its rows sorted by ``l_returnflag`` and its
+    pivot columns by name (their order is the distinct query's)."""
+    order = sorted(range(len(d["l_returnflag"])),
+                   key=lambda i: d["l_returnflag"][i])
+    return {c: [d[c][i] for i in order]
+            for c in ["l_returnflag"] + sorted(modes)}
+
+
+def pivot_phase(root: str):
+    """Phase 7g: ``lineitem`` at SF1 pivoted by ``l_shipmode`` per
+    ``l_returnflag`` on the card, against the host tier, then unpivoted
+    back against a plain group-by; the same pivot through the hash-agg
+    kernel."""
+    import daft_tpu_torch as dtt
+    from daft_tpu_torch import col
+    get = lambda t: dtt.read_parquet(os.path.join(root, t))  # noqa: E731
+    rec = KernelRecorder("pivot")
+
+    def pivot():
+        return get("lineitem").pivot("l_returnflag", "l_shipmode",
+                                     "l_extendedprice", "sum")
+
+    def wide_answer():
+        d = pivot().to_pydict()
+        return d, [c for c in d if c != "l_returnflag"]
+
+    t_phase = time.perf_counter()
+    (wide, modes), dev_s, counts, launches = rec.counted("pivot", wide_answer)
+    if len(modes) != 7 or len(wide["l_returnflag"]) != 3:
+        raise AssertionError(f"pivot: {len(wide['l_returnflag'])} flags x "
+                             f"{modes}, not 3 x 7 ship modes")
+    with dtt.execution_config_ctx(device="0"):
+        t0 = time.perf_counter()
+        host, host_modes = wide_answer()
+        host_s = time.perf_counter() - t0
+    if sorted(host_modes) != sorted(modes):
+        raise AssertionError(f"pivot: ship modes {modes} vs host "
+                             f"{host_modes}")
+    _same_answer("pivot vs host tier", _by_flag(wide, modes),
+                 _by_flag(host, modes))
+    # forced through the hand-written hash-agg kernel
+    with _env(DAFT_TORCH_KERNEL_GROUPBY="hash"):
+        (hwide, hmodes), hash_s, hcounts, hlaunches = rec.counted(
+            "pivot hash", wide_answer)
+    if hlaunches["hash_agg_build"] < 1:
+        raise AssertionError(f"pivot hash: the hash-agg kernel launched no "
+                             f"time ({hlaunches}, {hcounts})")
+    _same_answer("pivot hash vs host tier", _by_flag(hwide, hmodes),
+                 _by_flag(host, modes))
+    # back to long, against a plain group-by on the card
+    t0 = time.perf_counter()
+    long = dtt.from_pydict(wide).unpivot(
+        "l_returnflag", modes, "l_shipmode", "s") \
+        .where(col("s").not_null()).to_pydict()
+    unpivot_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    plain = get("lineitem").groupby("l_returnflag", "l_shipmode").agg(
+        col("l_extendedprice").sum().alias("s")).to_pydict()
+    groupby_s = time.perf_counter() - t0
+
+    def keyed(d):
+        return {(f, m): v for f, m, v in zip(d["l_returnflag"],
+                                             d["l_shipmode"], d["s"])}
+    lk, pk = keyed(long), keyed(plain)
+    if sorted(lk) != sorted(pk) or len(lk) != len(long["s"]):
+        raise AssertionError(f"unpivot: groups {sorted(lk)} vs "
+                             f"{sorted(pk)}")
+    for k in pk:
+        if not _close(lk[k], pk[k], 1e-9):
+            raise AssertionError(f"unpivot {k}: {lk[k]!r} vs {pk[k]!r}")
+    strategies = ("dense", "hash", "sort", "agg_hash", "agg_sort",
+                  "host_morsels", "host_ops")
+    log("pivot " + json.dumps(dict(
+        rows=pq_rows(os.path.join(root, "lineitem")), flags=3,
+        ship_modes=sorted(modes), device_s=dev_s, host_s=host_s,
+        hash_s=hash_s, unpivot_s=unpivot_s, groupby_s=groupby_s,
+        long_rows=len(long["s"]),
+        strategy={k: counts.get(k, 0) for k in strategies},
+        launches=launches,
+        hash_strategy={k: hcounts.get(k, 0) for k in strategies},
+        hash_launches=hlaunches)))
+    log(f"pivot phase wall: {time.perf_counter() - t_phase:.3f} s")
+    return dict(rec=rec)
+
+
+# ------------------------------------------------------------ fuzz
+
+#: phase 7h: the fuzzer's modes on the card, the least seeds per mode, and
+#: the phase's time budget (more seeds run while it lasts)
+FUZZ_MODES = ("optimized", "device", "bounded", "fused", "replanned")
+FUZZ_MIN_SEEDS = 100
+FUZZ_BUDGET_S = 60.0
+
+
+def fuzz_phase():
+    """Phase 7h: the differential plan fuzzer on the card, each mode
+    against the port's own unoptimized host run (``run_reference``)."""
+    from daft_tpu_torch.analysis import plan_fuzzer as PF
+    rec = KernelRecorder("fuzz")
+    t_phase = time.perf_counter()
+    per_mode, failed = {}, []
+    totals = dict(hash_agg_build=0, hash_join_build=0, hash_join_probe=0)
+    for mode in FUZZ_MODES:
+        res, wall, _, launches = rec.counted(
+            f"fuzz {mode}", lambda: PF.run_fuzz(
+                count=FUZZ_MIN_SEEDS, seed=0, modes=(mode,),
+                budget_s=FUZZ_BUDGET_S / len(FUZZ_MODES)))
+        mode_launches = {k: launches[k] for k in totals}
+        _add(totals, mode_launches)
+        c = res.per_mode[mode]
+        per_mode[mode] = dict(mode=mode, seeds=res.seeds_run,
+                              compared=c["cases"],
+                              mismatches=c["mismatches"],
+                              errors=c["errors"] + len(res.errors),
+                              launches=mode_launches, wall_s=wall)
+        log("fuzz " + json.dumps(per_mode[mode]))
+        for m in res.mismatches:
+            log("fuzz MISMATCH\n" + m.repro())
+        for e in res.errors:
+            log(f"fuzz error: {e}")
+        if res.mismatches or res.errors:
+            failed.append(mode)
+    if failed:
+        raise AssertionError(f"fuzz: mismatches or errors in {failed}")
+    dev = per_mode["device"]["launches"]
+    if min(dev.values()) < 1:
+        raise AssertionError(f"fuzz device mode: a kernel launched no time "
+                             f"({dev})")
+    rec.check_totals("fuzz", totals, require_each=False)
+    log(f"fuzz phase wall: {time.perf_counter() - t_phase:.3f} s")
+    return dict(rec=rec, per_mode=per_mode)
+
+
 # ------------------------------------------------------------ TPC-DS
 
 def tpcds_root(scale: float) -> str:
@@ -2129,6 +2307,14 @@ def _region_plan(df) -> list:
     return found
 
 
+def _host_unlimited(q: int, get) -> dict:
+    """TPC-DS query ``q`` without its final ``LIMIT`` on the host tier."""
+    import daft_tpu_torch as dtt
+    from daft_tpu_torch.benchmarking import tpcds_sql as DS
+    with dtt.execution_config_ctx(device="0"):
+        return DS.run(q, get, cut=False).to_pydict()
+
+
 def tpcds_phase(root: str):
     """All 99 TPC-DS queries as SQL (``daft_tpu_torch/benchmarking/
     tpcds_sql.py``) on the card at the default knobs (the cost model and
@@ -2151,8 +2337,9 @@ def tpcds_phase(root: str):
             t0 = time.perf_counter()
             host = DS.run(q, get).to_pydict()
             host_s = time.perf_counter() - t0
-        order = _same_rows_up_to_rank_ties(f"tpcds q{q}", dev, host,
-                                           DS.RANK_TIES.get(q))
+        order = _same_rows_up_to_rank_ties(
+            f"tpcds q{q}", dev, host, DS.RANK_TIES.get(q), DS.ORDER_KEYS[q],
+            DS.limit_of(q), lambda q=q: _host_unlimited(q, get))
         answers[q] = host
         rec = dict(query=q, order=order, device_s=dev_s, host_s=host_s,
                    rows=len(next(iter(host.values()), [])),
@@ -2250,10 +2437,12 @@ def tpcds_dispatch_pass(root: str, ds_answers: dict, tpch: str,
     ds_get = lambda t: dtt.read_parquet(os.path.join(root, t))  # noqa: E731
     h_get = lambda t: dtt.read_parquet(os.path.join(tpch, t))  # noqa: E731
     jobs = [(f"tpcds q{q}", lambda q=q: DS.run(q, ds_get), ds_answers[q],
-             DS.RANK_TIES.get(q))
+             (DS.RANK_TIES.get(q), DS.ORDER_KEYS[q], DS.limit_of(q),
+              lambda q=q: _host_unlimited(q, ds_get)))
             for q in sorted(set(DS.WINDOW_QUERIES) | set(DS.REGION_QUERIES))]
+    # Q17's answer is one row
     jobs.append(("tpch q17", lambda: Q.ALL[17](h_get), t22_answers[17],
-                 None))
+                 (None, (), None, None)))
     rec_k = KernelRecorder("tpcds_dispatch")
     per_query, totals = {}, {}
     with _env(DAFT_TORCH_DEVICE_FORCE="1", DAFT_TORCH_FUSION="1"), \
@@ -2264,7 +2453,7 @@ def tpcds_dispatch_pass(root: str, ds_answers: dict, tpch: str,
             got, wall, counts, launches = rec_k.counted(
                 name, lambda: make().to_pydict())
             order = _same_rows_up_to_rank_ties(f"dispatch {name}", got,
-                                               want, tie)
+                                               want, *tie)
             regions = DS.region_counters(counts)
             rec = dict(query=name, order=order, cold_s=wall,
                        planned_regions=planned,
@@ -2465,6 +2654,32 @@ def profile_phase(root: str):
                                e.count] for e in top]}))
 
 
+def check_registry(kernels: list) -> None:
+    """Every kernel entry point ``analysis/dispatch_registry.py`` declares
+    launched in this run and was held against its plain twin (its rows in
+    the ``kernels`` line, each with an error measured against the plain
+    version); the card query entry was called."""
+    from daft_tpu_torch.analysis import dispatch_registry as DR
+    from daft_tpu_torch.device import hash_kernels as hk
+    out = {}
+    for e in DR.ENTRIES:
+        if e.kind != "kernel":
+            info = hk.device_info.cache_info()
+            if info.hits + info.misses < 1:
+                raise AssertionError(f"registry: {e.entry} never called")
+            out[e.entry] = "called"
+            continue
+        rows = [k for k in kernels if k["name"].split()[0] == e.wrapper[1]]
+        if not rows or sum(k["launches"] for k in rows) < 1 or any(
+                k["max_abs_err"] is None for k in rows):
+            raise AssertionError(f"registry: {e.entry} ({e.wrapper[1]}) "
+                                 f"was not launched and held against "
+                                 f"{e.plain[1]}")
+        out[e.entry] = dict(rows=len(rows),
+                            launches=sum(k["launches"] for k in rows))
+    log("registry " + json.dumps(out))
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--sf", type=float, default=1.0)
@@ -2510,6 +2725,10 @@ def main() -> int:
         "constants": costmodel.constants(),
         "calibrated": calibration.calibrated_names()}))
 
+    from daft_tpu_torch.analysis import dispatch_registry
+    bad = dispatch_registry.findings()
+    if bad:
+        raise AssertionError(f"dispatch registry: {bad}")
     t0 = time.perf_counter()
     cuda_build.library()
     log(f"kernel build: {time.perf_counter() - t0:.3f} s (one nvcc for "
@@ -2555,23 +2774,35 @@ def main() -> int:
     done("7d-7e")
     ooc = ooc_phase(root)
     done("7f")
-    # the TPC-DS and memory-bounded rungs whose shape no earlier phase held
+    piv = pivot_phase(root)
+    done("7g")
+    fz = fuzz_phase()
+    done("7h")
+    # the TPC-DS, memory-bounded, pivot and fuzz rungs whose shape no
+    # earlier phase held
     held = {k[1:] for r in (mp["rungs"], t22["rungs"], tsql["rungs"])
             for k in r}
     jheld = {k[1:] for r in (t22["join_rungs"], tsql["join_rungs"])
              for k in r}
     ds_rungs, ds_jrungs = {}, {}
-    for rec_k in (tds["rec"], tdp["rec"], ooc["rec"]):
+    fuzz_new = {m: {"hash": 0, "join": 0} for m in FUZZ_MODES}
+    for rec_k in (tds["rec"], tdp["rec"], ooc["rec"], piv["rec"],
+                  fz["rec"]):
         for k, v in rec_k.hash_rungs().items():
             if k[1:] not in held:
                 held.add(k[1:])
                 ds_rungs[k] = v
+                if rec_k is fz["rec"]:
+                    fuzz_new[k[0].split()[-1]]["hash"] += 1
         for k, v in rec_k.join_rungs.items():
             if k[1:] not in jheld:
                 jheld.add(k[1:])
                 ds_jrungs[k] = dict(v, pass_=rec_k.pass_)
-    log(f"tpcds and ooc rungs not held by earlier phases: {len(ds_rungs)} "
-        f"hash, {len(ds_jrungs)} join")
+                if rec_k is fz["rec"]:
+                    fuzz_new[k[0].split()[-1]]["join"] += 1
+    log(f"tpcds, ooc, pivot and fuzz rungs not held by earlier phases: "
+        f"{len(ds_rungs)} hash, {len(ds_jrungs)} join")
+    log("fuzz new rungs " + json.dumps(fuzz_new))
     krecs = main_path_kernel_timing(mp["rungs"], bw)
     krecs += main_path_kernel_timing(t22["rungs"], bw)
     krecs += main_path_kernel_timing(tsql["rungs"], bw)
@@ -2639,6 +2870,7 @@ def main() -> int:
                 "pass": j.get("pass_", "floor4096"),
                 "host_ms": j[f"{pre}_host_ms"],
                 "sort_join_ms": j["sort_join_ms"], "library_ms": None})
+    check_registry(kernels)
     log(json.dumps({"kernels": kernels}))
     log(f"chip_smoke total wall: {time.perf_counter() - t_start:.3f} s")
     log(f"{card}")

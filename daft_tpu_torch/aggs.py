@@ -305,3 +305,46 @@ def _agg_out_dtype(op: str, in_dtype: DataType) -> DataType:
     if op == "approx_percentiles":
         return None  # set by caller
     return in_dtype
+
+
+def pivot_recordbatch(batch, group_by: List[Expression], pivot_col: Expression,
+                      value_col: Expression, names: List[str]):
+    """One row per group, one column per pivot name holding the group's
+    value at that pivot (null where the group has none). The input is
+    pre-aggregated to one row per (group, pivot), so ``first`` picks that
+    row's value. Reference: ``daft_tpu/aggs.py:pivot_recordbatch``
+    (``src/daft-recordbatch/src/ops/pivot.rs``)."""
+    from .recordbatch import RecordBatch
+    keys = [batch.eval_expression(e) for e in group_by]
+    pv = batch.eval_expression(pivot_col)
+    vv = batch.eval_expression(value_col)
+    tbl = pa.table({**{f"__k{i}__": k.to_arrow() for i, k in enumerate(keys)},
+                    "__p__": pv.to_arrow(), "__v__": vv.to_arrow()})
+    knames = [f"__k{i}__" for i in range(len(keys))]
+    g = tbl.group_by(knames + ["__p__"], use_threads=False) \
+        .aggregate([("__v__", "first")])
+    # the groups in their first-seen order, each with its pivot values
+    group_rows: Dict[Tuple, Dict] = {}
+    order: List[Tuple] = []
+    for r in range(g.num_rows):
+        gk = tuple(g.column(k)[r].as_py() for k in knames)
+        if gk not in group_rows:
+            group_rows[gk] = {}
+            order.append(gk)
+        group_rows[gk][g.column("__p__")[r].as_py()] = \
+            g.column("__v___first")[r].as_py()
+    out_cols = []
+    for i, (k, e) in enumerate(zip(keys, group_by)):
+        out_cols.append(Series.from_pylist([gk[i] for gk in order], e.name(),
+                                           dtype=k.datatype()))
+    for nm in names:
+        key = nm
+        if pv.datatype().is_integer():
+            try:
+                key = int(nm)
+            except ValueError:
+                key = nm
+        out_cols.append(Series.from_pylist(
+            [group_rows[gk].get(key) for gk in order], str(nm),
+            dtype=vv.datatype()))
+    return RecordBatch.from_series(out_cols)

@@ -3132,10 +3132,12 @@ def tables_of(qnum: int):
     return [t for t in TABLES if re.search(rf"\b{t}\b", sql)]
 
 
-def run(qnum: int, get_df: GetDF) -> DataFrame:
-    """Plan a query with only its tables bound from ``get_df(name)``."""
+def run(qnum: int, get_df: GetDF, cut: bool = True) -> DataFrame:
+    """Plan a query with only its tables bound from ``get_df(name)``;
+    with ``cut=False``, without its final ``LIMIT``."""
     from .. import sql
-    return sql(ALL[qnum], **{name: get_df(name) for name in tables_of(qnum)})
+    text = ALL[qnum] if cut else _LIMIT.sub("", ALL[qnum].strip())
+    return sql(text, **{name: get_df(name) for name in tables_of(qnum)})
 
 
 def region_counters(counters: dict) -> dict:
@@ -3169,3 +3171,240 @@ def both_tiers(qnum: int, get_df: GetDF) -> dict:
     return dict(device=device, host=host, device_s=device_s, host_s=host_s,
                 counters=counters)
 
+
+
+# ---------------------------------------------------------------------------
+# the order oracle: rows that tie on every ORDER BY key may come in any order
+
+
+def _minus(a: str, b: str) -> Callable[[dict], object]:
+    """The key ``a - b`` of two output columns (Q47, Q57, Q89)."""
+    def key(row):
+        x, y = row[a], row[b]
+        return None if x is None or y is None else x - y
+    key.__name__ = f"{a} - {b}"
+    return key
+
+
+def _when_zero(flag: str, then: str) -> Callable[[dict], object]:
+    """The key ``CASE WHEN flag = 0 THEN then END`` (Q36, Q70, Q86, whose
+    ``GROUPING`` sums are the ``lochierarchy`` column)."""
+    def key(row):
+        return row[then] if row[flag] == 0 else None
+    key.__name__ = f"CASE WHEN {flag} = 0 THEN {then} END"
+    return key
+
+
+#: each query's ``ORDER BY`` keys, in order, as its output columns (a key
+#: that is an expression of output columns is a function of the row); a
+#: query without ``ORDER BY`` has none, so its whole answer is one run
+ORDER_KEYS: Dict[int, tuple] = {
+    1: ("c_customer_id",),
+    2: ("d_week_seq1",),
+    3: ("d_year", "sum_agg", "i_brand_id"),
+    4: ("customer_id", "customer_first_name", "customer_last_name",
+        "customer_preferred_cust_flag"),
+    5: ("channel", "id"),
+    6: ("cnt", "state"),
+    7: ("i_item_id",),
+    8: ("s_store_name",),
+    9: (),
+    10: ("cd_gender", "cd_marital_status", "cd_education_status",
+         "cd_purchase_estimate", "cd_credit_rating", "cd_dep_count",
+         "cd_dep_employed_count", "cd_dep_college_count"),
+    11: ("customer_id", "customer_first_name", "customer_last_name",
+         "customer_preferred_cust_flag"),
+    12: ("i_category", "i_class", "i_item_id", "i_item_desc",
+         "revenueratio"),
+    13: (),
+    14: ("channel", "i_brand_id", "i_class_id", "i_category_id"),
+    15: ("ca_zip",),
+    16: ("order_count",),
+    17: ("i_item_id", "i_item_desc", "s_state"),
+    18: ("ca_country", "ca_state", "ca_county", "i_item_id"),
+    19: ("ext_price", "i_brand_id", "i_manufact_id"),
+    20: ("i_category", "i_class", "i_item_id", "i_item_desc",
+         "revenueratio"),
+    21: ("w_warehouse_name", "i_item_id"),
+    22: ("qoh", "i_product_name", "i_brand", "i_class", "i_category"),
+    23: ("c_last_name", "c_first_name", "sales"),
+    24: ("c_last_name", "c_first_name", "s_store_name"),
+    25: ("i_item_id", "i_item_desc", "s_store_id", "s_store_name"),
+    26: ("i_item_id",),
+    27: ("i_item_id", "s_state"),
+    28: (),
+    29: ("i_item_id", "i_item_desc", "s_store_id", "s_store_name"),
+    30: ("c_customer_id", "c_salutation", "c_first_name", "c_last_name"),
+    31: ("ca_county",),
+    32: ("excess_discount_amount",),
+    33: ("total_sales",),
+    34: ("c_last_name", "c_first_name", "ss_ticket_number"),
+    35: ("ca_state", "cd_gender", "cd_marital_status", "cd_dep_count",
+         "cd_dep_employed_count", "cd_dep_college_count"),
+    36: ("lochierarchy", _when_zero("lochierarchy", "i_category"),
+         "rank_within_parent"),
+    37: ("i_item_id",),
+    38: (),
+    39: ("wsk1", "isk1", "moy1", "mean1", "cov1"),
+    40: ("w_state", "i_item_id"),
+    41: ("i_product_name",),
+    42: ("sum_sales", "d_year", "i_category_id", "i_category"),
+    43: ("s_store_name", "s_store_sk"),
+    44: ("rnk",),
+    45: ("ca_zip", "ca_city"),
+    46: ("c_last_name", "c_first_name", "current_city", "bought_city",
+         "ss_ticket_number"),
+    47: (_minus("sum_sales", "avg_monthly_sales"), "i_category", "i_brand",
+         "s_store_name", "s_company_name", "d_year", "d_moy"),
+    48: (),
+    49: ("channel", "return_rank", "currency_rank", "item"),
+    50: ("s_store_name", "s_company_id"),
+    51: ("item_sk", "d_date"),
+    52: ("d_year", "ext_price", "i_brand_id"),
+    53: ("avg_quarterly_sales", "sum_sales", "i_manufact_id"),
+    54: ("segment", "num_customers", "segment_base"),
+    55: ("ext_price", "i_brand_id"),
+    56: ("total_sales", "i_item_id"),
+    57: (_minus("sum_sales", "avg_monthly_sales"), "cc_name"),
+    58: ("item_id", "ss_item_rev"),
+    59: ("s_store_name1", "s_store_id1", "d_week_seq1"),
+    60: ("i_item_id", "total_sales"),
+    61: ("promotions", "total"),
+    62: ("wh", "sm_type", "web_name"),
+    63: ("i_manager_id", "avg_monthly_sales", "sum_sales"),
+    64: ("product_name", "store_name", "cnt", "s11", "s12"),
+    65: ("s_store_name", "i_item_desc"),
+    66: ("w_warehouse_name",),
+    67: ("i_category", "i_class", "i_brand", "i_product_name", "d_year",
+         "d_qoy", "d_moy", "s_store_id", "sumsales", "rk"),
+    68: ("c_last_name", "ss_ticket_number"),
+    69: ("cd_gender", "cd_marital_status", "cd_education_status",
+         "cd_purchase_estimate", "cd_credit_rating"),
+    70: ("lochierarchy", _when_zero("lochierarchy", "s_state"),
+         "rank_within_parent"),
+    71: ("ext_price", "brand_id"),
+    72: ("total_cnt", "i_item_desc", "w_warehouse_name", "d_week_seq"),
+    73: ("cnt", "c_last_name"),
+    74: ("customer_id",),
+    75: ("sales_cnt_diff", "sales_amt_diff"),
+    76: ("channel", "col_name", "d_year", "d_qoy", "i_category"),
+    77: ("channel", "id"),
+    78: ("ss_sold_year", "ss_item_sk", "ss_customer_sk", "store_qty",
+         "store_wholesale_cost", "store_sales_price", "other_chan_qty",
+         "other_chan_wholesale_cost", "other_chan_sales_price", "ratio"),
+    79: ("c_last_name", "c_first_name", "city", "profit"),
+    80: ("channel", "id"),
+    81: ("c_customer_id", "c_salutation", "c_first_name", "c_last_name"),
+    82: ("i_item_id",),
+    83: ("item_id", "sr_item_qty"),
+    84: ("customer_id",),
+    85: ("reason_desc", "avg_q", "avg_cash", "avg_fee"),
+    86: ("lochierarchy", _when_zero("lochierarchy", "i_category"),
+         "rank_within_parent"),
+    87: (),
+    88: (),
+    89: (_minus("sum_sales", "avg_monthly_sales"), "s_store_name",
+         "i_category", "i_class", "i_brand", "d_moy"),
+    90: ("am_pm_ratio",),
+    91: ("returns_loss",),
+    92: ("excess_discount_amount",),
+    93: ("sumsales", "ss_customer_sk"),
+    94: ("order_count",),
+    95: ("order_count",),
+    96: ("cnt",),
+    97: (),
+    98: ("i_category", "i_class", "i_item_id", "i_item_desc",
+         "revenueratio"),
+    99: ("wh", "sm_type", "cc_name"),
+}
+
+
+_LIMIT = re.compile(r"\bLIMIT\s+(\d+)\s*;?\s*$", re.I)
+
+
+def limit_of(qnum: int):
+    """The query's final ``LIMIT``, or None."""
+    m = _LIMIT.search(ALL[qnum].strip())
+    return int(m.group(1)) if m else None
+
+
+def _key_fns(keys) -> list:
+    return [k if callable(k) else (lambda row, k=k: row[k]) for k in keys]
+
+
+def _near(a, b, rel: float) -> bool:
+    """Exact, but floats at relative ``rel`` (NaN equal to NaN)."""
+    if isinstance(a, float) and isinstance(b, float):
+        return (a != a and b != b) or abs(a - b) <= max(
+            rel * max(abs(a), abs(b)), 1e-12)
+    return a == b
+
+
+def _rows(d: dict) -> list:
+    cols = list(d)
+    n = len(d[cols[0]]) if cols else 0
+    return [{c: d[c][i] for c in cols} for i in range(n)]
+
+
+def tie_runs(answer: dict, keys, rel: float = 1e-9) -> list:
+    """``[start, end)`` of each run of adjacent rows whose ``keys`` are
+    equal (floats within ``rel``)."""
+    fns = _key_fns(keys)
+    vals = [tuple(f(r) for f in fns) for r in _rows(answer)]
+    out, i = [], 0
+    while i < len(vals):
+        j = i + 1
+        while j < len(vals) and all(
+                _near(a, b, rel) for a, b in zip(vals[j], vals[i])):
+            j += 1
+        out.append((i, j))
+        i = j
+    return out
+
+
+def cut_run(full: dict, keys, limit: int, rel: float = 1e-9):
+    """The rows of ``full`` (an answer without its ``LIMIT``) in the run of
+    equal keys that the cut after row ``limit`` splits, or None where the
+    cut falls between two runs."""
+    for s, e in tie_runs(full, keys, rel):
+        if s < limit < e:
+            return _rows(full)[s:e]
+    return None
+
+
+def same_order(got: dict, want: dict, keys, rel: float = 1e-9,
+               cut_pool=None) -> list:
+    """Hold ``got`` to ``want`` as an ordered answer whose rows tie on
+    ``keys``: the same columns and row count; the keys row for row; and
+    the rows inside each run of equal keys (``want``'s runs) as a
+    multiset, exact but floats at relative ``rel``. With ``cut_pool`` (a
+    ``LIMIT`` cuts the last run, whose rows are then any of the tied
+    ones: the whole run's rows in the answer without the ``LIMIT``,
+    ``cut_run``) the last run's rows as a multiset drawn from the pool.
+    Never sorts whole rows across runs. → ``want``'s runs; raises
+    AssertionError naming the first difference."""
+    if list(got) != list(want):
+        raise AssertionError(f"columns {list(got)} != {list(want)}")
+    g, w = _rows(got), _rows(want)
+    if len(g) != len(w):
+        raise AssertionError(f"{len(g)} rows, not {len(w)}")
+    fns = _key_fns(keys)
+    for i, (a, b) in enumerate(zip(g, w)):
+        for k, f in zip(keys, fns):
+            if not _near(f(a), f(b), rel):
+                raise AssertionError(
+                    f"row {i}: key {getattr(k, '__name__', k)} "
+                    f"{f(a)!r} vs {f(b)!r}")
+    runs = tie_runs(want, keys, rel)
+    for n, (s, e) in enumerate(runs):
+        left = list(cut_pool if n == len(runs) - 1 and cut_pool is not None
+                    else w[s:e])
+        for r in g[s:e]:
+            hit = next((j for j, x in enumerate(left)
+                        if all(_near(r[c], x[c], rel) for c in x)), None)
+            if hit is None:
+                raise AssertionError(
+                    f"rows {s}..{e - 1} (tied on the keys): {r!r} is not "
+                    f"among the reference's {left!r}")
+            left.pop(hit)
+    return runs

@@ -4,11 +4,14 @@ Reference: ``daft/dataframe/dataframe.py:108``. Each method extends the
 logical plan via LogicalPlanBuilder; execution happens on collect/show/
 iteration through the runner (``runners/native_runner.py``: optimize,
 translate, then the push pipeline or the interpreter). The port carries
-the methods of the grouped-aggregation, join, TPC-H, SQL and out-of-core
-slices (select/filter/with_column/sort/limit/distinct/agg/groupby/join,
-cross joins included, concat and the set operations, repartition,
-into_partitions and sample, monotonically increasing ids, window
-expressions routed into ``Window`` nodes); writes come later.
+the methods of the grouped-aggregation, join, TPC-H, SQL, out-of-core and
+A5b slices (select/filter/with_column/sort/limit/distinct/agg/groupby/join,
+cross joins included, concat and the set operations with their ``all``
+and by-name forms, pivot/unpivot, drop_nan/drop_null, describe/summarize,
+repartition, into_partitions and sample, monotonically increasing ids,
+window expressions routed into ``Window`` nodes, explain,
+num_partitions); writes, ``explode``, the list aggregations and
+``explain(analyze=True)`` come later (ROADMAP A8).
 """
 
 from __future__ import annotations
@@ -18,6 +21,7 @@ from typing import Any, Dict, Iterator, List, Optional, Union
 import numpy as np
 import pyarrow as pa
 
+from .datatype import DataType
 from .expressions import Expression, col, lit
 from .logical.builder import LogicalPlanBuilder
 from .micropartition import MicroPartition
@@ -61,6 +65,24 @@ class DataFrame:
         if isinstance(key, int):
             return col(self.column_names[key])
         raise TypeError(f"cannot index DataFrame with {key!r}")
+
+    def explain(self, show_all: bool = False, analyze: bool = False) -> None:
+        """Print the unoptimized logical plan, and with ``show_all`` the
+        optimized one too. ``analyze=True`` (the executed plan annotated
+        with per-operator rows and times) needs ``observability.py``,
+        which comes with ROADMAP A8."""
+        if analyze:
+            raise NotImplementedError(
+                "explain(analyze=True) needs the runtime stats of "
+                "observability.py, which come with ROADMAP A8")
+        print("== Unoptimized Logical Plan ==")
+        print(self._builder.repr_ascii())
+        if show_all:
+            print("\n== Optimized Logical Plan ==")
+            print(self._builder.optimize().repr_ascii())
+
+    def num_partitions(self) -> int:
+        return self._builder.plan.num_partitions()
 
     def __repr__(self):
         if self._result is not None:
@@ -137,6 +159,18 @@ class DataFrame:
     def head(self, n: int = 10) -> "DataFrame":
         return self.limit(n)
 
+    def unpivot(self, ids, values=None, variable_name: str = "variable",
+                value_name: str = "value") -> "DataFrame":
+        """Wide to long: per row, one row per column of ``values`` (every
+        column not in ``ids`` when None)."""
+        ids = ids if isinstance(ids, (list, tuple)) else [ids]
+        values = values if values is None or isinstance(
+            values, (list, tuple)) else [values]
+        return DataFrame(self._builder.unpivot(ids, values, variable_name,
+                                               value_name))
+
+    melt = unpivot
+
     def sort(self, by, desc: Union[bool, List[bool]] = False,
              nulls_first=None) -> "DataFrame":
         by = by if isinstance(by, (list, tuple)) else [by]
@@ -145,6 +179,27 @@ class DataFrame:
     def distinct(self, *on: ColumnInput) -> "DataFrame":
         """Rows unique over ``on`` (every column when none is given)."""
         return DataFrame(self._builder.distinct(list(on) if on else None))
+
+    def _drop_where(self, cols, default_names, term_of) -> "DataFrame":
+        names = [c.name() for c in _flatten_cols(cols)] or default_names
+        pred = None
+        for n in names:
+            term = term_of(n)
+            pred = term if pred is None else pred & term
+        return self if pred is None else self.where(pred)
+
+    def drop_nan(self, *cols: ColumnInput) -> "DataFrame":
+        """Drop rows where any of ``cols`` (default: all float columns) is
+        NaN; nulls stay."""
+        return self._drop_where(
+            cols, [f.name for f in self.schema() if f.dtype.is_floating()],
+            lambda n: ~col(n).float.is_nan() | col(n).is_null())
+
+    def drop_null(self, *cols: ColumnInput) -> "DataFrame":
+        """Drop rows where any of ``cols`` (default: all columns) is
+        null."""
+        return self._drop_where(cols, self.column_names,
+                                lambda n: col(n).not_null())
 
     def sample(self, fraction: Optional[float] = None,
                size: Optional[int] = None, with_replacement: bool = False,
@@ -190,14 +245,33 @@ class DataFrame:
                 f"({sorted(set(mine) ^ set(theirs))})")
         return other.select(*[col(n) for n in mine])
 
+    def union_by_name(self, other: "DataFrame") -> "DataFrame":
+        """Set union matching columns by name, in any order."""
+        return self.union(self._aligned_by_name(other))
+
     def union_all_by_name(self, other: "DataFrame") -> "DataFrame":
         return self.union_all(self._aligned_by_name(other))
 
     def intersect(self, other: "DataFrame") -> "DataFrame":
         return DataFrame(self._builder.intersect(other._builder))
 
+    def intersect_all(self, other: "DataFrame") -> "DataFrame":
+        return DataFrame(self._builder.intersect(other._builder, all=True))
+
     def except_distinct(self, other: "DataFrame") -> "DataFrame":
         return DataFrame(self._builder.except_(other._builder))
+
+    def except_all(self, other: "DataFrame") -> "DataFrame":
+        return DataFrame(self._builder.except_(other._builder, all=True))
+
+    def pivot(self, group_by, pivot_col, value_col, agg_fn: str,
+              names: Optional[List[str]] = None) -> "DataFrame":
+        """One row per group, one column per pivot value (``names``, or
+        every distinct value of ``pivot_col``), each holding
+        ``value_col.<agg_fn>()`` over the group's rows at that value."""
+        gb = group_by if isinstance(group_by, (list, tuple)) else [group_by]
+        return DataFrame(self._builder.pivot(gb, pivot_col, value_col,
+                                             agg_fn, names))
 
     def add_monotonically_increasing_id(self, column_name=None) -> "DataFrame":
         return DataFrame(
@@ -285,6 +359,24 @@ class DataFrame:
         if self._result is not None:
             return len(self._result)
         return self.count_rows()
+
+    def describe(self) -> "DataFrame":
+        """One row of summary statistics: per column its count and
+        distinct count, and for a numeric column its mean, min and max."""
+        aggs = []
+        for f in self.schema():
+            c = col(f.name)
+            aggs.append(c.count().cast(DataType.uint64())
+                        .alias(f"{f.name}_count"))
+            aggs.append(c.count_distinct().alias(f"{f.name}_unique"))
+            if f.dtype.is_numeric():
+                aggs.append(c.mean().alias(f"{f.name}_mean"))
+                aggs.append(c.min().alias(f"{f.name}_min"))
+                aggs.append(c.max().alias(f"{f.name}_max"))
+        return DataFrame(self._builder.aggregate(aggs, []))
+
+    def summarize(self) -> "DataFrame":
+        return self.describe()
 
     # ---- execution -------------------------------------------------------
     def collect(self, num_preview_rows: Optional[int] = 8) -> "DataFrame":

@@ -273,6 +273,17 @@ class LocalExecutor:
         child = self._exec(node.children[0])
         yield from _ordered_parallel(child, _sample_kernel(node))
 
+    def _exec_Unpivot(self, node: pp.Unpivot):
+        child = self._exec(node.children[0])
+        yield from _ordered_parallel(
+            child, lambda p: p.unpivot(node.ids, node.values,
+                                       node.variable_name, node.value_name))
+
+    def _exec_Pivot(self, node: pp.Pivot):
+        for p in self._exec(node.children[0]):
+            yield p.pivot(node.group_by, node.pivot_col, node.value_col,
+                          node.names).cast_to_schema(node.schema())
+
     def _exec_Limit(self, node: pp.Limit):
         remaining = node.limit
         to_skip = node.offset

@@ -244,8 +244,15 @@ def _map_kernel(node) -> Optional[Callable[[MicroPartition], MicroPartition]]:
         return lambda p: p.filter(node.predicate)
     if name == "Dedup":
         return lambda p: p.distinct(node.on)
+    if name == "Unpivot":
+        return lambda p: p.unpivot(node.ids, node.values,
+                                   node.variable_name, node.value_name)
     if name == "Sample":
         return _sample_kernel(node)
+    if name == "Pivot":
+        return lambda p: p.pivot(node.group_by, node.pivot_col,
+                                 node.value_col,
+                                 node.names).cast_to_schema(node.schema())
     if name == "Window":
         from ..window_exec import run_window
         return lambda p: MicroPartition.from_recordbatch(

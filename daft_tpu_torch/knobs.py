@@ -134,6 +134,11 @@ REGISTRY = {
     "DAFT_TORCH_GOVERNOR_HIGH": (
         None, "RSS fraction of the memory limit that enters the pressured "
         "state (default 0.85)"),
+    "DAFT_TORCH_FUZZ_SEED": (
+        0, "base seed of the plan fuzzer (`python -m "
+        "daft_tpu_torch.analysis --fuzz`)"),
+    "DAFT_TORCH_FUZZ_COUNT": (
+        50, "seeds per plan-fuzzer run"),
     "DAFT_TORCH_GOVERNOR_LOW": (
         None, "RSS fraction that leaves it again (default 0.70, clamped "
         "under the high mark)"),

@@ -84,6 +84,16 @@ class LogicalPlanBuilder:
     def limit(self, n: int, offset: int = 0) -> "LogicalPlanBuilder":
         return self._wrap(lp.Limit(self._plan, n, offset))
 
+    def unpivot(self, ids, values, variable_name="variable",
+                value_name="value") -> "LogicalPlanBuilder":
+        vals = _to_exprs(values) if values else []
+        if not vals:
+            idn = {e.name() for e in _to_exprs(ids)}
+            vals = [col(n) for n in self.schema().column_names
+                    if n not in idn]
+        return self._wrap(lp.Unpivot(self._plan, _to_exprs(ids), vals,
+                                     variable_name, value_name))
+
     def sort(self, sort_by, descending=False, nulls_first=None
              ) -> "LogicalPlanBuilder":
         keys = _to_exprs(sort_by)
@@ -110,6 +120,26 @@ class LogicalPlanBuilder:
             gb_cols = [col(e.name()) for e in group_by]
             node = lp.Project(node, gb_cols + final_exprs)
         return self._wrap(node)
+
+    def pivot(self, group_by, pivot_col, value_col, agg_fn: str,
+              names: Optional[List[str]] = None) -> "LogicalPlanBuilder":
+        """Pre-aggregates to one row per (group, pivot value) with
+        ``value_col.<agg_fn>()`` (the port's agg path and strategies), then
+        spreads the pivot values into columns; ``names`` None runs the
+        distinct pivot values first (reference: ``builder.py:pivot``)."""
+        group_by = _to_exprs(group_by)
+        pivot_col = _to_exprs([pivot_col])[0]
+        value_col = _to_exprs([value_col])[0]
+        agg_expr = getattr(value_col, agg_fn)()
+        if names is None:
+            from ..runners.native_runner import get_runner
+            distinct_b = LogicalPlanBuilder(self._plan).select([pivot_col]) \
+                .distinct()
+            rb = get_runner().run(distinct_b).to_recordbatch()
+            names = rb.get_column(rb.column_names()[0]).to_pylist()
+        pre = lp.Aggregate(self._plan, [agg_expr], group_by + [pivot_col])
+        return self._wrap(lp.Pivot(pre, group_by, pivot_col, value_col,
+                                   agg_expr, names))
 
     def hash_repartition(self, num_partitions: Optional[int],
                          by: Sequence) -> "LogicalPlanBuilder":
@@ -157,17 +187,19 @@ class LogicalPlanBuilder:
     def concat(self, other: "LogicalPlanBuilder") -> "LogicalPlanBuilder":
         return self._wrap(lp.Concat(self._plan, other._plan))
 
-    def intersect(self, other: "LogicalPlanBuilder") -> "LogicalPlanBuilder":
-        # the distinct rows, semi-joined on every column, as the reference
-        # desugars INTERSECT
-        return self._set_join(other, "semi")
+    def intersect(self, other: "LogicalPlanBuilder",
+                  all: bool = False) -> "LogicalPlanBuilder":
+        # the rows (distinct unless ``all``), semi-joined on every column,
+        # as the reference desugars INTERSECT
+        return self._set_join(other, "semi", all)
 
-    def except_(self, other: "LogicalPlanBuilder") -> "LogicalPlanBuilder":
-        return self._set_join(other, "anti")
+    def except_(self, other: "LogicalPlanBuilder",
+                all: bool = False) -> "LogicalPlanBuilder":
+        return self._set_join(other, "anti", all)
 
-    def _set_join(self, other: "LogicalPlanBuilder",
-                  how: str) -> "LogicalPlanBuilder":
-        base = self.distinct()
+    def _set_join(self, other: "LogicalPlanBuilder", how: str,
+                  all: bool = False) -> "LogicalPlanBuilder":
+        base = self if all else self.distinct()
         return base._wrap(lp.Join(
             base._plan, other._plan,
             [col(n) for n in self.schema().column_names],

@@ -4,8 +4,8 @@ Reference: ``src/daft-logical-plan/src/logical_plan.rs:25`` — the LogicalPlan
 enum — and ``partitioning.rs`` (ClusteringSpec). The port carries the nodes
 of the grouped-aggregation, join, TPC-H, SQL and TPC-DS slices: Source/
 Project/Filter/Limit/Sort/TopN/Repartition/Distinct/Aggregate/Join (equi
-and cross)/Window/Concat/Sample/MonotonicallyIncreasingId. Pivot, Unpivot
-and Explode come with ROADMAP A5b.
+and cross)/Window/Concat/Sample/MonotonicallyIncreasingId/Pivot/Unpivot.
+Explode comes with the ``list`` type (ROADMAP A8).
 """
 
 from __future__ import annotations
@@ -209,6 +209,41 @@ class Limit(LogicalPlan):
         return [f"Limit: {self.limit}"]
 
 
+class Unpivot(LogicalPlan):
+    """Wide to long: per input row, one row per value column holding the
+    ids, the column's name (``variable_name``) and its value
+    (``value_name``, the values' supertype)."""
+
+    def __init__(self, child, ids, values, variable_name, value_name):
+        super().__init__([child])
+        self.ids = list(ids)
+        self.values = list(values)
+        self.variable_name = variable_name
+        self.value_name = value_name
+
+    def _compute_schema(self) -> Schema:
+        from ..datatype import DataType
+        from ..expressions.typing import supertype
+        s = self._children[0].schema()
+        fields = [e.to_field(s) for e in self.ids]
+        vdt = None
+        for e in self.values:
+            d = e.to_field(s).dtype
+            vdt = d if vdt is None else supertype(vdt, d)
+        fields.append(Field(self.variable_name, DataType.string()))
+        fields.append(Field(self.value_name, vdt))
+        return Schema(fields)
+
+    def with_children(self, children):
+        return Unpivot(children[0], self.ids, self.values,
+                       self.variable_name, self.value_name)
+
+    def _params(self):
+        return (tuple(e._key() for e in self.ids),
+                tuple(e._key() for e in self.values),
+                self.variable_name, self.value_name)
+
+
 class Sort(LogicalPlan):
     def __init__(self, child, sort_by, descending, nulls_first):
         super().__init__([child])
@@ -344,6 +379,37 @@ class Aggregate(LogicalPlan):
     def multiline_display(self):
         return [f"Aggregate: {', '.join(repr(a) for a in self.aggs[:4])}",
                 f"group_by = {[repr(g) for g in self.group_by]}"]
+
+
+class Pivot(LogicalPlan):
+    """Long to wide over a child pre-aggregated to one row per (group,
+    pivot value): one row per group, one column per name in ``names``."""
+
+    def __init__(self, child, group_by, pivot_col, value_col, agg_expr,
+                 names):
+        super().__init__([child])
+        self.group_by = list(group_by)
+        self.pivot_col = pivot_col
+        self.value_col = value_col
+        self.agg_expr = agg_expr
+        self.names = list(names)
+
+    def _compute_schema(self) -> Schema:
+        s = self._children[0].schema()
+        fields = [e.to_field(s) for e in self.group_by]
+        vdt = self.value_col.to_field(s).dtype
+        for n in self.names:
+            fields.append(Field(str(n), vdt))
+        return Schema(fields)
+
+    def with_children(self, children):
+        return Pivot(children[0], self.group_by, self.pivot_col,
+                     self.value_col, self.agg_expr, self.names)
+
+    def _params(self):
+        return (tuple(e._key() for e in self.group_by),
+                self.pivot_col._key(), self.value_col._key(),
+                tuple(self.names))
 
 
 class Join(LogicalPlan):

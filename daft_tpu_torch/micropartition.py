@@ -146,6 +146,16 @@ class MicroPartition:
     def distinct(self, on=None) -> "MicroPartition":
         return MicroPartition.from_recordbatch(self.combined().distinct(on))
 
+    def unpivot(self, ids, values, variable_name,
+                value_name) -> "MicroPartition":
+        return MicroPartition.from_recordbatch(
+            self.combined().unpivot(ids, values, variable_name, value_name))
+
+    def pivot(self, group_by, pivot_col, value_col,
+              names) -> "MicroPartition":
+        return MicroPartition.from_recordbatch(
+            self.combined().pivot(group_by, pivot_col, value_col, names))
+
     def add_monotonically_increasing_id(self, partition_num: int,
                                         column_name: str
                                         ) -> "MicroPartition":

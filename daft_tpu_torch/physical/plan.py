@@ -195,6 +195,26 @@ class Exchange(PhysicalPlan):
         self.join_side = False
 
 
+class Unpivot(PhysicalPlan):
+    def __init__(self, child, ids, values, variable_name, value_name,
+                 schema):
+        super().__init__([child], schema)
+        self.ids = ids
+        self.values = values
+        self.variable_name = variable_name
+        self.value_name = value_name
+
+
+class Pivot(PhysicalPlan):
+    def __init__(self, child, group_by, pivot_col, value_col, names,
+                 schema):
+        super().__init__([child], schema)
+        self.group_by = group_by
+        self.pivot_col = pivot_col
+        self.value_col = value_col
+        self.names = names
+
+
 class Sample(PhysicalPlan):
     """A ``fraction`` of each morsel's rows (drawn from ``seed``), or each
     morsel's first ``size`` rows."""

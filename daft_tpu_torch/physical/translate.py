@@ -107,6 +107,10 @@ def _t_node(node: lp.LogicalPlan) -> pp.PhysicalPlan:
     if isinstance(node, lp.Sample):
         return pp.Sample(_t(node.children[0]), node.fraction, node.size,
                          node.with_replacement, node.seed)
+    if isinstance(node, lp.Unpivot):
+        return pp.Unpivot(_t(node.children[0]), node.ids, node.values,
+                          node.variable_name, node.value_name,
+                          node.schema())
     if isinstance(node, lp.Repartition):
         spec = node.spec
         kind = {"hash": "hash", "random": "random", "range": "range",
@@ -121,6 +125,11 @@ def _t_node(node: lp.LogicalPlan) -> pp.PhysicalPlan:
         return pp.Dedup(ex, on)
     if isinstance(node, lp.Aggregate):
         return _translate_agg(node)
+    if isinstance(node, lp.Pivot):
+        # every (group, pivot) row of a group must meet in one partition
+        gather = pp.Exchange(_t(node.children[0]), "gather", 1)
+        return pp.Pivot(gather, node.group_by, node.pivot_col,
+                        node.value_col, node.names, node.schema())
     if isinstance(node, lp.Join):
         return _translate_join(node)
     if isinstance(node, lp.Window):

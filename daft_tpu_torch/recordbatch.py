@@ -285,6 +285,33 @@ class RecordBatch:
     # ---- explode ---------------------------------------------------------
 
     # ---- partitioning ----------------------------------------------------
+    def pivot(self, group_by: Sequence[Expression], pivot_col: Expression,
+              value_col: Expression, names: List[str]) -> "RecordBatch":
+        from .aggs import pivot_recordbatch
+        return pivot_recordbatch(self, list(group_by), pivot_col, value_col,
+                                 names)
+
+    def unpivot(self, ids: Sequence[Expression], values: Sequence[Expression],
+                variable_name: str = "variable",
+                value_name: str = "value") -> "RecordBatch":
+        """One row per (input row, value column): the ids, the value
+        column's name and its value cast to the values' supertype; all
+        rows of the first value column, then of the next."""
+        from .expressions.typing import supertype
+        id_batch = RecordBatch.from_series(
+            [self.eval_expression(e) for e in ids])
+        val_series = [self.eval_expression(e) for e in values]
+        out_dt = val_series[0].datatype()
+        for v in val_series[1:]:
+            out_dt = supertype(out_dt, v.datatype())
+        parts = []
+        for v in val_series:
+            parts.append(RecordBatch.from_series(
+                id_batch._columns
+                + [Series.from_pylist([v.name()] * self._len, variable_name),
+                   v.cast(out_dt).rename(value_name)]))
+        return RecordBatch.concat(parts)
+
     def partition_by_hash(self, exprs: Sequence[Expression],
                           num_partitions: int) -> List["RecordBatch"]:
         """Rows split by ``hash(keys) % num_partitions``, each piece in

@@ -84,14 +84,19 @@ def _same(got, want):
 
 @pytest.fixture()
 def aqe():
+    """Sets either package's AQE switch; puts both packages' execution
+    configs back as they were, whatever the test set."""
+    saved = [(pkg, pkg.get_context().execution_config)
+             for pkg in (daft_tpu, daft_tpu_torch)]
+
     def set_(pkg, on):
         pkg.set_execution_config(
             enable_aqe=on, broadcast_join_size_bytes_threshold=THRESHOLD)
-    yield set_
-    for pkg in (daft_tpu, daft_tpu_torch):
-        pkg.set_execution_config(
-            enable_aqe=False,
-            broadcast_join_size_bytes_threshold=10 * 1024 * 1024)
+    try:
+        yield set_
+    finally:
+        for pkg, cfg in saved:
+            pkg.set_execution_config(cfg)
 
 
 @pytest.mark.parametrize("engine", ["push", "interp"])

@@ -75,48 +75,6 @@ def test_all_null_string_per_operator_paths_at_floor_0(null_strings, cpu,
         counts
 
 
-def _port_apply_op(df, right_df, op):
-    """The port's copy of ``plan_fuzzer._apply_op``."""
-    from daft_tpu_torch import col
-    kind = op[0]
-    if kind == "join":
-        return df.join(right_df, left_on="k", right_on="rk", how=op[1])
-    if kind == "filter":
-        _, name, cmp, const = op
-        e = col(name)
-        e = {"gt": e > const, "lt": e < const, "ge": e >= const,
-             "le": e <= const, "eq": e == const}[cmp]
-        return df.where(e)
-    if kind == "filter_null":
-        _, name, keep_null = op
-        e = col(name).is_null()
-        return df.where(e if keep_null else ~e)
-    if kind == "project":
-        _, names, computed = op
-        exprs = [col(n) for n in names]
-        if computed is not None:
-            exprs.append((col(computed) * 2 + 1).alias(computed + "_x2"))
-        return df.select(*exprs)
-    if kind == "groupby":
-        _, keys, aggs = op
-        exprs = []
-        for fn, name in aggs:
-            e = col(name)
-            e = {"sum": e.sum, "min": e.min, "max": e.max,
-                 "count": e.count}[fn]()
-            exprs.append(e.alias(f"{fn}_{name}"))
-        return df.groupby(*keys).agg(*exprs)
-    if kind == "distinct":
-        return df.distinct()
-    if kind == "sort":
-        _, names, descs = op
-        return df.sort(list(names), desc=list(descs))
-    if kind == "topn":
-        _, n, names, descs = op
-        return df.sort(list(names), desc=list(descs)).limit(n)
-    raise ValueError(f"unknown op {op!r}")
-
-
 @pytest.mark.parametrize("seed", [49, 327])
 def test_fuzzer_seed_replays_through_both_packages(seed, cpu, monkeypatch):
     """Every device path on (both floors 0): the seed's program gives the
@@ -125,12 +83,13 @@ def test_fuzzer_seed_replays_through_both_packages(seed, cpu, monkeypatch):
     from daft_tpu_torch import joins
     monkeypatch.setenv("DAFT_TORCH_DEVICE_MIN_ROWS", "0")
     monkeypatch.setattr(joins, "DEVICE_MIN_ROWS", 0)
+    from daft_tpu_torch.analysis import plan_fuzzer as port_fuzzer
     tables, ops = plan_fuzzer.gen_case(seed)
     want = plan_fuzzer.build_df(tables, ops).to_pydict()
     df = daft_tpu_torch.from_pydict(tables["left"])
     right = daft_tpu_torch.from_pydict(tables["right"])
     for op in ops:
-        df = _port_apply_op(df, right, op)
+        df = port_fuzzer._apply_op(df, right, op)
     got = df.to_pydict()
     assert plan_fuzzer.canonical_rows(got) == \
         plan_fuzzer.canonical_rows(want)

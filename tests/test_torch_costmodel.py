@@ -285,11 +285,15 @@ def test_knob_off_is_verbatim_static(tmp_path):
             .sort("k").to_pydict()
     a = q()
     assert cal.profile_entries() == {}
+    prev = os.environ.get("DAFT_TORCH_CALIBRATION")
     os.environ["DAFT_TORCH_CALIBRATION"] = "0"
     try:
         assert q() == a
     finally:
-        del os.environ["DAFT_TORCH_CALIBRATION"]
+        if prev is None:
+            del os.environ["DAFT_TORCH_CALIBRATION"]
+        else:
+            os.environ["DAFT_TORCH_CALIBRATION"] = prev
     assert cal.profile_entries() == {}
 
 
