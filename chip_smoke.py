@@ -154,6 +154,26 @@ Phases (any failure ends the run with a non-zero exit code):
    one ``fuzz`` line per mode (seeds, mismatches, errors, launches, wall)
    and a ``fuzz new rungs`` line (its kernel rungs that no earlier phase
    held, ``pass`` ``fuzz``);
+7i. remote scan phase: Q1, the ``l_suppkey`` group-by, Q6 and Q3 over
+   the SF1 parquet served by a local HTTP object store (a stdlib
+   ``ThreadingHTTPServer`` in a child process, so its request threads
+   do not contend for the scan's interpreter lock,
+   ``daft_tpu_torch/benchmarking/http_store.py``: HEAD and ranged GETs
+   read by seeking in the files, 15 ms per request, the default of
+   ``bench.py``'s scan bench), cold, two ways: the defaults (planned,
+   coalesced range reads and the prefetch-pipelined scan, window 2) and
+   ``DAFT_TORCH_IO_PLANNED_READS=0`` with ``DAFT_TORCH_SCAN_PREFETCH=0``,
+   3 rounds with the ways' order turned each round; each answer held to
+   pyarrow over the local files as on the main path; one ``remote`` line
+   per query and way (the median wall and every wall, the first run's
+   server GETs, scan counters, ``scan_task_us`` against
+   ``scan_span_us`` and kernel launches); the phase fails if the planned way falls back to
+   the naive read, the group-by launches no hash-agg build or Q3 no join
+   build and probe; then Q1's answer written with ``write_parquet`` and
+   ``write_csv`` and read back (equal), and three columns of one
+   lineitem file written hive-partitioned by ``l_returnflag`` and read
+   back with ``hive_partitioning=True`` (per-flag counts equal the
+   source's); its new rungs go to phase 8 (``pass`` ``remote``);
 8. the hash build against its plain version at the inputs of every
    distinct hash rung of the main path and of the TPC-H 22 phase's
    dispatch pass
@@ -165,8 +185,8 @@ Phases (any failure ends the run with a non-zero exit code):
    SQL-phase, TPC-DS and memory-bounded rung of a shape no earlier phase
    held, each checked as in the join-kernel phase, then timed (rows name
    their ``pass``: ``tpcds`` or ``tpcds_dispatch`` for the TPC-DS ones,
-   ``spill`` for the memory-bounded ones, ``pivot`` and ``fuzz`` for the
-   last two phases); every entry point
+   ``spill`` for the memory-bounded ones, ``pivot``, ``fuzz`` and
+   ``remote`` for the last three phases); every entry point
    ``analysis/dispatch_registry.py`` declares must have launched and been
    held against its plain twin in the run;
 9. a ``{"kernels": [...]}`` line with each kernel's launches, times and
@@ -2269,6 +2289,154 @@ def fuzz_phase():
     return dict(rec=rec, per_mode=per_mode)
 
 
+# ------------------------------------------------------------ remote scan
+
+#: phase 7i: the object store's fixed delay per request (the default of
+#: ``bench.py``'s scan bench, ``BENCH_SCAN_DELAY_MS``: an object store's
+#: round trip), the rounds (one cold run of each query each way per
+#: round), and the two ways each query runs
+REMOTE_DELAY_S = 0.015
+REMOTE_ROUNDS = 3
+REMOTE_WAYS = {
+    "planned": {},
+    "naive": dict(DAFT_TORCH_IO_PLANNED_READS="0",
+                  DAFT_TORCH_SCAN_PREFETCH="0")}
+REMOTE_COUNTERS = ("gets", "ranges_planned", "range_requests",
+                   "bytes_fetched", "bytes_used", "prefetch_tasks",
+                   "planned_read_fallbacks")
+
+
+def remote_phase(root: str, ref: dict, q3_ref, card: str):
+    """Phase 7i: Q1, the ``l_suppkey`` group-by, Q6 and Q3 over the SF1
+    parquet served by a local HTTP object store (``FileStore``: HEAD and
+    ranged GETs read by seeking in the files, ``REMOTE_DELAY_S`` per
+    request), cold, each way of ``REMOTE_WAYS``: the defaults (planned
+    range reads, prefetch 2) and the naive reads with no prefetch;
+    ``REMOTE_ROUNDS`` rounds, the ways' order turned each round. Every
+    answer is held to pyarrow over the local files as on the main path;
+    then the write path (:func:`remote_write`)."""
+    import daft_tpu_torch as dtt
+    from daft_tpu_torch.benchmarking import tpch_queries as Q
+    from daft_tpu_torch.benchmarking.http_store import FileStore
+    from daft_tpu_torch.io import read_planner as rp
+    rec = KernelRecorder("remote")
+    t_phase = time.perf_counter()
+    runs = {}
+    with FileStore(root, delay_s=REMOTE_DELAY_S) as store:
+        urls = {t: store.urls(t) for t in
+                ("lineitem", "orders", "customer")}
+        get = lambda t: dtt.read_parquet(urls[t])  # noqa: E731
+        for rnd in range(REMOTE_ROUNDS):
+            ways = list(REMOTE_WAYS)[::1 if rnd % 2 == 0 else -1]
+            for name in ("q1", "suppkey_agg", "q6", "q3"):
+                for way in ways:
+                    with _env(**REMOTE_WAYS[way]):
+                        g0, b0 = store.counts(), rp.scan_counters_snapshot()
+                        got, wall, counts, launches = rec.counted(
+                            f"remote {name} {way}",
+                            lambda: Q.QUERIES[name](get).to_pydict())
+                        d, g1 = rp.scan_counters_delta(b0), store.counts()
+                    if name == "q3":
+                        check_table(f"remote q3 {way}", got, q3_ref[0],
+                                    ["o_orderkey"],
+                                    ["o_orderdate", "o_shippriority"],
+                                    ["revenue"])
+                    else:
+                        check_answer(name, got, ref)
+                    if way == "planned" and (d.get("planned_read_fallbacks")
+                                             or not d.get("range_requests")):
+                        raise AssertionError(f"remote {name}: the planned "
+                                             f"reads fell back ({d})")
+                    if name == "suppkey_agg" \
+                            and launches["hash_agg_build"] < 1:
+                        raise AssertionError(
+                            f"remote {name} {way}: the hash-agg kernel "
+                            f"launched no time ({counts})")
+                    if name == "q3" and min(launches["hash_join_build"],
+                                            launches["hash_join_probe"]) < 1:
+                        raise AssertionError(
+                            f"remote q3 {way}: the join kernels did not "
+                            f"launch ({launches}, {counts})")
+                    runs.setdefault((name, way), []).append(dict(
+                        wall=wall, scan=d, launches=launches, counts=counts,
+                        gets=g1["gets"] - g0["gets"],
+                        heads=g1["heads"] - g0["heads"],
+                        sent=g1["bytes_sent"] - g0["bytes_sent"]))
+    lines = []
+    for (name, way), rs in runs.items():
+        first, d = rs[0], rs[0]["scan"]
+        line = dict(
+            query=name, way=way, card=card,
+            wall_s=statistics.median(r["wall"] for r in rs),
+            walls=[r["wall"] for r in rs], server_gets=first["gets"],
+            server_heads=first["heads"], server_bytes=first["sent"],
+            scan={k: d.get(k, 0) for k in REMOTE_COUNTERS},
+            scan_task_us=d.get("scan_task_us", 0),
+            scan_span_us=d.get("scan_span_us", 0),
+            launches=first["launches"],
+            strategy={k: first["counts"].get(k, 0) for k in (
+                "dense", "hash", "sort", "global", "join_hash",
+                "join_sort", "host_joins", "host_morsels")})
+        log("remote " + json.dumps(line))
+        lines.append(line)
+    write = remote_write(root, ref, card)
+    log(f"remote phase wall: {time.perf_counter() - t_phase:.3f} s")
+    return dict(rec=rec, lines=lines, write=write)
+
+
+def remote_write(root: str, ref: dict, card: str) -> dict:
+    """Phase 7i's write path: Q1's answer as parquet and as CSV, read
+    back equal (and equal to pyarrow's); three columns of one lineitem
+    file hive-partitioned by ``l_returnflag``, read back with the
+    source's per-flag counts."""
+    import tempfile
+
+    import daft_tpu_torch as dtt
+    from daft_tpu_torch.benchmarking import tpch_queries as Q
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_write") as out:
+        # one answer, written twice (a second run of Q1 could sum its
+        # floats in another order on the card)
+        q1 = Q.q1(lambda t: dtt.read_parquet(os.path.join(root, t))) \
+            .collect()
+        keys = ["l_returnflag", "l_linestatus"]
+        res_pq = q1.write_parquet(os.path.join(out, "q1_pq")).to_pydict()
+        res_csv = q1.write_csv(os.path.join(out, "q1_csv")).to_pydict()
+        back_pq = dtt.read_parquet(os.path.join(out, "q1_pq")) \
+            .sort(keys).to_pydict()
+        back_csv = dtt.read_csv(os.path.join(out, "q1_csv", "*.csv")) \
+            .sort(keys).to_pydict()
+        _same_answer("write q1 csv vs parquet", back_csv, back_pq, rel=0.0)
+        check_answer("q1", back_pq, ref)
+        # one lineitem file, three columns, hive-partitioned by its flag
+        src = sorted(os.listdir(os.path.join(root, "lineitem")))[0]
+        li = dtt.read_parquet(os.path.join(root, "lineitem", src)) \
+            .select("l_returnflag", "l_orderkey", "l_extendedprice")
+        res_part = li.write_parquet(os.path.join(out, "li_part"),
+                                    partition_cols=["l_returnflag"]) \
+            .to_pydict()
+        back = dtt.read_parquet(os.path.join(out, "li_part", "**",
+                                             "*.parquet"),
+                                hive_partitioning=True)
+        counts_back = back.groupby("l_returnflag").agg(
+            dtt.col("l_orderkey").count().alias("n")).sort(
+            "l_returnflag").to_pydict()
+        counts_src = li.groupby("l_returnflag").agg(
+            dtt.col("l_orderkey").count().alias("n")).sort(
+            "l_returnflag").to_pydict()
+        if counts_back != counts_src or len(counts_src["n"]) != 3:
+            raise AssertionError(f"hive write: {counts_back} vs "
+                                 f"{counts_src}")
+        flags = sorted(os.listdir(os.path.join(out, "li_part")))
+    write = dict(card=card, wall_s=time.perf_counter() - t0,
+                 q1_parquet_files=len(res_pq["path"]),
+                 q1_csv_files=len(res_csv["path"]),
+                 partitioned_files=len(res_part["path"]),
+                 partition_dirs=flags, rows_per_flag=counts_src)
+    log("remote write " + json.dumps(write))
+    return write
+
+
 # ------------------------------------------------------------ TPC-DS
 
 def tpcds_root(scale: float) -> str:
@@ -2597,7 +2765,7 @@ def profile_phase(root: str):
     from daft_tpu_torch import joins
     from daft_tpu_torch.benchmarking import tpch_queries as Q
     from daft_tpu_torch.device import column, fragment
-    from daft_tpu_torch.io import scan
+    from daft_tpu_torch.io import readers, scan
     from daft_tpu_torch.recordbatch import RecordBatch
     get = lambda t: dtt.read_parquet(os.path.join(root, t))  # noqa: E731
     agg_stages = {"scan": (scan.ScanTask, "execute"),
@@ -2605,7 +2773,9 @@ def profile_phase(root: str):
                   "dispatch": (fragment, "submit_fused_agg_tables"),
                   "fetch_decode_ladder": (fragment,
                                           "drain_fused_agg_tables")}
-    join_stages = {"scan": (scan.ScanTask, "execute"),
+    # Q3's scans stream through the prefetch-pipelined scan source: its
+    # stage is each file's parquet read on the producers
+    join_stages = {"scan": (readers, "_read_parquet_path"),
                    "factorize": (joins, "_factorize_pair"),
                    "device_h2d_kernels_d2h": (joins, "_device_match_indices"),
                    "take": (joins, "_take_nullable"),
@@ -2778,8 +2948,10 @@ def main() -> int:
     done("7g")
     fz = fuzz_phase()
     done("7h")
-    # the TPC-DS, memory-bounded, pivot and fuzz rungs whose shape no
-    # earlier phase held
+    rem = remote_phase(root, mp["ref"], q3["ref"], card)
+    done("7i")
+    # the TPC-DS, memory-bounded, pivot, fuzz and remote rungs whose shape
+    # no earlier phase held
     held = {k[1:] for r in (mp["rungs"], t22["rungs"], tsql["rungs"])
             for k in r}
     jheld = {k[1:] for r in (t22["join_rungs"], tsql["join_rungs"])
@@ -2787,7 +2959,7 @@ def main() -> int:
     ds_rungs, ds_jrungs = {}, {}
     fuzz_new = {m: {"hash": 0, "join": 0} for m in FUZZ_MODES}
     for rec_k in (tds["rec"], tdp["rec"], ooc["rec"], piv["rec"],
-                  fz["rec"]):
+                  fz["rec"], rem["rec"]):
         for k, v in rec_k.hash_rungs().items():
             if k[1:] not in held:
                 held.add(k[1:])
@@ -2800,8 +2972,13 @@ def main() -> int:
                 ds_jrungs[k] = dict(v, pass_=rec_k.pass_)
                 if rec_k is fz["rec"]:
                     fuzz_new[k[0].split()[-1]]["join"] += 1
-    log(f"tpcds, ooc, pivot and fuzz rungs not held by earlier phases: "
-        f"{len(ds_rungs)} hash, {len(ds_jrungs)} join")
+    log(f"tpcds, ooc, pivot, fuzz and remote rungs not held by earlier "
+        f"phases: {len(ds_rungs)} hash, {len(ds_jrungs)} join")
+    log("remote new rungs " + json.dumps(dict(
+        hash=sorted(str(list(k)) for k in ds_rungs
+                    if k[0].startswith("remote")),
+        join=sorted(str(list(k)) for k in ds_jrungs
+                    if k[0].startswith("remote")))))
     log("fuzz new rungs " + json.dumps(fuzz_new))
     krecs = main_path_kernel_timing(mp["rungs"], bw)
     krecs += main_path_kernel_timing(t22["rungs"], bw)

@@ -8,11 +8,12 @@ caller asks for the CPU (``DAFT_TORCH_DEVICE=cpu`` or
 """
 
 from .context import execution_config_ctx, get_context, set_execution_config
-from .dataframe import (DataFrame, from_arrow, from_pandas, from_pydict,
-                        from_pylist)
+from .dataframe import (DataFrame, from_arrow, from_glob_path, from_pandas,
+                        from_pydict, from_pylist)
 from .datatype import DataType, TimeUnit
 from .expressions import Expression, col, lit
-from .io import read_parquet
+from .io import (AzureConfig, GCSConfig, HTTPConfig, IOConfig, S3Config,
+                 read_csv, read_json, read_parquet, read_sql, read_warc)
 from .recordbatch import RecordBatch
 from .schema import Field, Schema
 from .series import Series
@@ -36,6 +37,8 @@ from .sql import sql, sql_expr
 __version__ = "0.1.0"
 
 __all__ = [
+    "AzureConfig", "GCSConfig", "HTTPConfig", "IOConfig", "S3Config",
+    "from_glob_path", "read_csv", "read_json", "read_sql", "read_warc",
     "Catalog", "DataFrame", "DataType", "Expression", "Field", "Identifier",
     "NotFoundError", "RecordBatch", "Schema", "Series", "Session", "Table",
     "TimeUnit", "Window", "attach", "attach_catalog", "attach_function",

@@ -23,6 +23,19 @@ class ExecutionConfig:
     #: (``io/scan.py``)
     scan_tasks_min_size_bytes: int = 96 * 1024 * 1024
     scan_tasks_max_size_bytes: int = 384 * 1024 * 1024
+    #: the scan's IO (``io/read_planner.py``); the ``DAFT_TORCH_IO_*`` and
+    #: ``DAFT_TORCH_SCAN_PREFETCH`` knobs win when set: the hole a range
+    #: coalesce absorbs, the request floor, the concurrent range GETs per
+    #: object, planned (coalesced) remote parquet reads, the scan tasks
+    #: resolved ahead, the chunk of the streaming CSV/JSON reader and the
+    #: head bytes of a remote CSV/JSON schema inference
+    io_coalesce_gap: int = 1 << 20
+    io_min_request: int = 8 << 20
+    io_range_parallelism: int = 8
+    io_planned_reads: bool = True
+    scan_prefetch: int = 2
+    io_stream_chunk: int = 8 << 20
+    io_infer_bytes: int = 1 << 20
     #: rows per morsel for host operators; a device fragment takes one
     #: whole scan task's batch instead (see ``_exec_DeviceFragmentAgg``)
     default_morsel_size: int = 128 * 1024

@@ -10,8 +10,9 @@ cross joins included, concat and the set operations with their ``all``
 and by-name forms, pivot/unpivot, drop_nan/drop_null, describe/summarize,
 repartition, into_partitions and sample, monotonically increasing ids,
 window expressions routed into ``Window`` nodes, explain,
-num_partitions); writes, ``explode``, the list aggregations and
-``explain(analyze=True)`` come later (ROADMAP A8).
+num_partitions) and the writes (``write_parquet``/``write_csv``/
+``write_json``/``write_sink``); ``explode``, the list aggregations, the
+lake-format writes and ``explain(analyze=True)`` come later (ROADMAP A8).
 """
 
 from __future__ import annotations
@@ -378,6 +379,37 @@ class DataFrame:
     def summarize(self) -> "DataFrame":
         return self.describe()
 
+    # ---- writes ----------------------------------------------------------
+    def write_parquet(self, root_dir: str, compression: str = "snappy",
+                      write_mode: str = "append", partition_cols=None,
+                      io_config=None) -> "DataFrame":
+        """Write the rows as parquet files under ``root_dir`` (hive
+        directories per value of ``partition_cols``); the result holds
+        the written paths (reference ``dataframe.py:386``)."""
+        return self._write("parquet", root_dir, write_mode, partition_cols,
+                           {"compression": compression})
+
+    def write_csv(self, root_dir: str, write_mode: str = "append",
+                  partition_cols=None, io_config=None) -> "DataFrame":
+        return self._write("csv", root_dir, write_mode, partition_cols, {})
+
+    def write_json(self, root_dir: str, write_mode: str = "append",
+                   partition_cols=None, io_config=None) -> "DataFrame":
+        return self._write("json", root_dir, write_mode, partition_cols, {})
+
+    def _write(self, kind, root_dir, mode, partition_cols, options):
+        pc_list = None
+        if partition_cols is not None:
+            pc_list = partition_cols \
+                if isinstance(partition_cols, (list, tuple)) \
+                else [partition_cols]
+        return DataFrame(self._builder.table_write(
+            kind, root_dir, pc_list, mode, options)).collect()
+
+    def write_sink(self, sink) -> "DataFrame":
+        """Drive a user ``io.DataSink`` with the rows."""
+        return DataFrame(self._builder.write_sink(sink)).collect()
+
     # ---- execution -------------------------------------------------------
     def collect(self, num_preview_rows: Optional[int] = 8) -> "DataFrame":
         if self._result is None:
@@ -577,6 +609,20 @@ def from_arrow(t) -> DataFrame:
 
 def from_pandas(pdf) -> DataFrame:
     return from_arrow(pa.Table.from_pandas(pdf, preserve_index=False))
+
+
+def from_glob_path(path: str, io_config=None) -> DataFrame:
+    """The files a glob matches as a DataFrame of ``path``, ``size``
+    (bytes, None for a remote file) and ``num_rows`` (reference
+    ``dataframe.py:681``)."""
+    import os
+
+    from .io.scan import glob_paths
+    paths = glob_paths(path, io_config)
+    sizes = [os.path.getsize(p) if os.path.exists(p) else None
+             for p in paths]
+    return from_pydict({"path": paths, "size": sizes,
+                        "num_rows": [None] * len(paths)})
 
 
 def range(start: int, end: Optional[int] = None, step: int = 1

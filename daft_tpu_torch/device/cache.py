@@ -8,8 +8,9 @@ column name, so queries touching different column subsets of one file
 share entries. Entries are evicted least recently used first, down to a
 byte budget (``DAFT_TORCH_DEVICE_CACHE_BYTES``, default 8 GiB).
 
-Invalidation: the fingerprint covers the file's path, size and mtime, the
-row groups, the pushdown filter and the limit, so a changed file misses.
+Invalidation: the fingerprint covers the file's path, size and mtime, its
+format, the row groups, the pushdown filter and the limit, so a changed
+file misses; a remote or generated task is never cached.
 Dictionaries stay on the host with their ``DeviceColumn``. A cached
 plane is read-only: tables served from here are ``resident``.
 """
@@ -33,10 +34,18 @@ def budget() -> int:
 
 def task_fingerprint(task, device: torch.device) -> Optional[Tuple]:
     """Stable identity of a scan task's loaded rows on ``device``, or None
-    when one of its files cannot be stat-ed."""
+    when the task has none that is cheap to check (reference
+    ``daft_tpu/device/cache.py:43``): a generator source, or a file that
+    does not exist locally (a remote one, which has no cheap invalidation
+    signal) or cannot be stat-ed. It keys on the file format, so a CSV
+    and a parquet task over one path never share an entry."""
+    if task.generator is not None:
+        return None
     try:
         stats = []
         for p in task.paths:
+            if not os.path.exists(p):
+                return None
             st = os.stat(p)
             stats.append((p, st.st_size, st.st_mtime_ns))
     except (OSError, TypeError):
@@ -45,7 +54,8 @@ def task_fingerprint(task, device: torch.device) -> Optional[Tuple]:
     filt = pd.filters._key() if pd.filters is not None else None
     rg = tuple(tuple(r) if r is not None else None
                for r in task.row_groups) if task.row_groups else None
-    return (tuple(stats), rg, filt, pd.limit, str(device))
+    return (tuple(stats), task.file_format, rg, filt, pd.limit,
+            str(device))
 
 
 class DeviceColumnCache:

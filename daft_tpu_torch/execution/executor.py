@@ -3,8 +3,11 @@ MicroPartitions.
 
 Reference: ``daft_tpu/execution/executor.py`` (the pull-generator
 interpreter; the push pipeline, ``execution/pipeline.py``, inherits every
-handler from here and only rewires them). Pipelined operators run on a
-shared pool with an in-order window; the pipeline breakers stream their
+handler from here and only rewires them). The scan source resolves scan
+tasks ahead of the one it drains on a pool of its own, each under host
+memory admission, and streams each file's batch in task order (the
+prefetch-pipelined scan). Pipelined operators run on a shared pool with
+an in-order window; the pipeline breakers stream their
 input through spill stores under the breaker budget
 (``execution/memory.py``): the external sort samples its keys while it
 spills, then range-buckets and sorts bucket by bucket; hash, random and
@@ -25,8 +28,10 @@ it is counted.
 
 from __future__ import annotations
 
+import collections
 import concurrent.futures as cf
 import os
+import queue
 import threading
 import time
 from typing import Callable, Iterator, List, Optional
@@ -56,6 +61,27 @@ def _pool() -> cf.ThreadPoolExecutor:
                 max_workers=max(os.cpu_count() or 4, 4),
                 thread_name_prefix="daft-torch-exec")
         return _POOL
+
+
+_SCAN_POOL: Optional[cf.ThreadPoolExecutor] = None
+
+
+def _scan_pool() -> cf.ThreadPoolExecutor:
+    """Dedicated pool for the prefetch-pipelined scan's producers
+    (reference ``executor.py:50``). Not the shared pool: a producer
+    blocked on its admission would otherwise hold a slot that a
+    downstream operator's future needs to drain the very stream the head
+    producer feeds (a deadlock once the window reaches the pool's
+    size)."""
+    global _SCAN_POOL
+    if _SCAN_POOL is not None:
+        return _SCAN_POOL
+    with _pools_lock:
+        if _SCAN_POOL is None:
+            _SCAN_POOL = cf.ThreadPoolExecutor(
+                max_workers=max((os.cpu_count() or 4) * 2, 8),
+                thread_name_prefix="daft-torch-scan")
+        return _SCAN_POOL
 
 
 def _ordered_parallel(inputs: Iterator, fn: Callable,
@@ -217,9 +243,10 @@ class LocalExecutor:
                     rb.slice(start, min(start + morsel, n)))
 
     def _load_task(self, task) -> MicroPartition:
-        """Load one scan task under host admission (its estimated bytes
-        against ``DAFT_TORCH_MEMORY_LIMIT``), after the governor's bounded
-        throttle (reference ``executor.py:_exec_ScanSource``)."""
+        """Load one scan task whole under host admission (its estimated
+        bytes against ``DAFT_TORCH_MEMORY_LIMIT``), after the governor's
+        bounded throttle: the scan source at ``DAFT_TORCH_SCAN_PREFETCH=0``
+        (reference ``executor.py:266-276``)."""
         from . import governor
         governor.throttle("scan")
         est = task.size_bytes() or 0
@@ -229,17 +256,145 @@ class LocalExecutor:
         finally:
             self.host_mem.release(est)
 
-    def _scan_files(self, node: pp.ScanSource) -> Iterator[MicroPartition]:
+    def _exec_ScanSource(self, node: pp.ScanSource):
         """One partition per scan task (one file, or several small ones
-        merged), loaded on the pool in task order."""
+        merged), in task order: at the default through the
+        prefetch-pipelined scan (:meth:`_prefetch_scan`), at
+        ``DAFT_TORCH_SCAN_PREFETCH=0`` as whole-task loads on the pool."""
+        from ..io import read_planner as rp
+        if not node.tasks or rp.scan_sequential_fallback():
+            yield from self._morselize(self._whole_tasks(node))
+            return
+        yield from self._morselize(
+            self._prefetch_scan(node.tasks, rp.scan_prefetch_tasks()))
+
+    def _whole_tasks(self, node: pp.ScanSource) -> Iterator[MicroPartition]:
+        """One partition per scan task, each loaded whole on the pool, in
+        task order."""
         if not node.tasks:
             yield MicroPartition.empty(node.schema())
             return
-
         yield from _ordered_parallel(iter(node.tasks), self._load_task)
 
-    def _exec_ScanSource(self, node: pp.ScanSource):
-        yield from self._morselize(self._scan_files(node))
+    def _prefetch_scan(self, tasks, window: int):
+        """Prefetch-pipelined scan source (reference ``executor.py:282``):
+        up to ``window`` upcoming ScanTasks resolve on the scan pool AHEAD
+        of the one the consumer is draining, each admission-gated by the
+        host memory manager after the governor's throttle (prefetched
+        bytes can't blow ``DAFT_TORCH_MEMORY_LIMIT``), and each task's
+        batches stream out as its files decode: the first morsel lands
+        at first-file completion, not task completion. Output stays in
+        task order. ``scan_task_us`` (the producers' summed wall) against
+        ``scan_span_us`` (the source's wall) measures the overlap."""
+        from ..io import read_planner as rp
+        from . import governor
+
+        pool = _scan_pool()
+        t_span0 = time.perf_counter()
+
+        class _ScanAbandoned(Exception):
+            pass
+
+        class _Stream:
+            """Per-task batch queue; ``dead`` makes an abandoned consumer
+            (early limit, error upstream) stop the producer. UNBOUNDED on
+            purpose: memory admission is the loading gate. A bounded queue
+            would let a producer block on put() while HOLDING admission
+            that the head task's producer waits for: a deadlock the
+            consumer, stuck on the head task's queue, could never
+            break."""
+
+            def __init__(self):
+                self.q = queue.Queue()
+                self.dead = threading.Event()
+
+            def put(self, item):
+                if self.dead.is_set():
+                    raise _ScanAbandoned()
+                self.q.put(item)
+
+        def stream(task, st: _Stream, schema, produced: list) -> None:
+            for rb in task.stream_batches():
+                st.put(("batch", MicroPartition.from_recordbatch(
+                    rb.cast_to_schema(schema))))
+                produced[0] = True
+
+        def produce(task, st: _Stream):
+            if st.dead.is_set():  # consumer gone before we even started
+                return
+            t0 = time.perf_counter()
+            est = task.size_bytes() or 0
+            # governor backpressure BEFORE admission: a bounded throttle
+            # that slows the producers while RSS sits above the high mark
+            governor.throttle("scan_prefetch")
+            self.host_mem.acquire(est)
+            try:
+                if st.dead.is_set():
+                    return
+                schema = task.materialized_schema()
+                produced = [False]
+                try:
+                    stream(task, st, schema, produced)
+                except OSError:
+                    if produced[0]:
+                        raise  # a re-stream would duplicate rows
+                    time.sleep(0.2)  # transient IO: one clean retry
+                    stream(task, st, schema, produced)
+                if not produced[0]:
+                    st.put(("batch", MicroPartition.empty(schema)))
+                st.put(("done", None))
+            except _ScanAbandoned:
+                pass
+            except BaseException as exc:  # noqa: BLE001
+                try:
+                    st.put(("err", exc))
+                except _ScanAbandoned:
+                    pass
+            finally:
+                self.host_mem.release(est)
+                rp.scan_count("scan_task_us",
+                              (time.perf_counter() - t0) * 1e6)
+
+        inflight = collections.deque()
+        it = iter(tasks)
+
+        def refill():
+            # fill to the governor's CURRENT window (at most the configured
+            # one): under memory pressure the prefetch narrows to one task
+            # ahead, and widens again once RSS recovers
+            while len(inflight) < governor.prefetch_window(window) + 1:
+                t = next(it, None)
+                if t is None:
+                    return
+                st = _Stream()
+                pool.submit(produce, t, st)
+                inflight.append(st)
+                rp.scan_count("prefetch_tasks")
+
+        refill()
+        current = None
+        try:
+            while inflight:
+                current = inflight.popleft()
+                while True:
+                    kind, val = current.q.get()
+                    if kind == "batch":
+                        yield val
+                    elif kind == "err":
+                        raise val
+                    else:
+                        break
+                current = None
+                refill()
+        finally:
+            # an abandoned consumer (early limit, downstream error) must
+            # unblock every producer, the one being drained included
+            if current is not None:
+                current.dead.set()
+            for st in inflight:
+                st.dead.set()
+            rp.scan_count("scan_span_us",
+                          (time.perf_counter() - t_span0) * 1e6)
 
     def _exec_InMemorySource(self, node: pp.InMemorySource):
         if not node.partitions:
@@ -462,7 +617,7 @@ class LocalExecutor:
                 return
         # a device dispatch takes a whole source file: big morsels amortize
         # the launches, and the kernels are sized for them
-        child = self._scan_files(src) if isinstance(src, pp.ScanSource) \
+        child = self._whole_tasks(src) if isinstance(src, pp.ScanSource) \
             else self._exec(src)
         window = dpipe.inflight_window()
         if window > 0 and self.device is not None:
@@ -906,6 +1061,33 @@ class LocalExecutor:
         yield from _ordered_parallel(self._exec(lnode),
                                      lambda p: p.cross_join(right))
 
+    # writes -----------------------------------------------------------
+    def _exec_Write(self, node: pp.Write):
+        """Write the child's partitions (reference ``executor.py:1923``):
+        a user sink takes the stream whole; a file write writes each
+        partition on the pool (hive directories per partition value) and
+        yields one partition of the written paths."""
+        info = node.info
+        if info.get("kind") == "sink":
+            sink = info["sink"]
+            sink.start()
+            results = list(sink.write(self._exec(node.children[0])))
+            yield sink.finalize(results)
+            return
+        from ..io import writers
+        if info.get("mode") == "overwrite":
+            writers.overwrite_dir(info["root_dir"])
+        child = self._exec(node.children[0])
+        outs = list(_ordered_parallel(
+            child, lambda p: writers.write_micropartition(
+                p, info["kind"], info["root_dir"],
+                info.get("partition_cols"), info.get("options"))))
+        outs = [o for o in outs if len(o)]
+        if not outs:
+            yield MicroPartition.empty(node.schema())
+            return
+        yield MicroPartition.from_recordbatch(
+            RecordBatch.concat(outs).cast_to_schema(node.schema()))
     def _exec_Dedup(self, node: pp.Dedup):
         """Per partition: the hash exchange below puts every duplicate of
         ``on`` in one partition."""
@@ -1496,10 +1678,13 @@ def _task_column_ndv(tasks, name: str) -> Optional[float]:
 
 def _task_scan_bytes(task) -> int:
     """Uncompressed bytes of the columns a scan task reads, from its
-    footers: what a host scan of it decodes."""
+    footers: what a host scan of it decodes (a task without footers, a
+    CSV or JSON one: its file bytes)."""
     names = task.materialized_schema().column_names
     total = 0
     for _, md, groups in task.files():
+        if md is None:
+            return task.size_bytes() or 0
         idx = {md.schema.column(i).name: i for i in range(md.num_columns)}
         for g in (groups if groups is not None
                   else range(md.num_row_groups)):
@@ -1564,6 +1749,8 @@ def _source_rows(plan) -> Optional[List[int]]:
         rows = [len(p) for p in plan.partitions]
     elif isinstance(plan, pp.ScanSource):
         rows = [t.max_rows() for t in plan.tasks]
+        if None in rows:
+            return None
     else:
         return None
     return [sum(rows)] if gather else rows

@@ -1,3 +1,10 @@
-from .read import read_parquet
+from .object_io import (AzureConfig, GCSConfig, HTTPConfig, IOConfig,
+                        S3Config)
+from .read import read_csv, read_json, read_parquet, read_sql, read_warc
+from .scan import Pushdowns, ScanOperator, ScanTask
+from .sink import DataSink, WriteResult
 
-__all__ = ["read_parquet"]
+__all__ = ["AzureConfig", "DataSink", "GCSConfig", "HTTPConfig", "IOConfig",
+           "Pushdowns", "S3Config", "ScanOperator", "ScanTask",
+           "WriteResult", "read_csv", "read_json", "read_parquet",
+           "read_sql", "read_warc"]

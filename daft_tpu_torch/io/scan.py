@@ -1,13 +1,17 @@
-"""Scan planning and the local parquet reader: Pushdowns, ScanTask,
-GlobScanOperator.
+"""Scan planning: Pushdowns, ScanTask, the scan operators, glob scans.
 
-Reference: ``src/common/scan-info/src/scan_operator.rs:12-37`` (Pushdowns),
-``src/daft-scan/src/lib.rs:417-436`` (ScanTask), ``src/daft-scan/src/glob.rs:28``
-(GlobScanOperator with schema inference from the first file) and
-``src/daft-parquet/src/statistics`` (row-group pruning). The port reads local
-parquet only. Small files merge into one ScanTask and an oversized file splits
-into row-group ranges, as in the reference (``scan_tasks_min_size_bytes``,
-``scan_tasks_max_size_bytes``); a task streams one RecordBatch per file.
+The port's copy of ``daft_tpu/io/scan.py``. Reference:
+``src/common/scan-info/src/scan_operator.rs:12-37`` (ScanOperator trait and
+Pushdowns), ``src/daft-scan/src/lib.rs:417-436`` (ScanTask fields),
+``src/daft-scan/src/glob.rs:28`` (GlobScanOperator with schema inference from
+the first file, hive partition values from the paths) and
+``src/daft-scan/src/scan_task_iters/`` (merge by size, split by row group).
+Small files merge into one ScanTask and an oversized file splits into
+row-group ranges (``scan_tasks_min_size_bytes``,
+``scan_tasks_max_size_bytes``); a task streams one RecordBatch per file
+(``readers.iter_scan_task_batches``). Every parquet footer is read once, at
+planning, through the ranged open, and rides the task: a remote file's
+footer is never fetched twice, and nothing downstream opens a path.
 """
 
 from __future__ import annotations
@@ -15,13 +19,13 @@ from __future__ import annotations
 import dataclasses
 import glob as _glob
 import os
-from typing import Any, Iterator, List, Optional, Sequence, Tuple
+from typing import (Any, Callable, Dict, Iterator, List, Optional, Sequence,
+                    Tuple)
 
-import pyarrow.parquet as pq
-
+from ..datatype import DataType
 from ..expressions import Expression
 from ..recordbatch import RecordBatch
-from ..schema import Schema
+from ..schema import Field, Schema
 
 
 @dataclasses.dataclass(frozen=True)
@@ -51,19 +55,33 @@ MAX_FILES_PER_TASK = 10
 SPLIT_MAX_FILES = 10
 
 
+def _is_remote(path: str) -> bool:
+    return "://" in path and not path.startswith("file://")
+
+
 class ScanTask:
-    """One unit of scan work: one or more parquet files (each optionally
-    pruned to some row groups) plus the pushdowns to apply while reading
-    them. Small adjacent files share a task and an oversized file splits
-    into row-group ranges (:func:`merge_scan_tasks`,
+    """One unit of scan work: one or more files of one format (a parquet
+    file optionally pruned to some row groups) plus the pushdowns to apply
+    while reading them, or a generator of batches (an in-memory, SQL or
+    generator source). Small adjacent files share a task and an oversized
+    parquet file splits into row-group ranges (:func:`merge_scan_tasks`,
     :func:`split_scan_tasks`)."""
 
-    def __init__(self, paths: List[str], schema: Schema, pushdowns: Pushdowns,
-                 num_rows: int, size_bytes: int,
+    def __init__(self, paths: List[str], schema: Schema,
+                 pushdowns: Pushdowns = Pushdowns(),
+                 num_rows: Optional[int] = None,
+                 size_bytes: Optional[int] = None,
                  row_groups: Optional[List[Optional[List[int]]]] = None,
-                 metadata: Optional[list] = None):
+                 metadata: Optional[list] = None, *,
+                 file_format: str = "parquet",
+                 format_options: Optional[Dict[str, Any]] = None,
+                 partition_values: Optional[Dict[str, Any]] = None,
+                 generator: Optional[Callable[[], Iterator[RecordBatch]]]
+                 = None,
+                 io_config: Any = None):
         self.paths = list(paths)
-        #: each file's parquet footer, read once at planning
+        #: each parquet file's footer, read once at planning (None: not
+        #: read yet, or not parquet)
         self.metadata = metadata if metadata is not None \
             else [None] * len(self.paths)
         self.schema = schema
@@ -73,13 +91,26 @@ class ScanTask:
         #: per file, the row groups to read (None: all of them); None for
         #: a task that reads every file whole
         self.row_groups = row_groups
+        self.file_format = file_format
+        self.format_options = format_options or {}
+        #: hive partition values every row of the task carries
+        self.partition_values = partition_values or {}
+        self.generator = generator
+        self.io_config = io_config
 
     def files(self) -> Iterator[Tuple[str, Any, Optional[List[int]]]]:
-        """``(path, footer, row groups or None)`` for each file, in order."""
+        """``(path, footer, row groups or None)`` for each file, in order:
+        the footer cached at planning, else one read through the ranged
+        open (a remote file costs its tail GETs, never a local open). The
+        footer is None for a file that is not parquet."""
         for i, p in enumerate(self.paths):
             rg = self.row_groups[i] if self.row_groups is not None else None
             md = self.metadata[i]
-            yield p, md if md is not None else pq.ParquetFile(p).metadata, rg
+            if md is None and self.file_format == "parquet" \
+                    and self.generator is None:
+                from .readers import read_footer
+                md = self.metadata[i] = read_footer(p, self.io_config)
+            yield p, md, rg
 
     def materialized_schema(self) -> Schema:
         if self.pushdowns.columns is not None:
@@ -90,42 +121,35 @@ class ScanTask:
     def num_rows(self) -> Optional[int]:
         if self.pushdowns.filters is not None:
             return None
-        if self.pushdowns.limit is not None:
+        if self._num_rows is not None and self.pushdowns.limit is not None:
             return min(self._num_rows, self.pushdowns.limit)
         return self._num_rows
 
-    def max_rows(self) -> int:
+    def max_rows(self) -> Optional[int]:
         """The rows the task can yield at most: its footers', or its limit
-        (the pushdown filter only removes rows)."""
+        (the pushdown filter only removes rows); None when neither is
+        known (a CSV or JSON file)."""
         if self.pushdowns.limit is not None:
-            return min(self._num_rows, self.pushdowns.limit)
+            return self.pushdowns.limit if self._num_rows is None \
+                else min(self._num_rows, self.pushdowns.limit)
         return self._num_rows
 
-    def size_bytes(self) -> int:
+    def size_bytes(self) -> Optional[int]:
         return self._size_bytes
 
     def stream_batches(self) -> Iterator[RecordBatch]:
-        """One RecordBatch per file, with the residual filter applied and
-        the limit counted across the files (a satisfied limit reads no
-        further file). Yields nothing when every row is filtered out."""
+        """One RecordBatch per file (or per generated batch), with the
+        residual filter applied and the limit counted across the files (a
+        satisfied limit reads no further file). Yields nothing when every
+        row is filtered out (``execute`` adds the empty batch)."""
+        from . import readers
+        src = self.generator() if self.generator is not None \
+            else readers.iter_scan_task_batches(self)
         remaining = self.pushdowns.limit
-        for i, path in enumerate(self.paths):
-            if remaining is not None and remaining <= 0:
+        while remaining is None or remaining > 0:
+            b = next(src, None)
+            if b is None:
                 return
-            f = pq.ParquetFile(path)
-            cols = None
-            if self.pushdowns.columns is not None:
-                names = set(f.schema_arrow.names)
-                cols = [c for c in self.pushdowns.columns if c in names]
-            groups = self.row_groups[i] if self.row_groups is not None \
-                else None
-            if groups is None:
-                t = f.read(columns=cols)
-            elif groups:
-                t = f.read_row_groups(groups, columns=cols)
-            else:
-                continue
-            b = RecordBatch.from_arrow_table(t)
             if self.pushdowns.filters is not None:
                 b = b.filter(self.pushdowns.filters)
             if remaining is not None:
@@ -140,42 +164,190 @@ class ScanTask:
             return [RecordBatch.empty(self.materialized_schema())]
         return out
 
+    def _with(self, paths, num_rows, size_bytes, row_groups,
+              metadata) -> "ScanTask":
+        """A task of the same source and pushdowns over other files."""
+        return ScanTask(paths, self.schema, self.pushdowns, num_rows,
+                        size_bytes, row_groups, metadata,
+                        file_format=self.file_format,
+                        format_options=self.format_options,
+                        partition_values=self.partition_values,
+                        io_config=self.io_config)
+
     def __repr__(self):
-        return (f"ScanTask({len(self.paths)} files, rows={self._num_rows}, "
-                f"pushdowns={self.pushdowns})")
+        return (f"ScanTask({self.file_format}, {len(self.paths)} files, "
+                f"rows={self._num_rows}, pushdowns={self.pushdowns})")
 
 
-class GlobScanOperator:
-    """Scan over globbed local parquet files, schema from the first file."""
+class ScanOperator:
+    """Produces ScanTasks for a source (reference trait:
+    scan_operator.rs:12-37)."""
 
-    def __init__(self, paths):
-        self._paths = glob_paths(paths)
-        self._schema = Schema.from_arrow(pq.read_schema(self._paths[0]))
+    def schema(self) -> Schema:
+        raise NotImplementedError
+
+    def multiline_display(self) -> List[str]:
+        return [type(self).__name__]
+
+    def to_scan_tasks(self, pushdowns: Pushdowns) -> List[ScanTask]:
+        raise NotImplementedError
+
+
+class GeneratorScanOperator(ScanOperator):
+    """Scan over pre-resolved entries, each loaded by a callback (the
+    shape the lake-format readers share: their file lists resolve at plan
+    time and each entry materializes at execution).
+
+    ``entries``: list of (paths, load_fn) where ``load_fn(pushdowns)``
+    yields RecordBatches. ``prune_fn(entry_index, pushdowns)`` → False
+    drops an entry at planning (stats pruning)."""
+
+    def __init__(self, schema: Schema, entries, label: str,
+                 io_config=None, prune_fn=None, entry_hints=None):
+        self._schema = schema
+        self._entries = entries
+        self._label = label
+        self._io_config = io_config
+        self._prune_fn = prune_fn
+        self._hints = entry_hints or [{} for _ in entries]
+
+    def multiline_display(self) -> List[str]:
+        return [self._label]
+
+    def schema(self) -> Schema:
+        return self._schema
+
+    def to_scan_tasks(self, pushdowns: Pushdowns) -> List[ScanTask]:
+        tasks = []
+        for i, (paths, load_fn) in enumerate(self._entries):
+            if self._prune_fn is not None \
+                    and not self._prune_fn(i, pushdowns):
+                continue
+
+            def gen(load_fn=load_fn):
+                yield from load_fn(pushdowns)
+            hint = self._hints[i]
+            tasks.append(ScanTask(
+                list(paths), self._schema, pushdowns, hint.get("rows"),
+                hint.get("size"), file_format=hint.get("format", "parquet"),
+                generator=gen, io_config=self._io_config))
+        if not tasks:
+            schema = self._schema
+            tasks.append(ScanTask(
+                [], schema, pushdowns, 0,
+                generator=lambda: iter([_empty_batch(schema, pushdowns)])))
+        return tasks
+
+
+def _empty_batch(schema: Schema, pushdowns: Pushdowns) -> RecordBatch:
+    if pushdowns.columns is not None:
+        keep = [n for n in pushdowns.columns if n in schema]
+        return RecordBatch.empty(schema.project(keep))
+    return RecordBatch.empty(schema)
+
+
+def glob_paths(path_or_paths, io_config=None) -> List[str]:
+    """Local / file:// / remote glob expansion (reference
+    ``object_store_glob.rs``). Local directories expand to their files; a
+    remote path with a wildcard lists its store (an HTTP store has no
+    listing: HTTP reads take explicit URLs)."""
+    paths = [path_or_paths] if isinstance(path_or_paths, str) \
+        else list(path_or_paths)
+    out: List[str] = []
+    for p in paths:
+        if p.startswith("file://"):
+            p = p[7:]
+        if _is_remote(p):
+            if any(ch in p for ch in "*?[]"):
+                from .object_io import get_io_client
+                out.extend(get_io_client(io_config).glob(p))
+            else:
+                out.append(p)
+            continue
+        if any(ch in p for ch in "*?[]"):
+            matches = sorted(_glob.glob(p, recursive=True))
+            out.extend(m for m in matches if os.path.isfile(m))
+        elif os.path.isdir(p):
+            for root, _, files in sorted(os.walk(p)):
+                for f in sorted(files):
+                    if not f.startswith((".", "_")):
+                        out.append(os.path.join(root, f))
+        else:
+            out.append(p)
+    if not out:
+        raise FileNotFoundError(f"no files found for {path_or_paths!r}")
+    return out
+
+
+class GlobScanOperator(ScanOperator):
+    """Scan over globbed files of one format, the schema inferred from the
+    first file unless given (reference: ``glob.rs:28``), plus hive
+    partition values from the paths (``hive.rs``)."""
+
+    def __init__(self, paths, file_format: str = "parquet",
+                 schema: Optional[Schema] = None,
+                 format_options: Optional[Dict[str, Any]] = None,
+                 hive_partitioning: bool = False,
+                 io_config: Any = None):
+        from . import readers
+        self._io_config = io_config
+        self._paths = glob_paths(paths, io_config)
+        self._format = file_format
+        self._options = format_options or {}
+        self._hive = hive_partitioning
+        self._hive_fields: Dict[str, DataType] = {}
+        if schema is None:
+            schema = readers.infer_schema(self._paths[0], file_format,
+                                          self._options, io_config)
+        if hive_partitioning:
+            # the union of keys and types over ALL paths: the first path
+            # alone would drop the partition columns of mixed-key layouts
+            values: Dict[str, List[Any]] = {}
+            for p in self._paths:
+                for k, v in _hive_values(p).items():
+                    values.setdefault(k, []).append(v)
+            for k, vs in values.items():
+                self._hive_fields[k] = DataType.infer_from_pylist(vs)
+            schema = schema.non_distinct_union(
+                Schema([Field(k, t) for k, t in self._hive_fields.items()]))
+        self._schema = schema
 
     def schema(self) -> Schema:
         return self._schema
 
     def multiline_display(self) -> List[str]:
-        return ["GlobScanOperator(parquet)",
+        return [f"GlobScanOperator({self._format})",
                 f"paths = {self._paths[:3]}"
                 f"{'…' if len(self._paths) > 3 else ''}"]
 
     def to_scan_tasks(self, pushdowns: Pushdowns) -> List[ScanTask]:
-        """One task per file, then oversized files split and small ones
-        merged to the configured sizes (reference ``io/scan.py:306``)."""
+        """One task per file (footers of remote files fetched on the IO
+        pool, in order), then oversized files split and small ones merged
+        to the configured sizes (reference ``io/scan.py:281``)."""
+        from . import readers
         from ..context import get_context
         cfg = get_context().execution_config
-        tasks = []
-        for p in self._paths:
-            md = pq.ParquetFile(p).metadata
-            groups = _prune_row_groups(md, pushdowns.filters)
-            keep = groups if groups is not None \
-                else range(md.num_row_groups)
-            tasks.append(ScanTask(
-                [p], self._schema, pushdowns,
-                sum(md.row_group(g).num_rows for g in keep),
-                sum(md.row_group(g).total_byte_size for g in keep),
-                [groups] if groups is not None else None, [md]))
+
+        def plan_one(p: str) -> List[ScanTask]:
+            pv = {}
+            if self._hive:
+                # every task carries the union's keys: a path lacking one
+                # still materializes the column (as nulls)
+                vals = _hive_values(p)
+                pv = {k: vals.get(k) for k in self._hive_fields}
+            return readers.make_scan_tasks(
+                p, self._format, self._schema, pushdowns, self._options, pv,
+                self._io_config)
+
+        if sum(_is_remote(p) for p in self._paths) > 1:
+            # a remote footer costs a round trip chain per file: fan them
+            # out over the IO pool
+            from .object_io import io_pool
+            futs = [io_pool().submit(plan_one, p) for p in self._paths]
+            groups = [f.result() for f in futs]
+        else:
+            groups = [plan_one(p) for p in self._paths]
+        tasks = [t for g in groups for t in g]
         tasks = split_scan_tasks(tasks, cfg.scan_tasks_max_size_bytes,
                                  SPLIT_MAX_FILES)
         return merge_scan_tasks(tasks, cfg.scan_tasks_min_size_bytes,
@@ -183,17 +355,30 @@ class GlobScanOperator:
                                 MAX_FILES_PER_TASK)
 
 
+def _hive_values(path: str) -> Dict[str, Any]:
+    out = {}
+    for part in path.split(os.sep):
+        if "=" in part and not part.startswith("."):
+            k, _, v = part.partition("=")
+            if k and v and "." not in v:
+                out[k] = v
+    return out
+
+
 def split_scan_tasks(tasks: List[ScanTask], max_size: int,
                      max_files: int) -> List[ScanTask]:
-    """Split a whole-file task above ``max_size`` into row-group-range
-    tasks of at most ``max_size`` each (reference ``io/scan.py:327``).
-    Only the first ``max_files`` oversized files split; a limit pushdown
-    keeps the file whole (the limit is served from its head)."""
+    """Split a whole-file parquet task above ``max_size`` into
+    row-group-range tasks of at most ``max_size`` each (reference
+    ``io/scan.py:327``). Only the first ``max_files`` oversized files
+    split; a limit pushdown keeps the file whole (the limit is served from
+    its head)."""
     out: List[ScanTask] = []
     budget = max_files
     for t in tasks:
-        if (len(t.paths) != 1 or t.pushdowns.limit is not None
-                or t.row_groups is not None or t.size_bytes() <= max_size
+        sz = t.size_bytes()
+        if (t.file_format != "parquet" or t.generator is not None
+                or len(t.paths) != 1 or t.pushdowns.limit is not None
+                or t.row_groups is not None or sz is None or sz <= max_size
                 or budget <= 0):
             out.append(t)
             continue
@@ -207,37 +392,40 @@ def split_scan_tasks(tasks: List[ScanTask], max_size: int,
         for g in range(md.num_row_groups):
             rg = md.row_group(g)
             if group and gsize + rg.total_byte_size > max_size:
-                out.append(ScanTask([path], t.schema, t.pushdowns, grows,
-                                    gsize, [group], [md]))
+                out.append(t._with([path], grows, gsize, [group], [md]))
                 group, gsize, grows = [], 0, 0
             group.append(g)
             gsize += rg.total_byte_size
             grows += rg.num_rows
         if group:
-            out.append(ScanTask([path], t.schema, t.pushdowns, grows, gsize,
-                                [group], [md]))
+            out.append(t._with([path], grows, gsize, [group], [md]))
     return out
 
 
 def merge_scan_tasks(tasks: List[ScanTask], min_size: int, max_size: int,
                      max_sources: int) -> List[ScanTask]:
-    """Merge small adjacent whole-file tasks until one reaches
-    ``min_size``, never past ``max_size`` or ``max_sources`` files
-    (reference ``io/scan.py:372``): the scan's partition count follows
-    the data's size, not its file count."""
+    """Merge small adjacent whole-file tasks of one format and partition
+    until one reaches ``min_size``, never past ``max_size`` or
+    ``max_sources`` files (reference ``io/scan.py:372``): the scan's
+    partition count follows the data's size, not its file count."""
     out: List[ScanTask] = []
     acc: Optional[ScanTask] = None
     acc_size = 0
     for t in tasks:
-        sz = t.size_bytes() or max_size  # an empty file stays alone
+        sz = t.size_bytes() or max_size  # unknown or empty: stays alone
         limited = t.pushdowns.limit is not None
         if (acc is not None and not limited
                 and acc_size + sz <= max_size
                 and len(acc.paths) + len(t.paths) <= max_sources
-                and acc.row_groups is None and t.row_groups is None):
-            acc = ScanTask(acc.paths + t.paths, acc.schema, acc.pushdowns,
-                           acc._num_rows + t._num_rows, acc_size + sz, None,
-                           acc.metadata + t.metadata)
+                and acc.file_format == t.file_format
+                and acc.generator is None and t.generator is None
+                and acc.row_groups is None and t.row_groups is None
+                and acc.partition_values == t.partition_values):
+            acc = acc._with(acc.paths + t.paths,
+                            None if (acc._num_rows is None
+                                     or t._num_rows is None)
+                            else acc._num_rows + t._num_rows,
+                            acc_size + sz, None, acc.metadata + t.metadata)
             acc_size += sz
             if acc_size >= min_size:
                 out.append(acc)
@@ -255,145 +443,22 @@ def merge_scan_tasks(tasks: List[ScanTask], min_size: int, max_size: int,
     return out
 
 
-def glob_paths(path_or_paths) -> List[str]:
-    """Local / file:// glob expansion (reference ``object_store_glob.rs``).
-    Directories expand to their files."""
-    paths = [path_or_paths] if isinstance(path_or_paths, str) else list(path_or_paths)
-    out: List[str] = []
-    for p in paths:
-        if p.startswith("file://"):
-            p = p[7:]
-        if "://" in p:
-            raise NotImplementedError(
-                f"{p!r}: the port reads local files only")
-        if any(ch in p for ch in "*?[]"):
-            matches = sorted(_glob.glob(p, recursive=True))
-            out.extend(m for m in matches if os.path.isfile(m))
-        elif os.path.isdir(p):
-            for root, _, files in sorted(os.walk(p)):
-                for f in sorted(files):
-                    if not f.startswith((".", "_")):
-                        out.append(os.path.join(root, f))
-        else:
-            out.append(p)
-    if not out:
-        raise FileNotFoundError(f"no files found for {path_or_paths!r}")
-    return out
+class InMemoryScanOperator(ScanOperator):
+    """Scan over already-materialized partitions (cache entries)."""
 
+    def __init__(self, schema: Schema, partitions):
+        self._schema = schema
+        self._parts = partitions
 
-def _prune_row_groups(md, filters: Optional[Expression]
-                      ) -> Optional[List[int]]:
-    """Zone-map pruning: drop row groups whose min/max can't satisfy the
-    filter (reference: ``daft-parquet/src/statistics``). Conservative — only
-    simple ``col <op> literal`` conjuncts are used."""
-    if filters is None:
-        return None
-    bounds = _extract_bounds(filters)
-    if not bounds:
-        return None
-    keep = []
-    name_to_idx = None
-    for g in range(md.num_row_groups):
-        rg = md.row_group(g)
-        if name_to_idx is None:
-            name_to_idx = {rg.column(i).path_in_schema: i
-                           for i in range(rg.num_columns)}
-        ok = True
-        for (cname, op, lit) in bounds:
-            ci = name_to_idx.get(cname)
-            if ci is None:
-                continue
-            stats = rg.column(ci).statistics
-            if stats is None:
-                continue
-            if op in ("is_null", "not_null"):
-                # null_count statistics: a group with zero nulls can't
-                # satisfy is_null; an all-null group can't satisfy not_null
-                if not getattr(stats, "has_null_count", False):
-                    continue
-                if op == "is_null" and stats.null_count == 0:
-                    ok = False
-                elif op == "not_null" and stats.null_count >= rg.num_rows:
-                    ok = False
-                if not ok:
-                    break
-                continue
-            if not stats.has_min_max:
-                continue
-            mn, mx = stats.min, stats.max
-            try:
-                if op == "lt" and not (mn < lit):
-                    ok = False
-                elif op == "le" and not (mn <= lit):
-                    ok = False
-                elif op == "gt" and not (mx > lit):
-                    ok = False
-                elif op == "ge" and not (mx >= lit):
-                    ok = False
-                elif op == "eq" and not (mn <= lit <= mx):
-                    ok = False
-                elif op == "is_in" and not any(mn <= v <= mx for v in lit):
-                    ok = False
-            except TypeError:
-                continue
-            if not ok:
-                break
-        if ok:
-            keep.append(g)
-    return keep
+    def schema(self) -> Schema:
+        return self._schema
 
-
-_LIT_TYPES = (int, float, str, bytes)
-
-
-def _extract_bounds(e: Expression):
-    """Top-level AND conjuncts of form col <cmp> lit, plus
-    col.is_null()/not_null() (null_count pruning) and
-    col.is_in([literals]) (min/max containment pruning)."""
-    import datetime
-    out = []
-
-    def walk(x: Expression):
-        if x.op == "and":
-            walk(x.args[0])
-            walk(x.args[1])
-            return
-        if x.op in ("is_null", "not_null"):
-            c = x.args[0]._unalias()
-            if c.op == "col":
-                out.append((c.params[0], x.op, None))
-            return
-        if x.op == "is_in":
-            c = x.args[0]._unalias()
-            if c.op != "col":
-                return
-            vals = []
-            for a in x.args[1:]:
-                if a.op == "lit" and isinstance(
-                        a.params[0],
-                        _LIT_TYPES + (datetime.date, datetime.datetime)) \
-                        and not isinstance(a.params[0], bool):
-                    vals.append(a.params[0])
-                else:
-                    return  # non-literal member → no static bound
-            if vals:
-                out.append((c.params[0], "is_in", tuple(vals)))
-            return
-        if x.op in ("lt", "le", "gt", "ge", "eq"):
-            l, r = x.args
-            flip = {"lt": "gt", "le": "ge", "gt": "lt", "ge": "le", "eq": "eq"}
-            if l.op == "lit" and r._unalias().op == "col":
-                l, r = r, l
-                op = flip[x.op]
-            else:
-                op = x.op
-            li = l._unalias()
-            if li.op == "col" and r.op == "lit":
-                v = r.params[0]
-                if isinstance(v, (datetime.date, datetime.datetime)):
-                    # parquet stats for date32 come back as datetime.date
-                    out.append((li.params[0], op, v))
-                elif isinstance(v, (int, float, str, bytes)):
-                    out.append((li.params[0], op, v))
-    walk(e)
-    return out
+    def to_scan_tasks(self, pushdowns: Pushdowns) -> List[ScanTask]:
+        tasks = []
+        for p in self._parts:
+            def gen(p=p):
+                return iter(p.batches())
+            tasks.append(ScanTask([], self._schema, pushdowns,
+                                  p.metadata_num_rows(),
+                                  file_format="memory", generator=gen))
+        return tasks

@@ -139,6 +139,32 @@ REGISTRY = {
         "daft_tpu_torch.analysis --fuzz`)"),
     "DAFT_TORCH_FUZZ_COUNT": (
         50, "seeds per plan-fuzzer run"),
+    "DAFT_TORCH_IO_COALESCE_GAP": (
+        None, "hole tolerance of byte-range coalescing (bytes, suffixes "
+        "like `1MiB` accepted); unset defers to "
+        "`ExecutionConfig.io_coalesce_gap` (1MiB)"),
+    "DAFT_TORCH_IO_MIN_REQUEST": (
+        None, "request floor: a coalesced range request under it absorbs "
+        "its neighbour across a hole under it; unset defers to "
+        "`ExecutionConfig.io_min_request` (8MiB)"),
+    "DAFT_TORCH_IO_RANGE_PARALLELISM": (
+        None, "concurrent range GETs per object; unset defers to "
+        "`ExecutionConfig.io_range_parallelism` (8)"),
+    "DAFT_TORCH_IO_PLANNED_READS": (
+        None, "`0`: remote parquet reads take pyarrow's own ranged GETs "
+        "per column chunk instead of the planned, coalesced ranges; unset "
+        "defers to `ExecutionConfig.io_planned_reads` (on)"),
+    "DAFT_TORCH_SCAN_PREFETCH": (
+        None, "scan tasks the scan source resolves ahead of the one it "
+        "drains (`0`: whole-task loads on the shared pool); unset defers "
+        "to `ExecutionConfig.scan_prefetch` (2)"),
+    "DAFT_TORCH_IO_STREAM_CHUNK": (
+        None, "chunk of the streaming remote CSV/JSON reader; unset "
+        "defers to `ExecutionConfig.io_stream_chunk` (8MiB)"),
+    "DAFT_TORCH_IO_INFER_BYTES": (
+        None, "head bytes read to infer a remote CSV/JSON schema (`0`: "
+        "the whole object); unset defers to "
+        "`ExecutionConfig.io_infer_bytes` (1MiB)"),
     "DAFT_TORCH_GOVERNOR_LOW": (
         None, "RSS fraction that leaves it again (default 0.70, clamped "
         "under the high mark)"),

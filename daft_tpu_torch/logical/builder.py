@@ -216,6 +216,19 @@ class LogicalPlanBuilder:
             self._plan, column_name or "id"))
 
     # ---- optimize --------------------------------------------------------
+    def table_write(self, kind: str, root_dir: str, partition_cols=None,
+                    mode: str = "append", options=None
+                    ) -> "LogicalPlanBuilder":
+        return self._wrap(lp.Sink(self._plan, {
+            "kind": kind, "root_dir": root_dir,
+            "partition_cols": _to_exprs(partition_cols)
+            if partition_cols else None,
+            "mode": mode, "options": options or {}}))
+
+    def write_sink(self, sink) -> "LogicalPlanBuilder":
+        return self._wrap(lp.Sink(self._plan, {"kind": "sink",
+                                               "sink": sink}))
+
     def optimize(self) -> "LogicalPlanBuilder":
         from .optimizer import Optimizer
         return LogicalPlanBuilder(Optimizer().optimize(self._plan))

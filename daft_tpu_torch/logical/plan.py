@@ -4,7 +4,8 @@ Reference: ``src/daft-logical-plan/src/logical_plan.rs:25`` — the LogicalPlan
 enum — and ``partitioning.rs`` (ClusteringSpec). The port carries the nodes
 of the grouped-aggregation, join, TPC-H, SQL and TPC-DS slices: Source/
 Project/Filter/Limit/Sort/TopN/Repartition/Distinct/Aggregate/Join (equi
-and cross)/Window/Concat/Sample/MonotonicallyIncreasingId/Pivot/Unpivot.
+and cross)/Window/Concat/Sample/MonotonicallyIncreasingId/Pivot/Unpivot/
+Sink.
 Explode comes with the ``list`` type (ROADMAP A8).
 """
 
@@ -540,3 +541,28 @@ class MonotonicallyIncreasingId(LogicalPlan):
 
     def _params(self):
         return (self.column_name,)
+
+
+class Sink(LogicalPlan):
+    """Write sink (reference ``logical/plan.py:556``). info = dict(kind =
+    parquet/csv/json/sink, root_dir, partition_cols, mode, options,
+    sink)."""
+
+    def __init__(self, child, info: dict):
+        super().__init__([child])
+        self.info = info
+
+    def _compute_schema(self) -> Schema:
+        from ..datatype import DataType
+        if self.info.get("kind") == "sink":
+            return self.info["sink"].schema()
+        fields = [Field("path", DataType.string())]
+        for e in self.info.get("partition_cols") or []:
+            fields.append(e.to_field(self._children[0].schema()))
+        return Schema(fields)
+
+    def with_children(self, children):
+        return Sink(children[0], self.info)
+
+    def _params(self):
+        return (self.info.get("kind"), self.info.get("root_dir"))

@@ -200,7 +200,10 @@ def _footer_range(md, name: str):
     """(min, max) of an int/date column over every row group of one
     parquet footer, or None when a group lacks min/max statistics or the
     column is of another type. A date counts by day; a timestamp does not
-    (a day of distinct timestamps would collapse to ndv 1)."""
+    (a day of distinct timestamps would collapse to ndv 1). None too for
+    a file without a footer (CSV, JSON)."""
+    if md is None:
+        return None
     idx = {md.schema.column(i).name: i
            for i in range(md.num_columns)}.get(name)
     if idx is None:

@@ -286,3 +286,12 @@ class FusedRegion(PhysicalPlan):
         # estimates carried over from the folded Aggregate
         self.group_rows_est: Optional[int] = None
         self.group_ndv: Optional[float] = None
+
+
+class Write(PhysicalPlan):
+    """A write of its child's rows (``lp.Sink``'s info); one partition of
+    the written paths (or of the sink's results) out."""
+
+    def __init__(self, child, info: dict, schema: Schema):
+        super().__init__([child], schema)
+        self.info = info

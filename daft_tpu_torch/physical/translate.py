@@ -148,6 +148,8 @@ def _t_node(node: lp.LogicalPlan) -> pp.PhysicalPlan:
     if isinstance(node, lp.MonotonicallyIncreasingId):
         return pp.MonotonicallyIncreasingId(
             _t(node.children[0]), node.column_name, node.schema())
+    if isinstance(node, lp.Sink):
+        return pp.Write(_t(node.children[0]), node.info, node.schema())
     raise NotImplementedError(f"translate for {node.name()}")
 
 

@@ -378,6 +378,24 @@ class RecordBatch:
         pid[order[~is_b]] = ahead[~is_b]
         return self._split_by_pid(pid, nparts)
 
+    def partition_by_value(self, exprs: Sequence[Expression]
+                           ) -> "tuple[List[RecordBatch], RecordBatch]":
+        """One batch per distinct key of ``exprs`` and a batch of those
+        keys, one row per part (the hive-partitioned write's split)."""
+        keys = RecordBatch.from_series([self.eval_expression(e)
+                                        for e in exprs])
+        tbl = keys.to_arrow_table().append_column(
+            "__row__", pa.array(np.arange(self._len)))
+        g = tbl.group_by([c for c in tbl.column_names if c != "__row__"],
+                         use_threads=False).aggregate([("__row__", "list")])
+        parts = []
+        for i in range(g.num_rows):
+            idx = np.asarray(g.column("__row___list")[i].as_py())
+            parts.append(self.take(idx))
+        pvalues = RecordBatch.from_arrow_table(
+            g.drop_columns(["__row___list"]))
+        return parts, pvalues
+
     def _split_by_pid(self, pid: np.ndarray, n: int) -> List["RecordBatch"]:
         # a 16-bit key takes numpy's radix sort (stable, linear)
         if n <= 1 << 16:

@@ -1316,12 +1316,8 @@ class SQLPlanner:
             self._next()
             path = self._next().text
             self._expect(")")
-            if name.lower() != "read_parquet":
-                raise NotImplementedError(
-                    f"table function {name.lower()}: only parquet is "
-                    "ported (ROADMAP A8)")
-            from ..io import read_parquet
-            df = read_parquet(path)
+            from .. import io as _io
+            df = getattr(_io, name.lower())(path)
         else:
             key = name.lower()
             df = ctes[key] if key in ctes else self.tables.get(key)

@@ -391,3 +391,56 @@ def test_spilled_grace_join_sort_and_aqe_run_without_jax():
                        timeout=120)
     assert r.returncode == 0, r.stdout + r.stderr
     assert "LEAKED []" in r.stdout
+
+
+_REMOTE_IO_SCRIPT = r"""
+import os, sys, tempfile
+os.environ["DAFT_TORCH_DEVICE"] = "cpu"
+import pyarrow as pa, pyarrow.parquet as pq
+import daft_tpu_torch
+from daft_tpu_torch.benchmarking.http_store import FileStore
+from daft_tpu_torch.io import read_planner as rp
+root = tempfile.mkdtemp()
+os.makedirs(os.path.join(root, "pq"))
+for i in range(3):
+    pq.write_table(pa.table({"g": ["a", "b", "a", "c"][i:] + ["a"] * i,
+                             "v": [float(i * 10 + j) for j in range(4)]}),
+                   os.path.join(root, "pq", f"p{i}.parquet"),
+                   row_group_size=2)
+with open(os.path.join(root, "t.csv"), "w") as f:
+    f.write("k,s\n1,x\n2,y\n")
+with FileStore(root) as store:
+    before = rp.scan_counters_snapshot()
+    df = daft_tpu_torch.read_parquet(store.urls("pq"))
+    out = df.where(daft_tpu_torch.col("v") > 5.0).groupby("g") \
+        .agg(daft_tpu_torch.col("v").sum()).sort("g").to_pydict()
+    assert out["g"] == ["a", "b", "c"], out
+    assert rp.scan_counters_delta(before).get("range_requests", 0) > 0
+    assert daft_tpu_torch.read_csv(f"{store.url}/t.csv").to_pydict() \
+        == {"k": [1, 2], "s": ["x", "y"]}
+    res = df.write_parquet(os.path.join(root, "out"),
+                           partition_cols=["g"]).to_pydict()
+assert sorted(set(res["g"])) == ["a", "b", "c"], res
+back = daft_tpu_torch.read_parquet(os.path.join(root, "out", "**",
+                                                "*.parquet"),
+                                   hive_partitioning=True)
+assert len(back.to_pydict()["v"]) == 12
+leaked = sorted(m for m in sys.modules
+                if m in ("jax", "jaxlib", "daft_tpu")
+                or m.startswith(("jax.", "jaxlib.", "daft_tpu.")))
+print("LEAKED", leaked)
+assert leaked == [], leaked
+"""
+
+
+def test_remote_read_and_partitioned_write_run_without_jax():
+    """Parquet and CSV read from a local HTTP store through the port's
+    planned reads and prefetch-pipelined scan, and a hive-partitioned
+    parquet write, import neither JAX nor daft_tpu."""
+    env = dict(os.environ)
+    env["PYTHONPATH"] = REPO + os.pathsep + env.get("PYTHONPATH", "")
+    r = subprocess.run([sys.executable, "-c", _REMOTE_IO_SCRIPT],
+                       cwd=REPO, env=env, capture_output=True, text=True,
+                       timeout=120)
+    assert r.returncode == 0, r.stdout + r.stderr
+    assert "LEAKED []" in r.stdout

@@ -12,15 +12,21 @@ placement (``physical/translate.py``).
   device-mesh exchange-agg (``DeviceExchangeAgg``) stays out of the
   comparison: it waits for the port's distributed slice (ROADMAP A7), so
   the reference plans with a one-device mesh.
+- The same for a written TPC-H query (a ``Write`` root) and a
+  hive-partitioned CSV scan.
 - Engine parity: TPC-H queries under ``push`` and ``interp`` equal each
   other and ``daft_tpu`` (keys, counts and strings exact, floats at
-  relative 1e-9).
+  relative 1e-9); so do Q1 and Q3 over parquet served by a local HTTP
+  store (planned range reads, the prefetch-pipelined scan), and a
+  ``Write``-rooted Q1 read back after the push engine, the interpreter
+  and the AQE loop wrote it.
 - The pipeline's own contracts: bounded channels with producer-refcounted
   close, cancellation unblocking every stage, the first error re-raised at
   the consumer, no stage thread left after a query (an early limit
   included), and the partitioned-agg stage's choice.
 """
 
+import os
 import threading
 import time
 
@@ -157,6 +163,88 @@ def test_scan_tasks_merge_and_split_as_the_reference(tpch_root, tmp_path):
             if kv == {}:
                 assert len(got) == 1, (path, got)
     assert split
+
+
+def _write_plans(tpch_root, out_dir):
+    """A written TPC-H query (Q1 partitioned by its flag) and a
+    hive-partitioned CSV scan, planned by each package."""
+    from daft_tpu_torch.benchmarking import tpch_queries as Q
+    part = str(out_dir / "li_csv")
+    if not os.path.isdir(part):
+        daft_tpu_torch.read_parquet(f"{tpch_root}/lineitem/*.parquet") \
+            .select("l_returnflag", "l_quantity", "l_extendedprice") \
+            .write_csv(part, partition_cols=["l_returnflag"])
+
+    def hive(pkg):
+        return pkg.read_csv(f"{part}/**/*.csv", hive_partitioning=True) \
+            .where(pkg.col("l_quantity") > 10).groupby("l_returnflag") \
+            .agg(pkg.col("l_extendedprice").sum()).sort("l_returnflag")
+    port = [Q.q1(_reader(daft_tpu_torch, tpch_root)).builder.table_write(
+                "parquet", str(out_dir / "w"), ["l_returnflag"]),
+            hive(daft_tpu_torch).builder]
+    ref = [RQ.ALL[1](_reader(daft_tpu, tpch_root))._builder.table_write(
+               "parquet", str(out_dir / "w"), ["l_returnflag"]),
+           hive(daft_tpu)._builder]
+    return port, ref
+
+
+def test_write_and_hive_csv_plan_parity(tpch_root, ref_planning, tmp_path):
+    from daft_tpu.physical.translate import translate as ref_translate
+    from daft_tpu_torch.physical.translate import translate
+    port, ref = _write_plans(tpch_root, tmp_path)
+    for got, want in zip(port, ref):
+        assert _sig(translate(got.optimize().plan)) \
+            == _sig(ref_translate(want.optimize()._plan))
+    assert _sig(translate(port[0].optimize().plan))[0] == "Write"
+
+
+@pytest.mark.parametrize("mode", ["push", "interp", "aqe"])
+def test_write_rooted_plan_runs_on_each_engine(tpch_root, tmp_path,
+                                               monkeypatch, mode):
+    """A plan with a ``Write`` root runs under the push engine, the
+    interpreter and the AQE loop: the files it lists read back to the
+    reference's answer."""
+    from daft_tpu_torch.benchmarking import tpch_queries as Q
+    from daft_tpu_torch.dataframe import DataFrame
+    monkeypatch.setenv("DAFT_TORCH_LOCAL_EXECUTOR",
+                       "interp" if mode == "interp" else "push")
+    want = RQ.ALL[1](_reader(daft_tpu, tpch_root)).to_pydict()
+    out = tmp_path / "q1"
+    with daft_tpu_torch.execution_config_ctx(enable_aqe=mode == "aqe"):
+        res = DataFrame(Q.q1(_reader(daft_tpu_torch, tpch_root)).builder
+                        .table_write("parquet", str(out),
+                                     ["l_returnflag"])).to_pydict()
+    assert sorted(set(res["l_returnflag"])) == sorted(
+        set(want["l_returnflag"]))
+    assert all(p.startswith(str(out)) for p in res["path"])
+    got = daft_tpu_torch.read_parquet(f"{out}/**/*.parquet",
+                                      hive_partitioning=True) \
+        .sort(["l_returnflag", "l_linestatus"]).select(*want).to_pydict()
+    _same(got, want, f"written q1 {mode}")
+
+
+@pytest.mark.parametrize("q", [1, 3])
+def test_remote_tpch_answers_match_the_reference(tpch_root, monkeypatch, q):
+    """TPC-H over parquet served by a local HTTP store, through the
+    planned reads and the prefetch-pipelined scan: the port's answers
+    under both engines equal the reference's over the same URLs."""
+    from daft_tpu_torch.benchmarking import tpch_queries as Q
+    from daft_tpu_torch.benchmarking.http_store import FileStore
+    from daft_tpu_torch.io import read_planner as rp
+    monkeypatch.setenv("DAFT_TPU_DEVICE", "0")
+    with FileStore(tpch_root) as store:
+        want = RQ.ALL[q](lambda t: daft_tpu.read_parquet(
+            store.urls(t))).to_pydict()
+        for engine in ("push", "interp"):
+            monkeypatch.setenv("DAFT_TORCH_LOCAL_EXECUTOR", engine)
+            before = rp.scan_counters_snapshot()
+            got = Q.ALL[q](lambda t: daft_tpu_torch.read_parquet(
+                store.urls(t))).to_pydict()
+            delta = rp.scan_counters_delta(before)
+            _same(got, want, f"remote q{q} {engine}")
+            assert delta.get("range_requests", 0) > 0, delta
+            assert not delta.get("planned_read_fallbacks"), delta
+        assert store.counts()["gets"] > 0
 
 
 # ---------------------------------------------------------- engine parity

@@ -135,10 +135,11 @@ def test_sql_shared_cte_runs_once(tpch_root, monkeypatch):
     assert len(li) == len(set(li)) == 3
 
 
-def test_window_function_names_its_roadmap_item(monkeypatch):
+def test_window_function_names_its_roadmap_item(monkeypatch, tmp_path):
     """Windows are ported (ROADMAP A5a): the rank query gives the
-    reference's answer; the table functions and expression families still
-    waiting name their item."""
+    reference's answer; so do the CSV and JSON table functions (ported
+    with the scan data plane); the expression families still waiting name
+    their item."""
     import daft_tpu_torch
     monkeypatch.setenv("DAFT_TORCH_DEVICE", "cpu")
     data = {"g": [1, 1, 2], "v": [1.0, 2.0, 3.0]}
@@ -147,8 +148,12 @@ def test_window_function_names_its_roadmap_item(monkeypatch):
     want = daft_tpu.sql(q, t=daft_tpu.from_pydict(data))
     assert got.to_pydict() == want.to_pydict()
     t = daft_tpu_torch.from_pydict(data)
-    with pytest.raises(NotImplementedError, match="ROADMAP A8"):
-        daft_tpu_torch.sql("SELECT * FROM read_csv('x.csv')")
+    (tmp_path / "x.csv").write_text("g,v\n1,1.5\n2,2.5\n")
+    (tmp_path / "x.json").write_text('{"g": 1}\n{"g": 3}\n')
+    for fn, f in (("read_csv", "x.csv"), ("read_json", "x.json")):
+        q = f"SELECT g FROM {fn}('{tmp_path / f}') ORDER BY g"
+        assert daft_tpu_torch.sql(q).to_pydict() \
+            == daft_tpu.sql(q).to_pydict()
     with pytest.raises(NotImplementedError, match="ROADMAP A8"):
         daft_tpu_torch.sql("SELECT split(s, ',') AS p FROM t",
                            t=daft_tpu_torch.from_pydict({"s": ["a,b"]}))
