@@ -174,6 +174,28 @@ Phases (any failure ends the run with a non-zero exit code):
    lineitem file written hive-partitioned by ``l_returnflag`` and read
    back with ``hive_partitioning=True`` (per-flag counts equal the
    source's); its new rungs go to phase 8 (``pass`` ``remote``);
+7j. observability phase: Q1, the ``l_suppkey`` group-by and Q3, cold,
+   through ``explain(analyze=True)`` with ``DAFT_TORCH_TRACE=1``, a trace
+   directory and ``DAFT_TORCH_PROFILE_DIR`` (a torch.profiler capture per
+   query): answers held to pyarrow, the analyzed root's rows equal to the
+   answer's, each exported Chrome trace valid with no orphan span, one
+   ``device:grouped_agg`` / ``device:join`` span per dispatch of the
+   query's ``device kernels`` block, the group-by's hash dispatches equal
+   to its hash-agg launches, Q3's 16 join builds and 16 probes, and in
+   the profiler's trace one range per call of each hand-written kernel's
+   wrapper, as many as it counted launches, each call's first kernel
+   there by name or as a launch whose kernel record the profiler dropped
+   (counted in the ``obs`` line; at least one by name); Q1 and the
+   group-by at once on two threads, each ``device kernels`` block equal
+   to its solo run's (``obs concurrent``); the dashboard launched on
+   localhost and its ``/metrics`` parsed strictly, its kernel dispatch
+   counters at least this phase's (``obs metrics``); tracing's overhead
+   on Q1 (warm cache) and Q3, off against on, 5 interleaved pairs
+   (``obs overhead``: medians and ranges, not gated); one ``lanes`` line
+   for each of TPC-H Q2, Q3, Q4, Q5, Q8, Q9, Q17 and Q20, cold and traced
+   (span time summed per lane, the five span names and the five
+   operators with the most time); its new rungs go to phase 8 (``pass``
+   ``obs``);
 8. the hash build against its plain version at the inputs of every
    distinct hash rung of the main path and of the TPC-H 22 phase's
    dispatch pass
@@ -185,8 +207,8 @@ Phases (any failure ends the run with a non-zero exit code):
    SQL-phase, TPC-DS and memory-bounded rung of a shape no earlier phase
    held, each checked as in the join-kernel phase, then timed (rows name
    their ``pass``: ``tpcds`` or ``tpcds_dispatch`` for the TPC-DS ones,
-   ``spill`` for the memory-bounded ones, ``pivot``, ``fuzz`` and
-   ``remote`` for the last three phases); every entry point
+   ``spill`` for the memory-bounded ones, ``pivot``, ``fuzz``,
+   ``remote`` and ``obs`` for the last four phases); every entry point
    ``analysis/dispatch_registry.py`` declares must have launched and been
    held against its plain twin in the run;
 9. a ``{"kernels": [...]}`` line with each kernel's launches, times and
@@ -2437,6 +2459,317 @@ def remote_write(root: str, ref: dict, card: str) -> dict:
     return write
 
 
+# ------------------------------------------------------------ observability
+
+#: phase 7j: the queries traced and profiled cold; per wrapper, its
+#: entry (the profiler range around each call,
+#: ``observability.kernel_range``) and the hand-written kernels it
+#: launches as the profiler names them, the first one launched once per
+#: call that launches any; the overhead pairs; and the queries of the
+#: per-query lanes (those the push engine's partitioned plans slowed the
+#: most against the gathered ones)
+OBS_QUERIES = ("q1", "suppkey_agg", "q3")
+OBS_KERNELS = {
+    "hash_agg_build": ("daft_hash_agg_build", (
+        "hash_agg_init_kernel", "hash_agg_build_kernel")),
+    "hash_join_build": ("daft_hash_join_build", (
+        "build_init_kernel", "build_count_kernel", "build_scan_kernel",
+        "build_scatter_kernel", "build_order_kernel", "build_merge_kernel")),
+    "hash_join_probe": ("daft_hash_join_probe", (
+        "probe_count_kernel", "probe_emit_kernel"))}
+OBS_PAIRS = 5
+OBS_LANE_QUERIES = (2, 3, 4, 5, 8, 9, 17, 20)
+
+
+def _dk_counts(stats) -> dict:
+    """A query's ``device kernels`` block as {family: (dispatches,
+    rows)}: what two runs of one query must share (not the seconds)."""
+    return {k: (d["dispatches"], d["rows"])
+            for k, d in sorted(stats.device_kernels.items())}
+
+
+def _profile_kernels(path: str) -> dict:
+    """Per wrapper, from an exported torch.profiler trace: ``calls``, its
+    entry's ranges; ``named``, the events of its first kernel by name;
+    ``lost``, calls whose first launch (a ``cudaLaunchKernel`` inside the
+    range) has no kernel record, which the profiler dropped; ``empty``,
+    calls that launched nothing (a probe of 0 rows); ``kernel_us``, the
+    summed time of its kernels by name."""
+    with open(path) as f:
+        events = json.load(f).get("traceEvents", [])
+    recorded = {e["args"]["correlation"] for e in events
+                if e.get("cat") == "kernel" and "correlation" in
+                e.get("args", {})}
+    runtime = [e for e in events if e.get("cat") == "cuda_runtime"
+               and e.get("name") == "cudaLaunchKernel"]
+    out = {}
+    for w, (entry, knames) in OBS_KERNELS.items():
+        ranges = [e for e in events if e.get("cat") == "user_annotation"
+                  and e.get("name") == f"daft_torch::{entry}"]
+        lost = empty = 0
+        for r in ranges:
+            inside = sorted((e["ts"], e["args"].get("correlation"))
+                            for e in runtime if e["tid"] == r["tid"]
+                            and r["ts"] <= e["ts"] <= r["ts"] + r["dur"])
+            if not inside:
+                empty += 1
+            elif inside[0][1] not in recorded:
+                lost += 1
+        named, us = 0, 0.0
+        for e in events:
+            name = e.get("name", "")
+            if e.get("cat") == "kernel" and any(k in name for k in knames):
+                named += knames[0] in name
+                us += float(e.get("dur", 0))
+        out[w] = dict(calls=len(ranges), named=named, lost=lost,
+                      empty=empty, kernel_us=us)
+    return out
+
+
+def _log_profile_mismatch(path: str, name: str, wrapper: str) -> None:
+    """For a capture whose calls disagree with the launch count: the
+    wrapper's kernel events with their times, against the capture's first
+    and last event."""
+    with open(path) as f:
+        events = json.load(f).get("traceEvents", [])
+    ts = [e["ts"] for e in events if "ts" in e and e.get("ph") == "X"]
+    kern = [(e["ts"], e.get("dur"), e.get("name", "")[:60]) for e in events
+            if e.get("cat") == "kernel"
+            and any(k in e.get("name", "") for k in OBS_KERNELS[wrapper][1])]
+    log("obs mismatch " + json.dumps(dict(
+        query=name, wrapper=wrapper, first_ts=min(ts), last_ts=max(ts),
+        events=len(events), kernels=kern)))
+
+
+def _lanes(rec) -> dict:
+    """Span time summed per lane and the five span names with the most
+    summed time (the root excluded), in ms."""
+    lanes, names = {}, {}
+    for sp in rec.spans():
+        if sp["name"] == "query":
+            continue
+        ms = sp["dur_us"] / 1e3
+        lanes[sp["lane"]] = lanes.get(sp["lane"], 0.0) + ms
+        names[sp["name"]] = names.get(sp["name"], 0.0) + ms
+    top = sorted(names.items(), key=lambda kv: -kv[1])[:5]
+    return dict(lanes_ms=lanes, top5_ms=dict(top))
+
+
+def obs_phase(root: str, ref: dict, q3_ref, card: str):
+    """Phase 7j: the observability plane on the card. Q1, the
+    ``l_suppkey`` group-by and Q3, cold, through ``explain(analyze=True)``
+    with ``DAFT_TORCH_TRACE=1``, a trace directory and
+    ``DAFT_TORCH_PROFILE_DIR``: answers held to pyarrow, the analyzed
+    root's rows equal to the answer's, valid Chrome traces with no orphan
+    span, one ``device:grouped_agg`` / ``device:join`` span per dispatch of
+    the query's ``device kernels`` block, the hash dispatches of the
+    group-by equal to the hash-agg launches, Q3's 16 join builds and
+    probes, and each hand-written kernel's calls in the profiler's trace
+    (:func:`_profile_kernels`) equal to its wrapper's launch count. Then
+    Q1 and the group-by at once on two threads (each block equal to its
+    solo run's), the dashboard's ``/metrics`` scraped with the strict
+    parser (its kernel counters at least this phase's dispatches), the
+    overhead of tracing (Q1 on a warm cache and Q3, off against on,
+    interleaved pairs; reported, not gated), and one ``lanes`` line per
+    query of ``OBS_LANE_QUERIES``."""
+    import contextlib
+    import io as _io
+    import tempfile
+    import threading
+    import urllib.request
+
+    import daft_tpu_torch as dtt
+    from daft_tpu_torch import dashboard, tracing
+    from daft_tpu_torch.benchmarking import tpch_queries as Q
+    get = lambda t: dtt.read_parquet(os.path.join(root, t))  # noqa: E731
+    rec_k = KernelRecorder("obs")
+    t_phase = time.perf_counter()
+    solo, phase_dispatches = {}, {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_obs") as tmp:
+        tdir, pdir = os.path.join(tmp, "trace"), os.path.join(tmp, "prof")
+        with _env(DAFT_TORCH_TRACE="1", DAFT_TORCH_TRACE_DIR=tdir,
+                  DAFT_TORCH_PROFILE_DIR=pdir):
+            for name in OBS_QUERIES:
+                df = Q.QUERIES[name](get)
+                printed = _io.StringIO()
+
+                def run():
+                    with contextlib.redirect_stdout(printed):
+                        df.explain(analyze=True)
+                    return df.to_pydict()
+                got, wall, counts, launches = rec_k.counted(
+                    f"obs {name}", run)
+                if name == "q3":
+                    check_table("obs q3", got, q3_ref[0], ["o_orderkey"],
+                                ["o_orderdate", "o_shippriority"],
+                                ["revenue"])
+                else:
+                    check_answer(name, got, ref)
+                st = df._stats
+                n_rows = len(next(iter(got.values())))
+                root_rows = st._ops[id(st.plan)].rows_out
+                if root_rows != n_rows:
+                    raise AssertionError(f"obs {name}: analyzed root rows "
+                                         f"{root_rows} != {n_rows}")
+                text = printed.getvalue()
+                for head in ("== Physical Plan (analyzed) ==",
+                             "device kernels", "trace: id="):
+                    if head not in text:
+                        raise AssertionError(f"obs {name}: no {head!r} in "
+                                             f"the render:\n{text}")
+                rec = st.trace_ctx.recorder
+                path = os.path.join(tdir, f"trace_{rec.trace_id}.json")
+                with open(path) as f:
+                    doc = json.load(f)
+                bad = tracing.validate_chrome_trace(doc)
+                orphans = tracing.orphan_spans(rec)
+                if bad or orphans or rec.dropped:
+                    raise AssertionError(f"obs {name}: trace problems "
+                                         f"{bad[:5]}, orphans "
+                                         f"{orphans[:5]}, dropped "
+                                         f"{rec.dropped}")
+                dk = st.device_kernels
+                spans = {}
+                for sp in rec.spans():
+                    if sp["lane"] == "device":
+                        spans[sp["name"]] = spans.get(sp["name"], 0) + 1
+                for kind in ("grouped_agg", "join"):
+                    want = dk.get(kind, {}).get("dispatches", 0)
+                    if spans.get(f"device:{kind}", 0) != want:
+                        raise AssertionError(
+                            f"obs {name}: {spans.get(f'device:{kind}', 0)}"
+                            f" device:{kind} spans, {want} dispatches")
+                hash_n = int(st._plane("device_kernels").get(
+                    "grouped_agg\x00strategy_hash", 0))
+                if name == "suppkey_agg" and \
+                        hash_n != launches["hash_agg_build"]:
+                    raise AssertionError(
+                        f"obs {name}: {hash_n} hash dispatches, "
+                        f"{launches['hash_agg_build']} hash-agg launches")
+                if name == "q3" and (launches["hash_join_build"] != 16
+                                     or launches["hash_join_probe"] != 16):
+                    raise AssertionError(f"obs q3: join launches "
+                                         f"{launches}, expected 16 and 16")
+                if not st.profile_path:
+                    raise AssertionError(f"obs {name}: no profiler trace")
+                # every wrapper call in the capture, each launch seen by
+                # its kernel's name or as a launch whose kernel record
+                # the profiler dropped (counted, shown in the line)
+                prof = _profile_kernels(st.profile_path)
+                for w, p in prof.items():
+                    n = launches[w]
+                    if p["calls"] != n or \
+                            p["named"] + p["lost"] + p["empty"] != n or \
+                            (n and not p["named"]):
+                        _log_profile_mismatch(st.profile_path, name, w)
+                        raise AssertionError(
+                            f"obs {name}: the profiler shows {p} for the "
+                            f"{w} wrapper, which counted {n} launches")
+                solo[name] = _dk_counts(st)
+                for k, (n, _rows) in solo[name].items():
+                    phase_dispatches[k] = phase_dispatches.get(k, 0) + n
+                log("obs " + json.dumps(dict(
+                    query=name, card=card, wall_s=wall,
+                    analyzed_root_rows=root_rows, spans=len(rec.spans()),
+                    device_spans=spans, device_kernels=solo[name],
+                    hash_dispatches=hash_n, launches=launches,
+                    profile_kernels=prof,
+                    profile_bytes=os.path.getsize(st.profile_path),
+                    trace_bytes=os.path.getsize(path),
+                    render_blocks=[ln for ln in text.splitlines()
+                                   if ln and not ln.startswith(" ")
+                                   and ln.endswith(":")])))
+        # two queries at once: each block equal to its solo run's
+        got, errors = {}, []
+        barrier = threading.Barrier(2)
+
+        def one(name):
+            try:
+                df = Q.QUERIES[name](get)
+                barrier.wait()
+                df.collect()
+                got[name] = _dk_counts(df._stats)
+            except BaseException as exc:  # noqa: BLE001
+                errors.append(exc)
+        _clear_device_cache()
+        threads = [threading.Thread(target=one, args=(n,))
+                   for n in ("q1", "suppkey_agg")]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        if errors:
+            raise errors[0]
+        for name in ("q1", "suppkey_agg"):
+            if got[name] != solo[name]:
+                raise AssertionError(f"obs concurrent {name}: "
+                                     f"{got[name]} != solo {solo[name]}")
+            for k, (n, _rows) in got[name].items():
+                phase_dispatches[k] = phase_dispatches.get(k, 0) + n
+        log("obs concurrent " + json.dumps(dict(card=card, **got)))
+    # the dashboard's Prometheus scrape, strictly parsed
+    port = dashboard.launch(0)
+    try:
+        with urllib.request.urlopen(f"http://127.0.0.1:{port}/metrics",
+                                    timeout=30) as r:
+            metrics = tracing.parse_prometheus_text(r.read().decode())
+    finally:
+        dashboard.shutdown()
+    for kind, n in phase_dispatches.items():
+        name = f"daft_torch_kernel_{kind}_dispatches_total"
+        if metrics.get(name, 0) < n:
+            raise AssertionError(f"/metrics {name} = {metrics.get(name)} "
+                                 f"< this phase's {n}")
+    log("obs metrics " + json.dumps(dict(
+        n_metrics=len(metrics), phase_dispatches=phase_dispatches,
+        kernel={k: v for k, v in metrics.items()
+                if k.startswith("daft_torch_kernel_")})))
+    # tracing's cost: Q1 on a warm device cache and Q3, off against on
+    # (span recording and the trace file), interleaved pairs
+    over = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_obs") as tdir:
+        for name in ("q1", "q3"):
+            Q.QUERIES[name](get).to_pydict()   # warm
+            walls = {"off": [], "on": []}
+            for i in range(OBS_PAIRS):
+                for mode in (("off", "on") if i % 2 == 0 else ("on", "off")):
+                    env = dict(DAFT_TORCH_TRACE="1",
+                               DAFT_TORCH_TRACE_DIR=tdir) \
+                        if mode == "on" else dict(DAFT_TORCH_TRACE="0")
+                    with _env(**env):
+                        t0 = time.perf_counter()
+                        Q.QUERIES[name](get).to_pydict()
+                        walls[mode].append(time.perf_counter() - t0)
+            over[name] = {m: dict(median_s=statistics.median(w),
+                                  min_s=min(w), max_s=max(w), walls=w)
+                          for m, w in walls.items()}
+            over[name]["on_over_off"] = over[name]["on"]["median_s"] / \
+                over[name]["off"]["median_s"]
+    log("obs overhead " + json.dumps(dict(card=card, pairs=OBS_PAIRS,
+                                          **over)))
+    # where each of the queries the partitioned plans slowed spends its
+    # time, by lane
+    with _env(DAFT_TORCH_TRACE="1"):
+        for q in OBS_LANE_QUERIES:
+            _clear_device_cache()
+            df = Q.ALL[q](get)
+            t0 = time.perf_counter()
+            df.collect()
+            wall = time.perf_counter() - t0
+            st = df._stats
+            ops = sorted(((s["name"], s["attrs"]["self_us"] / 1e3)
+                          for s in st.trace_ctx.recorder.spans()
+                          if s["name"].startswith("op:")),
+                         key=lambda kv: -kv[1])[:5]
+            log("lanes " + json.dumps(dict(
+                query=f"q{q}", card=card, wall_s=wall,
+                **_lanes(st.trace_ctx.recorder),
+                top5_op_self_ms=[list(o) for o in ops],
+                device_kernels=_dk_counts(st))))
+    log(f"obs phase wall: {time.perf_counter() - t_phase:.3f} s")
+    return dict(rec=rec_k, solo=solo, overhead=over)
+
+
 # ------------------------------------------------------------ TPC-DS
 
 def tpcds_root(scale: float) -> str:
@@ -2950,6 +3283,8 @@ def main() -> int:
     done("7h")
     rem = remote_phase(root, mp["ref"], q3["ref"], card)
     done("7i")
+    ob = obs_phase(root, mp["ref"], q3["ref"], card)
+    done("7j")
     # the TPC-DS, memory-bounded, pivot, fuzz and remote rungs whose shape
     # no earlier phase held
     held = {k[1:] for r in (mp["rungs"], t22["rungs"], tsql["rungs"])
@@ -2959,7 +3294,7 @@ def main() -> int:
     ds_rungs, ds_jrungs = {}, {}
     fuzz_new = {m: {"hash": 0, "join": 0} for m in FUZZ_MODES}
     for rec_k in (tds["rec"], tdp["rec"], ooc["rec"], piv["rec"],
-                  fz["rec"], rem["rec"]):
+                  fz["rec"], rem["rec"], ob["rec"]):
         for k, v in rec_k.hash_rungs().items():
             if k[1:] not in held:
                 held.add(k[1:])
@@ -2972,8 +3307,8 @@ def main() -> int:
                 ds_jrungs[k] = dict(v, pass_=rec_k.pass_)
                 if rec_k is fz["rec"]:
                     fuzz_new[k[0].split()[-1]]["join"] += 1
-    log(f"tpcds, ooc, pivot, fuzz and remote rungs not held by earlier "
-        f"phases: {len(ds_rungs)} hash, {len(ds_jrungs)} join")
+    log(f"tpcds, ooc, pivot, fuzz, remote and obs rungs not held by "
+        f"earlier phases: {len(ds_rungs)} hash, {len(ds_jrungs)} join")
     log("remote new rungs " + json.dumps(dict(
         hash=sorted(str(list(k)) for k in ds_rungs
                     if k[0].startswith("remote")),

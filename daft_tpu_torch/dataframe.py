@@ -9,10 +9,11 @@ A5b slices (select/filter/with_column/sort/limit/distinct/agg/groupby/join,
 cross joins included, concat and the set operations with their ``all``
 and by-name forms, pivot/unpivot, drop_nan/drop_null, describe/summarize,
 repartition, into_partitions and sample, monotonically increasing ids,
-window expressions routed into ``Window`` nodes, explain,
-num_partitions) and the writes (``write_parquet``/``write_csv``/
-``write_json``/``write_sink``); ``explode``, the list aggregations, the
-lake-format writes and ``explain(analyze=True)`` come later (ROADMAP A8).
+window expressions routed into ``Window`` nodes, explain and
+``explain(analyze=True)``, num_partitions) and the writes
+(``write_parquet``/``write_csv``/``write_json``/``write_sink``);
+``explode``, the list aggregations and the lake-format writes come later
+(ROADMAP A8).
 """
 
 from __future__ import annotations
@@ -38,6 +39,8 @@ class DataFrame:
     def __init__(self, builder: LogicalPlanBuilder):
         self._builder = builder
         self._result: Optional[PartitionSet] = None
+        #: the ``observability.RuntimeStatsContext`` of the collect
+        self._stats = None
 
     # ---- meta ------------------------------------------------------------
     @property
@@ -69,13 +72,21 @@ class DataFrame:
 
     def explain(self, show_all: bool = False, analyze: bool = False) -> None:
         """Print the unoptimized logical plan, and with ``show_all`` the
-        optimized one too. ``analyze=True`` (the executed plan annotated
-        with per-operator rows and times) needs ``observability.py``,
-        which comes with ROADMAP A8."""
+        optimized one too. ``analyze=True`` runs the query (once: a
+        collected frame keeps its stats) and prints the physical plan
+        annotated with per-operator rows and times, then the query's
+        ``device kernels``, ``io``, ``spill``, ``adaptive`` and
+        ``governor`` blocks and, when traced, its trace line
+        (``observability.RuntimeStatsContext.render``; reference:
+        ``physical_planner/planner.rs:614``)."""
         if analyze:
-            raise NotImplementedError(
-                "explain(analyze=True) needs the runtime stats of "
-                "observability.py, which come with ROADMAP A8")
+            self.collect()
+            print("== Physical Plan (analyzed) ==")
+            if self._stats is not None:
+                print(self._stats.render())
+            else:
+                print("(no runtime stats recorded for this query)")
+            return
         print("== Unoptimized Logical Plan ==")
         print(self._builder.repr_ascii())
         if show_all:
@@ -413,8 +424,12 @@ class DataFrame:
     # ---- execution -------------------------------------------------------
     def collect(self, num_preview_rows: Optional[int] = 8) -> "DataFrame":
         if self._result is None:
+            from . import observability as obs
             from .runners.native_runner import get_runner
             self._result = get_runner().run(self._builder)
+            # this thread drained the query, so its own record is this
+            # query's, whatever else finished meanwhile
+            self._stats = obs.last_query_stats_local()
             # downstream queries read from the materialized result
             self._builder = LogicalPlanBuilder.from_in_memory(
                 self._result.partitions, self._result.schema)

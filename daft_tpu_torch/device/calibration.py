@@ -22,10 +22,14 @@ profile persists across processes, one file per card and host
 (``backend.device_key``): a profile learned on one machine never prices
 another's decisions.
 
+A fresh process with calibration on seeds its profile once from the
+flight recorder's history (``DAFT_TORCH_QUERY_LOG``,
+:func:`ingest_flight_history`): each persisted query's ``device_kernels``
+block carries the evidence ``ledger_record`` observes live.
+
 Not carried over (they wait for the slices that bring their callers): the
-chaos / fault-plan freeze, the fleet-gossiped constants, the
-flight-history ingest and ``plan_token`` (ROADMAP A7/A8); the shuffle and
-ICI rates (A6/A7).
+chaos / fault-plan freeze, the fleet-gossiped constants and
+``plan_token`` (ROADMAP A7/A8); the shuffle and ICI rates (A6/A7).
 """
 
 from __future__ import annotations
@@ -54,6 +58,7 @@ _profile: Optional[Dict[str, Dict[str, float]]] = None  # name → entry
 _obs_since_persist = 0
 _last_persist = 0.0
 _atexit_registered = False
+_history_ingested = False
 
 
 # ------------------------------------------------------------------ knobs
@@ -114,13 +119,51 @@ def _read_profile_file() -> Dict[str, Dict[str, float]]:
 
 def _ensure_loaded() -> None:
     """Lazy one-time profile load; the file read happens outside the lock
-    (a duplicate read in a race is harmless; the first install wins)."""
+    (a duplicate read in a race is harmless; the first install wins).
+    After the install the flight-recorder history seeds the profile once
+    (the nested ``observe`` calls of the ingest re-enter here and return
+    on the installed profile: the latch is set before they run)."""
     global _profile
     if _profile is None:
         loaded = _read_profile_file()
         with _lock:
             if _profile is None:
                 _profile = loaded
+    if not _history_ingested and enabled():
+        ingest_flight_history()
+
+
+def ingest_flight_history(limit: int = 200) -> int:
+    """Seed the profile from the flight recorder's history: each entry's
+    ``device_kernels`` block, per family, observed as one dispatch group.
+    Once per process (a call while calibration is off does not use the
+    latch up). Returns the observations ingested."""
+    global _history_ingested
+    if not enabled():
+        return 0
+    with _lock:
+        if _history_ingested:
+            return 0
+        _history_ingested = True
+    from .. import tracing
+    n = 0
+    for entry in tracing.flight_history(limit=limit):
+        dk = entry.get("device_kernels")
+        if not isinstance(dk, dict):
+            continue
+        for kind, d in dk.items():
+            if not isinstance(d, dict):
+                continue
+            try:
+                n += _observe_family(
+                    kind, d.get("strategy"),
+                    rows=float(d.get("rows", 0) or 0),
+                    nbytes=float(d.get("bytes", 0) or 0),
+                    seconds=float(d.get("seconds", 0) or 0),
+                    dispatches=float(d.get("dispatches", 1) or 1))
+            except (TypeError, ValueError):
+                continue
+    return n
 
 
 def _persist(snapshot: Dict[str, Dict[str, float]]) -> None:
@@ -312,8 +355,9 @@ def calibrated_names() -> list:
 
 
 def reset_for_tests() -> None:
-    global _profile, _obs_since_persist, _last_persist
+    global _profile, _obs_since_persist, _last_persist, _history_ingested
     with _lock:
         _profile = None
+        _history_ingested = False
         _obs_since_persist = 0
         _last_persist = 0.0

@@ -313,17 +313,20 @@ kernel_ledger: dict = {}
 _ledger_lock = threading.Lock()
 
 _LEDGER_RAW = ("dispatches", "rows", "bytes", "flops", "seconds")
-#: per-family strategy counts and the summed hash-table load factor
-#: and the ``region`` family's fused operators, round trips saved and
-#: modelled serial seconds
+#: per-family strategy counts and the summed hash-table load factor, the
+#: ``pipeline`` family's serial-equivalent stage seconds, and the
+#: ``region`` family's fused operators, round trips saved and modelled
+#: serial seconds
 _LEDGER_STRATEGY = ("strategy_hash", "strategy_sort", "strategy_dense",
-                    "lf_sum", "fused_ops", "rt_saved", "fusion_serial_s")
+                    "lf_sum", "serial_s", "fused_ops", "rt_saved",
+                    "fusion_serial_s")
 
 
 def ledger_record(kind: str, *, rows: int = 0, nbytes: float = 0.0,
                   flops: float = 0.0, seconds: float = 0.0,
                   dispatches: int = 1, strategy: Optional[str] = None,
                   load_factor: Optional[float] = None,
+                  serial_seconds: Optional[float] = None,
                   fused_ops: Optional[int] = None,
                   round_trips_saved: Optional[int] = None,
                   fusion_serial_seconds: Optional[float] = None) -> None:
@@ -331,12 +334,25 @@ def ledger_record(kind: str, *, rows: int = 0, nbytes: float = 0.0,
     dispatch's device time where a drain timed it with CUDA events (the
     fused fragments), else its host wall to a host-visible result;
     ``nbytes`` / ``flops`` are the ``mfu`` models of the kernel that ran.
+    The ``pipeline`` family (one record per fused-agg pipeline run) carries
+    ``serial_seconds``, its slots' stage seconds as if run one after
+    another, against ``seconds``, the pipeline's active wall: their ratio
+    is ``overlap_x``.
     The ``region`` family (fusion regions) also carries ``fused_ops`` (the
     operators its program runs), ``round_trips_saved`` (host round trips
     the fusion removed against the per-operator chain) and
     ``fusion_serial_seconds`` (:func:`fusion_serial_estimate`), from which
     :func:`_derive` gives the ``fusion_x`` ratio. Feeds the calibration
-    store (a no-op unless it is on)."""
+    store (a no-op unless it is on).
+
+    Also credits each field to the thread's attributed query
+    (``observability.bump_plane``: the query's ``device kernels`` block)
+    and, in a traced query, records one ``device:<kind>`` span with rows,
+    bytes, flops, strategy, load factor, GB/s, ``roofline_pct`` and
+    ``mfu_pct``. The span lasts ``seconds`` and ends now: for a dispatch
+    timed by its host wall that is the wall up to its result (a join's
+    ends at the ``.cpu()`` that synchronizes), not kernel time — the
+    ``DAFT_TORCH_PROFILE_DIR`` capture gives kernel time."""
     fields = [("dispatches", dispatches), ("rows", rows),
               ("bytes", float(nbytes)), ("flops", float(flops)),
               ("seconds", float(seconds))]
@@ -344,6 +360,8 @@ def ledger_record(kind: str, *, rows: int = 0, nbytes: float = 0.0,
         fields.append((f"strategy_{strategy}", dispatches))
     if load_factor is not None:
         fields.append(("lf_sum", float(load_factor) * dispatches))
+    if serial_seconds is not None:
+        fields.append(("serial_s", float(serial_seconds)))
     if fused_ops is not None:
         fields.append(("fused_ops", int(fused_ops)))
     if round_trips_saved is not None:
@@ -356,9 +374,39 @@ def ledger_record(kind: str, *, rows: int = 0, nbytes: float = 0.0,
                    for k in _LEDGER_RAW})
         for f, v in fields:
             d[f] = d.get(f, 0) + v
+    # outside the ledger lock: credit the thread-attributed query too
+    # (concurrent queries must not read each other's dispatches out of
+    # the shared ledger's diff)
+    from .. import observability as obs
+    for f, v in fields:
+        if v:
+            obs.bump_plane("device_kernels", f"{kind}\x00{f}", v)
     from . import calibration
     calibration.observe_dispatch(kind, strategy, rows=rows, nbytes=nbytes,
                                  seconds=seconds, dispatches=dispatches)
+    # tracing plane: guard-checked, an untraced query builds nothing here
+    from .. import tracing
+    tctx = tracing.current()
+    if tctx is not None:
+        from .mfu import HBM_BPS, PEAK_FLOPS
+        attrs = {"rows": int(rows), "bytes": int(nbytes),
+                 "flops": int(flops)}
+        if strategy:
+            attrs["strategy"] = strategy
+        if load_factor is not None:
+            attrs["load_factor"] = round(float(load_factor), 3)
+        if seconds > 0:
+            attrs["gbps"] = round(nbytes / seconds / 1e9, 3)
+            attrs["roofline_pct"] = round(
+                100.0 * nbytes / seconds / HBM_BPS, 4)
+            if flops:
+                attrs["mfu_pct"] = round(
+                    100.0 * flops / seconds / PEAK_FLOPS, 4)
+        dur_us = int(seconds * 1e6)
+        rec = tctx.recorder
+        rec.add(f"device:{kind}", rec.unique_span_id(f"device:{kind}"),
+                tctx.span_id, tracing._now_us() - dur_us, dur_us,
+                attrs=attrs, lane="device")
 
 
 def _derive(d: dict) -> dict:
@@ -381,6 +429,12 @@ def _derive(d: dict) -> dict:
                 out[f"strategy_{nm}"] = counts[nm]
     if counts["hash"] and d.get("lf_sum"):
         out["load_factor"] = d["lf_sum"] / counts["hash"]
+    ser = d.get("serial_s", 0.0)
+    if ser and s > 0:
+        # serial-equivalent stage seconds against the pipelined wall:
+        # above 1.0 the in-flight window hid host work behind the card's
+        out["serial_equiv_s"] = ser
+        out["overlap_x"] = ser / s
     if d.get("fused_ops"):
         out["fused_ops"] = int(d["fused_ops"])
     if d.get("rt_saved"):
@@ -413,6 +467,23 @@ def ledger_delta(before: dict, after: dict) -> dict:
         if diff["dispatches"] > 0:
             out[kind] = _derive(diff)
     return out
+
+
+def ledger_from_tallies(flat: dict) -> dict:
+    """Derived per-family ledger from a query's attributed tally
+    (``"<kind>\\x00<field>"`` keys, what :func:`ledger_record` bumps into
+    a ``RuntimeStatsContext`` plane): :func:`ledger_delta`'s shape."""
+    kinds: dict = {}
+    for key, v in flat.items():
+        kind, _, field = key.partition("\x00")
+        if field not in _LEDGER_RAW + _LEDGER_STRATEGY:
+            continue
+        d = kinds.setdefault(
+            kind, {k: 0 if k in ("dispatches", "rows") else 0.0
+                   for k in _LEDGER_RAW})
+        d[field] = int(v) if field in ("dispatches", "rows") else float(v)
+    return {k: _derive(d) for k, d in kinds.items()
+            if d["dispatches"] > 0}
 
 
 def ledger_reset() -> None:

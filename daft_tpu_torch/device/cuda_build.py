@@ -124,14 +124,17 @@ def library() -> ctypes.CDLL:
 def launch(entry, device, *args) -> int:
     """Call a kernel entry with ``args`` and the current stream of
     ``device``'s card last, making that card current for the call where
-    it is not; returns the entry's CUDA error code."""
+    it is not; returns the entry's CUDA error code. Under a profiler
+    capture the call is a named range (``observability.kernel_range``)."""
     import torch
+    from .. import observability as obs
     idx = device.index if device.index is not None \
         else torch.cuda.current_device()
-    if idx == torch.cuda.current_device():
-        return entry(*args, torch.cuda.current_stream(idx).cuda_stream)
-    with torch.cuda.device(idx):
-        return entry(*args, torch.cuda.current_stream(idx).cuda_stream)
+    with obs.kernel_range(entry.__name__):
+        if idx == torch.cuda.current_device():
+            return entry(*args, torch.cuda.current_stream(idx).cuda_stream)
+        with torch.cuda.device(idx):
+            return entry(*args, torch.cuda.current_stream(idx).cuda_stream)
 
 
 def check(rc: int, what: str) -> None:

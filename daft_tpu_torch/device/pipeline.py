@@ -17,10 +17,13 @@ The torch rewrite of ``daft_tpu/device/pipeline.py``:
   budget) so that a later encode of the same Series reuses them instead
   of copying it to the card again.
 
-The reference's upload, compute and download trace spans are timing
-counters here (:func:`counters_snapshot`): the port has no tracing
-module yet (ROADMAP A8). The chaos serialization and fault plans of the
-reference are not ported: window 0 is the synchronous path.
+Each drained slot's stages are timing counters (:func:`counters_snapshot`)
+and, in a traced query, ``device:upload`` / ``device:compute`` /
+``device:download`` spans on the ``dev:*`` lanes, cut from the same clock
+reads (no synchronize, no event wait of their own). The submit bodies run
+with the consumer's stats attribution and span context. The chaos
+serialization and fault plans of the reference are not ported: window 0
+is the synchronous path.
 """
 
 from __future__ import annotations
@@ -238,6 +241,8 @@ def run_pipelined(items: Iterator, submit: Callable, drain: Callable, *,
     Results come in submission order. Teardown (an exception, an early
     close) aborts the gate, waits out the submits in flight and releases
     every undrained slot."""
+    from .. import observability as obs
+    from .. import tracing
     gate = WindowGate(window)
     pool = _pipe_pool()
     pending: collections.deque = collections.deque()   # (future, seq)
@@ -263,7 +268,9 @@ def run_pipelined(items: Iterator, submit: Callable, drain: Callable, *,
             return False
         seq = seq_next[0]
         seq_next[0] += 1
-        pending.append((pool.submit(submit, item, seq, gate), seq))
+        pending.append((pool.submit(obs.run_attributed,
+                                    obs.current_attribution(), submit,
+                                    item, seq, gate), seq))
         return True
 
     def _fill() -> None:
@@ -283,7 +290,19 @@ def run_pipelined(items: Iterator, submit: Callable, drain: Callable, *,
             slot = ret.slot if isinstance(ret, InflightItem) else None
             try:
                 t0 = time.perf_counter()
-                result = drain(ret, seq)
+                traced = isinstance(ret, InflightItem) \
+                    and tracing.current() is not None
+                if traced:
+                    # a live span: the kernel ledger's records made in the
+                    # drain nest under it
+                    with tracing.span("device:download",
+                                      key=f"devpipe.down.{seq}",
+                                      attrs={"slot": seq % max(window, 1),
+                                             "seq": seq},
+                                      lane="dev:download"):
+                        result = drain(ret, seq)
+                else:
+                    result = drain(ret, seq)
                 if isinstance(ret, InflightItem):
                     t1 = time.perf_counter()
                     serial_s[0] += ret.sub_s + (t1 - t0)
@@ -291,6 +310,8 @@ def run_pipelined(items: Iterator, submit: Callable, drain: Callable, *,
                     _count("upload_s", ret.sub_s)
                     _count("compute_s", max(t0 - ret.t_dispatched, 0.0))
                     _count("download_s", t1 - t0)
+                    if traced:
+                        _slot_spans(ret, seq, window, t0)
                 else:
                     cap[0] = min(width, cap[0] * 2)
             finally:
@@ -318,6 +339,46 @@ def run_pipelined(items: Iterator, submit: Callable, drain: Callable, *,
             _count("runs")
             _count("serial_equiv_s", serial_s[0])
             _count("wall_s", active_s[0])
+            # the ledger's overlap evidence: serial-equivalent stage
+            # seconds against the pipeline's active wall
+            from . import costmodel
+            costmodel.ledger_record("pipeline", dispatches=slots_run[0],
+                                    seconds=active_s[0],
+                                    serial_seconds=serial_s[0])
+
+
+def _slot_spans(ret: InflightItem, seq: int, window: int,
+                t0: float) -> None:
+    """A drained slot's ``device:upload`` (the submit: encode, copy,
+    dispatch) and ``device:compute`` (dispatch end to drain start) spans,
+    cut from the clock reads the stage counters took (the drain's
+    ``device:download`` is a live span around it); keys follow the morsel
+    sequence, so the ids replay."""
+    from .. import observability as obs
+    from .. import tracing
+    ctx = tracing.current()
+    rec = ctx.recorder
+    # the upload ran on the submit pool under the query's own context
+    # (the root), the compute and the download under this thread's
+    attr = obs.current_attribution()
+    up_parent = attr.trace_ctx.span_id \
+        if attr is not None and attr.trace_ctx is not None else ctx.span_id
+    # perf_counter instants onto the trace's wall clock
+    now_us = tracing._now_us()
+    now_pc = time.perf_counter()
+
+    def us(t: float) -> int:
+        return now_us - int((now_pc - t) * 1e6)
+
+    attrs = {"slot": seq % max(window, 1), "seq": seq}
+    for name, key, lane, parent, a, b in (
+            ("device:upload", "up", "dev:upload", up_parent,
+             ret.t_dispatched - ret.sub_s, ret.t_dispatched),
+            ("device:compute", "comp", "dev:compute", ctx.span_id,
+             ret.t_dispatched, t0)):
+        rec.add(name, rec.unique_span_id(f"devpipe.{key}.{seq}"),
+                parent, us(a), max(us(b) - us(a), 0),
+                attrs=dict(attrs), lane=lane)
 
 
 # ------------------------------------------- device-resident hand-off

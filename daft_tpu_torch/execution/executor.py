@@ -88,6 +88,7 @@ def _ordered_parallel(inputs: Iterator, fn: Callable,
                       width: Optional[int] = None) -> Iterator:
     """Map fn over inputs on the pool, yielding results in order with a
     bounded in-flight window (backpressure)."""
+    from .. import observability as obs
     width = width or max((os.cpu_count() or 4), 4) * 2
     pool = _pool()
     pending: List[cf.Future] = []
@@ -100,7 +101,11 @@ def _ordered_parallel(inputs: Iterator, fn: Callable,
             except StopIteration:
                 done = True
                 break
-            pending.append(pool.submit(fn, x))
+            # carry the submitting thread's stats attribution onto the
+            # pool worker: plane counters bumped inside fn credit the
+            # query this morsel belongs to
+            pending.append(pool.submit(
+                obs.run_attributed, obs.current_attribution(), fn, x))
         if not pending:
             return
         yield pending.pop(0).result()
@@ -137,6 +142,8 @@ class LocalExecutor:
         self._aqe_planner = None
         self._shared: dict = {}
         self._shared_lock = threading.Lock()
+        #: the running query's ``observability.RuntimeStatsContext``
+        self.stats = None
 
     def _aqe(self):
         if self._aqe_planner is None:
@@ -154,23 +161,40 @@ class LocalExecutor:
 
     def run(self, plan: pp.PhysicalPlan,
             stage_inputs=None) -> Iterator[MicroPartition]:
+        """The plan's output stream. The query's stats context is made
+        now, so it adopts the caller's trace; the profiler capture, the
+        progress bar and the per-pull attribution live in the stream,
+        and its end publishes the stats (``observability.end_query``)."""
+        from .. import observability as obs
         if stage_inputs:
             self.stage_inputs = stage_inputs
+        stats = self.stats = obs.new_query_stats()
+        stats.plan = plan
 
         def gen():
+            capture = obs.profile_capture(self.device)
             tok = self.cancel_token
-            it = self._exec(plan)
+            it = None
             try:
+                # every pull runs with this query's stats attributed on
+                # the consumer thread, so the plane counters credit THIS
+                # query even when others run at once
+                with obs.attributed(stats):
+                    it = obs.wrap_progress(self._exec(plan))
                 while True:
                     if tok is not None:
                         tok.check()
-                    try:
-                        item = next(it)
-                    except StopIteration:
-                        break
+                    with obs.attributed(stats):
+                        try:
+                            item = next(it)
+                        except StopIteration:
+                            break
                     yield item
             finally:
-                it.close()
+                if it is not None:
+                    with obs.attributed(stats):
+                        it.close()
+                obs.end_query(stats, capture)
         return gen()
 
     def _exec(self, node: pp.PhysicalPlan) -> Iterator[MicroPartition]:
@@ -182,6 +206,8 @@ class LocalExecutor:
         h = getattr(self, "_exec_" + type(node).__name__, None)
         if h is None:
             raise NotImplementedError(f"executor for {type(node).__name__}")
+        if self.stats is not None:
+            return self.stats.instrument(node, h(node))
         return h(node)
 
     def _shared_stream(self, node) -> Iterator[MicroPartition]:
@@ -286,6 +312,8 @@ class LocalExecutor:
         at first-file completion, not task completion. Output stays in
         task order. ``scan_task_us`` (the producers' summed wall) against
         ``scan_span_us`` (the source's wall) measures the overlap."""
+        from .. import observability as obs
+        from .. import tracing
         from ..io import read_planner as rp
         from . import governor
 
@@ -319,7 +347,7 @@ class LocalExecutor:
                     rb.cast_to_schema(schema))))
                 produced[0] = True
 
-        def produce(task, st: _Stream):
+        def produce(task, st: _Stream, task_idx: int):
             if st.dead.is_set():  # consumer gone before we even started
                 return
             t0 = time.perf_counter()
@@ -327,22 +355,28 @@ class LocalExecutor:
             # governor backpressure BEFORE admission: a bounded throttle
             # that slows the producers while RSS sits above the high mark
             governor.throttle("scan_prefetch")
+            # producer span keyed by the task's index; the producer thread
+            # carries the query's span context through the attribution the
+            # io counters ride
+            sp = tracing.span("scan:prefetch", key=f"scan.t{task_idx}",
+                              attrs={"est_bytes": est}, lane="scan")
             self.host_mem.acquire(est)
             try:
-                if st.dead.is_set():
-                    return
-                schema = task.materialized_schema()
-                produced = [False]
-                try:
-                    stream(task, st, schema, produced)
-                except OSError:
-                    if produced[0]:
-                        raise  # a re-stream would duplicate rows
-                    time.sleep(0.2)  # transient IO: one clean retry
-                    stream(task, st, schema, produced)
-                if not produced[0]:
-                    st.put(("batch", MicroPartition.empty(schema)))
-                st.put(("done", None))
+                with sp:
+                    if st.dead.is_set():
+                        return
+                    schema = task.materialized_schema()
+                    produced = [False]
+                    try:
+                        stream(task, st, schema, produced)
+                    except OSError:
+                        if produced[0]:
+                            raise  # a re-stream would duplicate rows
+                        time.sleep(0.2)  # transient IO: one clean retry
+                        stream(task, st, schema, produced)
+                    if not produced[0]:
+                        st.put(("batch", MicroPartition.empty(schema)))
+                    st.put(("done", None))
             except _ScanAbandoned:
                 pass
             except BaseException as exc:  # noqa: BLE001
@@ -357,6 +391,7 @@ class LocalExecutor:
 
         inflight = collections.deque()
         it = iter(tasks)
+        submitted = [0]
 
         def refill():
             # fill to the governor's CURRENT window (at most the configured
@@ -367,7 +402,9 @@ class LocalExecutor:
                 if t is None:
                     return
                 st = _Stream()
-                pool.submit(produce, t, st)
+                pool.submit(obs.run_attributed, obs.current_attribution(),
+                            produce, t, st, submitted[0])
+                submitted[0] += 1
                 inflight.append(st)
                 rp.scan_count("prefetch_tasks")
 

@@ -42,6 +42,9 @@ _counters: Dict[str, float] = {}
 def governor_count(name: str, n: float = 1) -> None:
     with _counters_lock:
         _counters[name] = _counters.get(name, 0) + n
+    # also credit the thread's attributed query (its ``governor`` block)
+    from .. import observability as obs
+    obs.bump_plane("governor", name, n)
 
 
 def counters_snapshot() -> Dict[str, float]:

@@ -46,6 +46,9 @@ _spill_counters: Dict[str, float] = {}
 def spill_count(name: str, n: float = 1) -> None:
     with _spill_counters_lock:
         _spill_counters[name] = _spill_counters.get(name, 0) + n
+    # also credit the thread's attributed query (its ``spill`` block)
+    from .. import observability as obs
+    obs.bump_plane("spill", name, n)
 
 
 def spill_counters_snapshot() -> Dict[str, float]:

@@ -123,6 +123,9 @@ class PipelineContext:
         self._lock = threading.Lock()
         self._done: List[threading.Event] = []
         self._channels: List["Channel"] = []
+        #: the owning query's RuntimeStatsContext, installed on every
+        #: stage thread so the plane counters credit this query
+        self.stats_ctx = None
 
     def fail(self, exc: BaseException):
         with self._lock:
@@ -150,8 +153,21 @@ class PipelineContext:
         return done
 
     def _guard(self, fn):
+        from .. import observability as obs
+        from .. import tracing
         try:
-            fn()
+            # the stage thread outlives the query: attributed() installs
+            # this query's stats and span context and restores the
+            # thread's own on exit, so nothing leaks into the next query
+            # the thread runs
+            with obs.attributed(self.stats_ctx):
+                # one span per stage body; the thread name is
+                # plan-derived, so span ids replay
+                name = threading.current_thread().name
+                with tracing.span("pipeline:stage", key=f"stage:{name}",
+                                  attrs={"thread": name},
+                                  lane="pipeline"):
+                    fn()
         except PipelineCancelled:
             pass
         except BaseException as exc:  # noqa: BLE001 — first error wins
@@ -392,9 +408,14 @@ class PushExecutor(LocalExecutor):
     # ------------------------------------------------------------- entry
     def run(self, plan: pp.PhysicalPlan,
             stage_inputs=None) -> Iterator[MicroPartition]:
+        from .. import observability as obs
         from . import cancellation as _cxl
         if stage_inputs:
             self.stage_inputs = stage_inputs
+        # made now, so the stats adopt the caller's trace
+        stats = self.stats = obs.new_query_stats()
+        stats.plan = plan
+        self.pipe.stats_ctx = stats
         tok = self.cancel_token
         if tok is not None:
             # a fired token must unblock EVERY stage (the pipeline's
@@ -402,11 +423,14 @@ class PushExecutor(LocalExecutor):
             tok.add_callback(self.pipe.cancel)
 
         def gen():
+            capture = obs.profile_capture(self.device)
             try:
-                out = self._exec(plan)
+                with obs.attributed(stats):
+                    out = obs.wrap_progress(self._exec(plan))
                 while True:
                     try:
-                        mp = next(out)
+                        with obs.attributed(stats):
+                            mp = next(out)
                     except StopIteration:
                         break
                     except PipelineCancelled:
@@ -423,6 +447,7 @@ class PushExecutor(LocalExecutor):
                 # query's end the end of its stage bodies (and of the
                 # device slots their handlers held)
                 self.pipe.join()
+                obs.end_query(stats, capture)
         return gen()
 
     # ------------------------------------------------------------ stages
@@ -446,6 +471,8 @@ class PushExecutor(LocalExecutor):
                 out = self._map_stage(node, kernel, bottom.children[0])
             else:
                 out = self._driver_stage(node)
+        if self.stats is not None:
+            return self.stats.instrument(node, iter(out))
         return iter(out)
 
     def _map_chain(self, node, kernel):
@@ -467,6 +494,10 @@ class PushExecutor(LocalExecutor):
             k = _map_kernel(ch)
             if k is None:
                 break
+            # the chain's inner operators never cross a channel: their
+            # rows are counted where their kernels run
+            if self.stats is not None:
+                k = self.stats.instrument_kernel(ch, k)
             kernels.append(k)
             bottom = ch
         if len(kernels) == 1:
@@ -545,6 +576,8 @@ class PushExecutor(LocalExecutor):
         pays k aggregates for no parallelism)."""
         k = max(1, min(_default_workers(),
                        node.children[0].num_partitions))
+        if self.stats is not None:
+            self.stats.register(node).workers = k
         if self.cfg.enable_aqe:
             self._aqe().record_replan(
                 f"fused partitioned agg: hash shuffle elided → {k} reducers"
@@ -679,6 +712,8 @@ class PushExecutor(LocalExecutor):
         ``node``'s child) is the stage's input: the child of a map chain's
         lowest operator."""
         k = _map_workers(node)
+        if self.stats is not None:
+            self.stats.register(node).workers = k
         child = self._exec(node.children[0] if child_node is None
                            else child_node)
         in_q = [Channel(self.pipe, 2) for _ in range(k)]

@@ -84,6 +84,7 @@ class SpillWriterGroup:
         self._err: Optional[BaseException] = None
 
     def submit(self, key, fn: Callable[[], None], nbytes: int) -> None:
+        from .. import observability as obs
         if self._err is not None:
             raise self._err
         nbytes = max(int(nbytes), 0)
@@ -95,10 +96,12 @@ class SpillWriterGroup:
                     raise self._err
             self._pending_bytes += nbytes
             self._inflight += 1
+        # the write credits the query that spilled it
+        attribution = obs.current_attribution()
 
         def run():
             try:
-                fn()
+                obs.run_attributed(attribution, fn)
             except BaseException as exc:  # noqa: BLE001
                 with self._cond:
                     if self._err is None:
@@ -156,6 +159,7 @@ def prefetch_ordered(thunks: Iterator[Callable[[], object]],
         for t in thunks:
             yield t()
         return
+    from .. import observability as obs
     pool = _pool()
     pending = []
     it = iter(thunks)
@@ -168,7 +172,8 @@ def prefetch_ordered(thunks: Iterator[Callable[[], object]],
                 except StopIteration:
                     done = True
                     break
-                pending.append(pool.submit(t))
+                pending.append(pool.submit(
+                    obs.run_attributed, obs.current_attribution(), t))
             if not pending:
                 return
             yield pending.pop(0).result()

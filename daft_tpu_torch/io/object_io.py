@@ -7,9 +7,9 @@ with per-scheme implementations, an ``IOClient`` cache keyed by
 (scheme, config) and ``IOStatsContext`` byte/request counters
 (``src/daft-io/src/stats.rs``). Cloud sources are native no-SDK clients:
 S3 (``s3.py``, SigV4), GCS (``gcs.py``, JSON API), Azure Blob
-(``azure.py``, SharedKey/SAS). The per-query attribution of IO-pool work
-waits for the port's ``observability.py`` (ROADMAP A8): the counters here
-and in ``read_planner.py`` are process-wide.
+(``azure.py``, SharedKey/SAS). The IO pool's range GETs run with the
+submitting thread's stats attribution, so the scan counters they bump
+credit the query that asked for them.
 """
 
 from __future__ import annotations
@@ -70,7 +70,9 @@ def parallel_get_ranges(source: "ObjectSource", path: str,
     par = max(parallelism or 1, 1)
     if len(ranges) <= 1 or par <= 1:
         return [source.get(path, r, stats) for r in ranges]
+    from .. import observability as obs
     pool = io_pool()
+    attr_ctx = obs.current_attribution()
     out: List[Optional[bytes]] = [None] * len(ranges)
     it = iter(enumerate(ranges))
     pending = {}
@@ -81,7 +83,8 @@ def parallel_get_ranges(source: "ObjectSource", path: str,
             i, r = next(it)
         except StopIteration:
             return
-        pending[pool.submit(source.get, path, r, stats)] = i
+        pending[pool.submit(obs.run_attributed, attr_ctx, source.get,
+                            path, r, stats)] = i
 
     for _ in range(min(par, len(ranges))):
         submit()

@@ -11,9 +11,9 @@ concurrently over the source's connection pool
 Also owns the process-wide scan-plane counters: requests sent vs ranges
 planned (coalescing evidence), bytes fetched vs bytes used (over-fetch),
 and prefetch overlap wall (``scan_span_us``) vs serial-equivalent
-(``scan_task_us``). Callers take deltas (:func:`scan_counters_delta`); the
-per-query ``io`` block of ``explain(analyze=True)`` waits for the port's
-``observability.py`` (ROADMAP A8).
+(``scan_task_us``). Callers take deltas (:func:`scan_counters_delta`); each
+bump also credits the thread's attributed query, whose ``io`` block
+``explain(analyze=True)`` renders.
 """
 
 from __future__ import annotations
@@ -35,6 +35,8 @@ _counters: Dict[str, float] = {}
 def scan_count(name: str, n: float = 1) -> None:
     with _counters_lock:
         _counters[name] = _counters.get(name, 0) + n
+    from .. import observability as obs
+    obs.bump_plane("io", name, n)
 
 
 def scan_counters_snapshot() -> Dict[str, float]:

@@ -165,6 +165,47 @@ REGISTRY = {
         None, "head bytes read to infer a remote CSV/JSON schema (`0`: "
         "the whole object); unset defers to "
         "`ExecutionConfig.io_infer_bytes` (1MiB)"),
+    "DAFT_TORCH_TRACE": (
+        "0", "`1`: the query-wide tracing plane, one span tree per query "
+        "across the planner, pipeline stages, scan producers and device "
+        "dispatches (`tracing.py`), exported as Chrome trace JSON and OTLP "
+        "spans"),
+    "DAFT_TORCH_TRACE_SAMPLE": (
+        1.0, "fraction of queries traced when tracing is on (a "
+        "deterministic per-query draw hashed from the trace key)"),
+    "DAFT_TORCH_TRACE_DIR": (
+        None, "directory receiving one perfetto-loadable "
+        "`trace_<id>.json` per traced query (unset: traces stay in memory "
+        "for the OTLP and flight-recorder exports)"),
+    "DAFT_TORCH_TRACE_MAX_SPANS": (
+        8192, "per-query span-buffer bound; spans past it are counted as "
+        "dropped"),
+    "DAFT_TORCH_CHROME_TRACE": (
+        None, "`1` or a path: a chrome://tracing JSON of the last "
+        "execution's per-operator batches (`1`: "
+        "`<tmpdir>/daft_torch_trace_<pid>.json`)"),
+    "DAFT_TORCH_PROGRESS": (
+        "0", "`1`: a tqdm partition-progress bar over the query's output"),
+    "DAFT_TORCH_PROFILE_DIR": (
+        None, "directory receiving a torch.profiler capture per query "
+        "(CPU activity, plus CUDA on a card) as a Kineto chrome trace "
+        "`profile_<pid>_<n>.json`"),
+    "DAFT_TORCH_OTLP_ENDPOINT": (
+        None, "OTLP/HTTP collector receiving each query's operator "
+        "counters (`/v1/metrics`) and, when traced, its spans "
+        "(`/v1/traces`)"),
+    "DAFT_TORCH_OTLP_TIMEOUT": (
+        5.0, "seconds an OTLP export POST may take; a hung or failing "
+        "collector is counted in `otlp_export_errors`, never raised"),
+    "DAFT_TORCH_QUERY_LOG": (
+        None, "flight-recorder JSONL path: every query's stat blocks, "
+        "trace summary and slow flag (served at `/api/history`)"),
+    "DAFT_TORCH_QUERY_LOG_BYTES": (
+        "16MiB", "flight-recorder rotation cap: past it the JSONL rotates "
+        "to `<path>.1` (one generation kept)"),
+    "DAFT_TORCH_SLOW_QUERY_MS": (
+        0.0, "wall time past which a flight-recorder entry is flagged "
+        "`slow` (`0`: never)"),
     "DAFT_TORCH_GOVERNOR_LOW": (
         None, "RSS fraction that leaves it again (default 0.70, clamped "
         "under the high mark)"),
@@ -200,6 +241,12 @@ def env_opt_int(name: str) -> Optional[int]:
 def env_opt_float(name: str) -> Optional[float]:
     v = env_raw(name)
     return None if v is None else float(v)
+
+
+def env_bytes(name: str) -> int:
+    """A byte count with an optional suffix (`16MiB`, `4GB`, `400KB`)."""
+    from .execution.memory import parse_bytes
+    return parse_bytes(env_str(name))
 
 
 def env_bool(name: str) -> bool:

@@ -52,15 +52,31 @@ class NativeRunner(Runner):
 
     def run_iter(self, builder, results_buffer_size: Optional[int] = None
                  ) -> Iterator[MicroPartition]:
+        from .. import tracing
         from ..context import get_context
         from ..device import backend, warmup
         cfg = get_context().execution_config
         device = backend.resolve_device()
         warmup.maybe_warmup_session()
-        if cfg.enable_aqe:
-            return self._run_adaptive(builder, cfg, device)
-        pplan = translate(builder.optimize().plan)
-        return make_local_executor(cfg, device).run(pplan)
+        # the trace (when sampled in) starts HERE so the planner spans
+        # land on it; the executor's stats context adopts it and the
+        # export fires when the query ends. Until that adoption the
+        # recorder has no owner: a planning failure closes and
+        # unregisters it here, or it would stay in the registry with the
+        # trace lost
+        tctx = tracing.maybe_start_trace("query")
+        try:
+            with tracing.attach(tctx):
+                if cfg.enable_aqe:
+                    return self._run_adaptive(builder, cfg, device)
+                with tracing.span("plan:optimize", lane="planner"):
+                    optimized = builder.optimize()
+                with tracing.span("plan:translate", lane="planner"):
+                    pplan = translate(optimized.plan)
+                return make_local_executor(cfg, device).run(pplan)
+        except BaseException:
+            tracing.abort_trace(tctx)
+            raise
 
     # ------------------------------------------------------------- AQE
     def _run_adaptive(self, builder, cfg, device
@@ -70,24 +86,32 @@ class NativeRunner(Runner):
         ACTUAL rows/bytes, re-optimize the remainder, repeat. The final
         translate sees only measured sizes, so broadcast-vs-hash and join
         order are decided from actuals (each re-plan is recorded on the
-        planner, ``adaptive.last_planner()``)."""
+        planner, ``adaptive.last_planner()``). The materializations run
+        in a nested observability scope: their operators land on the
+        query's trace, and the query's exports fire once, at its end."""
+        from .. import observability as obs
+        from .. import tracing
         from ..execution import memory
         from ..logical import plan as lp
         from ..logical.optimizer import Optimizer
         from ..physical import adaptive
 
         planner = adaptive.new_planner(cfg)
-        plan = Optimizer().optimize(builder.plan)
+        with tracing.span("plan:optimize", lane="planner"):
+            plan = Optimizer().optimize(builder.plan)
         for _round in range(32):  # bound the loop defensively
             target = _pick_join_input(plan)
             if target is None:
                 break
             ex = make_local_executor(cfg, device)
             ex._aqe_planner = planner
+            with tracing.span("plan:translate", lane="planner"):
+                tplan = translate(target)
             # spill-bounded, like a join build: the loop eventually
             # materializes the largest fact side, which must not bypass
             # the memory budget
-            buf = memory.materialize(ex.run(translate(target)))
+            with obs.nested_scope():
+                buf = memory.materialize(ex.run(tplan))
             rows, size = buf.total_rows, buf.total_bytes
             src = lp.Source(partitions=buf, schema=target.schema(),
                             num_partitions=max(len(buf), 1))
@@ -95,10 +119,12 @@ class NativeRunner(Runner):
                 f"materialized join input ({rows} rows, {size} bytes "
                 f"actual) → re-optimized remainder", rows, size)
             plan = _replace_subtree(plan, target, src)
-            plan = Optimizer().optimize(plan)
+            with tracing.span("plan:optimize", lane="planner"):
+                plan = Optimizer().optimize(plan)
         ex = make_local_executor(cfg, device)
         ex._aqe_planner = planner
-        planner.final_plan = translate(plan)
+        with tracing.span("plan:translate", lane="planner"):
+            planner.final_plan = translate(plan)
         return ex.run(planner.final_plan)
 
 

@@ -6,7 +6,7 @@ against ``daft_tpu``: the parity subsets of ``tests/test_dataframe.py``
 host tier and the device tier), ``tests/test_api_parity.py::
 test_drop_nan_and_drop_null`` and ``tests/test_sql_statements.py::
 test_describe``; the set methods, ``union_by_name``, ``num_partitions``
-and ``explain``; and the physical plans of pivot and unpivot queries node
+and ``explain`` (its analyzed form included); and the physical plans of pivot and unpivot queries node
 for node. The port runs on CPU tensors (``DAFT_TORCH_DEVICE=cpu``); its
 device tier takes every priced decision on the device
 (``DAFT_TORCH_DEVICE_FORCE=1``), so a pivot's pre-aggregation runs the
@@ -14,6 +14,7 @@ hash agg strategy's plain twin.
 """
 
 import math
+import re
 
 import pytest
 
@@ -264,8 +265,17 @@ def test_explain(cpu, capsys):
         assert heads == [ln for ln in want.splitlines()
                          if ln.startswith("==")], kw
         assert "Filter" in got and "Project" in got
-    with pytest.raises(NotImplementedError, match="A8"):
-        port.explain(analyze=True)
+
+    def analyzed(df):
+        """The analyzed render's header and its operators with their
+        rows (the times differ from run to run)."""
+        return [re.sub(r" total=.*", "", ln)
+                for ln in text(df, analyze=True).splitlines()
+                if ln.startswith("==") or "rows_out=" in ln]
+    got = analyzed(port)
+    assert got == analyzed(ref)
+    assert got[0] == "== Physical Plan (analyzed) =="
+    assert any("rows_out=2 " in ln for ln in got)
 
 
 # ------------------------------------------------------- plans node for node

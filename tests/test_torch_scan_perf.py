@@ -1,8 +1,8 @@
 """The port's scan data plane against the reference's
 (``tests/test_scan_perf.py``): the byte-range read planner, ranged fetches
 across object sources, the planned remote parquet read, the
-prefetch-pipelined scan source, retries, hive keys, row-group pruning and
-remote schema inference.
+prefetch-pipelined scan source, retries, hive keys, row-group pruning,
+remote schema inference and the ``io`` block of ``explain(analyze=True)``.
 
 Each case runs the same inputs through ``daft_tpu`` (JAX on the CPU) and
 ``daft_tpu_torch`` (``DAFT_TORCH_DEVICE=cpu``) and holds the port to the
@@ -15,9 +15,6 @@ process-wide, so every comparison takes deltas.
 Left out of the reference's file:
 - ``test_prefetch_degrades_under_chaos``: the chaos and fault-plan
   fallback of the scan waits for the port's resilience plane (ROADMAP A7).
-- ``test_io_stats_block_in_explain_analyze``: the ``io`` block of
-  ``explain(analyze=True)`` waits for the port's ``observability.py``
-  (ROADMAP A8).
 - The seed test's inequality ``gets(planned) < gets(naive)``: on these
   four small files both paths send the same GETs in both packages, which
   ``test_planned_remote_read_counters_equal_the_reference`` holds instead.
@@ -829,3 +826,36 @@ def test_knobs_map_onto_the_execution_config(monkeypatch):
             assert port_fn() == want, knob
         _both_knobs(monkeypatch, knob, value)
         assert port_fn() == ref_fn() == want, knob
+
+
+# ------------------------------------------------------- io stats block
+
+def test_io_stats_block_in_explain_analyze(remote_dataset, monkeypatch,
+                                           capsys):
+    """The planned remote read's ``io`` block in the analyzed render: the
+    query's own scan counters, which equal the reference's for the same
+    read."""
+    from daft_tpu import observability as ref_obs
+    from daft_tpu_torch import observability as obs
+    _both_knobs(monkeypatch, "IO_PLANNED_READS", "1")
+    _both_knobs(monkeypatch, "SCAN_PREFETCH", "2")
+
+    def q(pkg):
+        return pkg.read_parquet(remote_dataset) \
+            .where(pkg.col("seq") < 800).select("seq", "v")
+    with daft_tpu_torch.execution_config_ctx(scan_tasks_min_size_bytes=1):
+        q(daft_tpu_torch).explain(analyze=True)
+    printed = capsys.readouterr().out
+    assert "io (scan plane):" in printed
+    assert "range requests" in printed
+    st = obs.last_query_stats()
+    assert st is not None and st.io.get("gets", 0) > 0
+    assert st.io.get("bytes_fetched", 0) > 0
+    lines = obs.render_io_block(st.io)
+    assert any("prefetch" in ln for ln in lines)
+    with _ref_cfg(scan_tasks_min_size_bytes=1):
+        q(daft_tpu).explain(analyze=True)
+    capsys.readouterr()
+    ref_io = ref_obs.last_query_stats().io
+    assert {k: st.io.get(k, 0) for k in COUNTERS} == \
+        {k: ref_io.get(k, 0) for k in COUNTERS}
