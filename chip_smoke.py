@@ -196,6 +196,23 @@ Phases (any failure ends the run with a non-zero exit code):
    (span time summed per lane, the five span names and the five
    operators with the most time); its new rungs go to phase 8 (``pass``
    ``obs``);
+7k. sanitizers armed: a child process (the lock patch must come before
+   the port's imports) with ``DAFT_TORCH_SANITIZE=1``,
+   ``DAFT_TORCH_SANITIZE_PLAN=1`` and ``DAFT_TORCH_SANITIZE_RETRACE=1``
+   runs Q1, the ``l_suppkey`` group-by, Q3 and Q9 twice each at the
+   default knobs (the second run on the warm device column cache: a
+   steady signature must allocate no new device memory), then Q3 under
+   ``DAFT_TORCH_MEMORY_LIMIT=64MiB`` (grace pairs, spill-store locks);
+   every answer equal to the unarmed phases' (pyarrow for Q1 and the
+   group-by, phase 7's for Q3 and Q9), 0 lock-order cycles, 0 plan-
+   contract violations, 0 retrace-budget violations, and the three
+   kernels launched under their declared dispatch sites (none unscoped);
+   ``sanitize`` lines: locks tracked, edges, contended acquisitions,
+   sleeps under a lock, plan checks by kind, per site its signatures,
+   segments and pinned blocks allocated in first and repeat runs and its
+   kernel launches, and per query the armed walls beside the unarmed
+   ones (a cost, no target); its new rungs go to phase 8 (``pass``
+   ``sanitize``);
 8. the hash build against its plain version at the inputs of every
    distinct hash rung of the main path and of the TPC-H 22 phase's
    dispatch pass
@@ -208,7 +225,7 @@ Phases (any failure ends the run with a non-zero exit code):
    held, each checked as in the join-kernel phase, then timed (rows name
    their ``pass``: ``tpcds`` or ``tpcds_dispatch`` for the TPC-DS ones,
    ``spill`` for the memory-bounded ones, ``pivot``, ``fuzz``,
-   ``remote`` and ``obs`` for the last four phases); every entry point
+   ``remote``, ``obs`` and ``sanitize`` for the last five phases); every entry point
    ``analysis/dispatch_registry.py`` declares must have launched and been
    held against its plain twin in the run;
 9. a ``{"kernels": [...]}`` line with each kernel's launches, times and
@@ -1716,9 +1733,10 @@ class KernelRecorder:
         self.recorded, self.events = [], []
         self.jbuilds, self.jprobes, self.join_rungs = {}, [], {}
 
-    def counted(self, label: str, fn):
+    def counted(self, label: str, fn, clear: bool = True):
         """``fn()`` with every count zeroed just before and read just
-        after → (answer, wall s, counters, launches)."""
+        after → (answer, wall s, counters, launches); ``clear=False``
+        keeps the device column cache (a repeat run)."""
         import torch
         from daft_tpu_torch.device import hash_kernels as hk, runtime
         from daft_tpu_torch.device import join_kernels as jk
@@ -1752,7 +1770,8 @@ class KernelRecorder:
         hk.hash_agg_build = recording
         jk.hash_join_build_cuda = recording_build
         jk.hash_join_probe_cuda = recording_probe
-        _clear_device_cache()
+        if clear:
+            _clear_device_cache()
         runtime.reset_counters()
         costmodel.reset_decision_counts()
         hk.reset_launches()
@@ -1774,6 +1793,14 @@ class KernelRecorder:
         self.jbuilds.clear()
         self.jprobes.clear()
         return out, wall, counts, launches
+
+    def to_host(self) -> None:
+        """Move every recorded input to the CPU, so that the recorder
+        keeps none of a run's device memory alive into the next run."""
+        self.recorded = [(q, _moved(a, "cpu")) for q, a in self.recorded]
+        for r in self.join_rungs.values():
+            r["build"] = _moved(r["build"], "cpu")
+            r["probe"] = _moved(r["probe"], "cpu")
 
     def hash_rungs(self) -> dict:
         rungs = {}
@@ -2274,7 +2301,8 @@ FUZZ_BUDGET_S = 60.0
 
 def fuzz_phase():
     """Phase 7h: the differential plan fuzzer on the card, each mode
-    against the port's own unoptimized host run (``run_reference``)."""
+    against the port's own unoptimized host run (``run_reference``), with
+    the plan sanitizer armed (each line's ``sanitizer_violations``)."""
     from daft_tpu_torch.analysis import plan_fuzzer as PF
     rec = KernelRecorder("fuzz")
     t_phase = time.perf_counter()
@@ -2292,16 +2320,20 @@ def fuzz_phase():
                               compared=c["cases"],
                               mismatches=c["mismatches"],
                               errors=c["errors"] + len(res.errors),
+                              sanitizer_violations=res.sanitizer_violations,
                               launches=mode_launches, wall_s=wall)
         log("fuzz " + json.dumps(per_mode[mode]))
         for m in res.mismatches:
             log("fuzz MISMATCH\n" + m.repro())
         for e in res.errors:
             log(f"fuzz error: {e}")
-        if res.mismatches or res.errors:
+        for v in res.sanitizer_detail:
+            log(f"fuzz plan-sanitizer violation: {v}")
+        if res.mismatches or res.errors or res.sanitizer_violations:
             failed.append(mode)
     if failed:
-        raise AssertionError(f"fuzz: mismatches or errors in {failed}")
+        raise AssertionError(f"fuzz: mismatches, errors or plan-sanitizer "
+                             f"violations in {failed}")
     dev = per_mode["device"]["launches"]
     if min(dev.values()) < 1:
         raise AssertionError(f"fuzz device mode: a kernel launched no time "
@@ -2770,6 +2802,301 @@ def obs_phase(root: str, ref: dict, q3_ref, card: str):
     return dict(rec=rec_k, solo=solo, overhead=over)
 
 
+
+# ------------------------------------------------------- sanitizers armed
+
+#: phase 7k: the queries run twice armed (a first run on a cleared device
+#: column cache, then a repeat on the warm one), the memory-bounded Q3's
+#: host budget, the knobs that arm the three sanitizers, and the child's
+#: time limit
+SANITIZE_QUERIES = ("q1", "suppkey_agg", "q3", "q9")
+SANITIZE_LIMIT = "64MiB"
+SANITIZE_ENV = dict(DAFT_TORCH_SANITIZE="1", DAFT_TORCH_SANITIZE_PLAN="1",
+                    DAFT_TORCH_SANITIZE_RETRACE="1")
+SANITIZE_TIMEOUT_S = 300
+#: the hand-written kernels' own retrace sites (each wrapper's scope)
+KERNEL_SITES = {"hash_agg_build": "hash_agg.build",
+                "hash_join_build": "hash_join.build",
+                "hash_join_probe": "hash_join.probe"}
+
+
+def _sanitize_query(name: str):
+    from daft_tpu_torch.benchmarking import tpch_queries as Q
+    return Q.QUERIES[name] if name in Q.QUERIES else Q.ALL[int(name[1:])]
+
+
+def _site_delta(before: dict, after: dict) -> dict:
+    """Per retrace site, what one run added: entries, new segments, new
+    pinned blocks and the hand-written kernels' launches."""
+    out = {}
+    for site, n in after["site_entries"].items():
+        d = dict(entries=n - before["site_entries"].get(site, 0),
+                 segments=after["site_segments"].get(site, 0)
+                 - before["site_segments"].get(site, 0),
+                 pinned=after["site_pinned"].get(site, 0)
+                 - before["site_pinned"].get(site, 0))
+        launches = {k: v - before["site_launches"].get(site, {}).get(k, 0)
+                    for k, v in after["site_launches"].get(site, {}).items()}
+        d["launches"] = {k: v for k, v in launches.items() if v}
+        if d["entries"] or d["segments"] or d["pinned"] or d["launches"]:
+            out[site] = d
+    return out
+
+
+def _moved(x, device: str):
+    """``x`` with every tensor in its lists and plain tuples on
+    ``device`` (a rung's recorded inputs, across the child process)."""
+    import torch
+    if isinstance(x, torch.Tensor):
+        return x.to(device)
+    if isinstance(x, list):
+        return [_moved(v, device) for v in x]
+    if type(x) is tuple:
+        return tuple(_moved(v, device) for v in x)
+    return x
+
+
+def sanitize_child(root: str, out_dir: str) -> int:
+    """Phase 7k's armed process (``--sanitize-child``): the sanitizers were
+    armed by ``daft_tpu_torch/__init__`` before any engine import. Writes
+    the answers (pickle) and the recorded rungs' inputs (torch, on the
+    CPU) to ``out_dir`` and prints one ``SANITIZE_RESULT`` JSON line."""
+    import pickle
+    import torch
+    import daft_tpu_torch as dtt
+    from daft_tpu_torch.analysis import (lock_sanitizer as LS,
+                                         plan_sanitizer as PS,
+                                         retrace_sanitizer as RS)
+    from daft_tpu_torch.device import cuda_build
+    from daft_tpu_torch.execution import memory
+    armed = [LS.is_enabled(), PS.is_enabled(), RS.is_enabled()]
+    if not all(armed):
+        raise AssertionError(f"sanitize: not armed {armed}")
+    cuda_build.library()
+    get = lambda t: dtt.read_parquet(os.path.join(root, t))  # noqa: E731
+    rec = KernelRecorder("sanitize")
+    runs, answers = {}, {}
+    for name in SANITIZE_QUERIES:
+        run = lambda name=name: _sanitize_query(name)(get).to_pydict()  # noqa: E731,E501
+        for way, clear in (("first", True), ("repeat", False)):
+            s0, p0 = RS.summary(), PS.summary()
+            ans, wall, _, launches = rec.counted(f"sanitize {name}", run,
+                                                 clear=clear)
+            # the repeat must find the first run's blocks free
+            rec.to_host()
+            s1, p1 = RS.summary(), PS.summary()
+            answers[(name, way)] = ans
+            runs[f"{name} {way}"] = dict(
+                wall_s=wall, launches=launches,
+                events=s1["events"] - s0["events"],
+                repeat_entries=s1["repeat_entries"] - s0["repeat_entries"],
+                sites=_site_delta(s0, s1),
+                plan_checks={k: p1[k] - p0[k] for k in (
+                    "rule_checks", "membership_parts", "order_parts",
+                    "conservation_checks")})
+    # Q3 under a host budget: grace pairs and the spill stores' locks
+    sp0 = memory.spill_counters_snapshot()
+    s0, p0 = RS.summary(), PS.summary()
+    with _env(DAFT_TORCH_MEMORY_LIMIT=SANITIZE_LIMIT):
+        ans, wall, _, launches = rec.counted(
+            "sanitize q3 bounded",
+            lambda: _sanitize_query("q3")(get).to_pydict())
+    s1, p1 = RS.summary(), PS.summary()
+    answers[("q3", "bounded")] = ans
+    runs["q3 bounded"] = dict(
+        wall_s=wall, launches=launches, events=s1["events"] - s0["events"],
+        repeat_entries=s1["repeat_entries"] - s0["repeat_entries"],
+        sites=_site_delta(s0, s1),
+        spill=memory.spill_counters_delta(sp0),
+        plan_checks={k: p1[k] - p0[k] for k in (
+            "rule_checks", "membership_parts", "order_parts",
+            "conservation_checks")})
+    hash_rungs = {k: dict(v, args=_moved(v["args"], "cpu"))
+                  for k, v in rec.hash_rungs().items()}
+    join_rungs = {k: dict(v, build=_moved(v["build"], "cpu"),
+                          probe=_moved(v["probe"], "cpu"))
+                  for k, v in rec.join_rungs.items()}
+    torch.save({"hash": hash_rungs, "join": join_rungs},
+               os.path.join(out_dir, "rungs.pt"))
+    with open(os.path.join(out_dir, "answers.pkl"), "wb") as f:
+        pickle.dump(answers, f)
+    lock = LS.summary()
+    sites = sorted(LS.sanitizer()._sites)
+    by_module = {}
+    for s in sites:
+        m = s.rsplit(":", 1)[0]
+        by_module[m] = by_module.get(m, 0) + 1
+    keys = sorted(RS.sanitizer()._key_events.items(), key=lambda kv: -kv[1])
+    print("SANITIZE_RESULT " + json.dumps(dict(
+        runs=runs, lock=lock, lock_sites_by_module=by_module,
+        allocating_keys=[[site, repr(key), n] for (site, key), n in keys
+                         if n > 1][:12],
+        plan=PS.summary(), retrace=RS.summary(),
+        jax="jax" in sys.modules)), flush=True)
+    return 0
+
+
+class _Rungs:
+    """Rungs recorded in another process, shaped as a
+    :class:`KernelRecorder`'s for phase 8."""
+
+    def __init__(self, hash_rungs: dict, join_rungs: dict, pass_: str):
+        self._hash, self.join_rungs, self.pass_ = hash_rungs, join_rungs, \
+            pass_
+
+    def hash_rungs(self) -> dict:
+        return self._hash
+
+
+def sanitize_phase(root: str, ref: dict, mp: dict, t22: dict):
+    """Phase 7k: the sanitizers armed in a child process over Q1, the
+    ``l_suppkey`` group-by, Q3 and Q9 (twice each) and Q3 under a host
+    budget; answers held to the unarmed phases', 0 cycles, 0 plan and 0
+    retrace-budget violations, every kernel launch under its declared
+    site. Returns the rungs for phase 8 (``pass`` ``sanitize``)."""
+    import pickle
+    import torch
+    out = os.path.join(HERE, ".cache", "sanitize")
+    os.makedirs(out, exist_ok=True)
+    t0 = time.perf_counter()
+    r = subprocess.run(
+        [sys.executable, os.path.abspath(__file__), "--sanitize-child",
+         root, out], env=dict(os.environ, **SANITIZE_ENV), cwd=HERE,
+        capture_output=True, text=True, timeout=SANITIZE_TIMEOUT_S)
+    child_s = time.perf_counter() - t0
+    line = next((x for x in r.stdout.splitlines()
+                 if x.startswith("SANITIZE_RESULT ")), None)
+    if r.returncode != 0 or line is None:
+        log("sanitize child stdout tail:\n" + r.stdout[-4000:])
+        log("sanitize child stderr tail:\n" + r.stderr[-6000:])
+        raise AssertionError(f"sanitize: the armed child failed "
+                             f"(exit {r.returncode})")
+    res = json.loads(line[len("SANITIZE_RESULT "):])
+    with open(os.path.join(out, "answers.pkl"), "rb") as f:
+        answers = pickle.load(f)
+    # ---- answers: the unarmed phases'
+    for (name, way), got in sorted(answers.items()):
+        label = f"sanitize {name} {way}"
+        if name in ("q1", "suppkey_agg"):
+            check_answer(name, got, ref)
+        else:
+            _same_answer(label, got, t22["answers"][int(name[1:])])
+    # ---- the lines
+    lock, plan, retrace = res["lock"], res["plan"], res["retrace"]
+    log("sanitize locks " + json.dumps(dict(
+        locks=lock["locks"], edges=lock["edges"],
+        cycles=len(lock["cycles"]), acquisitions=lock["acquisitions"],
+        contended=lock["contended"],
+        blocking_while_held=lock["blocking_while_held"],
+        blocking_sites=lock["blocking_sites"][:8],
+        sites_by_module=res["lock_sites_by_module"])))
+    log("sanitize plan " + json.dumps(dict(
+        {k: plan[k] for k in ("rule_checks", "membership_parts",
+                              "membership_rows", "order_parts",
+                              "conservation_checks")},
+        violations=len(plan["violations"]))))
+    per_site = {}
+    for run, rr in res["runs"].items():
+        way = "repeat" if run.endswith("repeat") else "first"
+        for site, d in rr["sites"].items():
+            ps = per_site.setdefault(site, dict(
+                signatures=retrace["site_signatures"].get(site, 0),
+                entries=retrace["site_entries"].get(site, 0),
+                segments_first=0, segments_repeat=0, pinned_first=0,
+                pinned_repeat=0,
+                launches=retrace["site_launches"].get(site, {})))
+            ps[f"segments_{way}"] += d["segments"]
+            ps[f"pinned_{way}"] += d["pinned"]
+    for site, ps in sorted(per_site.items()):
+        log(f"sanitize site {site} " + json.dumps(ps))
+    log("sanitize retrace " + json.dumps(dict(
+        events=retrace["events"], warmup_events=retrace["warmup_events"],
+        repeat_entries=retrace["repeat_entries"],
+        queries=retrace["queries"], segments=retrace["segments"],
+        pinned=retrace["pinned"], launches=retrace["launches"],
+        unscoped_events=retrace["unscoped_events"],
+        engine_launches=retrace["engine_launches"],
+        unscoped_sites=dict(sorted(
+            retrace["unscoped_sites"].items(),
+            key=lambda kv: -kv[1])[:6]),
+        repeat_run_segments=sum(
+            d["segments"] for run, rr in res["runs"].items()
+            if run.endswith("repeat") for d in rr["sites"].values()),
+        repeat_run_pinned=sum(
+            d["pinned"] for run, rr in res["runs"].items()
+            if run.endswith("repeat") for d in rr["sites"].values()),
+        violations=len(retrace["violations"]))))
+    unarmed = {"q1": mp["per_query"]["q1"]["cold_s"],
+               "suppkey_agg": mp["per_query"]["suppkey_agg"]["cold_s"],
+               "q3": t22["per_query"]["q3"]["cold_s"],
+               "q9": t22["per_query"]["q9"]["cold_s"]}
+    for name in SANITIZE_QUERIES:
+        first, rep = res["runs"][f"{name} first"], res["runs"][f"{name} repeat"]
+        log(f"sanitize {name} " + json.dumps(dict(
+            armed_first_s=first["wall_s"], armed_repeat_s=rep["wall_s"],
+            unarmed_cold_s=unarmed[name],
+            launches_first=first["launches"],
+            events_first=first["events"], events_repeat=rep["events"],
+            repeat_entries=rep["repeat_entries"],
+            plan_checks=first["plan_checks"])))
+    b = res["runs"]["q3 bounded"]
+    log("sanitize allocating keys " + json.dumps(res["allocating_keys"]))
+    log("sanitize q3 bounded " + json.dumps(dict(
+        limit=SANITIZE_LIMIT, armed_s=b["wall_s"], launches=b["launches"],
+        events=b["events"], repeat_entries=b["repeat_entries"],
+        plan_checks=b["plan_checks"],
+        spill={k: b["spill"].get(k, 0) for k in (
+            "bytes_written", "joins_partitioned", "partitions_spilled")})))
+    # ---- the sanitizers' verdicts, after their lines
+    if res["jax"]:
+        raise AssertionError("sanitize: the armed child imported jax")
+    if lock["cycles"]:
+        raise AssertionError(f"sanitize: lock-order cycles {lock['cycles']}")
+    if plan["violations"]:
+        raise AssertionError(f"sanitize: plan violations "
+                             f"{plan['violations']}")
+    if retrace["violations"]:
+        raise AssertionError(f"sanitize: retrace-budget violations "
+                             f"{retrace['violations']}")
+    if lock["locks"] < 1 or plan["rule_checks"] < 1:
+        raise AssertionError("sanitize: a sanitizer saw nothing")
+    # the repeat budget held something: each query's repeat was known as
+    # a repeat (its identity stable across runs) and met signatures its
+    # first run warmed
+    for name in SANITIZE_QUERIES:
+        rr = res["runs"][f"{name} repeat"]
+        if rr["repeat_entries"] < 1 or res["runs"][f"{name} first"][
+                "repeat_entries"]:
+            raise AssertionError(f"sanitize: {name}'s repeat met "
+                                 f"{rr['repeat_entries']} warmed signatures")
+    # ---- every kernel launch under its wrapper's declared site and under
+    # an engine path's site (fragment.*, joins.*, runtime.*), none unscoped
+    totals = dict(hash_agg_build=0, hash_join_build=0, hash_join_probe=0)
+    for rr in res["runs"].values():
+        _add(totals, {k: rr["launches"][k] for k in totals})
+    for k, site in KERNEL_SITES.items():
+        under = retrace["site_launches"].get(site, {}).get(site, 0)
+        engine = retrace["engine_launches"].get(site, 0)
+        if totals[k] < 1 or under != totals[k] or engine != totals[k]:
+            raise AssertionError(f"sanitize: {k} launched {totals[k]} "
+                                 f"times, {under} under {site}, {engine} "
+                                 f"under an engine site")
+    if retrace["unscoped_launches"]:
+        raise AssertionError(f"sanitize: launches outside any declared "
+                             f"site {retrace['unscoped_launches']}")
+    if not res["runs"]["q3 bounded"]["spill"].get("bytes_written"):
+        raise AssertionError("sanitize: the bounded Q3 spilled nothing")
+    rungs = torch.load(os.path.join(out, "rungs.pt"))
+    hash_rungs = {k: dict(v, args=_moved(v["args"], "cuda"))
+                  for k, v in rungs["hash"].items()}
+    join_rungs = {k: dict(v, build=_moved(v["build"], "cuda"),
+                          probe=_moved(v["probe"], "cuda"))
+                  for k, v in rungs["join"].items()}
+    log(f"sanitize phase wall: {child_s:.3f} s (the child process, its "
+        f"start and imports included)")
+    return dict(rec=_Rungs(hash_rungs, join_rungs, "sanitize"), res=res)
+
+
 # ------------------------------------------------------------ TPC-DS
 
 def tpcds_root(scale: float) -> str:
@@ -3194,7 +3521,12 @@ def main() -> int:
     ap.add_argument("--dispatch-log", default=None, metavar="DIR",
                     help="write the cost model's decisions of each TPC-H "
                          "22 cold run to DIR/q<N>.jsonl")
+    ap.add_argument("--sanitize-child", nargs=2, default=None,
+                    metavar=("ROOT", "OUT"),
+                    help=argparse.SUPPRESS)
     args = ap.parse_args()
+    if args.sanitize_child:
+        return sanitize_child(*args.sanitize_child)
     # the link profile this run prices with is measured here, on this
     # machine, never read from a store another machine may have written
     os.environ["DAFT_TORCH_LINK_CACHE"] = "0"
@@ -3285,6 +3617,8 @@ def main() -> int:
     done("7i")
     ob = obs_phase(root, mp["ref"], q3["ref"], card)
     done("7j")
+    san = sanitize_phase(root, mp["ref"], mp, t22)
+    done("7k")
     # the TPC-DS, memory-bounded, pivot, fuzz and remote rungs whose shape
     # no earlier phase held
     held = {k[1:] for r in (mp["rungs"], t22["rungs"], tsql["rungs"])
@@ -3294,7 +3628,7 @@ def main() -> int:
     ds_rungs, ds_jrungs = {}, {}
     fuzz_new = {m: {"hash": 0, "join": 0} for m in FUZZ_MODES}
     for rec_k in (tds["rec"], tdp["rec"], ooc["rec"], piv["rec"],
-                  fz["rec"], rem["rec"], ob["rec"]):
+                  fz["rec"], rem["rec"], ob["rec"], san["rec"]):
         for k, v in rec_k.hash_rungs().items():
             if k[1:] not in held:
                 held.add(k[1:])
@@ -3307,8 +3641,14 @@ def main() -> int:
                 ds_jrungs[k] = dict(v, pass_=rec_k.pass_)
                 if rec_k is fz["rec"]:
                     fuzz_new[k[0].split()[-1]]["join"] += 1
-    log(f"tpcds, ooc, pivot, fuzz, remote and obs rungs not held by "
-        f"earlier phases: {len(ds_rungs)} hash, {len(ds_jrungs)} join")
+    log(f"tpcds, ooc, pivot, fuzz, remote, obs and sanitize rungs not "
+        f"held by earlier phases: {len(ds_rungs)} hash, {len(ds_jrungs)} "
+        f"join")
+    log("sanitize new rungs " + json.dumps(dict(
+        hash=sorted(str(list(k)) for k in ds_rungs
+                    if k[0].startswith("sanitize")),
+        join=sorted(str(list(k)) for k in ds_jrungs
+                    if k[0].startswith("sanitize")))))
     log("remote new rungs " + json.dumps(dict(
         hash=sorted(str(list(k)) for k in ds_rungs
                     if k[0].startswith("remote")),

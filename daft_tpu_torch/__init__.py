@@ -7,6 +7,24 @@ caller asks for the CPU (``DAFT_TORCH_DEVICE=cpu`` or
 ``set_execution_config(device="cpu")``).
 """
 
+# the runtime lock-order sanitizer must patch the lock factories BEFORE the
+# engine modules below create their module-level locks: this block stays
+# first (knobs and the sanitizers are import-light)
+from . import knobs as _knobs
+if _knobs.env_bool("DAFT_TORCH_SANITIZE"):
+    from .analysis import lock_sanitizer as _lock_sanitizer
+    _lock_sanitizer.enable()
+    # ...and the retrace sanitizer reads the card's allocator at the
+    # declared dispatch sites
+    from .analysis import retrace_sanitizer as _retrace_sanitizer
+    if _retrace_sanitizer.enabled_by_env():
+        _retrace_sanitizer.enable()
+# the plan sanitizer hooks the optimizer loop and the node streams (no
+# factory patching), so it arms on its own knob
+from .analysis import plan_sanitizer as _plan_sanitizer
+if _plan_sanitizer.enabled_by_env():
+    _plan_sanitizer.enable()
+
 from .context import execution_config_ctx, get_context, set_execution_config
 from .dataframe import (DataFrame, from_arrow, from_glob_path, from_pandas,
                         from_pydict, from_pylist)

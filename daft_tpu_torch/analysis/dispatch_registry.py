@@ -20,6 +20,17 @@ reference exempts its bench sites).
 - ``compile-site-unregistered``: ``nvcc`` run, or ``compile_library``
   called, anywhere but the declared sites.
 
+It also declares the port's runtime dispatch sites (:data:`SITES`): each
+place an engine path enters ``retrace_sanitizer.dispatch_scope(site,
+key)`` around its device work, with what the signature key spells and its
+budget (the torch counterpart of the reference's per-signature trace
+budget: the port compiles nothing per shape, and the tax it can pay
+instead is new device memory — a caching-allocator segment, whose
+``cudaMalloc`` synchronizes, or a new pinned block). A query's first run
+at a signature may allocate; a repeat of the query at a signature it
+has warmed may not. ``rule_launch`` holds the sites against the ``dispatch_scope``
+calls in the tree in both directions.
+
 This module must stay import-light (no torch): a test and
 ``chip_smoke.py`` read it before any kernel is built.
 """
@@ -79,6 +90,88 @@ ENTRIES: Tuple[EntryPoint, ...] = (
 )
 
 BY_ENTRY: Dict[str, EntryPoint] = {e.entry: e for e in ENTRIES}
+
+
+@dataclasses.dataclass(frozen=True)
+class DispatchSite:
+    id: str          # stable site id, the first argument of dispatch_scope
+    module: str      # repo-relative module entering the scope
+    signature: str   # what the scope's key spells
+    #: the human budget contract
+    budget: str = ("allocates only in a query's first run at a signature: "
+                   "a repeat reuses the caching allocator's blocks")
+    #: counted, never budget-enforced — with the reason beside it
+    exempt: str = ""
+    #: the hand-written kernel this site launches, if it is a wrapper
+    entry: Optional[str] = None
+
+
+_FRAG = f"{PKG}/device/fragment.py"
+_RT = f"{PKG}/device/runtime.py"
+
+SITES: Tuple[DispatchSite, ...] = (
+    DispatchSite(
+        "fragment.fused_agg", _FRAG,
+        "(program id, capacity class, strategy, out-cap bucket)"),
+    DispatchSite(
+        "fragment.region", _FRAG,
+        "(program id, capacity class, output width)"),
+    DispatchSite(
+        "fragment.join_agg", _FRAG,
+        "(program id, probe capacity class, pair width, group bucket)"),
+    DispatchSite(
+        "runtime.projection", _RT,
+        "(program id, capacity class)"),
+    DispatchSite(
+        "runtime.predicate", _RT,
+        "(program id, capacity class)"),
+    DispatchSite(
+        "runtime.argsort", _RT,
+        "(capacity class, key dtypes, descending, nulls first)"),
+    DispatchSite(
+        "runtime.agg", _RT,
+        "(program id, capacity class)"),
+    DispatchSite(
+        "joins.device_match", f"{PKG}/joins.py",
+        "(strategy, build capacity class, probe capacity class, out-cap "
+        "bucket)"),
+    DispatchSite(
+        "hash_agg.build", _HK,
+        "(rows C, table slots T, key words, plane specs)",
+        entry="daft_hash_agg_build"),
+    DispatchSite(
+        "hash_join.build", _JK, "(rows C, buckets T)",
+        entry="daft_hash_join_build"),
+    DispatchSite(
+        "hash_join.probe", _JK, "(rows C, buckets T, output cap)",
+        entry="daft_hash_join_probe"),
+    DispatchSite(
+        "warmup.aot", f"{PKG}/device/warmup.py",
+        "(max capacity, min capacity)", "none: counted only",
+        exempt="the warm-up launches every kernel and program once per "
+               "capacity class to fill the allocator's caches before the "
+               "first query: allocating is its purpose (the reference "
+               "exempts its warmup.aot site the same way)"),
+)
+
+SITE_BY_ID: Dict[str, DispatchSite] = {s.id: s for s in SITES}
+
+
+def site(site_id: str) -> Optional[DispatchSite]:
+    return SITE_BY_ID.get(site_id)
+
+
+def enforced(site_id: str) -> bool:
+    """Whether the site's budget is enforced (False when it is exempt or
+    undeclared: counted, never enforced)."""
+    s = SITE_BY_ID.get(site_id)
+    return s is not None and not s.exempt
+
+
+def is_engine_site(site_id: str) -> bool:
+    """A declared site of an engine path (not a kernel wrapper's own)."""
+    s = SITE_BY_ID.get(site_id)
+    return s is not None and s.entry is None
 
 #: the one compile site, and the harnesses allowed to call it
 COMPILE_SITE = (f"{PKG}/device/cuda_build.py", "compile_library")

@@ -39,6 +39,11 @@ order (the card's atomics). A mismatch is minimized greedily (ops dropped
 while it persists) and reported with its seed: the tables regenerate from
 the seed, so ``seed + ops`` is the whole repro.
 
+Every run arms the plan sanitizer (``analysis/plan_sanitizer.py``) for
+its duration, as the reference's armed test session does, and counts the
+contract violations its queries raise (``sanitizer_violations``; the CLI
+exits 1 on any).
+
 Knobs: ``DAFT_TORCH_FUZZ_SEED`` (base seed, 0) and
 ``DAFT_TORCH_FUZZ_COUNT`` (seeds per run, 50).
 """
@@ -374,12 +379,16 @@ class FuzzResult:
     #: errors (the mode raised; also listed in ``mismatches``)
     per_mode: Dict[str, Dict[str, int]] = dataclasses.field(
         default_factory=dict)
+    #: plan-contract violations the run's queries raised, and their text
+    sanitizer_violations: int = 0
+    sanitizer_detail: List[str] = dataclasses.field(default_factory=list)
 
     def summary(self) -> Dict[str, int]:
         return {"seeds_run": self.seeds_run,
                 "cases_compared": self.cases_compared,
                 "mismatches": len(self.mismatches),
-                "errors": len(self.errors)}
+                "errors": len(self.errors),
+                "sanitizer_violations": self.sanitizer_violations}
 
 
 def _diff_detail(ref_rows, got_rows) -> str:
@@ -431,7 +440,26 @@ def run_fuzz(count: Optional[int] = None, seed: Optional[int] = None,
              modes: Optional[Tuple[str, ...]] = None,
              log=None, budget_s: Optional[float] = None) -> FuzzResult:
     """``count`` seeds from ``seed`` in each of ``modes``; with
-    ``budget_s``, further seeds while the run's wall is under it."""
+    ``budget_s``, further seeds while the run's wall is under it. The plan
+    sanitizer is armed for the run (and disarmed after it, when the run
+    armed it)."""
+    from . import plan_sanitizer
+    armed_here = not plan_sanitizer.is_enabled()
+    if armed_here:
+        plan_sanitizer.enable()
+    try:
+        viol0 = len(plan_sanitizer.summary().get("violations", []))
+        res = _run_fuzz(count, seed, modes, log, budget_s)
+        viol = plan_sanitizer.summary().get("violations", [])[viol0:]
+        res.sanitizer_violations = len(viol)
+        res.sanitizer_detail = list(viol)
+        return res
+    finally:
+        if armed_here:
+            plan_sanitizer.disable()
+
+
+def _run_fuzz(count, seed, modes, log, budget_s) -> FuzzResult:
     base = fuzz_seed_base() if seed is None else seed
     n = fuzz_count() if count is None else count
     t0 = time.perf_counter()

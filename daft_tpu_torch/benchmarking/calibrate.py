@@ -60,7 +60,7 @@ import time
 
 import numpy as np
 
-from .. import col
+from .. import col, knobs
 from ..device import costmodel, mfu, runtime
 from . import op_floor
 
@@ -122,7 +122,7 @@ def host_join(n: int, reps: int = 5) -> dict:
     lg = rng.integers(0, max(n // 2, 1), n)
     rg = rng.integers(0, max(n // 2, 1), n)
     ones = np.ones(n, dtype=bool)
-    saved = os.environ.get("DAFT_TORCH_DEVICE_JOIN")
+    saved = knobs.env_raw("DAFT_TORCH_DEVICE_JOIN")
     os.environ["DAFT_TORCH_DEVICE_JOIN"] = "0"
     try:
         walls = []
@@ -162,7 +162,7 @@ def region_join_agg(n: int, reps: int) -> dict:
                        how="inner")
         j.groupby(col("g")).agg(
             (col("x") * col("w")).sum().alias("s")).to_pydict()
-    saved = os.environ.get("DAFT_TORCH_FUSION")
+    saved = knobs.env_raw("DAFT_TORCH_FUSION")
     os.environ["DAFT_TORCH_FUSION"] = "1"
     try:
         runtime.reset_counters()

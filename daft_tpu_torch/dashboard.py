@@ -52,6 +52,9 @@ def broadcast_query(stats) -> None:
                 getattr(stats, "device_kernels", {}) or {}),
             # self-tuning plane: calibration observations and re-plans
             "adaptive": dict(getattr(stats, "adaptive", {}) or {}),
+            # lock-order sanitizer (DAFT_TORCH_SANITIZE=1): graph size,
+            # cycles, this query's acquisitions
+            "sanitizer": dict(getattr(stats, "sanitizer", {}) or {}),
             # tracing plane: the trace's summary (id, span count)
             "trace": dict(getattr(stats, "trace_summary", {}) or {}),
         }

@@ -108,8 +108,11 @@ def library() -> ctypes.CDLL:
         if _lib is not None:
             return _lib
         t0 = time.perf_counter()
+        # daft-lint: allow(blocking-under-lock) -- build once: every other
+        # caller needs the finished library and must wait for it anyway
         path = library_path()
         if not os.path.exists(path):
+            # daft-lint: allow(blocking-under-lock) -- the same one build
             build_log = compile_library(sources(), path)
         lib = ctypes.CDLL(path)
         for name, argtypes in _ENTRIES.items():

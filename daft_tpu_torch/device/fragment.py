@@ -52,6 +52,7 @@ from typing import List, Optional, Tuple
 import numpy as np
 import torch
 
+from ..analysis import retrace_sanitizer
 from ..expressions.expressions import Expression
 from ..schema import Schema
 from . import column as dcol
@@ -135,13 +136,20 @@ def get_fused_agg(group_exprs: List[Expression],
                   child_exprs: List[Expression], ops: Tuple[str, ...],
                   predicate: Optional[Expression],
                   schema: Schema) -> Optional[FusedAggProgram]:
-    """Compile the fused filter→project→grouped-agg program, or None when
-    an expression has no device lowering (the morsel runs on the host)."""
+    """The fused filter→project→grouped-agg program, compiled once per
+    expressions and schema (reference ``get_fused_agg``, memoized the same
+    way), or None when an expression has no device lowering (the morsel
+    runs on the host)."""
     proj = list(group_exprs) + list(child_exprs) + \
         ([predicate] if predicate is not None else [])
+    key = (tuple(e._key() for e in proj), ops, runtime._schema_key(schema))
+    hit = _fused_seen.get(key)
+    if hit is not None:
+        return hit or None
     try:
         c = compiler.compile_projection(proj, schema)
     except _COMPILE_ERRORS:
+        _fused_seen[key] = False
         return None
     nk = len(group_exprs)
     srcs = []
@@ -155,18 +163,18 @@ def get_fused_agg(group_exprs: List[Expression],
     prog = FusedAggProgram(c, nk, ops, predicate is not None,
                            tuple(srcs) if srcs else None)
     prog.in_schema = schema
-    _fused_seen[(tuple(e._key() for e in proj), ops,
-                 runtime._schema_key(schema))] = prog
-    return prog
+    # two threads compiling one key at once keep the first program
+    return _fused_seen.setdefault(key, prog)
 
 
-#: every fused program compiled so far, by its expressions and schema (the
-#: latest of each): what ``warmup.warmup_fragments`` launches
+#: every fused program compiled so far, by its expressions, ops and schema
+#: (False: it does not compile): the memo ``get_fused_agg`` reads, and
+#: what ``warmup.warmup_fragments`` launches
 _fused_seen: dict = {}
 
 
 def fused_programs() -> List[FusedAggProgram]:
-    return list(_fused_seen.values())
+    return [p for p in _fused_seen.values() if p]
 
 
 def dense_plan(prog: FusedAggProgram, dt: dcol.DeviceTable, cap_limit: int
@@ -340,8 +348,11 @@ def _dispatch(tok: InflightFusedAgg) -> None:
     valids = {n: c.validity for n, c in dt.columns.items()}
     scalars = runtime._prep_scalars(prog.compiled, dt)
     if prog.nk == 0:
-        tok.planes = prog.run_planes(arrays, valids, dt.row_mask, scalars,
-                                     _OUT_CAP0)
+        with retrace_sanitizer.dispatch_scope(
+                "fragment.fused_agg",
+                (id(prog), dt.capacity, "global", _OUT_CAP0)):
+            tok.planes = prog.run_planes(arrays, valids, dt.row_mask,
+                                         scalars, _OUT_CAP0)
         runtime.count("global")
         return
     while True:
@@ -350,9 +361,12 @@ def _dispatch(tok: InflightFusedAgg) -> None:
                 prog, dt, tok.out_cap, tok.cap_limit, tok.groups)
         timer = _Timer(dt.device)
         try:
-            tok.planes = prog.run_planes(
-                arrays, valids, dt.row_mask, scalars, tok.out_cap,
-                tok.strategy, tok.dims)
+            with retrace_sanitizer.dispatch_scope(
+                    "fragment.fused_agg",
+                    (id(prog), dt.capacity, tok.strategy, tok.out_cap)):
+                tok.planes = prog.run_planes(
+                    arrays, valids, dt.row_mask, scalars, tok.out_cap,
+                    tok.strategy, tok.dims)
         except hash_kernels.HashKeyWidthError:
             # the exact width check, raised before any launch: route this
             # program to sort for good. Any other error propagates.
@@ -683,8 +697,10 @@ def _dispatch_region(tok: InflightRegion) -> None:
     valids = {n: c.validity for n, c in dt.columns.items()}
     scalars = runtime._prep_scalars(prog.compiled, dt)
     timer = _Timer(dt.device)
-    planes = prog.run_planes(arrays, valids, dt.row_mask, scalars,
-                             tok.out_w)
+    with retrace_sanitizer.dispatch_scope(
+            "fragment.region", (id(prog), dt.capacity, tok.out_w)):
+        planes = prog.run_planes(arrays, valids, dt.row_mask, scalars,
+                                 tok.out_w)
     timer.stop()
     tok.timers.append(timer)
     tok.fetch = dcol.fetch_host_async(planes)
@@ -942,8 +958,11 @@ def _dispatch_join_agg(tok: InflightJoinAgg) -> None:
         if prog.c_pred is not None else ()
     post_scalars = _prep_scalars_joined(prog.c_post, dt, build.dt)
     timer = _Timer(dt.device)
-    planes = prog.run_planes(p_arrays, p_valids, dt.row_mask, p_scalars,
-                             build, post_scalars, tok.W, tok.out_cap)
+    with retrace_sanitizer.dispatch_scope(
+            "fragment.join_agg", (id(prog), dt.capacity, tok.W, tok.out_cap)):
+        planes = prog.run_planes(p_arrays, p_valids, dt.row_mask,
+                                 p_scalars, build, post_scalars, tok.W,
+                                 tok.out_cap)
     timer.stop()
     tok.timers.append(timer)
     tok.fetch = dcol.fetch_host_async(planes)

@@ -38,6 +38,7 @@ import numpy as np
 import torch
 
 from .. import knobs
+from ..analysis import retrace_sanitizer
 from . import kernels
 
 #: CUDA kernel launches since the last :func:`reset_launches` — counted
@@ -57,6 +58,7 @@ def _launched() -> None:
     global launches
     with _launches_lock:
         launches += 1
+    retrace_sanitizer.note_launch("hash_agg.build")
 
 
 class HashKeyWidthError(ValueError):
@@ -458,12 +460,15 @@ def hash_agg_build(words, live, vals, contribs, specs, T: int):
     raises."""
     distinct, alias = plane_aliases(specs, vals, contribs)
     uniq = [specs[i] for i in distinct]
-    if live.device.type == "cuda":
-        out = hash_agg_build_cuda(words, live, vals, contribs, uniq, T)
-    elif live.device.type == "cpu":
-        out = hash_agg_build_plain(words, live, vals, contribs, uniq, T)
-    else:
-        raise ValueError(f"hash_agg_build: unsupported device {live.device}")
+    with retrace_sanitizer.dispatch_scope(
+            "hash_agg.build", (live.shape[0], T, len(words), tuple(uniq))):
+        if live.device.type == "cuda":
+            out = hash_agg_build_cuda(words, live, vals, contribs, uniq, T)
+        elif live.device.type == "cpu":
+            out = hash_agg_build_plain(words, live, vals, contribs, uniq, T)
+        else:
+            raise ValueError(
+                f"hash_agg_build: unsupported device {live.device}")
     tk, occ, frow, planes, group_count = out
     return tk, occ, frow, [planes[a] for a in alias], group_count
 

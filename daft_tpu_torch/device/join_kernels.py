@@ -44,6 +44,8 @@ from typing import Dict, NamedTuple, Tuple
 import numpy as np
 import torch
 
+from ..analysis import retrace_sanitizer
+
 #: the free-slot marker of the table's key plane
 EMPTY = -(1 << 63)
 
@@ -59,9 +61,15 @@ def reset_launches() -> None:
             launches[k] = 0
 
 
+#: launch counter key → the kernel's retrace site
+_SITE = {"hash_join_build": "hash_join.build",
+         "hash_join_probe": "hash_join.probe"}
+
+
 def _launched(name: str) -> None:
     with _launches_lock:
         launches[name] += 1
+    retrace_sanitizer.note_launch(_SITE[name])
 
 
 def join_table_capacity(c_r: int) -> int:
@@ -295,10 +303,12 @@ def hash_join_build(code: torch.Tensor, live: torch.Tensor,
                     T: int) -> JoinTable:
     """The build: the CUDA kernel for CUDA tensors, the plain torch
     version for CPU tensors."""
-    if code.device.type == "cuda":
-        return hash_join_build_cuda(code, live, T)
-    if code.device.type == "cpu":
-        return hash_join_build_plain(code, live, T)
+    with retrace_sanitizer.dispatch_scope("hash_join.build",
+                                          (code.shape[0], T)):
+        if code.device.type == "cuda":
+            return hash_join_build_cuda(code, live, T)
+        if code.device.type == "cpu":
+            return hash_join_build_plain(code, live, T)
     raise ValueError(f"hash_join_build: unsupported device {code.device}")
 
 
@@ -306,10 +316,12 @@ def hash_join_probe(code: torch.Tensor, live: torch.Tensor,
                     table: JoinTable, cap: int) -> torch.Tensor:
     """The probe: the CUDA kernel for CUDA tensors, the plain torch
     version for CPU tensors."""
-    if code.device.type == "cuda":
-        return hash_join_probe_cuda(code, live, table, cap)
-    if code.device.type == "cpu":
-        return hash_join_probe_plain(code, live, table, cap)
+    with retrace_sanitizer.dispatch_scope("hash_join.probe",
+                                          (code.shape[0], table.T, cap)):
+        if code.device.type == "cuda":
+            return hash_join_probe_cuda(code, live, table, cap)
+        if code.device.type == "cpu":
+            return hash_join_probe_plain(code, live, table, cap)
     raise ValueError(f"hash_join_probe: unsupported device {code.device}")
 
 

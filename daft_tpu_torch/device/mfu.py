@@ -361,6 +361,8 @@ def measure_vector(n: int = 1 << 20, device="cuda") -> Dict:
         "k": rng.integers(0, max(n // 16, 1), n), "x": rng.random(n),
         "y": rng.integers(-1000, 1000, n).astype(np.int32)}))
     exprs = [(col("x") * 2 + col("y")).alias("z"), (col("k") % 7).alias("m")]
+    # daft-lint: allow(program-not-memoized) -- a measurement harness: one
+    # program per measurement, built outside the timed region
     c = compiler.compile_projection(exprs, rb.schema)
     with dcol.uncounted():
         dt = dcol.encode_batch(rb, c.needs_cols, dev)

@@ -30,6 +30,7 @@ from __future__ import annotations
 
 import collections
 import concurrent.futures as cf
+import heapq
 import os
 import threading
 import time
@@ -98,6 +99,8 @@ class WindowGate:
         self._aborted = False
         #: most slots live at once (the overlap the window reached)
         self.peak = 0
+        #: (card, set) of the slot streams this run leases, or None
+        self.streams = None
 
     def is_set(self) -> bool:
         return self._aborted
@@ -149,6 +152,53 @@ class Slot:
 #: timeout the slot proceeds unadmitted (footprint 0) and is counted.
 _ADMIT_DEADLINE_S = 5.0
 
+#: the slots' stream sets per card, and the sets no pipeline run holds
+#: (lowest first): a run leases one set for its slots and gives it back
+#: when it ends, so serial queries reuse the same streams and concurrent
+#: ones run on their own
+_stream_sets: Dict[int, list] = {}
+_free_sets: Dict[int, list] = {}
+_stream_lock = threading.Lock()
+
+
+def slot_stream(gate: WindowGate, device: Optional[torch.device],
+                seq: int):
+    """The stream of slot ``seq``'s encode and dispatch (None on the
+    CPU): stream ``seq % (window + 1)`` of the stream set ``gate``'s run
+    leases. The caching allocator keeps a freed block for the stream it
+    was allocated on, so a fresh stream per window (the torch pool's
+    next) finds none of its own and allocates new segments — a
+    ``cudaMalloc``, which synchronizes the card — on every run, a steady
+    repeat included (a finding of the retrace sanitizer)."""
+    if device is None or device.type != "cuda":
+        return None
+    idx = device.index if device.index is not None \
+        else torch.cuda.current_device()
+    with _stream_lock:
+        if gate.streams is None:
+            free = _free_sets.setdefault(idx, [])
+            sets = _stream_sets.setdefault(idx, [])
+            if free:
+                i = heapq.heappop(free)
+            else:
+                i = len(sets)
+                sets.append([])
+            gate.streams = (idx, i)
+        card, i = gate.streams
+        streams = _stream_sets[card][i]
+        k = seq % (gate.window + 1)
+        while len(streams) <= k:
+            streams.append(torch.cuda.Stream(device=card))
+        return streams[k]
+
+
+def release_streams(gate: WindowGate) -> None:
+    """Give ``gate``'s stream set back (its run has ended)."""
+    with _stream_lock:
+        lease, gate.streams = gate.streams, None
+        if lease is not None:
+            heapq.heappush(_free_sets[lease[0]], lease[1])
+
 
 def acquire_slot(gate: WindowGate, seq: int, mem=None,
                  nbytes: int = 0) -> Slot:
@@ -157,6 +207,10 @@ def acquire_slot(gate: WindowGate, seq: int, mem=None,
     it on every path."""
     gate.acquire(seq)
     if mem is not None and nbytes > 0:
+        # daft-lint: allow(memory-admission-leak) -- the admitted bytes
+        # transfer into the returned Slot by design (acquire-on-submit,
+        # release-on-drain); the device-slot-leak contract proves every
+        # acquire_slot caller releases or hands the Slot off whole
         if not mem.try_acquire(
                 nbytes, deadline=time.monotonic() + _ADMIT_DEADLINE_S,
                 cancel=gate):
@@ -333,6 +387,7 @@ def run_pipelined(items: Iterator, submit: Callable, drain: Callable, *,
                 continue   # the submit released its own slot
             if isinstance(ret, InflightItem):
                 release_slot(ret.slot)
+        release_streams(gate)
         _peak("peak_inflight", gate.peak)
         if slots_run[0] > 0:
             _count("slots", slots_run[0])

@@ -36,6 +36,7 @@ import pyarrow as pa
 import torch
 
 from .. import knobs
+from ..analysis import retrace_sanitizer
 from ..expressions.expressions import Expression
 from ..schema import Schema
 from ..series import Series
@@ -295,13 +296,17 @@ def try_eval_projection(batch, exprs: List[Expression]):
         return None
     from . import costmodel
     t0 = time.perf_counter()
-    dt, outs = _run_compiled(c, batch, device)
-    count("projection")
-    named = [(f.name, dcol.DeviceColumn(v, m, f.dtype,
-                                        key_dictionary(e, f, dt)))
-             for e, f, (v, m) in zip(exprs, out_fields, outs)]
-    # one device→host copy for every output plane
-    out = RecordBatch.from_series(dcol.decode_columns(named, len(batch)))
+    with retrace_sanitizer.dispatch_scope(
+            "runtime.projection",
+            (id(c), dcol.bucket_capacity(len(batch)))):
+        dt, outs = _run_compiled(c, batch, device)
+        count("projection")
+        named = [(f.name, dcol.DeviceColumn(v, m, f.dtype,
+                                            key_dictionary(e, f, dt)))
+                 for e, f, (v, m) in zip(exprs, out_fields, outs)]
+        # one device→host copy for every output plane
+        out = RecordBatch.from_series(
+            dcol.decode_columns(named, len(batch)))
     n = len(batch)
     costmodel.ledger_record(
         "projection", rows=n,
@@ -321,11 +326,14 @@ def try_eval_predicate(batch, predicate: Expression) -> Optional[np.ndarray]:
             or not _gate(_row_output_profitable(batch, c.needs_cols, 1,
                                                 out_bytes_per_row=1)):
         return None
-    _, outs = _run_compiled(c, batch, device)
-    count("predicate")
-    val, valid = outs[0]
-    mask = (val.to(torch.bool) & valid)[:len(batch)]
-    return dcol.fetch_host([mask])[0].astype(bool)
+    with retrace_sanitizer.dispatch_scope(
+            "runtime.predicate",
+            (id(c), dcol.bucket_capacity(len(batch)))):
+        _, outs = _run_compiled(c, batch, device)
+        count("predicate")
+        val, valid = outs[0]
+        mask = (val.to(torch.bool) & valid)[:len(batch)]
+        return dcol.fetch_host([mask])[0].astype(bool)
 
 
 def try_argsort(key_series: List[Series], descending: List[bool],
@@ -350,20 +358,24 @@ def try_argsort(key_series: List[Series], descending: List[bool],
             len(key_series))):
         return None
     cap = dcol.bucket_capacity(n)
-    try:
-        cols = [dcol.encode_series(s, cap, device) for s in key_series]
-    except (ValueError, pa.ArrowInvalid):
-        return None
-    t0 = time.perf_counter()
-    count("op_bytes_up", sum(c.data.nbytes + c.validity.nbytes
-                             for c in cols))
-    mask = torch.arange(cap, device=device) < n
-    perm = kernels.argsort_kernel(
-        tuple(c.data for c in cols), tuple(c.validity for c in cols), mask,
-        tuple(bool(d) for d in descending),
-        tuple(bool(x) for x in nulls_first))
-    count("argsort")
-    out = dcol.fetch_host([perm[:n]])[0].astype(np.int64)
+    with retrace_sanitizer.dispatch_scope(
+            "runtime.argsort",
+            (cap, tuple(s.datatype() for s in key_series),
+             tuple(descending), tuple(nulls_first))):
+        try:
+            cols = [dcol.encode_series(s, cap, device) for s in key_series]
+        except (ValueError, pa.ArrowInvalid):
+            return None
+        t0 = time.perf_counter()
+        count("op_bytes_up", sum(c.data.nbytes + c.validity.nbytes
+                                 for c in cols))
+        mask = torch.arange(cap, device=device) < n
+        perm = kernels.argsort_kernel(
+            tuple(c.data for c in cols), tuple(c.validity for c in cols),
+            mask, tuple(bool(d) for d in descending),
+            tuple(bool(x) for x in nulls_first))
+        count("argsort")
+        out = dcol.fetch_host([perm[:n]])[0].astype(np.int64)
     costmodel.ledger_record(
         "argsort", rows=n,
         nbytes=mfu.argsort_bytes_model(cap, [c.data.dtype for c in cols]),
@@ -447,6 +459,17 @@ def try_agg(batch, to_agg: List[Expression], group_by: List[Expression]):
             host_bytes=_batch_cols_nbytes(batch, c.needs_cols),
             strategy=est)):
         return None
+    with retrace_sanitizer.dispatch_scope("runtime.agg", (id(c), cap)):
+        return _agg_dispatch(c, batch, device, specs, out_fields,
+                             key_fields, group_by, nk, cap)
+
+
+def _agg_dispatch(c, batch, device, specs, out_fields, key_fields,
+                  group_by, nk: int, cap: int):
+    """The per-operator agg's dispatch, under its retrace scope: encode,
+    the kernel of the strategy, one fetch, decode."""
+    from ..recordbatch import RecordBatch
+    from . import costmodel, hash_kernels, kernels, mfu
     t0 = time.perf_counter()
     dt, outs = _run_compiled(c, batch, device)
     ops = tuple(s[0] for s in specs)

@@ -215,10 +215,21 @@ def warmup_session(max_capacity: int = _DEFAULT_MAX_CAPACITY,
                    ) -> Dict[str, object]:
     """The whole warm-up on ``device`` (default: this query's), over the
     size-class ladder → a stats dict."""
+    from ..analysis import retrace_sanitizer
     from . import backend, cuda_build
     device = backend.resolve_device() if device is None else device
     if device is None:
         return {"device": None}
+    with retrace_sanitizer.dispatch_scope(
+            "warmup.aot", (max_capacity, min_capacity)):
+        return _warmup(max_capacity, min_capacity, kernels, fragments,
+                       regions, device)
+
+
+def _warmup(max_capacity: int, min_capacity: int, kernels: bool,
+            fragments: bool, regions: bool, device: torch.device
+            ) -> Dict[str, object]:
+    from . import cuda_build
     t0 = time.perf_counter()
     classes = size_classes(max_capacity, min_capacity)
     stats: Dict[str, object] = {"device": str(device),

@@ -191,10 +191,14 @@ class LocalExecutor:
                             break
                     yield item
             finally:
-                if it is not None:
-                    with obs.attributed(stats):
-                        it.close()
-                obs.end_query(stats, capture)
+                # the capture stops and the stats publish even when
+                # closing the stream raises
+                try:
+                    if it is not None:
+                        with obs.attributed(stats):
+                            it.close()
+                finally:
+                    obs.end_query(stats, capture)
         return gen()
 
     def _exec(self, node: pp.PhysicalPlan) -> Iterator[MicroPartition]:
@@ -206,9 +210,11 @@ class LocalExecutor:
         h = getattr(self, "_exec_" + type(node).__name__, None)
         if h is None:
             raise NotImplementedError(f"executor for {type(node).__name__}")
+        from ..analysis import plan_sanitizer
+        it = plan_sanitizer.wrap_node(node, h(node))
         if self.stats is not None:
-            return self.stats.instrument(node, h(node))
-        return h(node)
+            return self.stats.instrument(node, it)
+        return it
 
     def _shared_stream(self, node) -> Iterator[MicroPartition]:
         """A subplan with several consumers (``translate``) runs ONCE into
@@ -669,14 +675,6 @@ class LocalExecutor:
                 self.device, groups)
             yield host_agg(rb) if out is None else _to_partition(out, node)
 
-    def _slot_stream(self):
-        """A stream of the torch pool for one pipeline slot's work (None
-        on the CPU)."""
-        import torch
-        if self.device is None or self.device.type != "cuda":
-            return None
-        return torch.cuda.Stream(device=self.device)
-
     def _pipelined_fragment_morsels(self, node, child, morsel_gate,
                                     agg_cols, host_agg, window: int):
         """The bounded-window pipeline over a morsel stream
@@ -696,7 +694,8 @@ class LocalExecutor:
             slot = dpipe.acquire_slot(gate, seq, self.mem, est)
             try:
                 t0 = time.perf_counter()
-                with dcol.on_stream(self._slot_stream()):
+                with dcol.on_stream(dpipe.slot_stream(gate, self.device,
+                                                      seq)):
                     tok = fragment.submit_fused_agg(
                         prog, rb, node.group_by, agg_cols, node.schema(),
                         self.device, node.group_ndv)
@@ -839,7 +838,7 @@ class LocalExecutor:
 
         def p_submit(window_tasks, seq, gate):
             t0 = time.perf_counter()
-            stream = self._slot_stream()
+            stream = dpipe.slot_stream(gate, device, seq)
             resolved = resolve(window_tasks, stream)
             est = sum(dt.nbytes() for dt in tables(resolved))
             slot = dpipe.acquire_slot(gate, seq, self.mem, est)
@@ -1389,7 +1388,8 @@ class LocalExecutor:
                                           est_bytes(rb))
                 try:
                     t0 = time.perf_counter()
-                    with dcol.on_stream(self._slot_stream()):
+                    with dcol.on_stream(dpipe.slot_stream(
+                            wgate, self.device, seq)):
                         tok = device_submit(rb)
                     sub_s = time.perf_counter() - t0
                 except BaseException:

@@ -422,8 +422,9 @@ class PartitionedSpillStore:
                 if self._io is not None:
                     to_write.append((i, [batch], nb, False))
                 else:
-                    # the serial path (parallelism 0): writer state and
-                    # budget accounting as one atomic unit
+                    # daft-lint: allow(blocking-under-lock) -- the serial
+                    # path (parallelism 0): writer state and budget
+                    # accounting as one atomic unit
                     self._write_table(i, batch.to_arrow_table())
             else:
                 self._mem[i].append(batch)

@@ -316,26 +316,24 @@ def grace_hash_join(ex, node) -> Iterator[MicroPartition]:
         rstore.close()
 
 
-#: rows of each side a bucket pair's check re-hashes
-_PAIR_CHECK_ROWS = 1024
-
-
 def _grace_pair_check(i: int, n: int, node, lbat, rbat) -> None:
-    """A bucket pair read back from the rotated-radix stores must re-hash
-    into its own bucket: depth 0 is ``h % n``, bit-identical to
-    ``partition_by_hash``, and a spill/IPC dtype drift breaks exactly
-    this (reference: the plan sanitizer's ``check_grace_pair``). The port
-    checks the first rows of each side of every pair."""
-    for batches, on in ((lbat, node.left_on), (rbat, node.right_on)):
-        if not batches or not len(batches[0]):
-            continue
-        rb = batches[0].slice(0, min(len(batches[0]), _PAIR_CHECK_ROWS))
-        pieces = radix_split(rb, list(on), n, 0)
-        if len(pieces[i]) != len(rb):
-            raise RuntimeError(
-                f"grace join: bucket {i} of {n} holds rows that hash to "
-                "another bucket (a spilled batch changed its key values "
-                "or types)")
+    """Plan-sanitizer hook (``DAFT_TORCH_SANITIZE_PLAN=1``): a bucket pair
+    read back from the rotated-radix stores must re-hash into its own
+    bucket — depth 0 is ``h % n``, bit-identical to ``partition_by_hash``,
+    and a spill/IPC dtype drift breaks exactly this. Unarmed, nothing runs;
+    armed, a stray row is a counted ``plansan`` violation
+    (``plan_sanitizer.check_grace_pair``), never an exception."""
+    from ..analysis import plan_sanitizer
+    if not plan_sanitizer.is_enabled():
+        return
+    if lbat:
+        plan_sanitizer.check_grace_pair(
+            i, n, list(node.left_on),
+            MicroPartition.from_recordbatch(lbat[0]))
+    if rbat:
+        plan_sanitizer.check_grace_pair(
+            i, n, list(node.right_on),
+            MicroPartition.from_recordbatch(rbat[0]))
 
 
 def join_copartitioned_pair(ex, lmp: MicroPartition, rmp: MicroPartition,

@@ -89,6 +89,9 @@ class _StageThreads:
             inbox = self._idle.pop() if self._idle else None
         if inbox is None:
             inbox = queue.SimpleQueue()
+            # daft-lint: allow(unattributed-worker) -- the pool's workers
+            # run Pipeline._guard bodies, which install the query's
+            # attribution per stage; the loop itself bumps no counter
             threading.Thread(target=self._loop, args=(inbox,),
                              name=name, daemon=True).start()
         inbox.put((fn, name, done))
@@ -442,12 +445,16 @@ class PushExecutor(LocalExecutor):
                 if self.pipe.error is not None:
                     raise self.pipe.error
             finally:
-                self.pipe.cancel()
-                # the cancel wakes every stage; waiting here makes a
-                # query's end the end of its stage bodies (and of the
-                # device slots their handlers held)
-                self.pipe.join()
-                obs.end_query(stats, capture)
+                # the capture stops and the stats publish even when the
+                # teardown raises
+                try:
+                    self.pipe.cancel()
+                    # the cancel wakes every stage; waiting here makes a
+                    # query's end the end of its stage bodies (and of the
+                    # device slots their handlers held)
+                    self.pipe.join()
+                finally:
+                    obs.end_query(stats, capture)
         return gen()
 
     # ------------------------------------------------------------ stages
@@ -471,9 +478,11 @@ class PushExecutor(LocalExecutor):
                 out = self._map_stage(node, kernel, bottom.children[0])
             else:
                 out = self._driver_stage(node)
+        from ..analysis import plan_sanitizer
+        wrapped = plan_sanitizer.wrap_node(node, iter(out))
         if self.stats is not None:
-            return self.stats.instrument(node, iter(out))
-        return iter(out)
+            return self.stats.instrument(node, wrapped)
+        return wrapped
 
     def _map_chain(self, node, kernel):
         """Extend a map stage down through the map-shaped operators under

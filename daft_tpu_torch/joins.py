@@ -203,7 +203,10 @@ def _device_match_indices(l_gids, r_gids, l_valid, r_valid, device):
         out[:len(a)] = a
         return torch.from_numpy(out).to(device)
 
-    with _device_lock:
+    from .analysis import retrace_sanitizer
+    first_cap = max(bucket_capacity(max(n_l, n_r, 1)), 1024)
+    with _device_lock, retrace_sanitizer.dispatch_scope(
+            "joins.device_match", (strategy, c_l, c_r, first_cap)):
         t0 = time.perf_counter()
         left = (put(l_gids, c_l, np.int64), put(l_valid, c_l, np.bool_),
                 torch.arange(c_l, device=device) < n_l)
@@ -216,7 +219,7 @@ def _device_match_indices(l_gids, r_gids, l_valid, r_valid, device):
         else:
             dispatch = lambda cap: K.join_fused_impl(  # noqa: E731
                 *left, *right, out_capacity=cap)
-        caps = [max(bucket_capacity(max(n_l, n_r, 1)), 1024)]
+        caps = [first_cap]
         drt.count("join_" + strategy)
         packed = dispatch(caps[0])
         counts = packed[2, :n_l].cpu().numpy().astype(np.int64)

@@ -74,12 +74,20 @@ class Optimizer:
         ]
 
     def optimize(self, plan: lp.LogicalPlan) -> lp.LogicalPlan:
+        from ..analysis import plan_sanitizer
+        sanitize = plan_sanitizer.is_enabled()
         for batch in self.batches:
             passes = 1 if batch.strategy == "once" else batch.max_passes
             prev_key = None
             for _ in range(passes):
                 for rule in batch.rules:
-                    plan = rule.apply(plan)
+                    if sanitize:
+                        before = plan.schema()
+                        plan = rule.apply(plan)
+                        plan_sanitizer.check_rule(
+                            type(rule).__name__, before, plan.schema())
+                    else:
+                        plan = rule.apply(plan)
                 key = plan.semantic_id()
                 if key == prev_key:  # fixed point reached (cycle guard)
                     break

@@ -88,6 +88,17 @@ class LogicalPlan:
     def _params(self) -> Tuple:
         return ()
 
+    def content_id(self) -> Tuple:
+        """``semantic_id`` with each file scan named by its files, not by
+        its operator object: equal for two DataFrames built the same way
+        over the same files (a query's identity across its runs)."""
+        return (self.name(),
+                tuple(repr(x) for x in self._content_params()),
+                tuple(c.content_id() for c in self._children))
+
+    def _content_params(self) -> Tuple:
+        return self._params()
+
     def repr_ascii(self, depth: int = 0) -> str:
         pad = "  " * depth
         lines = [pad + ("* " if depth == 0 else "|- ") +
@@ -141,6 +152,13 @@ class Source(LogicalPlan):
     def _params(self):
         return (id(self.scan_op) if self.scan_op else id(self.partitions),
                 self.pushdowns)
+
+    def _content_params(self):
+        paths = getattr(self.scan_op, "_paths", None)
+        if not paths:
+            return self._params()
+        return (type(self.scan_op).__name__, tuple(paths),
+                tuple(self.scan_op.multiline_display()), self.pushdowns)
 
     def multiline_display(self):
         src = "InMemory" if self.partitions is not None else \

@@ -20,11 +20,14 @@ reference engine's ``runtime_stats.rs``, ``common/tracing`` and
   ``seconds`` do not give;
 - ``DAFT_TORCH_PROGRESS``: a tqdm partition-progress bar;
 - the per-query exports (OTLP metrics and spans, the trace file, the
-  flight recorder) in :func:`finalize_query`.
+  flight recorder) in :func:`finalize_query`;
+- the sanitizers' per-query blocks when they are armed: ``sanitizer``
+  (the lock-order graph and this query's acquisitions), ``retrace`` (new
+  device memory at the declared dispatch sites, and kernel launches) and
+  ``plansan`` (plan-contract checks and violations).
 
 Blocks of the reference that wait for the modules they read: ``recovery``,
 ``shuffle`` and ``exchange`` (the distributed tier, ROADMAP A7);
-``sanitizer``, ``retrace`` and ``plansan`` (the analysis sanitizers, A2b);
 ``serving`` (the serving plane, A8).
 """
 
@@ -151,6 +154,24 @@ def _governor_raw() -> Dict[str, float]:
     return governor.counters_snapshot()
 
 
+def _sanitizer_raw() -> Dict[str, float]:
+    """The lock-order sanitizer's counters (empty unless armed)."""
+    from .analysis import lock_sanitizer
+    return lock_sanitizer.counters_snapshot()
+
+
+def _retrace_raw() -> Dict[str, float]:
+    """The retrace sanitizer's counters (empty unless armed)."""
+    from .analysis import retrace_sanitizer
+    return retrace_sanitizer.counters_snapshot()
+
+
+def _plansan_raw() -> Dict[str, float]:
+    """The plan sanitizer's counters (empty unless armed)."""
+    from .analysis import plan_sanitizer
+    return plan_sanitizer.counters_snapshot()
+
+
 class OperatorStats:
     """Counters for one physical operator (reference:
     ``RuntimeStatsContext`` counters)."""
@@ -241,6 +262,14 @@ class RuntimeStatsContext:
         self.adaptive: Dict[str, float] = {}
         self._governor0 = _governor_raw()
         self.governor: Dict[str, float] = {}
+        # the sanitizers' counters are process state (a lock-order graph,
+        # the allocator, the plan contracts): diffed, never attributed
+        self._sanitizer0 = _sanitizer_raw()
+        self.sanitizer: Dict[str, float] = {}
+        self._retrace0 = _retrace_raw()
+        self.retrace: Dict[str, float] = {}
+        self._plansan0 = _plansan_raw()
+        self.plansan: Dict[str, float] = {}
         # context-local plane tallies: the counter chokepoints bump these
         # through the thread attribution the executors install
         self._plane_lock = threading.Lock()
@@ -335,6 +364,14 @@ class RuntimeStatsContext:
         lim = governor.limit_bytes()
         if lim:
             self.governor["rss_limit_bytes"] = float(lim)
+        from .analysis import lock_sanitizer, plan_sanitizer, \
+            retrace_sanitizer
+        self.sanitizer = lock_sanitizer.counters_delta(
+            self._sanitizer0, _sanitizer_raw())
+        self.retrace = retrace_sanitizer.counters_delta(
+            self._retrace0, _retrace_raw())
+        self.plansan = plan_sanitizer.counters_delta(
+            self._plansan0, _plansan_raw())
         self._emit_trace_spans()
 
     def _emit_trace_spans(self) -> None:
@@ -400,6 +437,9 @@ class RuntimeStatsContext:
         lines.extend(render_io_block(self.io))
         lines.extend(render_spill_block(self.spill))
         lines.extend(render_governor_block(self.governor))
+        lines.extend(render_sanitizer_block(self.sanitizer))
+        lines.extend(render_retrace_block(self.retrace))
+        lines.extend(render_plansan_block(self.plansan))
         if self.trace_summary:
             t = self.trace_summary
             lines.append(f"trace: id={t.get('trace_id')} "
@@ -562,6 +602,71 @@ def render_governor_block(d: Dict[str, float]) -> List[str]:
         if rest:
             lines.append("  actions: " + ", ".join(
                 f"{k}={v}" for k, v in rest.items()))
+    return lines
+
+
+def render_sanitizer_block(s: Dict[str, float]) -> List[str]:
+    """Human lines for one query's lock-sanitizer delta (shared by
+    ``explain(analyze=True)`` and the dashboard; empty unless
+    ``DAFT_TORCH_SANITIZE=1``): the lock-order graph's size and cycle
+    count, and this query's acquisition/contention/blocking events."""
+    if not s:
+        return []
+    cycles = int(s.get("graph_cycles", 0))
+    lines = ["concurrency (lock sanitizer):"]
+    lines.append(f"  graph: {int(s.get('graph_locks', 0))} lock sites, "
+                 f"{int(s.get('graph_edges', 0))} order edges, "
+                 f"{cycles} cycle{'s' if cycles != 1 else ''}"
+                 + (" (POTENTIAL DEADLOCK)" if cycles else ""))
+    lines.append(f"  this query: {int(s.get('acquisitions', 0))} "
+                 f"acquisitions, {int(s.get('contended', 0))} contended, "
+                 f"{int(s.get('blocking_while_held', 0))} "
+                 f"blocking-while-held")
+    return lines
+
+
+def render_retrace_block(s: Dict[str, float]) -> List[str]:
+    """Human lines for one query's retrace-sanitizer delta (empty unless
+    armed): the new device memory it allocated at the declared dispatch
+    sites and the kernel launches it made — a repeat of a query reads 0
+    allocating events."""
+    if not s:
+        return []
+    viol = int(s.get("violations", 0))
+    lines = ["shape discipline (retrace sanitizer):"]
+    lines.append(
+        f"  this query: {int(s.get('events', 0))} allocating events "
+        f"({int(s.get('segments', 0))} new segments, "
+        f"{int(s.get('pinned', 0))} new pinned blocks), "
+        f"{int(s.get('launches', 0))} kernel launches, "
+        f"{int(s.get('unscoped_events', 0))} unscoped")
+    lines.append(
+        f"  budget violations: {viol} this query, "
+        f"{int(s.get('total_violations', 0))} total"
+        + (" (RETRACE TAX — see retrace_sanitizer.report())"
+           if viol else ""))
+    return lines
+
+
+def render_plansan_block(s: Dict[str, float]) -> List[str]:
+    """Human lines for one query's plan-sanitizer delta (empty unless
+    armed): the contract checks this query paid and whether any plan
+    invariant broke — a healthy query reads violations 0."""
+    if not s:
+        return []
+    viol = int(s.get("violations", 0))
+    lines = ["plan discipline (plan sanitizer):"]
+    lines.append(
+        f"  this query: {int(s.get('rule_checks', 0))} rule schema "
+        f"checks, {int(s.get('membership_parts', 0))} partitions "
+        f"({int(s.get('membership_rows', 0))} rows) membership-sampled, "
+        f"{int(s.get('order_parts', 0))} order-checked, "
+        f"{int(s.get('conservation_checks', 0))} conservation proofs")
+    lines.append(
+        f"  contract violations: {viol} this query, "
+        f"{int(s.get('total_violations', 0))} total"
+        + (" (PLAN CONTRACT BROKEN — see plan_sanitizer.report())"
+           if viol else ""))
     return lines
 
 
@@ -855,7 +960,8 @@ def flight_entry(ctx: RuntimeStatsContext) -> dict:
                      and wall_us / 1e3 > slow_ms),
         "operators": ctx.as_dict(),
     }
-    for block in ("io", "spill", "governor", "adaptive", "device_kernels"):
+    for block in ("io", "spill", "governor", "adaptive", "device_kernels",
+                  "sanitizer", "retrace", "plansan"):
         v = getattr(ctx, block, None)
         if v:
             entry[block] = dict(v)

@@ -53,8 +53,12 @@ class NativeRunner(Runner):
     def run_iter(self, builder, results_buffer_size: Optional[int] = None
                  ) -> Iterator[MicroPartition]:
         from .. import tracing
+        from ..analysis import retrace_sanitizer
         from ..context import get_context
         from ..device import backend, warmup
+        if retrace_sanitizer.is_enabled():
+            # a repeat of this query is what must allocate nothing new
+            retrace_sanitizer.note_query(builder.plan.content_id())
         cfg = get_context().execution_config
         device = backend.resolve_device()
         warmup.maybe_warmup_session()

@@ -598,13 +598,14 @@ def prometheus_text() -> str:
     calibration, observability-export and device-kernel planes, plus the
     active-trace and flight-recorder gauges.
 
-    Planes of the reference whose modules the port does not have yet are
-    left out, not skipped behind a caught import: ``shuffle``,
-    ``recovery``, ``exchange`` and ``topology`` come with the distributed
-    tier (ROADMAP A7); ``retrace`` and ``plansan`` with the analysis
-    sanitizers (A2b); ``fleet`` and the ``serving`` gauges with the
-    serving plane (A8)."""
+    The ``retrace`` and ``plansan`` planes carry the sanitizers' counters
+    (empty unless armed). Planes of the reference whose modules the port
+    does not have yet are left out, not skipped behind a caught import:
+    ``shuffle``, ``recovery``, ``exchange`` and ``topology`` come with the
+    distributed tier (ROADMAP A7); ``fleet`` and the ``serving`` gauges
+    with the serving plane (A8)."""
     from . import observability as obs
+    from .analysis import plan_sanitizer, retrace_sanitizer
     from .device import calibration, costmodel
     from .execution import governor, memory
     from .io import read_planner
@@ -653,6 +654,10 @@ def prometheus_text() -> str:
              "calibrated profile")
     plane("obs", obs.obs_counters_snapshot(),
           "observability export counter")
+    plane("retrace", retrace_sanitizer.counters_snapshot(),
+          "retrace sanitizer counter")
+    plane("plansan", plan_sanitizer.counters_snapshot(),
+          "plan sanitizer contract-check counter")
     for kind, d in sorted(costmodel.ledger_snapshot(raw=True).items()):
         emit(_prom_name("kernel", f"{kind}_dispatches") + "_total",
              d.get("dispatches", 0), "counter",
@@ -749,9 +754,9 @@ def flight_record(entry: dict) -> None:
                         os.replace(path, path + ".1")
                 except OSError:
                     pass  # no current file yet
-            # the size check, rotation and append are one atomic unit
-            # against concurrent query-finish writers (a local file, one
-            # line per query)
+            # daft-lint: allow(blocking-under-lock) -- the size check,
+            # rotation and append are one atomic unit against concurrent
+            # query-finish writers (a local file, one line per query)
             with open(path, "a") as f:
                 f.write(line)
             _flight_written += 1
