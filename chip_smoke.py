@@ -213,6 +213,36 @@ Phases (any failure ends the run with a non-zero exit code):
    kernel launches, and per query the armed walls beside the unarmed
    ones (a cost, no target); its new rungs go to phase 8 (``pass``
    ``sanitize``);
+7l. distributed and mesh (``daft_tpu_torch/parallel/``,
+   ``distributed/``, ``runners/distributed_runner.py``), SF1: (a) the mesh
+   of 4 shards on the card (``DAFT_TORCH_MESH_DEVICES=4``,
+   ``DAFT_TORCH_MESH_MIN_ROWS=0``): Q1 and the ``l_suppkey`` group-by plan
+   ``DeviceExchangeAgg`` and equal pyarrow, their partials crossing the
+   mesh, the group-by's partial fragment launching the hash-agg build;
+   lineitem and orders each repartitioned 4 ways on the order key over
+   the mesh (at least 2 mesh repartitions) then joined, the join kernels
+   launching, equal to the host tier; a range-partitioned sort of the 6M
+   ``l_extendedprice`` values over the mesh, globally ordered; a broadcast
+   join (``l_suppkey`` sharded, a fifth of the suppliers replicated) with
+   the host's pairs; a window over a mesh repartition equal to the host
+   tier; then Q1 and the group-by with ``MESH_MIN_ROWS`` unset, the cost
+   model's ``mesh_exchange`` decisions and the measured mesh rate and
+   dispatch printed (no target); (b) ``DAFT_TORCH_RUNNER=distributed``
+   with 4 in-process workers: Q1, the group-by, Q3 and Q9 cold, held to
+   pyarrow (Q1, group-by, Q3) and to phase 7's answer (Q9), the group-by
+   launching hash-agg builds, Q3 and Q9 join builds and probes with no
+   join on the host and no device-cache eviction; stages, tasks, shuffle
+   bytes written and fetched and the walls beside phase 7's; (c) Q3
+   through two remote worker processes (``python -m
+   daft_tpu_torch.distributed.remote_worker``), equal to (b)'s, the
+   transport named (Flight or HTTP), each child's device ``cuda`` and its
+   kernel launches from its ``/status``; (d) Q3 through (b)'s runner under
+   ``DAFT_TORCH_FAULT_SPEC=task:0.05,fetch:0.02`` (seed 5, serialized,
+   8 retries a task):
+   the answer unchanged, recovery counters above 0, the same fault
+   events twice; (e) the plan fuzzer's ``combined`` mode, 100 seeds, 0
+   mismatches. ``dist`` lines; its new rungs go to phase 8 (``pass``
+   ``dist``);
 8. the hash build against its plain version at the inputs of every
    distinct hash rung of the main path and of the TPC-H 22 phase's
    dispatch pass
@@ -225,7 +255,8 @@ Phases (any failure ends the run with a non-zero exit code):
    held, each checked as in the join-kernel phase, then timed (rows name
    their ``pass``: ``tpcds`` or ``tpcds_dispatch`` for the TPC-DS ones,
    ``spill`` for the memory-bounded ones, ``pivot``, ``fuzz``,
-   ``remote``, ``obs`` and ``sanitize`` for the last five phases); every entry point
+   ``remote``, ``obs``, ``sanitize`` and ``dist`` for the last six phases);
+   every entry point
    ``analysis/dispatch_registry.py`` declares must have launched and been
    held against its plain twin in the run;
 9. a ``{"kernels": [...]}`` line with each kernel's launches, times and
@@ -1193,7 +1224,8 @@ def pipeline_phase(root: str, ref: dict, reps: int):
         # encodes run on pool threads: count under a lock
         out = orig_up(planes, capacity, device)
         if out[2] is not None:
-            n = sum(bool(t.is_pinned()) for t in out[2])
+            # staging buffers are numpy arrays over pooled pinned buffers
+            n = sum(bool(torch.from_numpy(a).is_pinned()) for a in out[2])
             with pin_lock:
                 pinned[0] += n
                 pinned[1] += len(out[2])
@@ -2525,8 +2557,11 @@ def _profile_kernels(path: str) -> dict:
     entry's ranges; ``named``, the events of its first kernel by name;
     ``lost``, calls whose first launch (a ``cudaLaunchKernel`` inside the
     range) has no kernel record, which the profiler dropped; ``empty``,
-    calls that launched nothing (a probe of 0 rows); ``kernel_us``, the
-    summed time of its kernels by name."""
+    calls with no launch record (a probe of 0 rows, or a launch whose
+    runtime record the profiler dropped); ``orphans``, the named first
+    kernels with no launch record (so counted in ``named`` and, by their
+    call, in ``empty``); ``kernel_us``, the summed time of its kernels by
+    name."""
     with open(path) as f:
         events = json.load(f).get("traceEvents", [])
     recorded = {e["args"]["correlation"] for e in events
@@ -2534,6 +2569,7 @@ def _profile_kernels(path: str) -> dict:
                 e.get("args", {})}
     runtime = [e for e in events if e.get("cat") == "cuda_runtime"
                and e.get("name") == "cudaLaunchKernel"]
+    launched = {e["args"].get("correlation") for e in runtime}
     out = {}
     for w, (entry, knames) in OBS_KERNELS.items():
         ranges = [e for e in events if e.get("cat") == "user_annotation"
@@ -2547,14 +2583,17 @@ def _profile_kernels(path: str) -> dict:
                 empty += 1
             elif inside[0][1] not in recorded:
                 lost += 1
-        named, us = 0, 0.0
+        named, orphans, us = 0, 0, 0.0
         for e in events:
             name = e.get("name", "")
             if e.get("cat") == "kernel" and any(k in name for k in knames):
-                named += knames[0] in name
+                if knames[0] in name:
+                    named += 1
+                    orphans += e.get("args", {}).get("correlation") \
+                        not in launched
                 us += float(e.get("dur", 0))
         out[w] = dict(calls=len(ranges), named=named, lost=lost,
-                      empty=empty, kernel_us=us)
+                      empty=empty, orphans=orphans, kernel_us=us)
     return out
 
 
@@ -2685,13 +2724,15 @@ def obs_phase(root: str, ref: dict, q3_ref, card: str):
                 if not st.profile_path:
                     raise AssertionError(f"obs {name}: no profiler trace")
                 # every wrapper call in the capture, each launch seen by
-                # its kernel's name or as a launch whose kernel record
-                # the profiler dropped (counted, shown in the line)
+                # its kernel's name or as a launch whose kernel or launch
+                # record the profiler dropped (counted, shown in the line;
+                # a named kernel whose launch record was dropped is in
+                # both ``named`` and ``empty``)
                 prof = _profile_kernels(st.profile_path)
                 for w, p in prof.items():
                     n = launches[w]
-                    if p["calls"] != n or \
-                            p["named"] + p["lost"] + p["empty"] != n or \
+                    if p["calls"] != n or p["named"] - p["orphans"] \
+                            + p["lost"] + p["empty"] != n or \
                             (n and not p["named"]):
                         _log_profile_mismatch(st.profile_path, name, w)
                         raise AssertionError(
@@ -2856,11 +2897,21 @@ def _moved(x, device: str):
     return x
 
 
+def _host_blocks():
+    """(pinned blocks torch's host allocator made so far, of them the
+    port's transfer pool's buffers)."""
+    import torch
+    from daft_tpu_torch.device import column
+    return (torch.cuda.host_memory_stats().get("num_host_alloc", 0),
+            column._pinned.counters["allocated"])
+
+
 def sanitize_child(root: str, out_dir: str) -> int:
     """Phase 7k's armed process (``--sanitize-child``): the sanitizers were
     armed by ``daft_tpu_torch/__init__`` before any engine import. Writes
     the answers (pickle) and the recorded rungs' inputs (torch, on the
     CPU) to ``out_dir`` and prints one ``SANITIZE_RESULT`` JSON line."""
+    import gc
     import pickle
     import torch
     import daft_tpu_torch as dtt
@@ -2880,10 +2931,17 @@ def sanitize_child(root: str, out_dir: str) -> int:
         run = lambda name=name: _sanitize_query(name)(get).to_pydict()  # noqa: E731,E501
         for way, clear in (("first", True), ("repeat", False)):
             s0, p0 = RS.summary(), PS.summary()
+            h0 = _host_blocks()
             ans, wall, _, launches = rec.counted(f"sanitize {name}", run,
                                                  clear=clear)
-            # the repeat must find the first run's blocks free
+            h1 = _host_blocks()
+            # the repeat must find the first run's blocks free: the
+            # recorded inputs moved off the card, the garbage cycles that
+            # still hold device planes or pooled pinned buffers collected
+            # and the card idle
             rec.to_host()
+            gc.collect()
+            torch.cuda.synchronize()
             s1, p1 = RS.summary(), PS.summary()
             answers[(name, way)] = ans
             runs[f"{name} {way}"] = dict(
@@ -2891,6 +2949,9 @@ def sanitize_child(root: str, out_dir: str) -> int:
                 events=s1["events"] - s0["events"],
                 repeat_entries=s1["repeat_entries"] - s0["repeat_entries"],
                 sites=_site_delta(s0, s1),
+                # pinned blocks the whole process allocated in the run,
+                # and how many of them were the transfer pool's
+                host_blocks=h1[0] - h0[0], pool_buffers=h1[1] - h0[1],
                 plan_checks={k: p1[k] - p0[k] for k in (
                     "rule_checks", "membership_parts", "order_parts",
                     "conservation_checks")})
@@ -2929,9 +2990,14 @@ def sanitize_child(root: str, out_dir: str) -> int:
     keys = sorted(RS.sanitizer()._key_events.items(), key=lambda kv: -kv[1])
     print("SANITIZE_RESULT " + json.dumps(dict(
         runs=runs, lock=lock, lock_sites_by_module=by_module,
-        allocating_keys=[[site, repr(key), n] for (site, key), n in keys
+        # (query, site, signature) once queries are marked, else
+        # (site, signature)
+        allocating_keys=[[k[-2], repr(k[-1]), n] for k, n in keys
                          if n > 1][:12],
         plan=PS.summary(), retrace=RS.summary(),
+        # cudaMalloc failures the allocator answered by freeing its
+        # cached blocks: each one makes later runs allocate anew
+        alloc_retries=torch.cuda.memory_stats().get("num_alloc_retries", 0),
         jax="jax" in sys.modules)), flush=True)
     return 0
 
@@ -2954,10 +3020,24 @@ def sanitize_phase(root: str, ref: dict, mp: dict, t22: dict):
     budget; answers held to the unarmed phases', 0 cycles, 0 plan and 0
     retrace-budget violations, every kernel launch under its declared
     site. Returns the rungs for phase 8 (``pass`` ``sanitize``)."""
+    import gc
     import pickle
     import torch
     out = os.path.join(HERE, ".cache", "sanitize")
     os.makedirs(out, exist_ok=True)
+    # the armed child shares the card: this process's idle blocks (the
+    # column cache, the caching allocator's pools of the earlier phases)
+    # must not leave the child so little room that its allocator frees
+    # its own pools between a query's first run and the repeat, which
+    # would then allocate anew at signatures the first run warmed
+    reserved0 = torch.cuda.memory_reserved()
+    _clear_device_cache()
+    gc.collect()
+    torch.cuda.empty_cache()
+    log("sanitize parent memory " + json.dumps(dict(
+        reserved_before=reserved0,
+        reserved_after=torch.cuda.memory_reserved(),
+        free_total=list(torch.cuda.mem_get_info()))))
     t0 = time.perf_counter()
     r = subprocess.run(
         [sys.executable, os.path.abspath(__file__), "--sanitize-child",
@@ -3025,6 +3105,7 @@ def sanitize_phase(root: str, ref: dict, mp: dict, t22: dict):
         repeat_run_pinned=sum(
             d["pinned"] for run, rr in res["runs"].items()
             if run.endswith("repeat") for d in rr["sites"].values()),
+        alloc_retries=res["alloc_retries"],
         violations=len(retrace["violations"]))))
     unarmed = {"q1": mp["per_query"]["q1"]["cold_s"],
                "suppkey_agg": mp["per_query"]["suppkey_agg"]["cold_s"],
@@ -3037,6 +3118,8 @@ def sanitize_phase(root: str, ref: dict, mp: dict, t22: dict):
             unarmed_cold_s=unarmed[name],
             launches_first=first["launches"],
             events_first=first["events"], events_repeat=rep["events"],
+            host_blocks=[first["host_blocks"], rep["host_blocks"]],
+            pool_buffers=[first["pool_buffers"], rep["pool_buffers"]],
             repeat_entries=rep["repeat_entries"],
             plan_checks=first["plan_checks"])))
     b = res["runs"]["q3 bounded"]
@@ -3098,6 +3181,469 @@ def sanitize_phase(root: str, ref: dict, mp: dict, t22: dict):
 
 
 # ------------------------------------------------------------ TPC-DS
+
+# ------------------------------------------------- distributed and mesh
+
+#: phase 7l: the mesh's shards (all on the one card), the distributed
+#: runner's in-process workers, the remote worker processes, the chaos
+#: run's fault spec and seed, and the combined-mode fuzz seeds
+DIST_SHARDS = 4
+DIST_WORKERS = 4
+DIST_REMOTES = 2
+DIST_FAULT_SPEC = "task:0.05,fetch:0.02"
+DIST_FAULT_SEED = "5"
+DIST_FUZZ_SEEDS = 100
+#: the mesh window query reads the rows with l_orderkey below this
+#: (about a tenth of SF1 lineitem): its host-tier oracle is the slow part
+DIST_WINDOW_ORDERKEY = 600_000
+
+
+def _sync() -> None:
+    import torch
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+
+
+def _sorted_rows(d: dict) -> list:
+    cols = list(d)
+    return sorted(zip(*(d[c] for c in cols)))
+
+
+def _dist_mesh(root: str, ref: dict, rec, card: str) -> dict:
+    """7l (a): the mesh of ``DIST_SHARDS`` shards on the card."""
+    import pyarrow.dataset as ds
+    import daft_tpu_torch as dtt
+    from daft_tpu_torch.benchmarking import tpch_queries as Q
+    from daft_tpu_torch.benchmarking.mesh_dryrun import _repartition_spy
+    from daft_tpu_torch.device import backend, costmodel
+    from daft_tpu_torch.distributed import shuffle_service as ss
+    from daft_tpu_torch.parallel import exchange, mesh as pmesh
+    from daft_tpu_torch.physical import plan as pp, translate as pt
+    get = lambda t: dtt.read_parquet(f"{root}/{t}/*.parquet")  # noqa
+    n = DIST_SHARDS
+    out = {}
+
+    def has(node, t):
+        return isinstance(node, t) or any(has(c, t) for c in node.children)
+
+    with _env(DAFT_TORCH_MESH_DEVICES=str(n), DAFT_TORCH_MESH_MIN_ROWS="0"):
+        pmesh.reset_for_tests()
+        mesh = pmesh.get_mesh()
+        dev = backend.resolve_device()
+        assert mesh is not None and mesh.size == n and \
+            all(d.type == dev.type for d in mesh.devices), mesh
+        for name in ("q1", "suppkey_agg"):
+            df = Q.QUERIES[name](get)
+            if not has(pt.translate(df._builder.optimize().plan),
+                       pp.DeviceExchangeAgg):
+                raise AssertionError(f"mesh {name}: no DeviceExchangeAgg")
+            s0 = ss.shuffle_counters_snapshot()
+            x0 = exchange.exchange_cache_counters()
+            got, wall, counts, launches = rec.counted(
+                f"dist mesh {name}",
+                lambda: Q.QUERIES[name](get).to_pydict())
+            check_answer(name, got, ref)
+            sh = ss.shuffle_counters_delta(s0)
+            if not sh.get("ici_exchanges"):
+                raise AssertionError(f"mesh {name}: no mesh exchange ({sh})")
+            if name == "suppkey_agg" and launches["hash_agg_build"] < 1:
+                raise AssertionError("mesh suppkey_agg: the partial "
+                                     "fragment launched no hash-agg build")
+            x1 = exchange.exchange_cache_counters()
+            out[name] = dict(wall_s=wall, launches=launches,
+                             ici_bytes=sh.get("ici_bytes", 0),
+                             ici_rows=sh.get("ici_rows", 0),
+                             programs={k: x1[k] - x0.get(k, 0) for k in x1})
+        # the repartitioned join: both inputs repartition over the mesh
+        li_cols = ["l_orderkey", "l_extendedprice", "l_discount"]
+
+        def repart_join(dt_=dtt):
+            li = get("lineitem").select(*li_cols).repartition(n, "l_orderkey")
+            od = get("orders").select("o_orderkey", "o_orderpriority") \
+                .repartition(n, "o_orderkey")
+            return li.join(od, left_on="l_orderkey", right_on="o_orderkey") \
+                .groupby("o_orderpriority").agg(
+                    dt_.col("l_extendedprice").sum().alias("rev"),
+                    dt_.col("l_orderkey").count().alias("n")) \
+                .sort("o_orderpriority").to_pydict()
+
+        with _repartition_spy() as calls:
+            got, wall, counts, launches = rec.counted("dist mesh join",
+                                                      repart_join)
+        if calls["n"] < 2:
+            raise AssertionError(f"mesh join: {calls['n']} mesh "
+                                 "repartitions, expected at least 2")
+        if min(launches["hash_join_build"],
+               launches["hash_join_probe"]) < 1:
+            raise AssertionError(f"mesh join: the join kernels did not "
+                                 f"launch ({launches}, {counts})")
+        with dtt.execution_config_ctx(device="0"):
+            want = repart_join()
+        _same_answer("mesh join", got, want)
+        out["repartition_join"] = dict(wall_s=wall, repartitions=calls["n"],
+                                       launches=launches)
+        # the range-partitioned sort of l_extendedprice
+        price = ds.dataset(os.path.join(root, "lineitem"), format="parquet") \
+            .to_table(columns=["l_extendedprice"]).column(0).to_numpy()
+        total = len(price)
+        C = -(-total // n)
+        keys = np.zeros(n * C)
+        keys[:total] = price
+        live = np.arange(n * C) < total
+        bounds = np.quantile(price, [i / n for i in range(1, n)])
+        pid = np.searchsorted(bounds, keys).astype(np.int32)
+        sb = lambda a: exchange.shard_blocks(mesh, a)  # noqa: E731
+        import torch
+        _sync()
+        t0 = time.perf_counter()
+        (pk,), _, m2 = exchange.sharded_hash_repartition(
+            mesh, (sb(keys),), (sb(live),), sb(live), sb(pid))
+        merged = torch.cat([torch.sort(k[m]).values for k, m in zip(pk, m2)])
+        _sync()
+        sort_wall = time.perf_counter() - t0
+        merged = merged.cpu().numpy()
+        if merged.shape[0] != total or not np.all(np.diff(merged) >= 0) \
+                or not np.array_equal(merged, np.sort(price)):
+            raise AssertionError("mesh range sort: not globally ordered")
+        out["range_sort"] = dict(rows=total, wall_s=sort_wall)
+        # the broadcast join: l_suppkey sharded, 1/5 of the suppliers
+        # replicated
+        sk = ds.dataset(os.path.join(root, "lineitem"), format="parquet") \
+            .to_table(columns=["l_suppkey"]).column(0).to_numpy() \
+            .astype(np.int64)
+        sup = ds.dataset(os.path.join(root, "supplier"), format="parquet") \
+            .to_table(columns=["s_suppkey"]).column(0).to_numpy() \
+            .astype(np.int64)
+        build = sup[sup % 5 == 0]
+        lk = np.zeros(n * C, dtype=np.int64)
+        lk[:len(sk)] = sk
+        rv = np.ones(len(build), dtype=bool)
+        rep = lambda a: exchange.replicate(mesh, a)  # noqa: E731
+        _sync()
+        t0 = time.perf_counter()
+        li_, ri_, ok_ = exchange.sharded_broadcast_join(
+            mesh, sb(lk), sb(live), sb(live), rep(build), rep(rv), rep(rv),
+            C)
+        _sync()
+        bj_wall = time.perf_counter() - t0
+        matched = 0
+        for i in range(n):
+            okm = ok_[i].cpu().numpy()
+            a = li_[i].cpu().numpy()[okm].astype(np.int64) + i * C
+            b = ri_[i].cpu().numpy()[okm]
+            if not np.array_equal(lk[a], build[b]):
+                raise AssertionError("mesh broadcast join: a pair's keys "
+                                     "differ")
+            matched += int(okm.sum())
+        want_m = int(np.isin(sk, build).sum())
+        if matched != want_m:
+            raise AssertionError(f"mesh broadcast join: {matched} pairs, "
+                                 f"the host finds {want_m}")
+        out["broadcast_join"] = dict(probe_rows=len(sk),
+                                     build_rows=len(build), pairs=matched,
+                                     wall_s=bj_wall)
+        # a window whose partition_by repartition rides the mesh
+
+        def window():
+            w = get("lineitem").where(
+                dtt.col("l_orderkey") < DIST_WINDOW_ORDERKEY).select(
+                "l_suppkey", "l_orderkey", "l_linenumber", "l_quantity") \
+                .repartition(n, "l_suppkey")
+            return w.select(
+                "l_orderkey", "l_linenumber",
+                dtt.col("l_quantity").sum().over(
+                    dtt.Window().partition_by("l_suppkey")).alias("tot")) \
+                .to_pydict()
+
+        with _repartition_spy() as calls:
+            t0 = time.perf_counter()
+            got = window()
+            w_wall = time.perf_counter() - t0
+        if calls["n"] < 1:
+            raise AssertionError("mesh window: the repartition skipped the "
+                                 "mesh")
+        with dtt.execution_config_ctx(device="0"):
+            want = window()
+        if _sorted_rows(got) != _sorted_rows(want):
+            raise AssertionError("mesh window: differs from the host tier")
+        out["window"] = dict(rows=len(got["tot"]), wall_s=w_wall,
+                             repartitions=calls["n"])
+    # Q1 and the group-by with admission priced by the cost model
+    with _env(DAFT_TORCH_MESH_DEVICES=str(n)):
+        pmesh.reset_for_tests()
+        costmodel.reset_ici_for_tests()
+        priced = {}
+        for name in ("q1", "suppkey_agg"):
+            costmodel.reset_decision_counts()
+            s0 = ss.shuffle_counters_snapshot()
+            got = Q.QUERIES[name](get).to_pydict()
+            check_answer(name, got, ref)
+            priced[name] = dict(
+                decisions=costmodel.decision_counts_snapshot().get(
+                    "mesh_exchange", {}),
+                ici_exchanges=ss.shuffle_counters_delta(s0).get(
+                    "ici_exchanges", 0))
+        out["priced"] = dict(queries=priced,
+                             ici_bps=costmodel.ici_bps(),
+                             mesh_dispatch_s=costmodel.mesh_dispatch_s())
+    pmesh.reset_for_tests()
+    return out
+
+
+def _dist_runner(root: str, mp: dict, q3_ref, t22: dict, rec) -> dict:
+    """7l (b): the distributed runner with ``DIST_WORKERS`` in-process
+    workers, cold runs; each wall printed beside the native runner's cold
+    wall of the same query (phase 7's, the main path's for the group-by)."""
+    ref = mp["ref"]
+    import daft_tpu_torch as dtt
+    from daft_tpu_torch import context
+    from daft_tpu_torch.benchmarking import tpch_queries as Q
+    from daft_tpu_torch.device import cache, pipeline
+    from daft_tpu_torch.distributed import StagePlan
+    from daft_tpu_torch.distributed import shuffle_service as ss
+    from daft_tpu_torch.distributed import worker as dw
+    from daft_tpu_torch.physical.translate import translate
+    from daft_tpu_torch.runners.distributed_runner import DistributedRunner
+    get = lambda t: dtt.read_parquet(f"{root}/{t}/*.parquet")  # noqa
+    runs = {"q1": lambda: Q.q1(get), "suppkey_agg": lambda: Q.suppkey_agg(get),
+            "q3": lambda: Q.ALL[3](get), "q9": lambda: Q.ALL[9](get)}
+    tasks = {"n": 0}
+    orig_run = dw.run_task
+
+    def counting(task):
+        tasks["n"] += 1
+        return orig_run(task)
+
+    out, answers = {}, {}
+    dtt.set_runner(None)
+    with _env(DAFT_TORCH_RUNNER="distributed",
+              DAFT_TORCH_NUM_WORKERS=str(DIST_WORKERS)):
+        runner = context.get_runner()
+        assert isinstance(runner, DistributedRunner) and \
+            runner.num_workers == DIST_WORKERS
+        dw.run_task = counting
+        try:
+            for name, q in runs.items():
+                stages = len(StagePlan.from_physical(translate(
+                    q()._builder.optimize().plan)).stages)
+                tasks["n"] = 0
+                s0 = ss.shuffle_counters_snapshot()
+                ev0 = cache.get_cache().stats().get("evictions", 0)
+                got, wall, counts, launches = rec.counted(
+                    f"dist runner {name}", lambda: q().to_pydict())
+                sh = ss.shuffle_counters_delta(s0)
+                evictions = cache.get_cache().stats().get(
+                    "evictions", 0) - ev0
+                if name in ("q1", "suppkey_agg"):
+                    check_answer(name, got, ref)
+                elif name == "q3":
+                    check_table("dist q3", got, q3_ref[0], ["o_orderkey"],
+                                ["o_orderdate", "o_shippriority"],
+                                ["revenue"])
+                else:
+                    _same_answer("dist q9", got, t22["answers"][9])
+                if name == "suppkey_agg" and launches["hash_agg_build"] < 1:
+                    raise AssertionError("dist suppkey_agg: no hash-agg "
+                                         f"build ({counts})")
+                if name in ("q3", "q9"):
+                    if min(launches["hash_join_build"],
+                           launches["hash_join_probe"]) < 1:
+                        raise AssertionError(f"dist {name}: the join "
+                                             f"kernels did not launch "
+                                             f"({launches}, {counts})")
+                    if counts.get("host_joins", 0):
+                        raise AssertionError(f"dist {name}: "
+                                             f"{counts['host_joins']} joins "
+                                             f"fell to the host ({counts})")
+                if evictions:
+                    raise AssertionError(f"dist {name}: {evictions} device "
+                                         "cache evictions mid-query")
+                answers[name] = got
+                native = (t22["per_query"].get(name)
+                          or mp["per_query"].get(name) or {}).get("cold_s")
+                out[name] = dict(
+                    wall_s=wall, native_cold_s=native, stages=stages,
+                    tasks=tasks["n"], launches=launches,
+                    bytes_written=sh.get("bytes_written", 0),
+                    bytes_fetched=sh.get("bytes_fetched", 0),
+                    fetches=sh.get("fetches", 0),
+                    combine_rows=[sh.get("combine_rows_in", 0),
+                                  sh.get("combine_rows_out", 0)],
+                    exchange_paths={k[len("exchange_path_"):]: v
+                                    for k, v in sh.items()
+                                    if k.startswith("exchange_path_")},
+                    counters={k: counts.get(k, 0) for k in (
+                        "dense", "hash", "sort", "join_hash", "join_sort",
+                        "host_joins", "host_morsels")})
+        finally:
+            dw.run_task = orig_run
+    out["stream_sets"] = len(pipeline._stream_sets.get(0, []))
+    return dict(lines=out, answers=answers, runner=runner)
+
+
+def _dist_remote(root: str, answers: dict) -> dict:
+    """7l (c): Q3 through ``DIST_REMOTES`` remote worker processes."""
+    import daft_tpu_torch as dtt
+    from daft_tpu_torch.benchmarking import tpch_queries as Q
+    from daft_tpu_torch.device import backend
+    from daft_tpu_torch.distributed import (LeastLoadedScheduler, StagePlan,
+                                            StageRunner, WorkerManager)
+    from daft_tpu_torch.distributed import scheduler as sched
+    from daft_tpu_torch.distributed.remote_worker import (RemoteWorker,
+                                                          fetch_status)
+    from daft_tpu_torch.distributed.worker import ShuffleResult
+    from daft_tpu_torch.physical.translate import translate
+    get = lambda t: dtt.read_parquet(f"{root}/{t}/*.parquet")  # noqa
+    env = dict(os.environ)
+    env.pop("DAFT_TORCH_RUNNER", None)
+    procs, addrs = [], []
+    receipts = []
+    orig_collect = sched.StageRunner._collect
+
+    def spy(self, tasks):
+        res = orig_collect(self, tasks)
+        receipts.extend(r for r in res if isinstance(r, ShuffleResult))
+        return res
+
+    try:
+        t0 = time.perf_counter()
+        for _ in range(DIST_REMOTES):
+            p = subprocess.Popen(
+                [sys.executable, "-m",
+                 "daft_tpu_torch.distributed.remote_worker", "--port", "0",
+                 "--host", "127.0.0.1", "--slots", "2"],
+                stdout=subprocess.PIPE, text=True, env=env, cwd=HERE)
+            procs.append(p)
+        for p in procs:
+            line = p.stdout.readline().strip()
+            if not line.startswith("daft-torch worker on http://"):
+                raise AssertionError(f"remote worker did not start: {line!r}")
+            addrs.append(line.split()[-1])
+        start_s = time.perf_counter() - t0
+        sp = StagePlan.from_physical(translate(
+            Q.ALL[3](get)._builder.optimize().plan))
+        mgr = WorkerManager([RemoteWorker(f"remote-{i}", a)
+                             for i, a in enumerate(addrs)])
+        sched.StageRunner._collect = spy
+        try:
+            t0 = time.perf_counter()
+            parts = list(StageRunner(mgr, LeastLoadedScheduler()).run(sp))
+            wall = time.perf_counter() - t0
+        finally:
+            sched.StageRunner._collect = orig_collect
+            mgr.shutdown()
+        got = parts[0].concat(parts[1:]).to_pydict() if len(parts) > 1 \
+            else parts[0].to_pydict()
+        _same_answer("remote workers q3", got, answers["q3"])
+        status = [fetch_status(a) for a in addrs]
+        want_dev = backend.resolve_device().type
+        for st in status:
+            if st["device"] != want_dev:
+                raise AssertionError(f"remote worker ran on {st}, not "
+                                     f"{want_dev}")
+        joins = sum(st["launches"]["hash_join_build"] for st in status)
+        if joins < 1:
+            raise AssertionError(f"remote q3: no join build in the workers "
+                                 f"({status})")
+        schemes = sorted({r.address.split(":")[0] for r in receipts})
+        transport = "flight" if schemes == ["grpc"] else \
+            ("http" if schemes == ["http"] else ",".join(schemes))
+        return dict(workers=len(addrs), start_s=start_s, wall_s=wall,
+                    transport=transport, receipts=len(receipts),
+                    children=[dict(pid=st["pid"], device=st["device"],
+                                   launches=st["launches"])
+                              for st in status])
+    finally:
+        for p in procs:
+            p.terminate()
+        for p in procs:
+            try:
+                p.wait(timeout=30)
+            except subprocess.TimeoutExpired:
+                p.kill()
+                p.wait()
+
+
+def _dist_chaos(root: str, answers: dict, runner, rec) -> dict:
+    """7l (d): Q3 through (b)'s runner under a fixed seeded fault spec,
+    twice."""
+    import daft_tpu_torch as dtt
+    from daft_tpu_torch.benchmarking import tpch_queries as Q
+    from daft_tpu_torch.distributed import resilience as rz
+    get = lambda t: dtt.read_parquet(f"{root}/{t}/*.parquet")  # noqa
+    runs = []
+    dtt.set_runner(runner)
+    try:
+        with _env(DAFT_TORCH_FAULT_SPEC=DIST_FAULT_SPEC,
+                  DAFT_TORCH_FAULT_SEED=DIST_FAULT_SEED,
+                  DAFT_TORCH_CHAOS_SERIALIZE="1",
+                  DAFT_TORCH_MAX_RETRIES="8",
+                  DAFT_TORCH_RETRY_BACKOFF="0.01",
+                  DAFT_TORCH_SPECULATIVE_MULTIPLIER="0"):
+            for i in range(2):
+                rz.reset_for_tests()
+                got, wall, counts, launches = rec.counted(
+                    f"dist chaos q3 #{i}",
+                    lambda: Q.ALL[3](get).to_pydict())
+                _same_answer(f"chaos q3 #{i}", got, answers["q3"])
+                runs.append(dict(wall_s=wall, launches=launches,
+                                 recovery=rz.counters_snapshot(),
+                                 events=sorted(rz.fault_events())))
+    finally:
+        dtt.set_runner(None)
+        rz.reset_for_tests()
+    if runs[0]["events"] != runs[1]["events"]:
+        raise AssertionError("chaos: the same seed gave other fault events")
+    rec0 = runs[0]["recovery"]
+    if not rec0.get("retries") or not any(
+            k.startswith("injected_") for k in rec0):
+        raise AssertionError(f"chaos: no recovery ({rec0})")
+    return dict(spec=DIST_FAULT_SPEC, seed=DIST_FAULT_SEED,
+                events=runs[0]["events"], recovery=rec0,
+                walls=[r["wall_s"] for r in runs],
+                launches=runs[0]["launches"])
+
+
+def dist_phase(root: str, mp: dict, q3_ref, t22: dict, card: str) -> dict:
+    """Phase 7l: the mesh on the card, the distributed runner with
+    in-process and remote workers, a seeded chaos run and the fuzzer's
+    ``combined`` mode (see the module docstring)."""
+    from daft_tpu_torch.analysis import plan_fuzzer as PF
+    rec = KernelRecorder("dist")
+    t_phase = time.perf_counter()
+    mesh = _dist_mesh(root, mp["ref"], rec, card)
+    for k, v in mesh.items():
+        log("dist mesh " + json.dumps(dict(run=k, card=card, **v)))
+    done_a = time.perf_counter() - t_phase
+    runner = _dist_runner(root, mp, q3_ref, t22, rec)
+    for k, v in runner["lines"].items():
+        log("dist runner " + json.dumps(
+            dict(query=k, card=card, **v) if isinstance(v, dict)
+            else dict(query=k, value=v)))
+    remote = _dist_remote(root, runner["answers"])
+    log("dist remote " + json.dumps(dict(card=card, **remote)))
+    chaos = _dist_chaos(root, runner["answers"], runner["runner"], rec)
+    runner["runner"].shutdown()
+    log("dist chaos " + json.dumps(dict(card=card, **chaos)))
+    res, wall, _, launches = rec.counted(
+        "dist fuzz combined", lambda: PF.run_fuzz(
+            count=DIST_FUZZ_SEEDS, seed=0, modes=("combined",)))
+    c = res.per_mode["combined"]
+    fz = dict(mode="combined", seeds=res.seeds_run, compared=c["cases"],
+              mismatches=c["mismatches"], errors=c["errors"] + len(res.errors),
+              sanitizer_violations=res.sanitizer_violations,
+              launches=launches, wall_s=wall)
+    log("dist fuzz " + json.dumps(fz))
+    for m in res.mismatches:
+        log("dist fuzz MISMATCH\n" + m.repro())
+    if res.seeds_run < DIST_FUZZ_SEEDS or res.mismatches or res.errors \
+            or res.sanitizer_violations:
+        raise AssertionError(f"dist fuzz combined: {fz}")
+    log(f"dist phase wall: {time.perf_counter() - t_phase:.3f} s "
+        f"(mesh {done_a:.3f} s)")
+    return dict(rec=rec, mesh=mesh, runner=runner["lines"], remote=remote,
+                chaos=chaos, fuzz=fz)
+
 
 def tpcds_root(scale: float) -> str:
     from benchmarking.tpcds.datagen import generate_tpcds
@@ -3619,6 +4165,8 @@ def main() -> int:
     done("7j")
     san = sanitize_phase(root, mp["ref"], mp, t22)
     done("7k")
+    dist = dist_phase(root, mp, q3["ref"], t22, card)
+    done("7l")
     # the TPC-DS, memory-bounded, pivot, fuzz and remote rungs whose shape
     # no earlier phase held
     held = {k[1:] for r in (mp["rungs"], t22["rungs"], tsql["rungs"])
@@ -3628,7 +4176,8 @@ def main() -> int:
     ds_rungs, ds_jrungs = {}, {}
     fuzz_new = {m: {"hash": 0, "join": 0} for m in FUZZ_MODES}
     for rec_k in (tds["rec"], tdp["rec"], ooc["rec"], piv["rec"],
-                  fz["rec"], rem["rec"], ob["rec"], san["rec"]):
+                  fz["rec"], rem["rec"], ob["rec"], san["rec"],
+                  dist["rec"]):
         for k, v in rec_k.hash_rungs().items():
             if k[1:] not in held:
                 held.add(k[1:])
@@ -3641,8 +4190,8 @@ def main() -> int:
                 ds_jrungs[k] = dict(v, pass_=rec_k.pass_)
                 if rec_k is fz["rec"]:
                     fuzz_new[k[0].split()[-1]]["join"] += 1
-    log(f"tpcds, ooc, pivot, fuzz, remote, obs and sanitize rungs not "
-        f"held by earlier phases: {len(ds_rungs)} hash, {len(ds_jrungs)} "
+    log(f"tpcds, ooc, pivot, fuzz, remote, obs, sanitize and dist rungs "
+        f"not held by earlier phases: {len(ds_rungs)} hash, {len(ds_jrungs)} "
         f"join")
     log("sanitize new rungs " + json.dumps(dict(
         hash=sorted(str(list(k)) for k in ds_rungs
@@ -3655,6 +4204,11 @@ def main() -> int:
         join=sorted(str(list(k)) for k in ds_jrungs
                     if k[0].startswith("remote")))))
     log("fuzz new rungs " + json.dumps(fuzz_new))
+    log("dist new rungs " + json.dumps(dict(
+        hash=sorted(str(list(k)) for k in ds_rungs
+                    if k[0].startswith("dist")),
+        join=sorted(str(list(k)) for k in ds_jrungs
+                    if k[0].startswith("dist")))))
     krecs = main_path_kernel_timing(mp["rungs"], bw)
     krecs += main_path_kernel_timing(t22["rungs"], bw)
     krecs += main_path_kernel_timing(tsql["rungs"], bw)

@@ -25,7 +25,8 @@ from .analysis import plan_sanitizer as _plan_sanitizer
 if _plan_sanitizer.enabled_by_env():
     _plan_sanitizer.enable()
 
-from .context import execution_config_ctx, get_context, set_execution_config
+from .context import (execution_config_ctx, get_context,
+                      set_execution_config, set_runner)
 from .dataframe import (DataFrame, from_arrow, from_glob_path, from_pandas,
                         from_pydict, from_pylist)
 from .datatype import DataType, TimeUnit
@@ -69,6 +70,6 @@ __all__ = [
     "from_pylist", "get_catalog", "get_context", "get_table", "has_catalog",
     "has_namespace", "has_table", "list_catalogs", "list_namespaces",
     "list_tables", "lit", "read_parquet", "read_table", "set_catalog",
-    "set_execution_config", "set_namespace", "sql", "sql_expr", "udf",
+    "set_execution_config", "set_namespace", "set_runner", "sql", "sql_expr", "udf",
     "use", "write_table",
 ]

@@ -72,23 +72,41 @@ AGG_DECOMPOSITION: Dict[str, Tuple[Tuple[str, ...], str]] = {
 SELF_MERGE_OPS = frozenset(m for _, m in AGG_DECOMPOSITION.values())
 
 
-def merge_exprs_for(aggs: List[Expression]) -> Optional[List[Expression]]:
-    """For final-stage aggs shaped ``op(col(p)).alias(out)`` whose ops are
-    all self-merges, the expressions that merge two batches of FINAL-schema
-    state: ``op(col(out)).alias(out)`` (the partitioned-agg reducer's
-    shape, ``execution/pipeline.py``; reference ``aggs.merge_exprs_for``
-    with ``alias_to="out"``). None when any agg is not a single-column
-    self-merge."""
+def merge_exprs_for(aggs: List[Expression], alias_to: str = "out"
+                    ) -> Optional[List[Expression]]:
+    """For merge/final-stage aggs shaped ``op(col(p)).alias(out)`` whose
+    ops are all self-merges, the expressions that merge two batches of
+    aggregated state (reference ``aggs.merge_exprs_for``):
+
+    - ``alias_to="out"`` — merge batches of FINAL-schema state:
+      ``op(col(out)).alias(out)`` (the partitioned-agg reducer's shape,
+      ``execution/pipeline.py``);
+    - ``alias_to="source"`` — merge batches of WIRE-schema partial
+      columns: ``op(col(p)).alias(p)`` (the distributed map-side
+      combine: the combined output keeps the map output's schema).
+
+    None when any agg is not a single-column self-merge, or (``source``)
+    when two aggs merge one wire column with different ops."""
     out: List[Expression] = []
+    seen: Dict[str, str] = {}
     for a in aggs:
         u = a._unalias()
         if not u.op.startswith("agg.") or u.op[4:] not in SELF_MERGE_OPS \
                 or len(u.args) != 1 or u.args[0]._unalias().op != "col":
             return None
-        out.append(Expression(u.op, (col(a.name()),), u.params)
-                   .alias(a.name()))
+        if alias_to == "out":
+            out.append(Expression(u.op, (col(a.name()),), u.params)
+                       .alias(a.name()))
+            continue
+        src = u.args[0]._unalias().name()
+        prev = seen.get(src)
+        if prev is not None:
+            if prev != u.op:
+                return None
+            continue
+        seen[src] = u.op
+        out.append(Expression(u.op, (col(src),), u.params).alias(src))
     return out
-
 
 
 def agg_recordbatch(batch, to_agg: List[Expression], group_by: List[Expression]):

@@ -9,6 +9,9 @@ hot paths; the AST rule families and the CLI load lazily.
 - ``dataflow.py`` — per-function CFGs and the must-reach solver under
   the flow-sensitive families
 - ``rule_knobs.py`` — the knob registry (``daft_tpu_torch/knobs.py``)
+- ``rule_determinism.py`` — chaos-replay determinism (no unseeded
+  random draws, wall-clock decisions or completion-order iteration in
+  the replay-critical modules)
 - ``rule_locks.py`` — blocking calls under a lock, unguarded module state
 - ``rule_resources.py`` — paired acquire/release contracts on every path
 - ``rule_cancellation.py`` / ``rule_attribution.py`` — drain loops poll

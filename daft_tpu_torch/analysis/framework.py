@@ -2,9 +2,10 @@
 
 The port's own copy of ``daft_tpu/analysis/framework.py``, pointed at the
 port's tree. Each rule family encodes an invariant of ``daft_tpu_torch``
-(knob registry discipline, lock discipline, paired resources, cancellation
-and attribution, the CUDA launch registry, shape buckets, kernel workspace
-safety, plan contracts); rules run on parsed ASTs and return
+(knob registry discipline, chaos-replay determinism, lock discipline,
+paired resources, cancellation and attribution, the CUDA launch registry,
+shape buckets, kernel workspace safety, plan contracts); rules run on
+parsed ASTs and return
 :class:`Finding`\\ s.
 
 Suppression is explicit and justified::
@@ -38,6 +39,19 @@ PKG = "daft_tpu_torch"
 
 #: the canonical scan set: the port, its tests and its chip script
 DEFAULT_SUBDIRS = (PKG, "tests/test_torch_*.py", "chip_smoke.py")
+
+#: chaos-replay-critical modules: any nondeterminism here can break the
+#: bit-identical replay contract of the resilience plane
+#: (``distributed/resilience.py``)
+REPLAY_CRITICAL = (
+    f"{PKG}/distributed/resilience.py",
+    f"{PKG}/distributed/shuffle_service.py",
+    f"{PKG}/distributed/worker.py",
+    f"{PKG}/distributed/remote_worker.py",
+    f"{PKG}/distributed/scheduler.py",
+    f"{PKG}/io/read_planner.py",
+    f"{PKG}/execution/executor.py",
+)
 
 
 @dataclasses.dataclass
@@ -77,6 +91,15 @@ def known_rules() -> Dict[str, Tuple[str, str]]:
         "knob-doc-drift": (
             "knobs", "regenerate: python -m daft_tpu_torch.analysis "
                      "--knob-docs --write"),
+        "unseeded-random": (
+            "determinism", "use a seeded instance keyed on a stable "
+                           "identity"),
+        "wallclock-decision": (
+            "determinism", "inject a clock (RetryPolicy pattern) instead "
+                           "of reading time in a decision"),
+        "unordered-pool-iteration": (
+            "determinism", "iterate futures in submit order, not "
+                           "completion order"),
         "blocking-under-lock": (
             "locks", "move the blocking call outside the `with <lock>:` "
                      "scope"),
@@ -254,9 +277,9 @@ def run_analysis(root: Optional[str] = None,
     (``dispatch_registry.findings``) and the fusion-region schema check
     (which plans with the engine, so it imports torch). Pass a dict as
     ``stats`` for the burn-down summary."""
-    from . import (rule_attribution, rule_cancellation, rule_donation,
-                   rule_knobs, rule_launch, rule_locks, rule_plans,
-                   rule_resources, rule_shapes)
+    from . import (rule_attribution, rule_cancellation, rule_determinism,
+                   rule_donation, rule_knobs, rule_launch, rule_locks,
+                   rule_plans, rule_resources, rule_shapes)
 
     root = root or repo_root()
     sources = walk_sources(root, subdirs)
@@ -269,6 +292,7 @@ def run_analysis(root: Optional[str] = None,
     findings.extend(rule_knobs.check(sources))
     if readme:
         findings.extend(rule_knobs.check_readme(root))
+    findings.extend(rule_determinism.check(sources))
     findings.extend(rule_locks.check(sources))
     findings.extend(rule_launch.check(sources))
     if contracts:

@@ -25,13 +25,13 @@ sanitizer asserts root-schema equality after each application of a
 preserving one.
 
 ``REPLAN_MUTABLE`` is the closed set of (class, field) pairs the adaptive
-layer (``physical/adaptive.py``) may mutate in place on a built plan. The
-reference's ``Boundary`` / ``BoundaryActuals`` entries belong to the
-distributed re-planner and wait for ROADMAP A7.
+layers (``physical/adaptive.py`` and the distributed re-planner,
+``distributed/replan.py``, with its ``Boundary`` / ``BoundaryActuals``
+entries) may mutate in place on a built plan.
 
 Nodes of the reference the port does not have (``Explode``,
-``UDFProject``, ``DeviceExchangeAgg``) are not declared; a node the port
-adds fails the lint run until it is.
+``UDFProject``) are not declared; a node the port adds fails the lint
+run until it is.
 """
 
 from __future__ import annotations
@@ -165,6 +165,9 @@ PHYSICAL_NODES: Dict[str, NodeContract] = {c.name: c for c in [
     _n("DeviceFragmentAgg", "physical", "computed", "inherits source",
        "destroys", "estimate", ("predicate", "aggs", "group_by", "mode"),
        estimate_fields=("group_rows_est", "group_ndv")),
+    _n("DeviceExchangeAgg", "physical", "computed", "hash(group_by) over "
+       "mesh shards (disjoint key sets, one partition per shard)",
+       "destroys", "frozen", ("aggs", "group_by")),
     _n("FusedRegion", "physical", "computed", "inherits source (chain/"
        "topk single output for topk)", "topk establishes sort_by; else "
        "preserves", "estimate",
@@ -272,6 +275,16 @@ REPLAN_MUTABLE: Tuple[MutableField, ...] = (
                  "measured build/probe bytes re-pick broadcast vs hash"),
     MutableField("HashJoin", "right_bytes_est",
                  "measured build/probe bytes re-pick broadcast vs hash"),
+    MutableField("Boundary", "kind",
+                 "broadcast demotion swaps hash shuffle for gather; "
+                 "execution strategy only, downstream join is re-keyed "
+                 "to match"),
+    MutableField("Boundary", "num_partitions",
+                 "partition count is execution strategy, not semantics"),
+    MutableField("BoundaryActuals", "ndv",
+                 "measured key NDV recorded as evidence"),
+    MutableField("BoundaryActuals", "exact_ndv",
+                 "marks the NDV evidence as exact, not estimated"),
 )
 
 REPLAN_MUTABLE_FIELDS = frozenset(m.field for m in REPLAN_MUTABLE)

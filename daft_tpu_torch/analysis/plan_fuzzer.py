@@ -24,8 +24,9 @@ pull interpreter on the host tier (:func:`run_reference`).
   the spill stores, the spilling agg reducer and its bucket merges run
   (the out-of-core parity tests' 400KB holds a whole fuzzer table, about
   6KB at most, and spills nothing)
-- ``combined`` (not in :data:`MODES`): the distributed runner, which
-  comes with ROADMAP A7; asking for it raises ``NotImplementedError``
+- ``combined``: the distributed runner (two in-process workers, the
+  shuffle service between stages) with the map-side shuffle combine
+  forced on (``DAFT_TORCH_SHUFFLE_COMBINE=1``)
 
 The device is the caller's (``DAFT_TORCH_DEVICE``): ``cuda`` on a card,
 ``cpu`` in the CPU tests. Every mode restores the execution config and
@@ -59,7 +60,8 @@ from typing import Dict, List, Optional, Tuple
 
 from .. import knobs
 
-MODES = ("optimized", "fused", "spilled", "replanned", "device", "bounded")
+MODES = ("optimized", "fused", "spilled", "replanned", "device", "bounded",
+         "combined")
 
 _STRINGS = ("ant", "bee", "cat", "dog", "elk", "fox", None)
 
@@ -328,11 +330,22 @@ def _env(values: Dict[str, str]):
 
 @contextlib.contextmanager
 def _mode_ctx(mode: str):
-    from ..context import execution_config_ctx
+    from ..context import execution_config_ctx, get_context
     if mode == "combined":
-        raise NotImplementedError(
-            "plan fuzzer mode 'combined' needs the distributed runner "
-            "(runners/distributed_runner.py), which comes with ROADMAP A7")
+        from ..runners.distributed_runner import DistributedRunner
+        ctx = get_context()
+        with ctx._lock:
+            old_runner = ctx._runner
+        runner = DistributedRunner(num_workers=2)
+        try:
+            with _env({"DAFT_TORCH_SHUFFLE_COMBINE": "1"}):
+                ctx.set_runner(runner)
+                with execution_config_ctx():
+                    yield
+        finally:
+            ctx.set_runner(old_runner)
+            runner.shutdown()
+        return
     cfg = {"optimized": {}, "fused": {"fusion": "1"},
            "spilled": {"spill_join": "1"},
            "replanned": {"enable_aqe": True},

@@ -10,16 +10,18 @@ long-lived stage threads install ``observability.attributed(...)`` /
 ``tracing.attach`` inside their target. One unwrapped spawn and that
 worker's counters land on the wrong query, or on none.
 
-The rule: in the port's executor, push engine and read planner, every
+The rule: in the port's executor, push engine, read planner and
+distributed workers, every
 ``<pool>.submit(fn, ...)`` passes an attribution wrapper as the callable,
 and every ``threading.Thread(target=g)`` whose target is a same-module
 def has ``g`` (transitively, bounded) install attribution. Targets that
 cannot be resolved statically are skipped; maintenance threads that touch
 no plane counter carry a pragma saying so.
 
-The reference's serving and distributed scopes
-(``serving/scheduler.py``, ``distributed/worker.py``,
-``distributed/remote_worker.py``) wait for ROADMAP A7 and A8.
+The distributed worker's fetch pool and the remote worker's task pool
+(``distributed/worker.py``, ``distributed/remote_worker.py``) are in
+scope too. The reference's serving scope (``serving/scheduler.py``)
+waits for the serving plane (ROADMAP A8).
 """
 
 from __future__ import annotations
@@ -36,6 +38,8 @@ SCOPE = (
     f"{PKG}/execution/executor.py",
     f"{PKG}/execution/pipeline.py",
     f"{PKG}/io/read_planner.py",
+    f"{PKG}/distributed/worker.py",
+    f"{PKG}/distributed/remote_worker.py",
 )
 
 #: callables that wrap attribution around a submitted function

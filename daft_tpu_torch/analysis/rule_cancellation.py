@@ -21,8 +21,9 @@ A loop is credited when its body (or a same-module helper it calls):
 A loop whose responsiveness lives in the *iterator* carries a pragma
 naming the mechanism.
 
-Scope: ``execution/executor.py`` and ``execution/pipeline.py``. The
-reference's serving scope (``daft_tpu/serving/``) waits for the serving
+Scope: ``execution/executor.py``, ``execution/pipeline.py`` and the
+distributed workers (``distributed/worker.py``,
+``distributed/remote_worker.py``). The reference's serving scope (``daft_tpu/serving/``) waits for the serving
 plane (ROADMAP A8).
 """
 
@@ -40,6 +41,8 @@ from .rule_resources import walk_local
 SCOPE_PREFIXES = (
     f"{PKG}/execution/executor.py",
     f"{PKG}/execution/pipeline.py",
+    f"{PKG}/distributed/worker.py",
+    f"{PKG}/distributed/remote_worker.py",
 )
 
 #: terminal names that identify a partition/morsel/fetch stream

@@ -74,8 +74,10 @@ _LOGICAL_PATH = f"{PKG}/logical/plan.py"
 _PHYSICAL_PATH = f"{PKG}/physical/plan.py"
 _OPTIMIZER_PATH = f"{PKG}/logical/optimizer.py"
 _FUSION_PATH = f"{PKG}/physical/fusion.py"
-#: the re-planning modules; the distributed re-planner comes with A7
-_REPLAN_PATHS = (f"{PKG}/physical/adaptive.py",)
+#: the re-planning modules: the local AQE layer and the distributed
+#: runtime re-planner
+_REPLAN_PATHS = (f"{PKG}/physical/adaptive.py",
+                 f"{PKG}/distributed/replan.py")
 
 #: non-node helper classes living in the plan modules
 _NON_NODE_CLASSES = {"ClusteringSpec", "LogicalPlan", "PhysicalPlan"}

@@ -7,13 +7,12 @@ admission, trace recorders, the fused agg's device slots, thread pools,
 the spill stores and their writer groups, the pinned host buffer of a
 device→host fetch (``column.fetch_host_async`` → ``HostFetch.wait``), and
 the per-query torch.profiler capture (``observability.profile_capture`` →
-``ProfileCapture.stop`` / ``end_query``). Each invariant is one entry in
+``ProfileCapture.stop`` / ``end_query``), and the distributed tier's
+shuffle caches (``ShuffleCache`` → ``cleanup`` or registration with the
+shuffle server) and collective leases (``topology.acquire_collective`` →
+``release_collective``). Each invariant is one entry in
 :data:`CONTRACTS`; the must-reach solver (:mod:`.dataflow`) proves the
 paired release on every exit path, the exception edges included.
-
-The reference's ``shuffle-cache-leak`` (``ShuffleCache``) and
-``collective-lease-leak`` (``topology.acquire_collective``) contracts wait
-for the distributed tier (ROADMAP A7), which brings those resources.
 
 Release credit, in decreasing strength:
 
@@ -103,6 +102,14 @@ CONTRACTS: Tuple[Contract, ...] = (
              "exception path (try/finally or the error handler)",
     ),
     Contract(
+        rule="shuffle-cache-leak", style="object", mode="all",
+        acquire=("ShuffleCache",), release=("cleanup",),
+        defining=(f"{PKG}/distributed/shuffle_service.py",),
+        hint="cleanup() the cache on failure paths, or register it with "
+             "the shuffle server (ownership transfer) before anything "
+             "can raise",
+    ),
+    Contract(
         rule="device-slot-leak", style="object", mode="all",
         acquire=("acquire_slot",), release=("release_slot",),
         defining=(f"{PKG}/device/pipeline.py",),
@@ -156,6 +163,15 @@ CONTRACTS: Tuple[Contract, ...] = (
         hint="stop() the capture (or observability.end_query(stats, "
              "capture)) on every exit path — a running capture holds the "
              "process's one profiler and every later query loses its own",
+    ),
+    Contract(
+        rule="collective-lease-leak", style="event", mode="all",
+        acquire=("acquire_collective",), release=("release_collective",),
+        defining=(f"{PKG}/distributed/topology.py",),
+        hint="pair topology.acquire_collective(key) with "
+             "release_collective in try/finally — a leaked lease makes a "
+             "finished collective exchange group look forever in-flight "
+             "(the /metrics gauge) and shadows its group key",
     ),
 )
 

@@ -1,8 +1,10 @@
 """Global context: the frozen-per-query execution config.
 
 Reference: ``src/common/daft-config/src/lib.rs:40-100`` and
-``daft/context.py:156-269``. The port keeps the fields its engine reads; queries
-run through ``runners/native_runner.py``.
+``daft/context.py:156-269``. The port keeps the fields its engine reads.
+Queries run through the runner :func:`get_runner` picks:
+``runners/native_runner.py`` by default, ``runners/distributed_runner.py``
+under ``DAFT_TORCH_RUNNER=distributed`` or after :func:`set_runner`.
 """
 
 from __future__ import annotations
@@ -82,11 +84,52 @@ class ExecutionConfig:
     #: ``DAFT_TORCH_GOVERNOR_HIGH`` / ``_LOW`` win when set
     governor_high: float = 0.85
     governor_low: float = 0.70
+    #: the distributed tier (``distributed/``): which workers share a
+    #: device mesh (``name=w0,w1;name2=w2``; empty = autodetect), the hash
+    #: boundaries' exchange path (``auto``, ``collective``,
+    #: ``hierarchical`` or ``flight``) and the runtime re-planner;
+    #: ``DAFT_TORCH_WORKER_TOPOLOGY`` / ``_EXCHANGE_PATH`` / ``_ADAPTIVE``
+    #: win when set
+    worker_topology: str = ""
+    exchange_path: str = "auto"
+    adaptive: bool = False
 
 
 class Context:
     def __init__(self):
+        self._lock = threading.Lock()
+        self._runner = None
         self.execution_config = ExecutionConfig()
+
+    def get_or_create_runner(self):
+        """The process's runner: the one :func:`set_runner` installed,
+        else the one ``DAFT_TORCH_RUNNER`` names (``native``, the
+        default, or ``distributed``), made once (reference
+        ``daft_tpu/context.py:172-188``)."""
+        with self._lock:
+            if self._runner is None:
+                from . import knobs
+                name = knobs.env_str("DAFT_TORCH_RUNNER").lower()
+                if name in ("native", "py"):
+                    from .runners.native_runner import get_runner
+                    self._runner = get_runner()
+                elif name in ("torch_distributed", "distributed"):
+                    from .runners.distributed_runner import \
+                        DistributedRunner
+                    self._runner = DistributedRunner()
+                else:
+                    raise ValueError(
+                        f"DAFT_TORCH_RUNNER={name!r}: expected 'native' or "
+                        "'distributed'")
+            return self._runner
+
+    def set_runner(self, runner) -> None:
+        """Install ``runner`` (a ``Runner``; None goes back to the
+        ``DAFT_TORCH_RUNNER`` choice at the next query). The caller owns
+        the runner it replaces (``DistributedRunner.shutdown`` stops its
+        workers)."""
+        with self._lock:
+            self._runner = runner
 
 
 _context: Optional[Context] = None
@@ -99,6 +142,17 @@ def get_context() -> Context:
         if _context is None:
             _context = Context()
         return _context
+
+
+def get_runner():
+    """The runner queries run through (:meth:`Context.get_or_create_runner`)."""
+    return get_context().get_or_create_runner()
+
+
+def set_runner(runner) -> None:
+    """Install the process's runner: ``set_runner(DistributedRunner(4))``,
+    or ``set_runner(None)`` to go back to ``DAFT_TORCH_RUNNER``."""
+    get_context().set_runner(runner)
 
 
 def set_execution_config(config: Optional[ExecutionConfig] = None,

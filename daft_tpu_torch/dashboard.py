@@ -43,6 +43,12 @@ def broadcast_query(stats) -> None:
             "ts": time.strftime("%H:%M:%S"),
             "operators": stats.as_dict(),
             "explain": stats.render(getattr(stats, "plan", None)),
+            # resilience plane: recovery events (retries, quarantines,
+            # recomputed map tasks, speculative wins) of this query
+            "recovery": dict(getattr(stats, "recovery", {}) or {}),
+            # shuffle data plane: bytes written and fetched, the
+            # combine's reduction, fetch overlap, mesh exchanges
+            "shuffle": dict(getattr(stats, "shuffle", {}) or {}),
             # scan-side IO plane: GETs vs planned ranges (coalescing),
             # bytes fetched vs used, prefetch overlap
             "io": dict(getattr(stats, "io", {}) or {}),
@@ -103,6 +109,15 @@ class _Handler(http.server.BaseHTTPRequestHandler):
         rows = []
         with _history_lock:
             for i, q in enumerate(reversed(_history)):
+                rec = q.get("recovery") or {}
+                rec_html = ("<p><b>recovery events:</b> "
+                            + html.escape(json.dumps(rec)) + "</p>"
+                            if rec else "")
+                shf = q.get("shuffle") or {}
+                shf_html = ("<p><b>shuffle:</b> "
+                            + html.escape(json.dumps(
+                                {k: round(v, 1) for k, v in shf.items()}))
+                            + "</p>" if shf else "")
                 sio = q.get("io") or {}
                 io_html = ("<p><b>io:</b> "
                            + html.escape(json.dumps(
@@ -110,7 +125,7 @@ class _Handler(http.server.BaseHTTPRequestHandler):
                            + "</p>" if sio else "")
                 rows.append(
                     f"<h3>query {len(_history) - i} — {q['ts']}</h3>"
-                    f"{io_html}"
+                    f"{rec_html}{shf_html}{io_html}"
                     f"<pre>{html.escape(q['explain'])}</pre>")
         # flight-recorder history (persisted across restarts, unlike the
         # in-memory broadcast list above)

@@ -2,8 +2,9 @@
 
 Reference: ``daft/dataframe/dataframe.py:108``. Each method extends the
 logical plan via LogicalPlanBuilder; execution happens on collect/show/
-iteration through the runner (``runners/native_runner.py``: optimize,
-translate, then the push pipeline or the interpreter). The port carries
+iteration through the runner ``context.get_runner`` picks
+(``runners/native_runner.py``: optimize, translate, then the push
+pipeline or the interpreter; or ``runners/distributed_runner.py``). The port carries
 the methods of the grouped-aggregation, join, TPC-H, SQL, out-of-core and
 A5b slices (select/filter/with_column/sort/limit/distinct/agg/groupby/join,
 cross joins included, concat and the set operations with their ``all``
@@ -425,7 +426,7 @@ class DataFrame:
     def collect(self, num_preview_rows: Optional[int] = 8) -> "DataFrame":
         if self._result is None:
             from . import observability as obs
-            from .runners.native_runner import get_runner
+            from .context import get_runner
             self._result = get_runner().run(self._builder)
             # this thread drained the query, so its own record is this
             # query's, whatever else finished meanwhile
@@ -443,7 +444,7 @@ class DataFrame:
         if self._result is not None:
             yield from self._result.partitions
             return
-        from .runners.native_runner import get_runner
+        from .context import get_runner
         yield from get_runner().run_iter(self._builder)
 
     def iter_rows(self) -> Iterator[Dict[str, Any]]:

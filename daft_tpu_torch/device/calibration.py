@@ -27,9 +27,19 @@ flight recorder's history (``DAFT_TORCH_QUERY_LOG``,
 :func:`ingest_flight_history`): each persisted query's ``device_kernels``
 block carries the evidence ``ledger_record`` observes live.
 
+- ``SHUFFLE_WIRE_BPS`` — the shuffle wire's achieved rate, observed at
+  every sizable partition fetch (``distributed/shuffle_service.py``);
+- ``ICI_BPS`` — the mesh exchange's measured rate
+  (``costmodel._measure_ici``), so a process without a mesh prices with
+  it.
+
+Under ``DAFT_TORCH_CHAOS_SERIALIZE=1`` or an active fault plan
+(``distributed/resilience.py``) the profile is frozen (:func:`frozen`):
+reads return the caller's default and observations are dropped, so a
+chaos replay prices every decision as the recorded run did.
+
 Not carried over (they wait for the slices that bring their callers): the
-chaos / fault-plan freeze, the fleet-gossiped constants and
-``plan_token`` (ROADMAP A7/A8); the shuffle and ICI rates (A6/A7).
+fleet-gossiped constants and ``plan_token`` (ROADMAP A8).
 """
 
 from __future__ import annotations
@@ -65,6 +75,20 @@ _history_ingested = False
 
 def enabled() -> bool:
     return knobs.env_bool("DAFT_TORCH_CALIBRATION")
+
+
+def frozen() -> bool:
+    """The profile is frozen (reads give defaults, observations are
+    dropped) while the chaos-determinism contract holds: serialized chaos
+    or an active fault plan."""
+    if knobs.env_bool("DAFT_TORCH_CHAOS_SERIALIZE"):
+        return True
+    from ..distributed.resilience import active_fault_plan
+    return active_fault_plan() is not None
+
+
+def _active() -> bool:
+    return enabled() and not frozen()
 
 
 def alpha() -> float:
@@ -129,7 +153,7 @@ def _ensure_loaded() -> None:
         with _lock:
             if _profile is None:
                 _profile = loaded
-    if not _history_ingested and enabled():
+    if not _history_ingested and _active():
         ingest_flight_history()
 
 
@@ -139,7 +163,7 @@ def ingest_flight_history(limit: int = 200) -> int:
     Once per process (a call while calibration is off does not use the
     latch up). Returns the observations ingested."""
     global _history_ingested
-    if not enabled():
+    if not _active():
         return 0
     with _lock:
         if _history_ingested:
@@ -187,7 +211,7 @@ def observe(name: str, value: float, weight: float = 1.0) -> None:
     weight: ``w`` repeated samples collapse to one update). No-op when
     calibration is off or the sample is not a positive finite number."""
     global _obs_since_persist, _last_persist, _atexit_registered
-    if not enabled():
+    if not _active():
         return
     value, weight = float(value), float(weight)
     if not math.isfinite(value) or value <= 0 or weight <= 0:
@@ -275,7 +299,7 @@ def observe_dispatch(kind: str, strategy: Optional[str], rows: float,
                      dispatches: float = 1.0) -> None:
     """Live chokepoint, called by ``costmodel.ledger_record`` at every
     real dispatch; one knob read when calibration is off."""
-    if not enabled():
+    if not _active():
         return
     _observe_family(kind, strategy, rows=rows, nbytes=nbytes,
                     seconds=seconds, dispatches=dispatches)
@@ -287,7 +311,7 @@ def const(name: str, default: float) -> float:
     """The calibrated value for ``name`` when the profile has one past the
     sample floor and calibration is on; else the caller's default. Every
     costmodel rate read routes through here."""
-    if not enabled():
+    if not _active():
         return default
     _ensure_loaded()
     with _lock:
@@ -346,6 +370,9 @@ def costmodel_defaults() -> Dict[str, float]:
             "DEV_JOIN_ROWS_PER_S": cm.DEV_JOIN_ROWS_PER_S,
             "DEV_JOIN_HASH_ROWS_PER_S": cm.DEV_JOIN_HASH_ROWS_PER_S,
             "SPILL_DISK_BPS": cm.SPILL_DISK_BPS,
+            "SHUFFLE_WIRE_BPS":
+                knobs.env_float("DAFT_TORCH_SHUFFLE_WIRE_MBPS") * 1e6,
+            "ICI_BPS": cm._ICI_FALLBACK_BPS,
             "NDV_FOOTER_RATIO": 1.0}
 
 

@@ -14,12 +14,24 @@ buffers until its first drain. A fetch is two halves
 (:func:`fetch_host_async`): the submit concatenates the planes on the
 current stream and starts one copy into a pinned host buffer; the wait
 blocks on the copy's event before numpy reads a byte.
+
+Both halves take their pinned buffers from the port's own pool
+(:class:`PinnedPool`), not straight from torch's caching host allocator:
+torch records a freed block's reuse event at free time on every stream
+that used it, so when that stream is busy with later work the block stays
+out of reach and the next request allocates anew. A pooled buffer comes
+back when the last numpy view of it dies, and is reusable once its own
+copy has finished, so the pool grows only when every buffer of a size is
+held at once; a small size starts with several buffers, since a warm
+repeat of a query overlaps more fetches than its cold first run.
 """
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import threading
+import weakref
 from dataclasses import dataclass
 from typing import Dict, List, Optional, Sequence, Tuple
 
@@ -69,6 +81,17 @@ def device_np_dtype(np_dtype) -> np.dtype:
     return d
 
 
+def is_lossless_device_dtype(dtype) -> bool:
+    """True when the device encoding round-trips bit-exactly, as pure
+    data movement (the mesh repartition) needs (reference
+    ``column.is_lossless_device_dtype``): decimals ride float64 (lossy),
+    strings and binary ride dictionary codes, and a type without a device
+    plane has nothing to move. float64 stays float64 on a CUDA card."""
+    if dtype.is_decimal() or dtype.is_string() or dtype.is_binary():
+        return False
+    return dtype.to_physical().device_repr() is not None
+
+
 def has_device_plane(s: Series) -> bool:
     """Whether this column's values travel to the device losslessly: not
     Python objects, and no uint64 value at or above 2^63."""
@@ -101,7 +124,8 @@ class DeviceTable:
     #: event recorded on the copy stream after this table's host→device
     #: copies (None on the CPU, or when nothing was copied)
     ready: Optional[object] = None
-    #: the pinned staging buffers of those copies, held until a drain
+    #: the pinned staging buffers of those copies (numpy arrays over
+    #: :class:`PinnedPool` buffers), held until a drain
     staging: Optional[list] = None
 
     @property
@@ -114,6 +138,101 @@ class DeviceTable:
 
     def nbytes(self) -> int:
         return sum(t.nbytes for t in self.planes())
+
+
+# ------------------------------------------------------- pinned pool
+
+_PIN_MIN_BYTES = 4096
+#: a size class of at most 1 MiB (the fetches of partial aggregates and
+#: scalars, small staging) starts with 8 buffers: how many of them are
+#: held at once follows the threads' timing (a warm repeat's dispatches
+#: overlap more than its cold first run's), and 8 covers the default
+#: window's slots (``device_inflight`` 2) with their fetches and
+#: drains in flight; at most 8 MiB of pinned memory per class
+_PIN_SMALL_CLASS = 1 << 20
+_PIN_FIRST_BUFFERS = 8
+
+
+class PinnedPool:
+    """Pinned host buffers, one free list per power-of-two size. A
+    :meth:`take` hands out a numpy view of a pooled buffer; the buffer
+    goes back to its free list when that array (and every view of it, an
+    Arrow array made from it included) dies, and is taken again only
+    after the copy its lease names has finished. The free lists are
+    deques (append and popleft are atomic), so a return may run on any
+    thread, inside a garbage collection too. A small class starts with
+    ``_PIN_FIRST_BUFFERS`` buffers; any class then grows one at a
+    time."""
+
+    def __init__(self, alloc=None):
+        #: ``alloc(nbytes)`` → a uint8 host tensor (pinned on a card)
+        self._alloc = alloc or (lambda n: torch.empty(
+            n, dtype=torch.uint8, pin_memory=True))
+        self._free: Dict[int, collections.deque] = {}
+        self._grow_lock = threading.Lock()
+        self._grown: set = set()       # the size classes allocated so far
+        #: buffers allocated and their bytes (the pool's growth)
+        self.counters = {"allocated": 0, "bytes": 0}
+
+    @staticmethod
+    def size_class(nbytes: int) -> int:
+        b = _PIN_MIN_BYTES
+        while b < nbytes:
+            b *= 2
+        return b
+
+    def take(self, nbytes: int, dtype: torch.dtype = torch.uint8):
+        """→ (tensor, array, lease): ``nbytes`` of a pooled buffer as a
+        ``dtype`` tensor for the copy, the numpy array over the same bytes
+        that holds the buffer out of the pool while it (or a view) lives,
+        and the lease whose ``event`` the caller sets once the copy that
+        uses the buffer is queued."""
+        size = self.size_class(nbytes)
+        free = self._free.setdefault(size, collections.deque())
+        try:
+            buf, ev = free.popleft()
+        except IndexError:
+            buf, ev = self._grow(size, free), None
+        if ev is not None and not ev.query():
+            ev.synchronize()
+        t = buf[:nbytes].view(dtype)
+        arr = t.numpy()
+        lease = _Lease()
+        weakref.finalize(arr, _give_back, free, buf, lease).atexit = False
+        return t, arr, lease
+
+    def _grow(self, size: int, free: collections.deque):
+        """A new buffer of ``size`` for the caller; on a small class's first
+        growth, its other first buffers go straight to ``free``."""
+        with self._grow_lock:
+            first = size not in self._grown
+            self._grown.add(size)
+        n = _PIN_FIRST_BUFFERS if first and size <= _PIN_SMALL_CLASS else 1
+        bufs = [self._alloc(size) for _ in range(n)]
+        with self._grow_lock:
+            self.counters["allocated"] += n
+            self.counters["bytes"] += n * size
+        for b in bufs[1:]:
+            free.append((b, None))
+        return bufs[0]
+
+
+class _Lease:
+    """One hand-out of a pooled buffer: the event after which the copy
+    that uses it has finished (None: no copy queued)."""
+
+    __slots__ = ("event",)
+
+    def __init__(self):
+        self.event = None
+
+
+def _give_back(free: collections.deque, buf, lease: _Lease) -> None:
+    free.append((buf, lease.event))
+
+
+#: the process's pool (every card's pinned buffers are host memory)
+_pinned = PinnedPool()
 
 
 # ------------------------------------------------------------ streams
@@ -182,21 +301,23 @@ def _upload(planes: Sequence[np.ndarray], capacity: int,
             device: torch.device):
     """Host planes → ``[capacity]`` device tensors, zero-padded →
     (tensors, ready event or None, staging buffers or None). On a card:
-    pinned staging, one ``non_blocking`` copy each on the copy stream into
-    tensors allocated on the current stream (which uses them), and the
-    current stream waits on the copies' event."""
+    pooled pinned staging, one ``non_blocking`` copy each on the copy
+    stream into tensors allocated on the current stream (which uses
+    them), and the current stream waits on the copies' event."""
     _count("bytes_up", sum(capacity * a.dtype.itemsize for a in planes))
     if device.type != "cuda":
         return [torch.from_numpy(_pad(a, capacity)).to(device)
                 for a in planes], None, None
-    staging, outs = [], []
+    staging, srcs, leases, outs = [], [], [], []
     for a in planes:
-        t = torch.empty(capacity, pin_memory=True, dtype=torch.from_numpy(
-            np.empty(0, dtype=a.dtype)).dtype)
-        h = t.numpy()
+        t, h, lease = _pinned.take(capacity * a.dtype.itemsize,
+                                   torch.from_numpy(
+                                       np.empty(0, dtype=a.dtype)).dtype)
         h[:len(a)] = a
         h[len(a):] = 0
-        staging.append(t)
+        staging.append(h)
+        srcs.append(t)
+        leases.append(lease)
         outs.append(torch.empty(capacity, dtype=t.dtype, device=device))
     cur = torch.cuda.current_stream(device)
     cs = copy_stream(device)
@@ -204,10 +325,12 @@ def _upload(planes: Sequence[np.ndarray], capacity: int,
     # the current stream: the copies start after it
     cs.wait_stream(cur)
     with torch.cuda.stream(cs):
-        for d, t in zip(outs, staging):
+        for d, t in zip(outs, srcs):
             d.copy_(t, non_blocking=True)
         ev = torch.cuda.Event()
         ev.record(cs)
+    for lease in leases:
+        lease.event = ev
     cur.wait_event(ev)
     _count("h2d_copies", len(planes))
     return outs, ev, staging
@@ -437,7 +560,7 @@ class HostFetch:
         if self._out is not None:
             return self._out
         self._event.synchronize()
-        host = self._host.numpy()
+        host = self._host
         out: List[Optional[np.ndarray]] = [None] * len(self._planes)
         off = 0
         for i in self._order:
@@ -460,13 +583,14 @@ def fetch_host_async(planes: Sequence[torch.Tensor]) -> HostFetch:
                    key=lambda i: -planes[i].element_size())
     flat = torch.cat([planes[i].contiguous().reshape(-1).view(torch.uint8)
                       for i in order])
-    host = torch.empty(flat.numel(), dtype=torch.uint8, pin_memory=True)
+    host, arr, lease = _pinned.take(flat.numel())
     host.copy_(flat, non_blocking=True)
     ev = torch.cuda.Event()
     ev.record(torch.cuda.current_stream(flat.device))
+    lease.event = ev
     _count("d2h_copies")
     _count("bytes_down", flat.numel())
-    return HostFetch(planes, order, host, ev)
+    return HostFetch(planes, order, arr, ev)
 
 
 def fetch_host(planes: Sequence[torch.Tensor]) -> List[np.ndarray]:

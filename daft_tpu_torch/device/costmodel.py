@@ -39,7 +39,7 @@ Env overrides:
 comes from ``calibrate``'s ``spill_disk`` line on the same machine.
 
 Not carried over yet (each waits for its caller's slice, ROADMAP):
-``image_resize_wins`` (A8), the shuffle, mesh and ICI gates (A7).
+``image_resize_wins`` (A8).
 """
 
 from __future__ import annotations
@@ -657,6 +657,231 @@ def _join_seconds(n_left: int, n_right: int, bytes_up: float,
     price = lp.pipelined_seconds if window >= 2 else lp.device_seconds
     return n / HOST_JOIN_ROWS_PER_S, price(bytes_up, bytes_down, 2.0,
                                            DEV_DISPATCH_S + n / rate)
+
+
+# ------------------------------------------ shuffle and mesh exchange
+#
+# The distributed tier's gates (reference ``costmodel.py:768-989``). The
+# host-side rates are the reference's coarse constants (Arrow IPC and a
+# host hash-partition pass on its host CPU): the decisions only need the
+# ratio between one agg pass and a row's whole shuffle trip to the right
+# order of magnitude. The mesh's own rate is measured here.
+
+SHUFFLE_SER_BPS = 2.0e9   # Arrow IPC write/read, per side, per byte
+
+
+def shuffle_wire_bps() -> float:
+    """Wire bandwidth the shuffle and exchange decisions price against:
+    ``DAFT_TORCH_SHUFFLE_WIRE_MBPS`` when set, else the calibrated rate
+    (observed at every sizable shuffle fetch) once its sample floor is
+    met, else the knob's default."""
+    if knobs.env_raw("DAFT_TORCH_SHUFFLE_WIRE_MBPS") is not None:
+        return knobs.env_float("DAFT_TORCH_SHUFFLE_WIRE_MBPS") * 1e6
+    return _cal("SHUFFLE_WIRE_BPS",
+                knobs.env_float("DAFT_TORCH_SHUFFLE_WIRE_MBPS") * 1e6)
+
+
+#: collective dispatch when the probe cannot measure it: the program's
+#: fixed cost (its per-shard sorts, scatters and copies), in seconds
+MESH_DISPATCH_S = 3e-3
+HOST_EXCHANGE_BPS = 6.0e8  # host hash-partition pass (hash + scatter)
+_ICI_FALLBACK_BPS = 2.0e9  # no mesh to probe and nothing calibrated
+#: per-shard probe rows (int64 planes) by device type: on a card the
+#: program's fixed cost (its kernel launches) hides a small probe's bytes
+_ICI_PROBE_ROWS = {"cuda": 1 << 19, "cpu": 1 << 14}
+_ICI_PROBE_REPS = 3        # timed runs per probe size (the fastest kept)
+
+_ici_lock = threading.Lock()
+_ici: Optional[Tuple[float, float]] = None   # (bytes/s, dispatch s)
+
+
+def _measure_ici() -> Tuple[float, float]:
+    """The mesh exchange's marginal rate and fixed cost, measured on this
+    machine: two warm timed ``sharded_hash_repartition`` probes (the very
+    program the mesh paths dispatch: it copies every row between the
+    shards' tensors, within one card's memory when the shards share it)
+    at 1x and 4x the probe size, each the fastest of
+    ``_ICI_PROBE_REPS`` warm runs. The rate comes from the byte and time
+    differences and the fixed cost from the intercept, so dispatch
+    overhead does not read as a slow link. → (bytes/s, seconds)."""
+    import numpy as np
+    import torch
+
+    from ..parallel import exchange, mesh as pmesh
+    mesh = pmesh.get_mesh()
+    if mesh is None or mesh.size < 2:
+        raise RuntimeError("no multi-shard mesh to measure")
+    n = mesh.size
+
+    def sync():
+        for d in set(mesh.devices):
+            if d.type == "cuda":
+                torch.cuda.synchronize(d)
+
+    def timed(rows_per_shard: int):
+        total = n * rows_per_shard
+        plane = np.arange(total, dtype=np.int64)
+        valid = np.ones(total, dtype=bool)
+        pid = (np.arange(total) % n).astype(np.int32)
+        sb = [exchange.shard_blocks(mesh, a)
+              for a in (plane, valid, valid, pid)]
+        sync()
+
+        def run():
+            exchange.sharded_hash_repartition(mesh, (sb[0],), (sb[1],),
+                                              sb[2], sb[3])
+            sync()
+
+        run()  # warm-up: allocator and first-call costs paid here
+        best = float("inf")
+        for _ in range(_ICI_PROBE_REPS):
+            t0 = time.perf_counter()
+            run()
+            best = min(best, time.perf_counter() - t0)
+        # exchanged payload: value plane + valid + row mask + pid
+        return best, total * (8 + 1 + 1 + 4)
+
+    rows = _ICI_PROBE_ROWS.get(mesh.devices[0].type, 1 << 14)
+    t1, b1 = timed(rows)
+    t2, b2 = timed(4 * rows)
+    if t2 > t1:
+        rate = (b2 - b1) / (t2 - t1)
+        return rate, max(t1 - b1 / rate, 0.0)
+    return b2 / max(t2, 1e-7), MESH_DISPATCH_S
+
+
+def _ici_profile() -> Tuple[float, float]:
+    global _ici
+    if _ici is not None:
+        return _ici
+    measured = None
+    with _ici_lock:
+        if _ici is not None:
+            return _ici
+        env = knobs.env_opt_float("DAFT_TORCH_ICI_MBPS")
+        if env is not None:
+            _ici = (env * 1e6, MESH_DISPATCH_S)
+            return _ici
+        try:
+            # daft-lint: allow(blocking-under-lock) -- intentional: one
+            # measurement per process; concurrent deciders wait for it
+            # instead of racing duplicate mesh probes
+            measured = _measure_ici()
+            _ici = measured
+        except RuntimeError:
+            # no mesh in this process: the calibrated (cross-process)
+            # rate beats the fallback once it has samples
+            _ici = (_cal("ICI_BPS", _ICI_FALLBACK_BPS), MESH_DISPATCH_S)
+    if measured is not None:
+        # fold only a real measurement into the persisted profile
+        from . import calibration
+        calibration.observe("ICI_BPS", measured[0])
+    return _ici
+
+
+def ici_bps() -> float:
+    """The measured (or overridden) mesh exchange rate, bytes/s: the
+    reference's ICI link, here a copy between shards' tensors."""
+    return _ici_profile()[0]
+
+
+def mesh_dispatch_s() -> float:
+    """The mesh exchange's measured fixed cost per dispatch, seconds."""
+    return _ici_profile()[1]
+
+
+def reset_ici_for_tests() -> None:
+    global _ici
+    with _ici_lock:
+        _ici = None
+
+
+def mesh_exchange_wins(rows: Optional[int], row_bytes: float = 32.0,
+                       n_shards: int = 2) -> bool:
+    """Admission for a local mesh collective (``DeviceExchangeAgg``, the
+    mesh hash repartition): the collective's dispatch plus its bytes over
+    the measured rate, against one host hash-partition pass over the same
+    bytes. Unknown ``rows`` accepts (the structural gates already vetted
+    the plan). ``DAFT_TORCH_MESH_MIN_ROWS`` overrides this in
+    ``parallel/mesh.py``. Logged under ``mesh_exchange``."""
+    if rows is None:
+        return True
+    if rows <= 0:
+        return False
+    nbytes = rows * max(row_bytes, 1.0)
+    host_s = nbytes / HOST_EXCHANGE_BPS
+    dev_s = mesh_dispatch_s() + nbytes / ici_bps()
+    _log("mesh_exchange", dev_s < host_s, host_s, dev_s,
+         rows=rows, row_bytes=row_bytes, n_shards=n_shards)
+    return dev_s < host_s
+
+
+def exchange_collective_wins(rows: Optional[int],
+                             row_bytes: float = 32.0) -> bool:
+    """A distributed hash boundary's collective path against the Flight
+    wire: one mesh dispatch plus the bytes over the mesh rate, against
+    IPC serialize + wire + deserialize per byte. With no cardinality
+    evidence the collective wins (``mesh.mesh_admits`` re-checks with
+    exact rows before dispatching). Logged under ``exchange_path``
+    ("device" = the collective family)."""
+    if not rows:
+        _log("exchange_path", True, 0.0, 0.0, rows=rows or 0)
+        return True
+    nbytes = rows * max(row_bytes, 1.0)
+    wire_s = nbytes * (2.0 / SHUFFLE_SER_BPS + 1.0 / shuffle_wire_bps())
+    coll_s = mesh_dispatch_s() + nbytes / ici_bps()
+    _log("exchange_path", coll_s < wire_s, wire_s, coll_s,
+         rows=rows, row_bytes=row_bytes)
+    return coll_s < wire_s
+
+
+def shuffle_combine_wins(rows: Optional[int], groups: Optional[int],
+                         num_partitions: int, n_cols: int = 4,
+                         bytes_per_col: float = 8.0,
+                         exact_groups: bool = False) -> bool:
+    """The map-side shuffle combine for a hash boundary feeding a
+    decomposable grouped aggregation: one extra grouped-agg pass over the
+    map output against the whole shuffle trip (IPC serialize, wire,
+    deserialize, reduce-side agg) of every row it eliminates (at most
+    ``groups x num_partitions`` states survive). Near-unique keys decline,
+    reductive group-bys accept; with no cardinality evidence it accepts.
+    Footer NDV (not ``exact_groups``) is damped by the calibrated
+    actual/footer ratio. Logged under ``shuffle_combine`` ("device" =
+    combine applied)."""
+    row_bytes = max(n_cols, 1) * bytes_per_col
+    if not rows or not groups:
+        _log("shuffle_combine", True, 0.0, 0.0, rows=rows or 0,
+             groups=groups or 0, num_partitions=num_partitions)
+        return True
+    if not exact_groups:
+        from . import calibration
+        groups = max(groups * calibration.ndv_ratio(), 1.0)
+    groups_out = min(rows, groups * max(num_partitions, 1))
+    saved_rows = max(rows - groups_out, 0)
+    per_byte_trip = (2.0 / SHUFFLE_SER_BPS + 1.0 / shuffle_wire_bps()
+                     + 1.0 / HOST_AGG_BPS)
+    saved_s = saved_rows * row_bytes * per_byte_trip
+    extra_s = rows * row_bytes / HOST_AGG_BPS
+    _log("shuffle_combine", saved_s > extra_s, extra_s, saved_s,
+         rows=rows, groups=groups, num_partitions=num_partitions)
+    return saved_s > extra_s
+
+
+def combine_wins_pure(rows: Optional[int], groups: Optional[int],
+                      num_partitions: int, n_cols: int = 4,
+                      bytes_per_col: float = 8.0) -> bool:
+    """:func:`shuffle_combine_wins` without damping, logging or side
+    effects: the runtime re-planner compares its evidence-priced decision
+    against this to count ``combine_flips``."""
+    if not rows or not groups:
+        return True
+    row_bytes = max(n_cols, 1) * bytes_per_col
+    groups_out = min(rows, groups * max(num_partitions, 1))
+    saved_rows = max(rows - groups_out, 0)
+    per_byte_trip = (2.0 / SHUFFLE_SER_BPS + 1.0 / shuffle_wire_bps()
+                     + 1.0 / HOST_AGG_BPS)
+    return saved_rows * row_bytes * per_byte_trip \
+        > rows * row_bytes / HOST_AGG_BPS
 
 
 # --------------------------------------------- out-of-core spill pricing

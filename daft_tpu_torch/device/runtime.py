@@ -163,6 +163,15 @@ _projection_cache: Dict[Tuple, object] = {}
 # threads run one projection over many morsels at once) produce ONE
 # compile, the others wait on the winner
 _compile_lock = threading.Lock()
+# One per-operator agg's device section at a time, as a join's
+# (``joins._device_lock``): the encode and its upload, the launches and
+# the one fetch. The executor's reducer threads share the card's stream,
+# where their launches would only interleave, and run concurrently their
+# allocations peak as the threads happen to overlap, so a repeat of a
+# query could need new device memory at a signature its first run
+# warmed. The gate before the section and the decode after it run in
+# parallel.
+_agg_device_lock = threading.Lock()
 _compile_inflight: Dict[Tuple, threading.Event] = {}
 _compile_counters: Dict[str, int] = {"hits": 0, "misses": 0, "compiles": 0,
                                      "waits": 0}
@@ -459,53 +468,59 @@ def try_agg(batch, to_agg: List[Expression], group_by: List[Expression]):
             host_bytes=_batch_cols_nbytes(batch, c.needs_cols),
             strategy=est)):
         return None
-    with retrace_sanitizer.dispatch_scope("runtime.agg", (id(c), cap)):
-        return _agg_dispatch(c, batch, device, specs, out_fields,
-                             key_fields, group_by, nk, cap)
+    return _agg_dispatch(c, batch, device, specs, out_fields, key_fields,
+                         group_by, nk, cap)
 
 
 def _agg_dispatch(c, batch, device, specs, out_fields, key_fields,
                   group_by, nk: int, cap: int):
-    """The per-operator agg's dispatch, under its retrace scope: encode,
-    the kernel of the strategy, one fetch, decode."""
+    """The per-operator agg's dispatch: encode, the kernel of the
+    strategy and one fetch under the device lock and the retrace scope,
+    then the decode."""
     from ..recordbatch import RecordBatch
     from . import costmodel, hash_kernels, kernels, mfu
     t0 = time.perf_counter()
-    dt, outs = _run_compiled(c, batch, device)
-    ops = tuple(s[0] for s in specs)
-    keys = tuple(v for v, _ in outs[:nk])
-    kvalids = tuple(m for _, m in outs[:nk])
-    vals = tuple(v for v, _ in outs[nk:])
-    vvalids = tuple(m for _, m in outs[nk:])
+    with _agg_device_lock, \
+            retrace_sanitizer.dispatch_scope("runtime.agg", (id(c), cap)):
+        dt, outs = _run_compiled(c, batch, device)
+        ops = tuple(s[0] for s in specs)
+        keys = tuple(v for v, _ in outs[:nk])
+        kvalids = tuple(m for _, m in outs[:nk])
+        vals = tuple(v for v, _ in outs[nk:])
+        vvalids = tuple(m for _, m in outs[nk:])
+        if nk == 0:
+            results = kernels.global_agg_impl(vals, vvalids, dt.row_mask,
+                                              ops)
+            count("agg_global")
+            # one device→host copy for every scalar
+            host = dcol.fetch_host([x.reshape(1) for r in results
+                                    for x in r])
+        else:
+            # the dispatch's strategy from the compiled key planes
+            strategy, load_factor = costmodel.groupby_strategy(
+                len(batch), None, [k.dtype for k in keys], cap, log=False,
+                device=device)
+            if strategy == "hash":
+                out = hash_kernels.hash_grouped_agg_impl(
+                    keys, kvalids, vals, vvalids, dt.row_mask, ops,
+                    out_cap=dt.capacity)
+            else:
+                out = kernels.grouped_agg_impl(keys, kvalids, vals,
+                                               vvalids, dt.row_mask, ops)
+            count("agg_" + strategy)
+            ok, okv, ov, ovv, g_t = out
+            planes = [g_t.reshape(1)] + [x for pair in zip(ok, okv)
+                                         for x in pair] \
+                + [x for pair in zip(ov, ovv) for x in pair]
+            host = dcol.fetch_host(planes)
     if nk == 0:
-        results = kernels.global_agg_impl(vals, vvalids, dt.row_mask, ops)
-        count("agg_global")
-        # one device→host copy for every scalar
-        host = dcol.fetch_host([x.reshape(1) for r in results for x in r])
         return RecordBatch.from_series([
             _decode_scalar(name, f.dtype, host[2 * i], host[2 * i + 1])
             for i, ((_, _, name, _), f) in enumerate(zip(specs,
                                                          out_fields))])
-    # the dispatch's strategy from the compiled key planes themselves
-    strategy, load_factor = costmodel.groupby_strategy(
-        len(batch), None, [k.dtype for k in keys], cap, log=False,
-        device=device)
-    if strategy == "hash":
-        out = hash_kernels.hash_grouped_agg_impl(
-            keys, kvalids, vals, vvalids, dt.row_mask, ops,
-            out_cap=dt.capacity)
-    else:
-        out = kernels.grouped_agg_impl(keys, kvalids, vals, vvalids,
-                                       dt.row_mask, ops)
-    count("agg_" + strategy)
     costmodel.log_strategy_decision("groupby_strategy", strategy,
                                     rows=len(batch), out_cap=cap,
                                     load_factor=load_factor)
-    ok, okv, ov, ovv, g_t = out
-    planes = [g_t.reshape(1)] + [x for pair in zip(ok, okv)
-                                 for x in pair] \
-        + [x for pair in zip(ov, ovv) for x in pair]
-    host = dcol.fetch_host(planes)
     g = int(host[0][0])
     if strategy == "hash":
         words = hash_kernels.hash_pack_words([k.dtype for k in keys]) or 2

@@ -137,7 +137,8 @@ class LocalExecutor:
         #: admission of host bytes: scan-task loads and the out-of-core
         #: work units (join bucket pairs), held to DAFT_TORCH_MEMORY_LIMIT
         self.host_mem = MemoryManager(memory.memory_limit_bytes())
-        #: stage-input bindings (``StageInput``); none until ROADMAP A7
+        #: stage-input bindings (``StageInput``): the distributed stage
+        #: runner's partition lists or lazy shuffle fetches
         self.stage_inputs: dict = {}
         self._aqe_planner = None
         self._shared: dict = {}
@@ -447,8 +448,9 @@ class LocalExecutor:
 
     def _exec_StageInput(self, node: pp.StageInput):
         """Another stage's output, from ``run``'s bindings (reference
-        ``executor.py:436``); the port binds none until ROADMAP A7, so the
-        stage reads as empty."""
+        ``executor.py:436``): a partition list, or a lazy fetch of shuffle
+        partitions (``distributed/worker.py``) whose emptiness is known
+        only once drained. No binding reads as empty."""
         parts = self.stage_inputs.get(node.stage_id)
         got = False
         for p in parts or ():
@@ -517,8 +519,8 @@ class LocalExecutor:
         """True when this Aggregate's child is a StageInput bound to a
         STREAMING fetch: the binding yields one morsel per map source (not
         hash-disjoint), so per-morsel aggregation would duplicate groups
-        and :meth:`_merge_agg_stream` re-merges instead. No binding
-        streams until ROADMAP A7."""
+        and :meth:`_merge_agg_stream` re-merges instead (the distributed
+        worker's multi-source fetch, ``distributed/worker.py``)."""
         ch = node.children[0] if node.children else None
         if not isinstance(ch, pp.StageInput):
             return False
@@ -1124,6 +1126,148 @@ class LocalExecutor:
             return
         yield MicroPartition.from_recordbatch(
             RecordBatch.concat(outs).cast_to_schema(node.schema()))
+
+    # the device mesh ------------------------------------------------
+    def _exec_DeviceExchangeAgg(self, node: pp.DeviceExchangeAgg):
+        """Shuffle and final merge as one mesh program (reference
+        ``executor.py:1206``): the partial group blocks are sharded over
+        the mesh, exchanged by key hash, merged, and decoded as one
+        disjoint group block per shard. A planned decline (encoding) runs
+        the host exchange and final aggregate translate would have
+        emitted."""
+        parts = memory.materialize(self._exec(node.children[0]),
+                                   memory.breaker_budget_bytes())
+        try:
+            outs = self._mesh_exchange_agg(node, parts)
+            if outs is not None:
+                yield from outs
+                return
+            n = max(min(len(parts),
+                        self.cfg.shuffle_aggregation_default_partitions), 1)
+            store = self._key_bucket_store(iter(parts),
+                                           list(node.group_by), n)
+            try:
+                yield from _ordered_parallel(
+                    self._emit_buckets(store, node.children[0].schema()),
+                    lambda p: MicroPartition.from_recordbatch(
+                        p.combined().agg(node.aggs, node.group_by)
+                        .cast_to_schema(node.schema())))
+            finally:
+                store.close()
+        finally:
+            parts.close()
+
+    def _mesh_exchange_agg(self, node, parts
+                           ) -> Optional[List[MicroPartition]]:
+        """→ one MicroPartition per shard, or None when the columns have
+        no plain device plane (the planned decline). A failure inside
+        the collective propagates (the reference falls back to the host
+        exchange there)."""
+        from ..aggs import split_agg_expr
+        from ..device import column as dcol
+        from ..parallel import exchange, mesh as pmesh
+        mesh = pmesh.get_mesh() if self.device is not None else None
+        if mesh is None or mesh.size < 2:
+            return None
+        rb = RecordBatch.concat([p.combined() for p in parts]) \
+            if len(parts) > 1 else parts[0].combined()
+        if len(rb) == 0:
+            return [MicroPartition.from_recordbatch(
+                RecordBatch.empty(node.schema()))]
+        key_names = [g.name() for g in node.group_by]
+        specs = [split_agg_expr(a) for a in node.aggs]
+        ops = tuple(sp[0] for sp in specs)
+        val_names = [sp[1]._unalias().params[0] for sp in specs]
+        out_names = [sp[2] for sp in specs]
+        n = mesh.size
+        total = len(rb)
+        # per-shard capacity padded to a size class, so row counts that
+        # differ only in the literal reuse one memoized program
+        C = dcol.bucket_capacity((total + n - 1) // n)
+        cap = n * C
+        encode = _np_plane_encoder(rb, cap)
+        kplanes = _encode_plane_lists(encode, key_names)
+        vplanes = _encode_plane_lists(encode, val_names)
+        if kplanes is None or vplanes is None:
+            return None
+        keys, kvalids, kdicts = kplanes
+        vals, vvalids, vdicts = vplanes
+        mask = np.arange(cap) < total
+        sb = lambda a: exchange.shard_blocks(mesh, a)  # noqa: E731
+        fk, fkv, fv, fvv, gmask = exchange.sharded_grouped_agg(
+            mesh, tuple(sb(k) for k in keys),
+            tuple(sb(k) for k in kvalids), tuple(sb(v) for v in vals),
+            tuple(sb(v) for v in vvalids), sb(mask), ops)
+        g = exchange.gather_blocks
+        _count_ici_exchange(total, list(keys) + list(vals),
+                            list(kvalids) + list(vvalids))
+        spec = [(nm, node.schema()[nm].dtype, g(fk[i]), g(fkv[i]),
+                 kdicts[i]) for i, nm in enumerate(key_names)]
+        spec += [(nm, node.schema()[nm].dtype, g(fv[j]), g(fvv[j]),
+                  vdicts[j]) for j, nm in enumerate(out_names)]
+        return _decode_mesh_shards(n, g(gmask), spec, node.schema())
+
+    def _mesh_hash_repartition(self, parts, by, n: int
+                               ) -> Optional[List[MicroPartition]]:
+        """Hash repartition as one all_to_all over the device mesh
+        (reference ``executor.py:1294``), when the target partition count
+        equals the mesh width and every column either round-trips the
+        device encoding bit-exactly or is string/binary (those ride
+        dictionary codes shared by every shard, see
+        :func:`_np_plane_encoder`). None on a planned decline: no mesh,
+        a declined admission, or a dtype that does not round-trip."""
+        from ..device import column as dcol
+        from ..parallel import exchange, mesh as pmesh
+        if self.device is None or n < 2 or n != pmesh.mesh_size():
+            return None
+        mesh = pmesh.get_mesh()
+        parts = list(parts)
+        if not parts:
+            return None
+        rb = RecordBatch.concat([p.combined() for p in parts]) \
+            if len(parts) > 1 else parts[0].combined()
+        # the cost model prices the exact bytes against the measured
+        # shard-to-shard rate (DAFT_TORCH_MESH_MIN_ROWS overrides; 0
+        # forces the mesh)
+        if not pmesh.mesh_admits(
+                len(rb), rb.size_bytes() / max(len(rb), 1)):
+            return None
+        schema = rb.schema
+        for f in schema:
+            if not (dcol.is_lossless_device_dtype(f.dtype)
+                    or f.dtype.is_string() or f.dtype.is_binary()):
+                return None
+        if len(rb) == 0:
+            return [MicroPartition.from_recordbatch(RecordBatch.empty(schema))
+                    for _ in range(n)]
+        total = len(rb)
+        C = dcol.bucket_capacity((total + n - 1) // n)
+        cap = n * C
+        # the destination from the SAME xxh64 chain as the host exchange
+        # (partition_by_hash), so co-partitioned joins agree across tiers
+        key_s = [rb.eval_expression(e) for e in by]
+        h = key_s[0].hash()
+        for k in key_s[1:]:
+            h = k.hash(seed=h)
+        pid = (h.to_numpy() % np.uint64(n)).astype(np.int32)
+        pid = np.concatenate([pid, np.zeros(cap - total, dtype=np.int32)])
+        encode = _np_plane_encoder(rb, cap)
+        names = schema.column_names
+        enc = _encode_plane_lists(encode, names)
+        if enc is None:
+            return None
+        planes, valids, dicts = enc
+        mask = np.arange(cap) < total
+        sb = lambda a: exchange.shard_blocks(mesh, a)  # noqa: E731
+        op, ov, om = exchange.sharded_hash_repartition(
+            mesh, tuple(sb(p) for p in planes),
+            tuple(sb(v) for v in valids), sb(mask), sb(pid))
+        g = exchange.gather_blocks
+        _count_ici_exchange(total, planes, valids)
+        spec = [(nm, schema[nm].dtype, g(op[j]), g(ov[j]), dicts[j])
+                for j, nm in enumerate(names)]
+        return _decode_mesh_shards(n, g(om), spec, schema)
+
     def _exec_Dedup(self, node: pp.Dedup):
         """Per partition: the hash exchange below puts every duplicate of
         ``on`` in one partition."""
@@ -1174,9 +1318,30 @@ class LocalExecutor:
             parts.close()
 
     def _hash_exchange_streaming(self, node, n: int):
-        """The reference's hash exchange without its device-mesh branch
-        (an all_to_all over the mesh, ROADMAP A7)."""
+        """Hash exchange (reference ``executor.py:1549``): when the device
+        mesh has exactly n shards the whole input repartitions as one
+        all_to_all over the mesh (:meth:`_mesh_hash_repartition`);
+        otherwise, or when that path declines, every morsel fans into the
+        streaming bucket store."""
+        from ..parallel import mesh as pmesh
         by = list(node.by)
+        if self.device is not None and n >= 2 \
+                and n == pmesh.mesh_size():
+            # the collective wants a partition list; a decline falls back
+            # to the streaming store over the same spill-bounded buffer
+            parts = memory.materialize(self._exec(node.children[0]),
+                                       memory.breaker_budget_bytes())
+            try:
+                mesh_out = self._mesh_hash_repartition(list(parts), by, n)
+                if mesh_out is not None:
+                    yield from mesh_out
+                    return
+                yield from self._fan_exchange_streaming(
+                    node, n, lambda mp, i: mp.partition_by_hash(by, n),
+                    stream=iter(parts))
+            finally:
+                parts.close()
+            return
         yield from self._fan_exchange_streaming(
             node, n, lambda mp, i: mp.partition_by_hash(by, n))
 
@@ -1796,6 +1961,77 @@ def _source_rows(plan) -> Optional[List[int]]:
 def _lit_true() -> Expression:
     from ..expressions.expressions import lit
     return lit(True)
+
+
+def _count_ici_exchange(rows: int, planes, valids) -> None:
+    """Account one completed mesh exchange in the shuffle data plane: the
+    encoded bytes that entered the all_to_all instead of the wire (shown
+    per query in ``explain(analyze=True)`` and at ``/metrics``)."""
+    from ..distributed.shuffle_service import shuffle_count
+    nbytes = sum(int(p.nbytes) for p in planes) \
+        + sum(int(v.nbytes) for v in valids)
+    shuffle_count("ici_exchanges")
+    shuffle_count("ici_rows", rows)
+    shuffle_count("ici_bytes", nbytes)
+
+
+def _encode_plane_lists(encode, names):
+    """Encode columns into parallel (values, valids, dictionaries) plane
+    lists; None when any column lacks a plain device plane."""
+    vals, valids, dicts = [], [], []
+    for nm in names:
+        enc = encode(nm)
+        if enc is None:
+            return None
+        vals.append(enc[0])
+        valids.append(enc[1])
+        dicts.append(enc[2])
+    return vals, valids, dicts
+
+
+def _decode_mesh_shards(n: int, live_mask: np.ndarray, cols_spec, schema
+                        ) -> List[MicroPartition]:
+    """Slice exchanged ``[n*C']`` planes into per-shard MicroPartitions.
+    cols_spec: ordered (name, dtype, values, valids, dictionary) tuples,
+    the dictionary set for string/binary columns riding codes."""
+    from ..device import column as dcol
+    shard_len = live_mask.shape[0] // n
+    outs = []
+    for i in range(n):
+        sl = slice(i * shard_len, (i + 1) * shard_len)
+        live = live_mask[sl]
+        cols = [dcol.decode_np(nm, dtype, v[sl][live], m[sl][live], d)
+                for nm, dtype, v, m, d in cols_spec]
+        outs.append(MicroPartition.from_recordbatch(
+            RecordBatch.from_series(cols).cast_to_schema(schema)))
+    return outs
+
+
+def _np_plane_encoder(rb: RecordBatch, cap: int):
+    """Column name → (values, validity, dictionary) numpy planes zero-padded
+    to ``cap``, or None when the column has no plain device plane.
+
+    String/binary columns ride dictionary codes. That is sound across
+    shards: every mesh path concatenates its partitions into ONE batch
+    before encoding, so all shards share one dictionary, and
+    ``column._np_encode`` ranks codes over the SORTED dictionary, so code
+    order is lexicographic order (min/max on codes is correct)."""
+    import pyarrow as pa
+    from ..device import column as dcol
+
+    def encode(name):
+        try:
+            vals, valid, dictionary = dcol._np_encode(rb.get_column(name))
+        except (ValueError, TypeError, pa.ArrowInvalid):
+            return None
+        if len(vals) < cap:
+            vals = np.concatenate(
+                [vals, np.zeros(cap - len(vals), dtype=vals.dtype)])
+            valid = np.concatenate(
+                [valid, np.zeros(cap - len(valid), dtype=np.bool_)])
+        return vals, valid, dictionary
+
+    return encode
 
 
 def _gather_all_or_empty(parts: Iterator[MicroPartition],

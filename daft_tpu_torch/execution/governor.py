@@ -162,15 +162,17 @@ def watermarks(cfg=None) -> tuple:
 
 
 def enabled(cfg=None) -> bool:
-    """Governor active: a memory limit exists and ``DAFT_TORCH_GOVERNOR``
-    isn't off. The reference also freezes it under a chaos fault plan
-    (replayed plans must not depend on the recording machine's RSS); the
-    port has no chaos plan until ROADMAP A7/A8, so that check always
-    reads "no chaos plan"."""
+    """Governor active: a memory limit exists, ``DAFT_TORCH_GOVERNOR``
+    isn't off, and the chaos-determinism freeze is not on
+    (``calibration.frozen``: a replayed plan must not depend on the
+    recording machine's RSS)."""
     from .. import knobs
+    from ..device.calibration import frozen
     if not knobs.env_bool("DAFT_TORCH_GOVERNOR"):
         return False
-    return limit_bytes() is not None
+    if limit_bytes() is None:
+        return False
+    return not frozen()
 
 
 def pressure() -> float:

@@ -35,9 +35,13 @@ _MAX_POOL = 8
 def spill_io_parallelism(cfg=None) -> int:
     """``DAFT_TORCH_SPILL_IO_PARALLELISM``: concurrent spill write/read
     tasks (default ``ExecutionConfig.spill_io_parallelism``, 4); ``0`` =
-    the serial path. (The reference also forces 0 under a chaos fault
-    plan; the port has none until ROADMAP A7/A8.)"""
+    the serial path. Chaos serialization or an active fault plan force 0:
+    a chaos replay takes the recorded serial path verbatim."""
     from .. import knobs
+    from ..distributed.resilience import active_fault_plan
+    if knobs.env_bool("DAFT_TORCH_CHAOS_SERIALIZE") \
+            or active_fault_plan() is not None:
+        return 0
     v = knobs.env_opt_int("DAFT_TORCH_SPILL_IO_PARALLELISM")
     if v is None:
         if cfg is None:

@@ -150,11 +150,17 @@ def infer_head_bytes() -> int:
 
 
 def scan_sequential_fallback() -> bool:
-    """True when the scan must take the sequential whole-task path: today
-    only ``DAFT_TORCH_SCAN_PREFETCH=0``. The reference also degrades under
-    chaos serialization and an active fault plan; those wait for the
-    port's resilience plane (ROADMAP A7)."""
-    return scan_prefetch_tasks() <= 0
+    """True when the scan must take the sequential whole-task path:
+    ``DAFT_TORCH_SCAN_PREFETCH=0``, ``DAFT_TORCH_CHAOS_SERIALIZE=1`` or an
+    active fault plan (the chaos replay contract wants the injected-fault
+    exposure and event order of the sequential scan loop)."""
+    from .. import knobs
+    from ..distributed.resilience import active_fault_plan
+    if scan_prefetch_tasks() <= 0:
+        return True
+    if knobs.env_bool("DAFT_TORCH_CHAOS_SERIALIZE"):
+        return True
+    return active_fault_plan() is not None
 
 
 # -------------------------------------------------------------- planning

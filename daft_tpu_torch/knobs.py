@@ -270,6 +270,132 @@ _KNOBS: List[Knob] = [
     _k("DAFT_TORCH_SLOW_QUERY_MS", "float", 0.0, "daft_tpu_torch/tracing.py",
            "observability", 'wall time past which a flight-recorder entry is flagged `slow` '
            '(`0`: never)'),
+    # ------------------------------------------------- distributed
+    _k("DAFT_TORCH_RUNNER", "str", "native", "daft_tpu_torch/context.py",
+       "distributed", "`native` (the local engine) or `distributed` (the "
+       "stage runner over in-process workers, "
+       "`runners/distributed_runner.py`); `set_runner` wins"),
+    _k("DAFT_TORCH_NUM_WORKERS", "int", 0,
+       "daft_tpu_torch/runners/distributed_runner.py", "distributed",
+       "distributed-runner worker count (`0` = auto from the CPU count)",
+       default_str="auto"),
+    _k("DAFT_TORCH_MESH_DEVICES", "int", None,
+       "daft_tpu_torch/parallel/mesh.py", "distributed",
+       "shards of the device mesh, placed round-robin over the visible "
+       "devices of the query's device type (all on `cuda:0` with one card, "
+       "all on `cpu` under `DAFT_TORCH_DEVICE=cpu`); unset: one per visible "
+       "CUDA device, so one card (or none) means no mesh",
+       default_str="device count"),
+    _k("DAFT_TORCH_MESH_MIN_ROWS", "int", None,
+       "daft_tpu_torch/parallel/mesh.py", "distributed",
+       "force-override of mesh admission: `0` forces the mesh path, `N` "
+       "needs at least N rows; unset: the cost model prices the collective "
+       "from the measured shard-to-shard copy rate "
+       "(`DAFT_TORCH_ICI_MBPS`)", default_str="cost model"),
+    _k("DAFT_TORCH_ICI_MBPS", "float", None,
+       "daft_tpu_torch/device/costmodel.py", "distributed",
+       "override the measured shard-to-shard exchange rate (MB/s) that "
+       "mesh admission and the exchange-path choice price against",
+       default_str="measured"),
+    _k("DAFT_TORCH_ADAPTIVE", "bool", False,
+       "daft_tpu_torch/distributed/replan.py", "distributed",
+       "`1`: the distributed runtime re-planner folds each boundary's "
+       "measured rows, bytes and key NDV into the stages not yet "
+       "dispatched", config_field="adaptive"),
+    _k("DAFT_TORCH_DISTRIBUTED_SHUFFLE", "str", "flight",
+       "daft_tpu_torch/distributed/scheduler.py", "distributed",
+       "`driver` routes stage boundaries through the driver instead of "
+       "the worker-to-worker shuffle plane"),
+    _k("DAFT_TORCH_SHUFFLE_TRANSPORT", "str", "flight",
+       "daft_tpu_torch/distributed/shuffle_service.py", "distributed",
+       "`flight` (Arrow Flight, where `pyarrow.flight` imports) or `http` "
+       "partition transport"),
+    _k("DAFT_TORCH_SHUFFLE_HOST", "str", "127.0.0.1",
+       "daft_tpu_torch/distributed/shuffle_service.py", "distributed",
+       "bind address of the per-process partition server (`0.0.0.0` "
+       "serves other hosts)"),
+    _k("DAFT_TORCH_SHUFFLE_ADVERTISE", "str", None,
+       "daft_tpu_torch/distributed/shuffle_service.py", "distributed",
+       "address peers are told to fetch from (default: the bind host, or "
+       "`127.0.0.1` when bound to `0.0.0.0`)", default_str="bind host"),
+    _k("DAFT_TORCH_SHUFFLE_COMPRESSION", "str", "lz4",
+       "daft_tpu_torch/distributed/shuffle_service.py", "distributed",
+       "`lz4`/`zstd`/`none` IPC buffer compression of shuffle spill and "
+       "wire; `none` where the codec is missing from the pyarrow build"),
+    _k("DAFT_TORCH_SHUFFLE_FETCH_PARALLELISM", "int", 4,
+       "daft_tpu_torch/distributed/worker.py", "distributed",
+       "per-source fetch concurrency of a reduce task's stage input; "
+       "`DAFT_TORCH_CHAOS_SERIALIZE=1` forces 1 and an active "
+       "`DAFT_TORCH_FAULT_SPEC` defaults it to 1"),
+    _k("DAFT_TORCH_SHUFFLE_COMBINE", "str", "auto",
+       "daft_tpu_torch/distributed/scheduler.py", "distributed",
+       "map-side combine: `auto` (cost-model gated), `1` force, `0` off"),
+    _k("DAFT_TORCH_SHUFFLE_WIRE_MBPS", "float", 1000.0,
+       "daft_tpu_torch/device/costmodel.py", "distributed",
+       "wire bandwidth the combine and exchange-path cost models assume"),
+    _k("DAFT_TORCH_WORKER_TOPOLOGY", "str", None,
+       "daft_tpu_torch/distributed/topology.py", "distributed",
+       "mesh-group spec `name=w0,w1;name2=w2` naming which workers share "
+       "a device mesh; unset autodetects (all in-process workers share "
+       "the process mesh when one is up, else each worker is its own "
+       "group)", config_field="worker_topology", default_str="autodetect"),
+    _k("DAFT_TORCH_EXCHANGE_PATH", "str", "auto",
+       "daft_tpu_torch/distributed/topology.py", "distributed",
+       "hash-boundary exchange path: `collective` (the mesh all_to_all), "
+       "`hierarchical` (collective inside a mesh, one stream per mesh), "
+       "`flight` (per-worker streams) or `auto` (topology and cost model; "
+       "chaos serialization forces `flight`)",
+       config_field="exchange_path"),
+    _k("DAFT_TORCH_SHUFFLE_TIMEOUT", "float", 600.0,
+       "daft_tpu_torch/distributed/shuffle_service.py", "distributed",
+       "seconds a partition fetch may take before it fails as retryable"),
+    _k("DAFT_TORCH_SHUFFLE_TTL", "float", 86400.0,
+       "daft_tpu_torch/distributed/shuffle_service.py", "distributed",
+       "idle seconds before an orphaned shuffle directory is swept when "
+       "the first shuffle server of a process starts"),
+    # -------------------------------------------------- resilience
+    _k("DAFT_TORCH_FAULT_SPEC", "str", None,
+       "daft_tpu_torch/distributed/resilience.py", "resilience",
+       "comma-separated `site:rate[:N][:sticky]` seeded fault-injection "
+       "spec (`task`/`fetch`/`crash`/`rpc` sites)"),
+    _k("DAFT_TORCH_FAULT_SEED", "str", "0",
+       "daft_tpu_torch/distributed/resilience.py", "resilience",
+       "seed hashed into every fault-injection decision (same seed, same "
+       "fault events)"),
+    _k("DAFT_TORCH_CHAOS_SERIALIZE", "bool", False,
+       "daft_tpu_torch/distributed/worker.py", "resilience",
+       "`1` runs one task (with its retries) at a time and takes the "
+       "sequential fetch and scan paths, so chaos runs replay "
+       "bit-identically"),
+    _k("DAFT_TORCH_MAX_RETRIES", "int", 3,
+       "daft_tpu_torch/distributed/resilience.py", "resilience",
+       "bounded per-task retry budget"),
+    _k("DAFT_TORCH_RETRY_BACKOFF", "float", 0.05,
+       "daft_tpu_torch/distributed/resilience.py", "resilience",
+       "retry backoff base seconds (deterministic jitter on top)"),
+    _k("DAFT_TORCH_RETRY_BACKOFF_CAP", "float", 2.0,
+       "daft_tpu_torch/distributed/resilience.py", "resilience",
+       "retry backoff cap seconds"),
+    _k("DAFT_TORCH_QUARANTINE_AFTER", "int", 3,
+       "daft_tpu_torch/distributed/resilience.py", "resilience",
+       "consecutive failures that quarantine a worker"),
+    _k("DAFT_TORCH_QUARANTINE_S", "float", 30.0,
+       "daft_tpu_torch/distributed/resilience.py", "resilience",
+       "quarantine seconds (timed re-admission; placement never empties)"),
+    _k("DAFT_TORCH_TASK_TIMEOUT", "float", 0.0,
+       "daft_tpu_torch/distributed/resilience.py", "resilience",
+       "seconds before a hung task attempt is abandoned as retryable "
+       "(`0` = off)"),
+    _k("DAFT_TORCH_SPECULATIVE_MULTIPLIER", "float", 4.0,
+       "daft_tpu_torch/distributed/resilience.py", "resilience",
+       "speculation trigger: this multiple of the median finished "
+       "sibling's duration (`0` = off)"),
+    _k("DAFT_TORCH_SPECULATIVE_MIN_S", "float", 0.5,
+       "daft_tpu_torch/distributed/resilience.py", "resilience",
+       "minimum task age before speculation is considered"),
+    _k("DAFT_TORCH_WORKER_TIMEOUT", "float", 3600.0,
+       "daft_tpu_torch/distributed/remote_worker.py", "resilience",
+       "remote-worker RPC timeout seconds"),
     # ---------------------------------------------------- analysis
     _k("DAFT_TORCH_FUZZ_SEED", "int", 0, "daft_tpu_torch/analysis/plan_fuzzer.py",
            "analysis", 'base seed of the plan fuzzer (`python -m '

@@ -35,6 +35,17 @@ class MicroPartition:
         self._meta_bytes = metadata_size_bytes
         self._lock = threading.Lock()
 
+    def __getstate__(self):
+        # partitions cross process boundaries (remote workers); the load
+        # lock is per-process state
+        d = self.__dict__.copy()
+        d.pop("_lock", None)
+        return d
+
+    def __setstate__(self, d):
+        self.__dict__.update(d)
+        self._lock = threading.Lock()
+
     # ---- constructors ----------------------------------------------------
     @classmethod
     def from_recordbatch(cls, rb: RecordBatch) -> "MicroPartition":

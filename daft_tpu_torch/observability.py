@@ -8,8 +8,10 @@ reference engine's ``runtime_stats.rs``, ``common/tracing`` and
 - per-operator rows / batches / wall (:class:`RuntimeStatsContext`,
   rendered by ``DataFrame.explain(analyze=True)``);
 - per-query blocks of the shared planes — ``device kernels`` (the
-  costmodel ledger), ``io`` (the scan plane), ``spill``, ``adaptive`` and
-  ``governor`` — credited through thread attribution (:func:`attributed`,
+  costmodel ledger), ``recovery`` (the distributed resilience events),
+  ``shuffle`` (the shuffle data plane and the mesh exchanges), ``io``
+  (the scan plane), ``spill``, ``adaptive`` and ``governor`` — credited
+  through thread attribution (:func:`attributed`,
   :func:`bump_plane`), so two overlapping queries never read each
   other's counters;
 - ``DAFT_TORCH_CHROME_TRACE``: a chrome://tracing JSON of the last
@@ -26,9 +28,11 @@ reference engine's ``runtime_stats.rs``, ``common/tracing`` and
   device memory at the declared dispatch sites, and kernel launches) and
   ``plansan`` (plan-contract checks and violations).
 
-Blocks of the reference that wait for the modules they read: ``recovery``,
-``shuffle`` and ``exchange`` (the distributed tier, ROADMAP A7);
-``serving`` (the serving plane, A8).
+- ``exchange``: the mesh exchange program memo's hits and misses
+  (``parallel/exchange.py``), diffed process-wide like the sanitizers.
+
+The reference's ``serving`` block waits for the serving plane (ROADMAP
+A8).
 """
 
 from __future__ import annotations
@@ -137,6 +141,27 @@ def _ledger_raw() -> Dict[str, dict]:
 def _spill_raw() -> Dict[str, float]:
     from .execution import memory
     return memory.spill_counters_snapshot()
+
+
+def _recovery_raw() -> Dict[str, int]:
+    """The distributed resilience counters (retries, quarantines,
+    recomputed map tasks, speculative wins and losses)."""
+    from .distributed import resilience
+    return resilience.counters_snapshot()
+
+
+def _shuffle_raw() -> Dict[str, float]:
+    """The shuffle data-plane counters (bytes written and fetched, the
+    combine's rows, fetch walls, exchange paths, mesh exchanges)."""
+    from .distributed import shuffle_service
+    return shuffle_service.shuffle_counters_snapshot()
+
+
+def _exchange_raw() -> Dict[str, float]:
+    """The mesh exchange program memo's hit and miss counters."""
+    from .parallel import exchange
+    c = exchange.exchange_cache_counters()
+    return {k: float(v) for k, v in c.items() if k != "entries"}
 
 
 def _scan_io_raw() -> Dict[str, float]:
@@ -254,6 +279,14 @@ class RuntimeStatsContext:
         # thread was ever attributed to
         self._ledger0 = _ledger_raw()
         self.device_kernels: Dict[str, dict] = {}
+        self._recovery0 = _recovery_raw()
+        self.recovery: Dict[str, int] = {}
+        self._shuffle0 = _shuffle_raw()
+        self.shuffle: Dict[str, float] = {}
+        # the program memo is shared engine state: diffed, never
+        # attributed (concurrent queries legitimately share its hits)
+        self._exchange0 = _exchange_raw()
+        self.exchange: Dict[str, float] = {}
         self._io0 = _scan_io_raw()
         self.io: Dict[str, float] = {}
         self._spill0 = _spill_raw()
@@ -333,6 +366,7 @@ class RuntimeStatsContext:
 
     def finish(self):
         from .device import costmodel
+        from .distributed import resilience, shuffle_service
         from .execution import governor, memory
         from .io import read_planner
         from .physical import adaptive
@@ -343,6 +377,9 @@ class RuntimeStatsContext:
         if self._attributed:
             self.device_kernels = costmodel.ledger_from_tallies(
                 self._plane("device_kernels"))
+            self.recovery = {k: int(v)
+                             for k, v in self._plane("recovery").items()}
+            self.shuffle = self._plane("shuffle")
             self.io = self._plane("io")
             self.spill = self._plane("spill")
             self.adaptive = self._plane("adaptive")
@@ -350,6 +387,10 @@ class RuntimeStatsContext:
         else:
             self.device_kernels = costmodel.ledger_delta(
                 self._ledger0, _ledger_raw())
+            self.recovery = resilience.counters_delta(
+                self._recovery0, _recovery_raw())
+            self.shuffle = shuffle_service.shuffle_counters_delta(
+                self._shuffle0, _shuffle_raw())
             self.io = read_planner.scan_counters_delta(
                 self._io0, _scan_io_raw())
             self.spill = memory.spill_counters_delta(
@@ -358,6 +399,10 @@ class RuntimeStatsContext:
                 self._adaptive0, _adaptive_raw())
             self.governor = governor.counters_delta(
                 self._governor0, _governor_raw())
+        after_ex = _exchange_raw()
+        self.exchange = {k: v - self._exchange0.get(k, 0)
+                         for k, v in after_ex.items()
+                         if v - self._exchange0.get(k, 0)}
         # the RSS gauges ride the governor block regardless of
         # attribution: peak RSS is process state, not traffic
         self.governor["rss_peak_bytes"] = float(governor.peak_rss_bytes())
@@ -433,6 +478,12 @@ class RuntimeStatsContext:
                              f"batches={st.batches_out} "
                              f"total={st.inclusive_us / 1e6:.3f}s")
         lines.extend(render_device_kernels_block(self.device_kernels))
+        if self.recovery:
+            lines.append("resilience (recovery events):")
+            for k, v in sorted(self.recovery.items()):
+                lines.append(f"  {k}: {v}")
+        lines.extend(render_shuffle_block(self.shuffle))
+        lines.extend(render_exchange_block(self.exchange))
         lines.extend(render_adaptive_block(self.adaptive))
         lines.extend(render_io_block(self.io))
         lines.extend(render_spill_block(self.spill))
@@ -531,6 +582,63 @@ def render_adaptive_block(d: Dict[str, float]) -> List[str]:
         lines.append("  calibrated constants (overriding defaults): "
                      + ", ".join(cal_names))
     return lines
+
+
+def render_shuffle_block(sh: Dict[str, float]) -> List[str]:
+    """Human lines for one query's shuffle data-plane delta (shared by
+    ``explain(analyze=True)`` and the dashboard): wire against raw bytes
+    (the compression ratio), the combine's row reduction, the parallel
+    fetch's wall against its serial-equivalent sum, the exchange paths
+    and the mesh exchanges."""
+    if not sh:
+        return []
+    lines = ["shuffle (data plane):"]
+    written = sh.get("bytes_written", 0)
+    raw = sh.get("bytes_pushed_raw", 0)
+    if written or raw:
+        ratio = f", {raw / written:.2f}x compression" if written else ""
+        lines.append(f"  written: {_fmt_bytes(written)} wire "
+                     f"({_fmt_bytes(raw)} raw{ratio}), "
+                     f"rows={int(sh.get('rows_pushed', 0))}")
+    cin, cout = sh.get("combine_rows_in", 0), sh.get("combine_rows_out", 0)
+    if cin:
+        red = f" ({cin / cout:.1f}x reduction)" if cout else ""
+        lines.append(f"  combine: {int(cin)} -> {int(cout)} rows{red}")
+    fetched = sh.get("bytes_fetched", 0)
+    if fetched or sh.get("fetches"):
+        wall = sh.get("fetch_span_us", 0) / 1e6
+        serial = sh.get("fetch_wall_us", 0) / 1e6
+        overlap = f", wall {wall:.3f}s vs serial-equivalent " \
+                  f"{serial:.3f}s" if wall else \
+                  f", serial {serial:.3f}s"
+        lines.append(f"  fetched: {_fmt_bytes(fetched)} in "
+                     f"{int(sh.get('fetches', 0))} fetches{overlap}")
+    paths = {p: int(sh.get(f"exchange_path_{p}", 0))
+             for p in ("collective", "hierarchical", "flight")}
+    if any(paths.values()):
+        lines.append("  exchange paths: " + ", ".join(
+            f"{p}={n}" for p, n in paths.items() if n))
+    if sh.get("ici_exchanges"):
+        lines.append(
+            f"  mesh: {_fmt_bytes(sh.get('ici_bytes', 0))} in "
+            f"{int(sh.get('ici_exchanges', 0))} collective exchanges "
+            f"({int(sh.get('ici_rows', 0))} rows over the mesh, "
+            f"not the wire)")
+    if sh.get("hierarchical_streams"):
+        lines.append(f"  hierarchical: "
+                     f"{int(sh.get('hierarchical_streams', 0))} "
+                     f"per-mesh stream(s)")
+    return lines
+
+
+def render_exchange_block(ex: Dict[str, float]) -> List[str]:
+    """Human lines for one query's mesh exchange program-memo delta: the
+    evidence that same-shape exchanges reused one program."""
+    if not ex:
+        return []
+    return ["exchange programs (collective cache):",
+            "  " + ", ".join(f"{k}={int(v)}"
+                             for k, v in sorted(ex.items()))]
 
 
 def render_spill_block(d: Dict[str, float]) -> List[str]:
@@ -960,7 +1068,8 @@ def flight_entry(ctx: RuntimeStatsContext) -> dict:
                      and wall_us / 1e3 > slow_ms),
         "operators": ctx.as_dict(),
     }
-    for block in ("io", "spill", "governor", "adaptive", "device_kernels",
+    for block in ("recovery", "shuffle", "exchange", "io", "spill",
+                  "governor", "adaptive", "device_kernels",
                   "sanitizer", "retrace", "plansan"):
         v = getattr(ctx, block, None)
         if v:

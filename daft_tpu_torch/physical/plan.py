@@ -89,6 +89,23 @@ class DeviceFragmentAgg(PhysicalPlan):
         self.group_ndv: Optional[float] = None
 
 
+class DeviceExchangeAgg(PhysicalPlan):
+    """Shuffle and final aggregate as one mesh program (reference
+    ``daft_tpu/physical/plan.py:123``): the child's partial group blocks
+    are sharded over the device mesh, exchanged by key hash with the
+    all_to_all of ``parallel/exchange.py`` and merged
+    (``sharded_grouped_agg``). Replaces the host Exchange(hash) and final
+    Aggregate pair when every key and partial value has a device plane
+    and every final op merges with itself. Yields one partition per mesh
+    shard (disjoint key sets); the host pair runs at execution when the
+    encoding declines."""
+
+    def __init__(self, child, aggs, group_by, schema):
+        super().__init__([child], schema)
+        self.aggs = aggs          # final-merge aggs over partial columns
+        self.group_by = group_by
+
+
 class Dedup(PhysicalPlan):
     """Rows unique over ``on``, per partition of its child: the translator
     puts a hash ``Exchange`` on ``on`` under it, so every duplicate meets
@@ -230,8 +247,8 @@ class Sample(PhysicalPlan):
 class StageInput(PhysicalPlan):
     """Leaf standing for another stage's exchanged output (reference:
     flotilla's PreviousStageScan seam). The executor resolves it from the
-    stage-input bindings given to ``run``; the port's only binding is
-    empty until the distributed runner (ROADMAP A7)."""
+    stage-input bindings the distributed stage runner gives ``run``
+    (``distributed/stages.py`` cuts the plan at every Exchange)."""
 
     def __init__(self, stage_id: int, schema: Schema):
         super().__init__([], schema)

@@ -283,7 +283,19 @@ def _translate_agg(node: lp.Aggregate) -> pp.PhysicalPlan:
     gb2 = [col(e.name()) for e in node.group_by]
     f_schema = _agg_schema(gb2, final_aggs, p1_schema)
     est_rows = lstats.estimate(child).rows
-    p2 = _try_mesh_exchange_agg(p1, final_aggs, gb2, f_schema)
+    # footer-backed output-cardinality estimate (the reference's
+    # translate.py:299-310; the max over keys is a lower bound on the
+    # groups) with the raw row estimate beside it; the fused fragment
+    # feeds it to the cost model's hash-vs-sort choice (under the mesh
+    # exchange too), the push executor to its partitioned-agg admission
+    ndvs = [v for v in (lstats.column_ndv_footer(child, e.name(),
+                                                 est_rows=est_rows)
+                        for e in node.group_by) if v is not None]
+    group_ndv = max(ndvs) if ndvs else None
+    if isinstance(p1, pp.DeviceFragmentAgg):
+        p1.group_ndv, p1.group_rows_est = group_ndv, est_rows
+    p2 = _try_mesh_exchange_agg(p1, final_aggs, gb2, p1_schema, f_schema,
+                                est_rows)
     if p2 is None:
         if node.group_by:
             ex = pp.Exchange(
@@ -295,29 +307,48 @@ def _translate_agg(node: lp.Aggregate) -> pp.PhysicalPlan:
         else:
             ex = pp.Exchange(p1, "gather", 1)
         p2 = pp.Aggregate(ex, final_aggs, gb2, f_schema, "final")
-        # footer-backed output-cardinality estimate (the reference's
-        # translate.py:299-310; the max over keys is a lower bound on the
-        # groups) with the raw row estimate beside it; the fused fragment
-        # feeds it to the cost model's hash-vs-sort choice, the push
-        # executor to its partitioned-agg admission
-        ndvs = [v for v in (lstats.column_ndv_footer(child, e.name(),
-                                                     est_rows=est_rows)
-                            for e in node.group_by) if v is not None]
-        p2.group_ndv = max(ndvs) if ndvs else None
-        p2.group_rows_est = est_rows
-        if isinstance(p1, pp.DeviceFragmentAgg):
-            p1.group_ndv, p1.group_rows_est = p2.group_ndv, est_rows
+        p2.group_ndv, p2.group_rows_est = group_ndv, est_rows
     proj = [col(e.name()) for e in node.group_by] + final_proj
     return pp.Project(p2, proj, node.schema())
 
 
-def _try_mesh_exchange_agg(p1, final_aggs, gb2, f_schema: Schema
+def _try_mesh_exchange_agg(p1, final_aggs, gb2, p1_schema: Schema,
+                           f_schema: Schema, est_rows=None
                            ) -> Optional[pp.PhysicalPlan]:
-    """The reference's shuffle and final merge as one collective program
-    over a device mesh (``DeviceExchangeAgg``). The port has no mesh until
-    the distributed slice (ROADMAP A7), so the host exchange and final
-    aggregate always run."""
-    return None
+    """The shuffle and final merge as one collective program over the
+    device mesh (``DeviceExchangeAgg``, reference ``translate.py:315``),
+    when statically sound: a grouped (not global) agg, a mesh of two or
+    more shards, admission by ``mesh.mesh_admits`` over the estimated
+    rows, every group key and partial value either round-tripping the
+    device encoding bit-exactly or string/binary (shared dictionary
+    codes), and every final op in ``MERGEABLE_OPS``. None otherwise: the
+    host exchange and final aggregate run."""
+    from ..aggs import split_agg_expr
+    from ..device import column as dcol
+    from ..parallel import mesh as pmesh
+    from ..parallel.exchange import MERGEABLE_OPS
+    if not gb2 or pmesh.mesh_size() < 2:
+        return None
+    row_bytes = 8.0 * max(len(gb2) + len(final_aggs), 1)
+    if not pmesh.mesh_admits(est_rows, row_bytes):
+        return None
+
+    def exchangeable(dtype) -> bool:
+        return (dcol.is_lossless_device_dtype(dtype)
+                or dtype.is_string() or dtype.is_binary())
+
+    for g in gb2:
+        if not exchangeable(p1_schema[g.name()].dtype):
+            return None
+    for a in final_aggs:
+        op, child_e, _name, _params = split_agg_expr(a)
+        if op not in MERGEABLE_OPS:
+            return None
+        if child_e is None or child_e._unalias().op != "col":
+            return None
+        if not exchangeable(p1_schema[child_e._unalias().params[0]].dtype):
+            return None
+    return pp.DeviceExchangeAgg(p1, final_aggs, gb2, f_schema)
 
 
 def _try_fuse_partial(pchild: pp.PhysicalPlan, partial_aggs, group_by,

@@ -16,7 +16,9 @@ layers that carry stats hooks:
 
 The wire helpers (:func:`wire_headers`, :func:`context_from_headers`,
 :func:`remote_context`, ``SpanRecorder.add_remote``'s clock-offset merge)
-are pure functions kept for the distributed tier (ROADMAP A7).
+carry spans across the distributed tier's process boundaries: the
+shuffle fetch headers and the remote worker's shipped spans
+(``distributed/remote_worker.py``).
 
 Exports: a Chrome trace JSON (perfetto-loadable) per query
 (``DAFT_TORCH_TRACE_DIR``), OTLP spans (``DAFT_TORCH_OTLP_ENDPOINT``,
@@ -594,21 +596,23 @@ def _prom_name(prefix: str, raw: str) -> str:
 
 def prometheus_text() -> str:
     """Process-wide counters and gauges in Prometheus text exposition
-    format: the scan-io, spill, governor (with the RSS gauges), adaptive,
-    calibration, observability-export and device-kernel planes, plus the
-    active-trace and flight-recorder gauges.
+    format: the shuffle, scan-io, spill, governor (with the RSS gauges),
+    recovery, adaptive, calibration, exchange (with the memoized-program
+    and in-flight collective gauges), observability-export and
+    device-kernel planes, plus the active-trace and flight-recorder
+    gauges.
 
     The ``retrace`` and ``plansan`` planes carry the sanitizers' counters
-    (empty unless armed). Planes of the reference whose modules the port
-    does not have yet are left out, not skipped behind a caught import:
-    ``shuffle``, ``recovery``, ``exchange`` and ``topology`` come with the
-    distributed tier (ROADMAP A7); ``fleet`` and the ``serving`` gauges
-    with the serving plane (A8)."""
+    (empty unless armed). The reference's ``fleet`` plane and ``serving``
+    gauges come with the serving plane (ROADMAP A8); they are left out,
+    not skipped behind a caught import."""
     from . import observability as obs
     from .analysis import plan_sanitizer, retrace_sanitizer
     from .device import calibration, costmodel
+    from .distributed import resilience, shuffle_service, topology
     from .execution import governor, memory
     from .io import read_planner
+    from .parallel import exchange
     from .physical import adaptive
 
     lines: List[str] = []
@@ -629,6 +633,8 @@ def prometheus_text() -> str:
             emit(_prom_name(prefix, k) + "_total", counters[k],
                  "counter", f"{help_} ({k})")
 
+    plane("shuffle", shuffle_service.shuffle_counters_snapshot(),
+          "shuffle data-plane counter")
     plane("io", read_planner.scan_counters_snapshot(),
           "scan-plane io counter")
     plane("spill", memory.spill_counters_snapshot(),
@@ -645,6 +651,8 @@ def prometheus_text() -> str:
              "gauge", "configured DAFT_TORCH_MEMORY_LIMIT budget")
     emit("daft_torch_governor_pressured", snap["pressured"], "gauge",
          "1 while RSS sits inside the governor's hysteresis band")
+    plane("recovery", resilience.counters_snapshot(),
+          "resilience recovery counter")
     plane("adaptive", adaptive.counters_snapshot(),
           "self-tuning feedback counter")
     if calibration.enabled():
@@ -652,6 +660,13 @@ def prometheus_text() -> str:
              len(calibration.calibrated_names()), "gauge",
              "cost-model constants currently overridden by the "
              "calibrated profile")
+    ex = exchange.exchange_cache_counters()
+    emit("daft_torch_exchange_programs", ex.pop("entries", 0), "gauge",
+         "memoized mesh exchange programs resident")
+    plane("exchange", ex, "mesh exchange program-memo counter")
+    emit("daft_torch_exchange_collective_inflight",
+         topology.collective_inflight(), "gauge",
+         "collective exchange groups currently in flight")
     plane("obs", obs.obs_counters_snapshot(),
           "observability export counter")
     plane("retrace", retrace_sanitizer.counters_snapshot(),

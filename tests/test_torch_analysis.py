@@ -25,6 +25,7 @@ from daft_tpu.analysis import dataflow as r_dataflow
 from daft_tpu.analysis import framework as r_fw
 from daft_tpu.analysis import (rule_attribution as r_attribution,
                                rule_cancellation as r_cancellation,
+                               rule_determinism as r_determinism,
                                rule_knobs as r_knobs, rule_locks as r_locks,
                                rule_plans as r_plans,
                                rule_resources as r_resources)
@@ -35,6 +36,7 @@ from daft_tpu_torch.analysis import framework as p_fw
 from daft_tpu_torch.analysis import plan_contracts as p_contracts
 from daft_tpu_torch.analysis import (rule_attribution as p_attribution,
                                      rule_cancellation as p_cancellation,
+                                     rule_determinism as p_determinism,
                                      rule_donation as p_donation,
                                      rule_knobs as p_knobs,
                                      rule_launch as p_launch,
@@ -397,6 +399,66 @@ CASES = [
      "def fan(pool, fn, xs):\n"
      "    return [pool.submit(fn, x) for x in xs]\n",
      "attribution", "unattributed-worker", False),
+    # ---- the distributed tier's resources and determinism
+    ("shuffle-cache-ownership-transfer", "foo.py",
+     "def task(stream):\n"
+     "    cache = ShuffleCache()\n"
+     "    try:\n"
+     "        for mp in stream:\n"
+     "            cache.push(0, mp)\n"
+     "        server.register(cache)\n"
+     "    except BaseException:\n"
+     "        cache.cleanup()\n"
+     "        raise\n",
+     "resources", "shuffle-cache-leak", False),
+    ("shuffle-cache-leak-on-drain-failure", "foo.py",
+     "def task(stream):\n"
+     "    cache = ShuffleCache()\n"
+     "    for mp in stream:\n"
+     "        cache.push(0, mp)\n"
+     "    server.register(cache)\n",
+     "resources", "shuffle-cache-leak", True),
+    ("collective-lease-leak", "foo.py",
+     "def run(stage):\n"
+     "    lease = topology.acquire_collective(stage)\n"
+     "    do_exchange(stage)\n"
+     "    topology.release_collective(lease)\n",
+     "resources", "collective-lease-leak", True),
+    ("collective-lease-finally", "foo.py",
+     "def run(stage):\n"
+     "    lease = topology.acquire_collective(stage)\n"
+     "    try:\n"
+     "        do_exchange(stage)\n"
+     "    finally:\n"
+     "        topology.release_collective(lease)\n",
+     "resources", "collective-lease-leak", False),
+    ("unseeded-random-replay-critical", "distributed/worker.py",
+     "import random\nx = random.random()\n",
+     "determinism", "unseeded-random", True),
+    ("seeded-rng", "distributed/worker.py",
+     "import numpy as np\nrng = np.random.default_rng(0)\n",
+     "determinism", "unseeded-random", False),
+    ("unseeded-random-outside-replay-scope", "io/readers.py",
+     "import random\nx = random.random()\n",
+     "determinism", "unseeded-random", False),
+    ("wallclock-decision", "distributed/scheduler.py",
+     "import time\ndeadline = 5\n"
+     "def f():\n"
+     "    if time.monotonic() > deadline:\n"
+     "        return 1\n",
+     "determinism", "wallclock-decision", True),
+    ("wallclock-metric", "distributed/scheduler.py",
+     "import time\n"
+     "def f():\n"
+     "    t0 = time.perf_counter()\n"
+     "    work()\n"
+     "    return time.perf_counter() - t0\n",
+     "determinism", "wallclock-decision", False),
+    ("as-completed", "distributed/resilience.py",
+     "import concurrent.futures as cf\n"
+     "def f(futs):\n"
+     "    return [x.result() for x in cf.as_completed(futs)]\n",
+     "determinism", "unordered-pool-iteration", True),
 ]
 
 _MODS = {
@@ -404,6 +466,7 @@ _MODS = {
     "resources": (r_resources, p_resources),
     "cancellation": (r_cancellation, p_cancellation),
     "attribution": (r_attribution, p_attribution),
+    "determinism": (r_determinism, p_determinism),
 }
 
 
@@ -738,14 +801,18 @@ def test_port_rule_fixtures(tmp_path, case):
 
 
 def test_port_contracts_wait_for_their_resources():
-    """ShuffleCache and the collective lease come with the distributed
-    tier: the port's table leaves them out (and says so)."""
-    rules = {c.rule for c in p_resources.CONTRACTS}
-    assert "shuffle-cache-leak" not in rules
-    assert "collective-lease-leak" not in rules
-    assert {"pinned-fetch-leak", "profile-capture-leak",
-            "spill-store-leak", "device-slot-leak"} <= rules
-    assert "A7" in p_resources.__doc__
+    """ShuffleCache and the collective lease came with the distributed
+    tier: the port's table holds them beside its own contracts, each
+    defined in the port's module that owns the resource."""
+    rules = {c.rule: c for c in p_resources.CONTRACTS}
+    assert {"shuffle-cache-leak", "collective-lease-leak",
+            "pinned-fetch-leak", "profile-capture-leak",
+            "spill-store-leak", "device-slot-leak"} <= set(rules)
+    assert rules["shuffle-cache-leak"].defining == (
+        "daft_tpu_torch/distributed/shuffle_service.py",)
+    assert rules["collective-lease-leak"].defining == (
+        "daft_tpu_torch/distributed/topology.py",)
+    assert "A7" not in p_resources.__doc__
 
 
 def test_plan_rule_parity_on_an_unregistered_node(tmp_path):
@@ -845,10 +912,21 @@ def test_rule_contracts_cover_the_port_optimizer():
 
 
 def test_replan_mutable_fields_registered():
+    """A plan node's mutable field is one of its estimate or late fields;
+    the distributed re-planner's ``Boundary`` / ``BoundaryActuals``
+    entries name real fields of those dataclasses."""
+    import dataclasses
+    from daft_tpu_torch.distributed import replan, stages
     from daft_tpu_torch.physical import plan as pp
+    holders = {"Boundary": stages.Boundary,
+               "BoundaryActuals": replan.BoundaryActuals}
     for m in p_contracts.REPLAN_MUTABLE:
-        assert hasattr(pp, m.cls), m
         assert m.field in p_contracts.REPLAN_MUTABLE_FIELDS
+        if m.cls in holders:
+            names = {f.name for f in dataclasses.fields(holders[m.cls])}
+            assert m.field in names, m
+            continue
+        assert hasattr(pp, m.cls), m
         c = p_contracts.PHYSICAL_NODES[m.cls]
         assert m.field in c.estimate_fields + c.late_fields
 

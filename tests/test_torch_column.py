@@ -11,6 +11,11 @@
   over counts ran on the host. A uint64 column whose values are all below
   2^63 now rides an int64 plane and decodes back to uint64; a value at
   2^63 declines to the host.
+
+The pinned pool behind the transfers (``PinnedPool``) is held here too,
+over plain host tensors: a buffer returns when its last view dies, is
+reused only after its copy's event has passed, and a small class starts
+with several buffers.
 """
 
 import numpy as np
@@ -168,3 +173,78 @@ def test_count_sorts_dispatch_to_the_device(tpch_root, q, cpu, monkeypatch):
     assert got == want
     from daft_tpu_torch.datatype import DataType
     assert any(ok and DataType.uint64() in dts for dts, ok in calls), calls
+
+
+class _Event:
+    """A copy's event that has not passed until someone waits on it."""
+
+    def __init__(self):
+        self.waited = False
+
+    def query(self):
+        return self.waited
+
+    def synchronize(self):
+        self.waited = True
+
+
+def _pool():
+    import torch
+    from daft_tpu_torch.device.column import PinnedPool
+    return PinnedPool(alloc=lambda n: torch.empty(n, dtype=torch.uint8))
+
+
+def test_pinned_pool_holds_a_buffer_while_any_view_lives():
+    """A buffer stays out of the pool while its array, or an Arrow array
+    made from a view of it, lives. A small class starts with 8 buffers and
+    grows one at a time once all are held; a large class grows one at a
+    time from the start; released buffers are reused."""
+    import gc
+    from daft_tpu_torch.device.column import _PIN_FIRST_BUFFERS
+    pool = _pool()
+    t, a, _ = pool.take(1000)
+    assert a.nbytes == 1000
+    assert pool.counters == {"allocated": _PIN_FIRST_BUFFERS,
+                             "bytes": _PIN_FIRST_BUFFERS * 4096}
+    view = pa.array(a[:8].view(np.int64))
+    del t, a
+    gc.collect()
+    held = [pool.take(3000)[1] for _ in range(_PIN_FIRST_BUFFERS - 1)]
+    assert pool.counters["allocated"] == _PIN_FIRST_BUFFERS
+    held.append(pool.take(4096)[1])      # the Arrow array holds the 8th
+    assert pool.counters["allocated"] == _PIN_FIRST_BUFFERS + 1
+    del view, held
+    gc.collect()
+    held = [pool.take(4096)[1] for _ in range(_PIN_FIRST_BUFFERS + 1)]
+    assert pool.counters["allocated"] == _PIN_FIRST_BUFFERS + 1
+    del held
+    gc.collect()
+    big = 2 << 20                        # past the small classes
+    held = [pool.take(big)[1] for _ in range(2)]
+    assert pool.counters["allocated"] == _PIN_FIRST_BUFFERS + 3
+    del held
+    gc.collect()
+    pool.take(big)
+    assert pool.counters["bytes"] == (_PIN_FIRST_BUFFERS + 1) * 4096 \
+        + 2 * big
+
+
+def test_pinned_pool_waits_for_the_last_copy_before_reuse():
+    """A returned buffer is handed out again only after the copy its
+    lease names has passed: the pool waits on that event rather than
+    allocate."""
+    import gc
+    import torch
+    from daft_tpu_torch.device.column import _PIN_FIRST_BUFFERS
+    pool = _pool()
+    t, a, lease = pool.take(64, torch.int64)
+    assert a.dtype == np.int64 and a.shape == (8,)
+    ev = _Event()
+    lease.event = ev
+    del t, a
+    gc.collect()
+    # the buffer went back behind the class's other first buffers
+    for _ in range(_PIN_FIRST_BUFFERS):
+        pool.take(64)
+    assert ev.waited
+    assert pool.counters["allocated"] == _PIN_FIRST_BUFFERS

@@ -12,8 +12,8 @@ plan_fuzzer.py``) held against the reference's
   (``tests/test_plan_discipline.py:257-285``), the full mode matrix
   included.
 - The fuzzer leaves ``os.environ`` and both packages' execution configs
-  as it found them, also when a mode raises; ``combined`` waits for the
-  distributed runner; ``device`` reaches the device paths and ``bounded``
+  as it found them, also when a mode raises; ``combined`` runs through
+  the distributed runner; ``device`` reaches the device paths and ``bounded``
   spills; the command line prints one line per mode and fails on a
   mismatch.
 
@@ -88,7 +88,8 @@ def _against_reference(fz, mode, seeds):
 
 
 @pytest.mark.parametrize("mode", ["optimized", "fused", "spilled",
-                                  "replanned", "device", "bounded"])
+                                  "replanned", "device", "bounded",
+                                  "combined"])
 def test_every_mode_gives_the_references_answer(cpu, mode):
     fz = _fz()
     assert mode in fz.MODES
@@ -168,11 +169,17 @@ def test_fuzzer_leaves_no_state_behind(cpu):
 
 
 def test_combined_mode_waits_for_the_distributed_runner(cpu):
+    """The distributed runner has landed: ``combined`` is a mode, runs
+    through it and puts the process's runner back."""
+    import daft_tpu_torch
     fz = _fz()
-    assert "combined" not in fz.MODES
+    assert "combined" in fz.MODES
     before = _state()
-    with pytest.raises(NotImplementedError, match="A7"):
-        fz.run_fuzz(count=1, seed=0, modes=("combined",))
+    runner_before = daft_tpu_torch.get_context()._runner
+    res = fz.run_fuzz(count=3, seed=0, modes=("combined",))
+    assert res.per_mode["combined"] == {"cases": 3, "mismatches": 0,
+                                        "errors": 0}, res.per_mode
+    assert daft_tpu_torch.get_context()._runner is runner_before
     with pytest.raises(ValueError):
         fz.run_fuzz(count=1, seed=0, modes=("nope",))
     assert _state() == before

@@ -9,8 +9,7 @@ as row multisets (a hash join's and a group-by's row order is the
 engine's own); integer, string and float values must be equal (the sums
 are of small integers held exactly in float64: tolerance 0).
 
-Left out: the chaos-serialize determinism case (the chaos plane is ROADMAP
-A7/A8), and the ``explain_analyze`` spill block and the metrics-endpoint
+Left out: the ``explain_analyze`` spill block and the metrics-endpoint
 counters (``observability.py``, A8).
 """
 
@@ -426,3 +425,24 @@ def test_plan_partitions_from_evidence(est, budget):
         == ref_ooc.plan_partitions(est, budget=budget)
     assert 2 <= ooc.plan_partitions(est, budget=budget) <= ooc._MAX_PARTITIONS \
         or est is None
+
+
+def test_chaos_serialize_spilled_run_deterministic(monkeypatch):
+    """Spilled execution under ``CHAOS_SERIALIZE=1`` (serial spill IO):
+    two runs are bit-identical, and equal the reference's."""
+    _set(monkeypatch, "MEMORY_LIMIT", "400KB")
+    _set(monkeypatch, "CHAOS_SERIALIZE", "1")
+    data = _join_data(n=20_000, ndv=5_000)
+
+    def q(pkg):
+        left, right = data
+        return pkg.from_pydict(left).join(
+            pkg.from_pydict(right), on="k", strategy="hash") \
+            .groupby("k").agg(pkg.col("v").sum(), pkg.col("w").sum()) \
+            .sort("k").to_pydict()
+
+    first, d = _port_delta(lambda: q(daft_tpu_torch))
+    assert d.get("bytes_written", 0) > 0, d
+    assert q(daft_tpu_torch) == first
+    assert first == q(daft_tpu)
+

@@ -10,8 +10,9 @@ placement (``physical/translate.py``).
   96MB, so these plans are mostly one partition) and with that floor at 0
   in both (one task per file: three-way exchanges). The reference's
   device-mesh exchange-agg (``DeviceExchangeAgg``) stays out of the
-  comparison: it waits for the port's distributed slice (ROADMAP A7), so
-  the reference plans with a one-device mesh.
+  comparison: the port plans it only on a mesh the caller asks for
+  (``DAFT_TORCH_MESH_DEVICES``; ``tests/test_torch_exchange.py``), so the
+  reference plans with a one-device mesh.
 - The same for a written TPC-H query (a ``Write`` root) and a
   hive-partitioned CSV scan.
 - Engine parity: TPC-H queries under ``push`` and ``interp`` equal each

@@ -285,6 +285,48 @@ def test_wide_key_set_takes_the_sort_strategy():
     assert port_rt.counters().get("agg_sort") == 1
 
 
+def test_aggregate_device_section_runs_alone(monkeypatch):
+    """The per-operator agg's device section (encode, launches, fetch)
+    holds its lock (one at a time, as a join's): reducer threads
+    dispatching at once would peak their allocations as they happen to
+    overlap, so a repeat could need new device memory at a warmed
+    signature. The decode runs after the lock is released, and threads
+    still all finish."""
+    import threading
+    from daft_tpu_torch.device import column as dcol
+    encode_locked, decode_locked = [], []
+    orig_run, orig_decode = port_rt._run_compiled, dcol.decode_np
+
+    def spy_run(*a, **k):
+        encode_locked.append(port_rt._agg_device_lock.locked())
+        return orig_run(*a, **k)
+
+    def spy_decode(*a, **k):
+        decode_locked.append(port_rt._agg_device_lock.locked())
+        return orig_decode(*a, **k)
+
+    monkeypatch.setattr(port_rt, "_run_compiled", spy_run)
+    monkeypatch.setattr(dcol, "decode_np", spy_decode)
+    data = _agg_frame(np.random.default_rng(3), 300)
+    c = daft_tpu_torch.col
+    rb = PortBatch.from_pydict(data)
+    alone = rb.agg([c("v").sum().alias("sv")], [c("g")]).to_pydict()
+    assert encode_locked == [True] and decode_locked == [False, False]
+    outs = [None] * 4
+
+    def run(i):
+        outs[i] = rb.agg([c("v").sum().alias("sv")], [c("g")]).to_pydict()
+
+    threads = [threading.Thread(target=run, args=(i,)) for i in range(4)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    assert encode_locked == [True] * 5
+    assert all(o == alone for o in outs)
+    assert not port_rt._agg_device_lock.locked()
+
+
 def test_global_agg_matches_reference():
     data = _agg_frame(np.random.default_rng(3), 600)
     want = ref_rt.try_agg(RefBatch.from_pydict(data), _aggs(daft_tpu), [])

@@ -9,9 +9,8 @@ the governor's hysteresis, throttle and actions with a fake RSS.
 The parity subset of ``tests/test_scale.py``. Answers compare as row
 multisets, values exactly (integer sums, counts, dates, strings).
 
-Left out: the chaos-freeze cases (the chaos plane is ROADMAP A7/A8; the
-port's governor reads "no chaos plan"), and the ``explain_analyze``,
-metrics-endpoint and flight-recorder cases (``observability.py``, A8).
+Left out: the ``explain_analyze``, metrics-endpoint and flight-recorder
+cases (``observability.py``, A8).
 """
 
 import datetime
@@ -377,3 +376,27 @@ def test_governor_pressure_flips_the_spill_plan(fake_rss):
     assert not costmodel.spill_plan_wins(600_000, 1_000_000)
     _rss(fake_rss, 95 << 20)
     assert costmodel.spill_plan_wins(600_000, 1_000_000)
+
+
+@pytest.mark.parametrize("trigger", ["serialize", "fault_plan"])
+def test_chaos_forces_serial_spill_io(monkeypatch, trigger):
+    from daft_tpu_torch.distributed import resilience
+    monkeypatch.setenv("DAFT_TORCH_SPILL_IO_PARALLELISM", "8")
+    assert spill_io.spill_io_parallelism() == spill_io._MAX_POOL
+    if trigger == "serialize":
+        monkeypatch.setenv("DAFT_TORCH_CHAOS_SERIALIZE", "1")
+    else:
+        monkeypatch.setenv("DAFT_TORCH_FAULT_SPEC", "task:0")
+        resilience.reset_for_tests()
+    assert spill_io.spill_io_parallelism() == 0
+    assert spill_io.read_prefetch_window() == 0
+    resilience.reset_for_tests()
+
+
+def test_governor_frozen_under_chaos(fake_rss, monkeypatch):
+    """A replayed plan must not depend on the recording machine's RSS."""
+    monkeypatch.setenv("DAFT_TORCH_CHAOS_SERIALIZE", "1")
+    _rss(fake_rss, 99 << 20)
+    assert not governor.enabled()
+    assert governor.budget_scale() == 1.0
+

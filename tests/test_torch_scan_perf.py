@@ -13,8 +13,8 @@ remote read, the same answers. The counters of both packages are
 process-wide, so every comparison takes deltas.
 
 Left out of the reference's file:
-- ``test_prefetch_degrades_under_chaos``: the chaos and fault-plan
-  fallback of the scan waits for the port's resilience plane (ROADMAP A7).
+- ``test_prefetch_degrades_under_chaos``: ported with the resilience
+  plane, in ``tests/test_torch_resilience.py``.
 - The seed test's inequality ``gets(planned) < gets(naive)``: on these
   four small files both paths send the same GETs in both packages, which
   ``test_planned_remote_read_counters_equal_the_reference`` holds instead.

@@ -29,10 +29,11 @@ reference's (``tests/test_tracing.py``).
 - Port-only: a thread kept across queries carries no trace into the next
   query; two queries at once each see only their own dispatches.
 
-The reference's cases that need the distributed tier or the serving
-plane wait with them (ROADMAP A7, A8): chaos and distributed traces, the
-remote worker's span shipping, the worker's concurrent tasks, the serving
-scheduler's spans, cancel events and gauges.
+The reference's chaos and distributed trace cases (the remote worker's
+span shipping, its concurrent tasks) are in
+``tests/test_torch_resilience.py``; those that need the serving plane
+wait with it (ROADMAP A8): the serving scheduler's spans, cancel events
+and gauges.
 """
 
 import collections
@@ -281,8 +282,7 @@ def test_prometheus_text_parses_strictly():
 
 #: name stems of the reference's planes the port leaves out until their
 #: modules come (``prometheus_text``'s docstring)
-_WAITING = ("daft_tpu_shuffle_", "daft_tpu_recovery_", "daft_tpu_exchange_",
-            "daft_tpu_fleet_", "daft_tpu_retrace_", "daft_tpu_plansan_",
+_WAITING = ("daft_tpu_fleet_", "daft_tpu_retrace_", "daft_tpu_plansan_",
             "daft_tpu_serving_")
 
 
@@ -329,7 +329,14 @@ def test_metric_names_equal_the_reference(tpch_root, monkeypatch,
     from daft_tpu_torch.execution import memory as mem
     from daft_tpu_torch.io import read_planner as rp
     from daft_tpu_torch.physical import adaptive as ad
-    for m, attr in ((ref_rp, "_counters"), (rp, "_counters"),
+    from daft_tpu.distributed import resilience as ref_rz
+    from daft_tpu.distributed import shuffle_service as ref_ss
+    from daft_tpu_torch.distributed import resilience as rz
+    from daft_tpu_torch.distributed import shuffle_service as ss
+    for m, attr in ((ref_ss, "_shuffle_counters"),
+                    (ss, "_shuffle_counters"),
+                    (ref_rz, "_counters"), (rz, "_counters"),
+                    (ref_rp, "_counters"), (rp, "_counters"),
                     (ref_mem, "_spill_counters"), (mem, "_spill_counters"),
                     (ref_gov, "_counters"), (gov, "_counters"),
                     (ref_ad, "_counters"), (ad, "_counters"),
