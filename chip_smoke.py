@@ -149,7 +149,8 @@ Phases (any failure ends the run with a non-zero exit code):
    (``daft_tpu_torch/analysis/plan_fuzzer.py``) in the modes optimized,
    device, bounded, fused and replanned on the card, each against the
    port's own unoptimized host run, at least 100 seeds per mode and
-   about 60 s in all; any mismatch or error fails the script after its
+   about 30 s in all (a depth cut that makes room for the serving
+   phase); any mismatch or error fails the script after its
    minimized repro is printed; the device mode must launch every kernel;
    one ``fuzz`` line per mode (seeds, mismatches, errors, launches, wall)
    and a ``fuzz new rungs`` line (its kernel rungs that no earlier phase
@@ -190,7 +191,8 @@ Phases (any failure ends the run with a non-zero exit code):
    to its solo run's (``obs concurrent``); the dashboard launched on
    localhost and its ``/metrics`` parsed strictly, its kernel dispatch
    counters at least this phase's (``obs metrics``); tracing's overhead
-   on Q1 (warm cache) and Q3, off against on, 5 interleaved pairs
+   on Q1 (warm cache) and Q3, off against on, 3 interleaved pairs (a
+   depth cut that makes room for the serving phase)
    (``obs overhead``: medians and ranges, not gated); one ``lanes`` line
    for each of TPC-H Q2, Q3, Q4, Q5, Q8, Q9, Q17 and Q20, cold and traced
    (span time summed per lane, the five span names and the five
@@ -243,6 +245,33 @@ Phases (any failure ends the run with a non-zero exit code):
    events twice; (e) the plan fuzzer's ``combined`` mode, 100 seeds, 0
    mismatches. ``dist`` lines; its new rungs go to phase 8 (``pass``
    ``dist``);
+7m. serving (``daft_tpu_torch/serving/``, ``logical/fingerprint.py``),
+   SF1, a ``QueryScheduler`` of 4 worker slots on ``cuda``: (a) 4
+   closed-loop clients in 3 sessions for 30 s, each rotating over Q1, the
+   ``l_suppkey`` group-by, Q6 at one of 4 seeded (year, discount) pairs,
+   Q3 and a point lookup (``l_orderkey == k``, 4 columns, ``limit 10``)
+   at one of 8 seeded keys, every cache on; (b) the same clients for 2
+   rotations each with the result cache off (plan-cache hits, every
+   query run on the card); (c) (b)'s submissions through one worker (the
+   serial-equivalent wall); (d) a running Q3 cancelled once its first
+   join build launched, then Q3 again; (e) the clients of (b) for one
+   rotation at ``DAFT_TORCH_DEVICE_MIN_ROWS=1``, so the per-operator
+   projection, predicate, argsort and agg dispatch from concurrent
+   queries (each must dispatch). Every answer held (Q1, the
+   group-by and Q6 to pyarrow as on the main path, Q3 to phase 6's, a
+   lookup's rows to pyarrow's as a multiset); 0 failed queries and 0
+   rejections, 0 admitted bytes outstanding after each drain, (a)'s plan
+   and result caches hit at least once, the cancelled handle
+   ``cancelled`` with its admission returned, the three kernels
+   launched under the scheduler, no host join and no host morsel where
+   phase 7's runs of these queries had none, and the device memory left
+   after the schedulers shut down within the column cache's and the
+   residency registry's budgets. ``serve`` lines per run (QPS, p50/p99
+   latency, queue wait, cold against repeat per query, the scheduler's
+   counters, launches), ``serve cancel``, ``serve memory`` and ``serve
+   summary`` (cache hit rates, structure hits, the projection compile
+   cache, (b)'s wall over (c)'s); its new rungs go to phase 8 (``pass``
+   ``serve``);
 8. the hash build against its plain version at the inputs of every
    distinct hash rung of the main path and of the TPC-H 22 phase's
    dispatch pass
@@ -255,7 +284,8 @@ Phases (any failure ends the run with a non-zero exit code):
    held, each checked as in the join-kernel phase, then timed (rows name
    their ``pass``: ``tpcds`` or ``tpcds_dispatch`` for the TPC-DS ones,
    ``spill`` for the memory-bounded ones, ``pivot``, ``fuzz``,
-   ``remote``, ``obs``, ``sanitize`` and ``dist`` for the last six phases);
+   ``remote``, ``obs``, ``sanitize``, ``dist`` and ``serve`` for the last
+   seven phases);
    every entry point
    ``analysis/dispatch_registry.py`` declares must have launched and been
    held against its plain twin in the run;
@@ -287,6 +317,7 @@ import os
 import statistics
 import subprocess
 import sys
+import threading
 import time
 
 import numpy as np
@@ -1763,6 +1794,9 @@ class KernelRecorder:
         #: ``floor4096`` (the dispatch pass)
         self.pass_ = pass_
         self.recorded, self.events = [], []
+        # the wrappers may run on several threads at once (phase 7m's
+        # scheduler): a build's inputs and its events are appended as a pair
+        self._lock = threading.Lock()
         self.jbuilds, self.jprobes, self.join_rungs = {}, [], {}
 
     def counted(self, label: str, fn, clear: bool = True):
@@ -1785,8 +1819,9 @@ class KernelRecorder:
 
         def recording(*a):
             out, ev = timed(orig, *a)
-            self.recorded.append((label, a))
-            self.events.append(ev)
+            with self._lock:
+                self.recorded.append((label, a))
+                self.events.append(ev)
             return out
 
         def recording_build(code, live, T):
@@ -1826,13 +1861,14 @@ class KernelRecorder:
         self.jprobes.clear()
         return out, wall, counts, launches
 
-    def to_host(self) -> None:
-        """Move every recorded input to the CPU, so that the recorder
-        keeps none of a run's device memory alive into the next run."""
-        self.recorded = [(q, _moved(a, "cpu")) for q, a in self.recorded]
+    def to_host(self, device: str = "cpu") -> None:
+        """Move every recorded input to the CPU (or back to ``device``),
+        so that the recorder keeps none of a run's device memory alive
+        into the next run."""
+        self.recorded = [(q, _moved(a, device)) for q, a in self.recorded]
         for r in self.join_rungs.values():
-            r["build"] = _moved(r["build"], "cpu")
-            r["probe"] = _moved(r["probe"], "cpu")
+            r["build"] = _moved(r["build"], device)
+            r["probe"] = _moved(r["probe"], device)
 
     def hash_rungs(self) -> dict:
         rungs = {}
@@ -2328,7 +2364,7 @@ def pivot_phase(root: str):
 #: the phase's time budget (more seeds run while it lasts)
 FUZZ_MODES = ("optimized", "device", "bounded", "fused", "replanned")
 FUZZ_MIN_SEEDS = 100
-FUZZ_BUDGET_S = 60.0
+FUZZ_BUDGET_S = 30.0
 
 
 def fuzz_phase():
@@ -2541,7 +2577,7 @@ OBS_KERNELS = {
         "build_scatter_kernel", "build_order_kernel", "build_merge_kernel")),
     "hash_join_probe": ("daft_hash_join_probe", (
         "probe_count_kernel", "probe_emit_kernel"))}
-OBS_PAIRS = 5
+OBS_PAIRS = 3
 OBS_LANE_QUERIES = (2, 3, 4, 5, 8, 9, 17, 20)
 
 
@@ -3645,6 +3681,399 @@ def dist_phase(root: str, mp: dict, q3_ref, t22: dict, card: str) -> dict:
                 chaos=chaos, fuzz=fz)
 
 
+# ------------------------------------------------------------ serving
+
+#: phase 7m: the scheduler's worker slots (one closed-loop client each),
+#: the sessions the clients share, (a)'s duration, the rotations each
+#: client of (b) submits, Q6's (year, discount) pairs and the number of
+#: seeded ``l_orderkey`` lookup keys
+SERVE_CONCURRENCY = 4
+SERVE_SESSIONS = 3
+SERVE_MIX_S = 30.0
+SERVE_ROTATIONS = 2
+SERVE_Q6 = ((1994, 0.06), (1995, 0.05), (1993, 0.07), (1996, 0.04))
+SERVE_LOOKUPS = 8
+SERVE_MIX = ("q1", "suppkey_agg", "q6", "q3", "lookup")
+SERVE_LOOKUP_COLS = ("l_orderkey", "l_partkey", "l_quantity",
+                     "l_extendedprice")
+
+
+def _serve_q6(get, year: int, disc: float):
+    """TPC-H Q6 at one (year, discount) pair."""
+    from daft_tpu_torch import col, lit
+    lo, hi = round(disc - 0.01, 2), round(disc + 0.01, 2)
+    return (get("lineitem").where(
+        (col("l_shipdate") >= lit(datetime.date(year, 1, 1)))
+        & (col("l_shipdate") < lit(datetime.date(year + 1, 1, 1)))
+        & col("l_discount").between(lo, hi) & (col("l_quantity") < 24))
+        .agg((col("l_extendedprice") * col("l_discount")).sum()
+             .alias("revenue")))
+
+
+def _serve_lookup(get, key: int):
+    from daft_tpu_torch import col
+    return (get("lineitem").where(col("l_orderkey") == key)
+            .select(*SERVE_LOOKUP_COLS).limit(10))
+
+
+def serve_references(root: str, seed: int = 16) -> dict:
+    """pyarrow's answers to the parameterized queries of the serving mix:
+    Q6 at each pair of ``SERVE_Q6`` and the lookups at ``SERVE_LOOKUPS``
+    seeded keys of ``lineitem``."""
+    import pyarrow as pa
+    import pyarrow.compute as pc
+    import pyarrow.dataset as ds
+    li = ds.dataset(os.path.join(root, "lineitem"), format="parquet") \
+        .to_table(columns=list(SERVE_LOOKUP_COLS)
+                  + ["l_shipdate", "l_discount"])
+    q6 = {}
+    for year, disc in SERVE_Q6:
+        lo, hi = round(disc - 0.01, 2), round(disc + 0.01, 2)
+        sd = li["l_shipdate"]
+        m = pc.and_(pc.and_(
+            pc.greater_equal(sd, pa.scalar(datetime.date(year, 1, 1))),
+            pc.less(sd, pa.scalar(datetime.date(year + 1, 1, 1)))),
+            pc.and_(pc.and_(pc.greater_equal(li["l_discount"], lo),
+                            pc.less_equal(li["l_discount"], hi)),
+                    pc.less(li["l_quantity"], 24.0)))
+        t = li.filter(m)
+        q6[(year, disc)] = {"revenue": [pc.sum(pc.multiply(
+            t["l_extendedprice"], t["l_discount"])).as_py()]}
+    keys = np.unique(li["l_orderkey"].to_numpy())
+    rng = np.random.default_rng(seed)
+    lookups = {}
+    for k in sorted(int(x) for x in rng.choice(keys, SERVE_LOOKUPS,
+                                               replace=False)):
+        t = li.filter(pc.equal(li["l_orderkey"], k))
+        lookups[k] = sorted(zip(*(t[c].to_pylist()
+                                  for c in SERVE_LOOKUP_COLS)))
+    return dict(q6=q6, lookups=lookups)
+
+
+class _ServeClient:
+    """One closed-loop client: submits the next query of the mix, waits
+    for its answer, submits the next. Client ``i`` starts its rotation at
+    query ``i`` (so the slots run different queries at once) and draws
+    Q6's pair and the lookup key from its own seeded generator."""
+
+    def __init__(self, i: int, get, sched, refs: dict, seed: int):
+        self.i, self.get, self.sched, self.refs = i, get, sched, refs
+        self.session = f"s{i % SERVE_SESSIONS}"
+        self.rng = np.random.default_rng(seed + i)
+        self.n = i
+        self.records = []
+
+    def next_query(self):
+        from daft_tpu_torch.benchmarking import tpch_queries as Q
+        name = SERVE_MIX[self.n % len(SERVE_MIX)]
+        self.n += 1
+        if name == "q6":
+            year, disc = SERVE_Q6[int(self.rng.integers(len(SERVE_Q6)))]
+            return name, (year, disc), _serve_q6(self.get, year, disc)
+        if name == "lookup":
+            keys = sorted(self.refs["lookups"])
+            k = keys[int(self.rng.integers(len(keys)))]
+            return name, k, _serve_lookup(self.get, k)
+        return name, None, Q.QUERIES[name](self.get)
+
+    def run_one(self):
+        name, param, df = self.next_query()
+        t0 = time.perf_counter()
+        h = self.sched.submit(df, session=self.session)
+        try:
+            ps = h.result(timeout=600)
+        except BaseException as e:  # noqa: BLE001 — every failure is shown
+            log(f"serve: {name} {param} failed in state {h.state}: "
+                f"{type(e).__name__}: {e}")
+            raise
+        self.records.append(dict(
+            name=name, param=param, submitted_s=t0,
+            latency_s=time.perf_counter() - t0,
+            queue_wait_s=h.queue_wait_s, ps=ps,
+            serving=dict(h.stats.serving) if h.stats is not None else {}))
+
+
+def _serve_check(records, ref: dict, q3_ref, refs: dict) -> int:
+    """Hold every answer: Q1, the group-by and Q6 to pyarrow by
+    ``check_answer``, Q3 to phase 6's answer, a lookup's rows as a
+    multiset to pyarrow's. A result served twice from the cache is one
+    object and is checked once. Returns the answers checked."""
+    seen = {}
+    for r in records:
+        key = id(r["ps"])
+        if key in seen:
+            continue
+        seen[key] = r["ps"]
+        got = r["ps"].to_recordbatch().to_pydict()
+        name, param = r["name"], r["param"]
+        if name == "q3":
+            _same_answer("serve q3", got, q3_ref[0])
+        elif name == "q6":
+            check_table(f"serve q6 {param}", got, refs["q6"][param], [], [],
+                        ["revenue"])
+        elif name == "lookup":
+            rows = sorted(zip(*(got[c] for c in SERVE_LOOKUP_COLS)))
+            if rows != refs["lookups"][param]:
+                raise AssertionError(f"serve lookup {param}: {rows} != "
+                                     f"{refs['lookups'][param]}")
+        else:
+            check_answer(name, got, ref)
+    return len(seen)
+
+
+def _serve_stats(records, wall_s: float) -> dict:
+    lat = sorted(r["latency_s"] for r in records)
+    qw = sorted(r["queue_wait_s"] for r in records)
+
+    def pct(xs, p):
+        return xs[min(int(p * len(xs)), len(xs) - 1)] if xs else None
+    cold_repeat = {}
+    records = sorted(records, key=lambda r: r["submitted_s"])
+    for name in SERVE_MIX:
+        ls = [r["latency_s"] for r in records if r["name"] == name]
+        if ls:
+            cold_repeat[name] = dict(
+                n=len(ls), cold_s=ls[0],
+                repeat_mean_s=statistics.mean(ls[1:]) if len(ls) > 1
+                else None)
+    return dict(queries=len(records), wall_s=wall_s,
+                qps=len(records) / wall_s if wall_s else None,
+                p50_s=pct(lat, 0.50), p99_s=pct(lat, 0.99),
+                queue_wait_mean_s=statistics.mean(qw) if qw else None,
+                queue_wait_p99_s=pct(qw, 0.99), cold_repeat=cold_repeat)
+
+
+def _serve_clients(sched, get, refs, seed: int, duration_s=None,
+                   rotations=None):
+    """Run ``SERVE_CONCURRENCY`` closed-loop clients against ``sched`` for
+    ``duration_s`` or ``rotations`` turns of the mix each → (records,
+    wall). A client's failure fails the phase (re-raised here)."""
+    clients = [_ServeClient(i, get, sched, refs, seed)
+               for i in range(SERVE_CONCURRENCY)]
+    errors = []
+
+    def loop(c):
+        try:
+            if duration_s is not None:
+                end = time.perf_counter() + duration_s
+                while time.perf_counter() < end:
+                    c.run_one()
+            else:
+                for _ in range(rotations * len(SERVE_MIX)):
+                    c.run_one()
+        except BaseException as e:  # noqa: BLE001 — re-raised below
+            errors.append(e)
+    t0 = time.perf_counter()
+    threads = [threading.Thread(target=loop, args=(c,)) for c in clients]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    wall = time.perf_counter() - t0
+    if errors:
+        raise AssertionError(f"serve: {len(errors)} client(s) failed: "
+                             f"{errors[0]!r}") from errors[0]
+    return [r for c in clients for r in c.records], wall
+
+
+def _serve_cancel(get, q3_ref) -> dict:
+    """(d): a running Q3 cancelled once its first join build launched,
+    then Q3 again through the same scheduler."""
+    from daft_tpu_torch.benchmarking import tpch_queries as Q
+    from daft_tpu_torch.device import join_kernels as jk
+    from daft_tpu_torch.serving import QueryCancelled, QueryScheduler
+    sched = QueryScheduler(concurrency=SERVE_CONCURRENCY,
+                           result_cache_bytes=0)
+    built = threading.Event()
+    orig = jk.hash_join_build_cuda
+
+    def marking(*a):
+        out = orig(*a)
+        built.set()
+        return out
+    jk.hash_join_build_cuda = marking
+    try:
+        h = sched.submit(Q.q3(get), session="cancel")
+        if not built.wait(120):
+            raise AssertionError(f"serve cancel: Q3 launched no join build "
+                                 f"(state {h.state})")
+        held = sched.admission.outstanding
+        t0 = time.perf_counter()
+        h.cancel("phase 7m cancel")
+        try:
+            h.result(timeout=120)
+            raise AssertionError("serve cancel: Q3 finished after its "
+                                 "cancel")
+        except QueryCancelled:
+            pass
+        unwind_s = time.perf_counter() - t0
+        if h.state != "cancelled":
+            raise AssertionError(f"serve cancel: state {h.state}")
+        deadline = time.monotonic() + 30
+        while sched.admission.outstanding and time.monotonic() < deadline:
+            time.sleep(0.01)
+        back = sched.admission.outstanding
+        if back != 0:
+            raise AssertionError(f"serve cancel: {back} admitted bytes "
+                                 "not released")
+        jk.hash_join_build_cuda = orig
+        t0 = time.perf_counter()
+        again = sched.submit(Q.q3(get), session="cancel").result(timeout=300)
+        repeat_s = time.perf_counter() - t0
+        _same_answer("serve q3 after the cancel",
+                     again.to_recordbatch().to_pydict(), q3_ref[0])
+        snap = sched.counters_snapshot()
+    finally:
+        jk.hash_join_build_cuda = orig
+        sched.shutdown()
+    return dict(state=h.state, admitted_while_running=held,
+                admitted_after=back, unwind_s=unwind_s, repeat_s=repeat_s,
+                cancelled=snap.get("cancelled", 0),
+                completed=snap.get("completed", 0))
+
+
+def serve_host_free(counters: dict) -> dict:
+    """The host fallbacks the native cold runs of the served queries had
+    none of, from each run's counters by query name: ``host_joins`` (Q3)
+    and ``host_morsels`` (Q1, the group-by, Q6, Q3)."""
+    return dict(
+        host_joins=counters["q3"].get("host_joins", 0) == 0,
+        host_morsels=all(counters[q].get("host_morsels", 0) == 0
+                         for q in ("q1", "suppkey_agg", "q6", "q3")))
+
+
+def serve_phase(root: str, ref: dict, q3_ref, host_free: dict,
+                card: str) -> dict:
+    """Phase 7m: the serving plane on the card (see the module
+    docstring). ``host_free`` says which host fallbacks the native runs
+    of these queries had none of (``host_joins``, ``host_morsels``): the
+    served runs must have none of them either. Returns the rungs for
+    phase 8 (``pass`` ``serve``)."""
+    import gc
+    import torch
+    import daft_tpu_torch as dtt
+    from daft_tpu_torch.device import cache, pipeline, runtime
+    from daft_tpu_torch.serving import QueryScheduler
+    get = lambda t: dtt.read_parquet(os.path.join(root, t))  # noqa: E731
+    t_phase = time.perf_counter()
+    refs = serve_references(root)
+    rec = KernelRecorder("serve")
+    _clear_device_cache()
+    gc.collect()
+    torch.cuda.synchronize()
+    alloc0 = torch.cuda.memory_allocated()
+    compile0 = runtime.compile_cache_counters()
+    lines, snaps, launches, counts = {}, {}, {}, {}
+
+    def run(label, concurrency=SERVE_CONCURRENCY, result_cache_bytes=None,
+            env=None, **kw):
+        sched = QueryScheduler(concurrency=concurrency,
+                               result_cache_bytes=result_cache_bytes)
+        try:
+            with _env(**(env or {})):
+                (records, wall), _, c, l = rec.counted(
+                    f"serve {label}",
+                    lambda: _serve_clients(sched, get, refs, seed=16, **kw),
+                    clear=label == "a")
+            sched.drain(timeout_s=30.0)
+            snap = sched.counters_snapshot()
+            outstanding = sched.admission.outstanding
+        finally:
+            sched.shutdown()
+        n_checked = _serve_check(records, ref, q3_ref, refs)
+        if snap.get("failed", 0) or any(
+                v for k, v in snap.items() if k.startswith("rejected_")):
+            raise AssertionError(f"serve {label}: failed or rejected "
+                                 f"queries {snap}")
+        if outstanding != 0:
+            raise AssertionError(f"serve {label}: {outstanding} admitted "
+                                 "bytes outstanding after the drain")
+        for k in ("host_joins", "host_morsels"):
+            if host_free.get(k) and c.get(k, 0):
+                raise AssertionError(f"serve {label}: {c[k]} {k} where the "
+                                     f"native runs had none ({c})")
+        st = _serve_stats(records, wall)
+        st.update(answers_checked=n_checked, launches=l,
+                  counters={k: c.get(k, 0) for k in TPCH22_COUNTERS},
+                  scheduler={k: v for k, v in snap.items()
+                             if not k.endswith("_us")},
+                  outstanding_after_drain=outstanding)
+        lines[label], snaps[label], launches[label], counts[label] = \
+            st, snap, l, c
+        log("serve " + json.dumps(dict(run=label, card=card, **st)))
+        return st
+
+    # (a) the mixed traffic, every cache on
+    run("a", duration_s=SERVE_MIX_S)
+    sa = snaps["a"]
+    for k in ("result_cache_hits", "plan_cache_hits"):
+        if sa.get(k, 0) < 1:
+            raise AssertionError(f"serve a: no {k} ({sa})")
+    # (b) every query executed: the plan cache on, the result cache off
+    b = run("b", rotations=SERVE_ROTATIONS, result_cache_bytes=0)
+    # (c) (b)'s submissions (the same seeded clients) through one worker
+    c = run("c", rotations=SERVE_ROTATIONS, result_cache_bytes=0,
+            concurrency=1)
+    for k in ("hash_agg_build", "hash_join_build", "hash_join_probe"):
+        if launches["a"][k] + launches["b"][k] < 1:
+            raise AssertionError(f"serve: {k} launched no time under the "
+                                 f"scheduler ({launches})")
+    # (e) the per-operator paths (projection, predicate, argsort, agg)
+    # dispatched from concurrent queries: at a 1-row floor every batch goes
+    # to the card, each path's device section under the one lock
+    e = run("e", rotations=1, result_cache_bytes=0,
+            env=dict(DAFT_TORCH_DEVICE_MIN_ROWS="1"))
+    ops = counts["e"]
+    for k in ("projection", "predicate", "argsort"):
+        if ops.get(k, 0) < 1:
+            raise AssertionError(f"serve e: no {k} dispatch ({ops})")
+    if ops.get("agg_hash", 0) + ops.get("agg_sort", 0) \
+            + ops.get("agg_global", 0) < 1:
+        raise AssertionError(f"serve e: no per-operator agg ({ops})")
+    rec.check_totals("serve", {k: sum(launches[x][k] for x in launches)
+                               for k in launches["a"]}, require_each=False)
+    # (d) a cancel mid-flight, then the repeat
+    d = _serve_cancel(get, q3_ref)
+    log("serve cancel " + json.dumps(dict(card=card, **d)))
+    # the device memory the phase leaves: the column cache and the
+    # residency registry hold what they hold within their budgets (the
+    # schedulers, their result caches and their PartitionSets are gone)
+    rec.to_host()
+    gc.collect()
+    torch.cuda.synchronize()
+    alloc = torch.cuda.memory_allocated()
+    res = pipeline.residency_counters()
+    mem = dict(allocated_before=alloc0, allocated_after=alloc,
+               cache_bytes=cache.get_cache().stats()["bytes"],
+               cache_budget=cache.budget(), residency_bytes=res["bytes"],
+               residency_budget=pipeline._res_budget())
+    log("serve memory " + json.dumps(dict(card=card, **mem)))
+    if alloc - alloc0 > mem["cache_budget"] + mem["residency_budget"]:
+        raise AssertionError(f"serve: device memory left past the column "
+                             f"cache's and residency's budgets ({mem})")
+    rec.to_host("cuda")  # phase 8 runs the kernels on them
+    compile1 = runtime.compile_cache_counters()
+    summary = dict(
+        card=card, qps_a=lines["a"]["qps"], p50_a_s=lines["a"]["p50_s"],
+        p99_a_s=lines["a"]["p99_s"],
+        plan_cache_hit_rate_a=sa["plan_cache_hits"] / max(
+            sa["plan_cache_hits"] + sa["plan_cache_misses"], 1),
+        result_cache_hit_rate_a=sa["result_cache_hits"] / max(
+            sa["result_cache_hits"] + sa["result_cache_misses"], 1),
+        plan_cache_structure_hits={k: v.get("plan_cache_structure_hits", 0)
+                                   for k, v in snaps.items()},
+        compile_cache_counters={k: compile1.get(k, 0) - compile0.get(k, 0)
+                                for k in compile1},
+        launches=launches, wall_b_s=b["wall_s"], wall_c_s=c["wall_s"],
+        wall_e_s=e["wall_s"],
+        b_over_c=b["wall_s"] / c["wall_s"] if c["wall_s"] else None,
+        phase_s=time.perf_counter() - t_phase)
+    log("serve summary " + json.dumps(summary))
+    log(f"serve phase wall: {summary['phase_s']:.3f} s")
+    return dict(rec=rec, lines=lines, cancel=d, memory=mem,
+                summary=summary)
+
+
 def tpcds_root(scale: float) -> str:
     from benchmarking.tpcds.datagen import generate_tpcds
     root = os.path.join(HERE, ".cache", f"tpcds_s{scale:g}")
@@ -4167,6 +4596,10 @@ def main() -> int:
     done("7k")
     dist = dist_phase(root, mp, q3["ref"], t22, card)
     done("7l")
+    srv = serve_phase(root, mp["ref"], q3["ref"], serve_host_free(dict(
+        {q: t22["per_query"][q]["counters"] for q in ("q1", "q3", "q6")},
+        suppkey_agg=mp["per_query"]["suppkey_agg"]["counters"])), card)
+    done("7m")
     # the TPC-DS, memory-bounded, pivot, fuzz and remote rungs whose shape
     # no earlier phase held
     held = {k[1:] for r in (mp["rungs"], t22["rungs"], tsql["rungs"])
@@ -4177,7 +4610,7 @@ def main() -> int:
     fuzz_new = {m: {"hash": 0, "join": 0} for m in FUZZ_MODES}
     for rec_k in (tds["rec"], tdp["rec"], ooc["rec"], piv["rec"],
                   fz["rec"], rem["rec"], ob["rec"], san["rec"],
-                  dist["rec"]):
+                  dist["rec"], srv["rec"]):
         for k, v in rec_k.hash_rungs().items():
             if k[1:] not in held:
                 held.add(k[1:])
@@ -4190,9 +4623,9 @@ def main() -> int:
                 ds_jrungs[k] = dict(v, pass_=rec_k.pass_)
                 if rec_k is fz["rec"]:
                     fuzz_new[k[0].split()[-1]]["join"] += 1
-    log(f"tpcds, ooc, pivot, fuzz, remote, obs, sanitize and dist rungs "
-        f"not held by earlier phases: {len(ds_rungs)} hash, {len(ds_jrungs)} "
-        f"join")
+    log(f"tpcds, ooc, pivot, fuzz, remote, obs, sanitize, dist and serve "
+        f"rungs not held by earlier phases: {len(ds_rungs)} hash, "
+        f"{len(ds_jrungs)} join")
     log("sanitize new rungs " + json.dumps(dict(
         hash=sorted(str(list(k)) for k in ds_rungs
                     if k[0].startswith("sanitize")),
@@ -4204,11 +4637,12 @@ def main() -> int:
         join=sorted(str(list(k)) for k in ds_jrungs
                     if k[0].startswith("remote")))))
     log("fuzz new rungs " + json.dumps(fuzz_new))
-    log("dist new rungs " + json.dumps(dict(
-        hash=sorted(str(list(k)) for k in ds_rungs
-                    if k[0].startswith("dist")),
-        join=sorted(str(list(k)) for k in ds_jrungs
-                    if k[0].startswith("dist")))))
+    for pre in ("dist", "serve"):
+        log(f"{pre} new rungs " + json.dumps(dict(
+            hash=sorted(str(list(k)) for k in ds_rungs
+                        if k[0].startswith(pre)),
+            join=sorted(str(list(k)) for k in ds_jrungs
+                        if k[0].startswith(pre)))))
     krecs = main_path_kernel_timing(mp["rungs"], bw)
     krecs += main_path_kernel_timing(t22["rungs"], bw)
     krecs += main_path_kernel_timing(tsql["rungs"], bw)

@@ -48,6 +48,7 @@ from .session import (
 )
 from .udf import udf
 from .window import Window
+from . import serving
 # Last, and as a from-import: the import machinery binds the ``sql``
 # submodule as a package attribute first, and this binding then replaces
 # it, so ``daft_tpu_torch.sql`` is the function, not the module.
@@ -70,6 +71,7 @@ __all__ = [
     "from_pylist", "get_catalog", "get_context", "get_table", "has_catalog",
     "has_namespace", "has_table", "list_catalogs", "list_namespaces",
     "list_tables", "lit", "read_parquet", "read_table", "set_catalog",
-    "set_execution_config", "set_namespace", "set_runner", "sql", "sql_expr", "udf",
+    "serving", "set_execution_config", "set_namespace", "set_runner", "sql",
+    "sql_expr", "udf",
     "use", "write_table",
 ]

@@ -10,8 +10,8 @@ long-lived stage threads install ``observability.attributed(...)`` /
 ``tracing.attach`` inside their target. One unwrapped spawn and that
 worker's counters land on the wrong query, or on none.
 
-The rule: in the port's executor, push engine, read planner and
-distributed workers, every
+The rule: in the port's executor, push engine, serving scheduler, read
+planner and distributed workers, every
 ``<pool>.submit(fn, ...)`` passes an attribution wrapper as the callable,
 and every ``threading.Thread(target=g)`` whose target is a same-module
 def has ``g`` (transitively, bounded) install attribution. Targets that
@@ -20,8 +20,7 @@ no plane counter carry a pragma saying so.
 
 The distributed worker's fetch pool and the remote worker's task pool
 (``distributed/worker.py``, ``distributed/remote_worker.py``) are in
-scope too. The reference's serving scope (``serving/scheduler.py``)
-waits for the serving plane (ROADMAP A8).
+scope too.
 """
 
 from __future__ import annotations
@@ -37,6 +36,7 @@ from .framework import PKG, Finding, SourceFile
 SCOPE = (
     f"{PKG}/execution/executor.py",
     f"{PKG}/execution/pipeline.py",
+    f"{PKG}/serving/scheduler.py",
     f"{PKG}/io/read_planner.py",
     f"{PKG}/distributed/worker.py",
     f"{PKG}/distributed/remote_worker.py",

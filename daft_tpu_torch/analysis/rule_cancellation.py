@@ -21,10 +21,10 @@ A loop is credited when its body (or a same-module helper it calls):
 A loop whose responsiveness lives in the *iterator* carries a pragma
 naming the mechanism.
 
-Scope: ``execution/executor.py``, ``execution/pipeline.py`` and the
-distributed workers (``distributed/worker.py``,
-``distributed/remote_worker.py``). The reference's serving scope (``daft_tpu/serving/``) waits for the serving
-plane (ROADMAP A8).
+Scope: ``execution/executor.py``, ``execution/pipeline.py``, the
+serving plane (``serving/``: the scheduler's drain of a non-cacheable
+runner's partitions) and the distributed workers
+(``distributed/worker.py``, ``distributed/remote_worker.py``).
 """
 
 from __future__ import annotations
@@ -41,6 +41,7 @@ from .rule_resources import walk_local
 SCOPE_PREFIXES = (
     f"{PKG}/execution/executor.py",
     f"{PKG}/execution/pipeline.py",
+    f"{PKG}/serving/",
     f"{PKG}/distributed/worker.py",
     f"{PKG}/distributed/remote_worker.py",
 )

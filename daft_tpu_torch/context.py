@@ -93,6 +93,15 @@ class ExecutionConfig:
     worker_topology: str = ""
     exchange_path: str = "auto"
     adaptive: bool = False
+    #: the serving plane (``serving/scheduler.py``): worker slots, the
+    #: queued-query cap, the queue and admission wait bound (s), and the
+    #: plan and result caches' byte budgets; the ``DAFT_TORCH_SERVE_*``
+    #: knobs win when set
+    serve_concurrency: int = 4
+    serve_queue_depth: int = 64
+    serve_queue_timeout: float = 30.0
+    serve_plan_cache_bytes: int = 64 << 20
+    serve_result_cache_bytes: int = 64 << 20
 
 
 class Context:

@@ -6,11 +6,11 @@ plans and timings, launched through ``dashboard.launch()``). The server
 renders the engine's own runtime stats as plain HTML: recent queries with
 per-operator rows and timings (``observability.RuntimeStatsContext``) and
 their io block, the flight recorder's history (``/api/history``), the
-queries as JSON (``/api/queries``) and a Prometheus scrape (``/metrics``).
-The in-memory history is bounded by count and by bytes.
+queries as JSON (``/api/queries``), the serving scheduler's live queue
+(``/api/serving`` and a panel on the page) and a Prometheus scrape
+(``/metrics``). The in-memory history is bounded by count and by bytes.
 
-The serving queue and fleet panels (``/api/serving``, ``/api/fleet``)
-come with the serving plane (ROADMAP A8).
+The fleet panel (``/api/fleet``) comes with the fleet (ROADMAP A8b).
 """
 
 from __future__ import annotations
@@ -61,6 +61,9 @@ def broadcast_query(stats) -> None:
             # lock-order sanitizer (DAFT_TORCH_SANITIZE=1): graph size,
             # cycles, this query's acquisitions
             "sanitizer": dict(getattr(stats, "sanitizer", {}) or {}),
+            # serving plane: session, priority, queue wait, admission and
+            # the plan and result cache outcomes of scheduler-run queries
+            "serving": dict(getattr(stats, "serving", {}) or {}),
             # tracing plane: the trace's summary (id, span count)
             "trace": dict(getattr(stats, "trace_summary", {}) or {}),
         }
@@ -76,6 +79,33 @@ def broadcast_query(stats) -> None:
                     and len(_history) > 1):
             _history.pop(0)
             _history_bytes.pop(0)
+
+
+def _serving_view() -> dict:
+    """The shared scheduler's live state, or {} when none runs (looking
+    never boots a scheduler)."""
+    from . import serving
+    sched = serving.shared_scheduler_if_running()
+    return sched.live_view() if sched is not None else {}
+
+
+def _serving_html(live: dict) -> str:
+    if not live:
+        return ""
+    sess = live.get("sessions") or {}
+    sess_rows = "".join(
+        f"<tr><td>{html.escape(str(n))}</td>"
+        f"<td>{s.get('queued')}</td><td>{s.get('weight')}</td></tr>"
+        for n, s in sorted(sess.items()))
+    return ("<h2>serving queue (live)</h2>"
+            f"<p>running {live.get('running', 0)}/"
+            f"{live.get('concurrency', 0)} · queued "
+            f"{live.get('queued', 0)} · admitted "
+            f"{live.get('admitted_bytes', 0)} / "
+            f"{live.get('admission_budget')} bytes</p>"
+            + ("<table border=1><tr><th>session</th><th>queued</th>"
+               "<th>weight</th></tr>" + sess_rows + "</table>"
+               if sess_rows else ""))
 
 
 class _Handler(http.server.BaseHTTPRequestHandler):
@@ -101,6 +131,10 @@ class _Handler(http.server.BaseHTTPRequestHandler):
             self._reply(json.dumps(tracing.flight_history()).encode(),
                         "application/json")
             return
+        if self.path.startswith("/api/serving"):
+            self._reply(json.dumps(_serving_view()).encode(),
+                        "application/json")
+            return
         if self.path.startswith("/api/queries"):
             with _history_lock:
                 body = json.dumps(_history).encode()
@@ -109,6 +143,10 @@ class _Handler(http.server.BaseHTTPRequestHandler):
         rows = []
         with _history_lock:
             for i, q in enumerate(reversed(_history)):
+                srv = q.get("serving") or {}
+                srv_html = ("<p><b>serving:</b> "
+                            + html.escape(json.dumps(srv, default=str))
+                            + "</p>" if srv else "")
                 rec = q.get("recovery") or {}
                 rec_html = ("<p><b>recovery events:</b> "
                             + html.escape(json.dumps(rec)) + "</p>"
@@ -125,7 +163,7 @@ class _Handler(http.server.BaseHTTPRequestHandler):
                            + "</p>" if sio else "")
                 rows.append(
                     f"<h3>query {len(_history) - i} — {q['ts']}</h3>"
-                    f"{rec_html}{shf_html}{io_html}"
+                    f"{srv_html}{rec_html}{shf_html}{io_html}"
                     f"<pre>{html.escape(q['explain'])}</pre>")
         # flight-recorder history (persisted across restarts, unlike the
         # in-memory broadcast list above)
@@ -143,7 +181,8 @@ class _Handler(http.server.BaseHTTPRequestHandler):
                          "<th>slow</th><th>trace</th></tr>"
                          + hist_rows + "</table>")
         body = ("<html><head><title>daft-tpu-torch dashboard</title>"
-                "</head><body><h1>daft-tpu-torch queries</h1>" + hist_html
+                "</head><body><h1>daft-tpu-torch queries</h1>"
+                + _serving_html(_serving_view()) + hist_html
                 + ("".join(rows) or "<p>no queries yet</p>")
                 + "</body></html>").encode()
         self._reply(body, "text/html")

@@ -38,12 +38,14 @@ Under ``DAFT_TORCH_CHAOS_SERIALIZE=1`` or an active fault plan
 reads return the caller's default and observations are dropped, so a
 chaos replay prices every decision as the recorded run did.
 
-Not carried over (they wait for the slices that bring their callers): the
-fleet-gossiped constants and ``plan_token`` (ROADMAP A8).
+:func:`plan_token` folds the active constants into the serving plane's
+plan fingerprints (``logical/fingerprint.py``). The fleet-gossiped
+constants wait for the fleet (ROADMAP A8b).
 """
 
 from __future__ import annotations
 
+import hashlib
 import json
 import math
 import os
@@ -326,6 +328,28 @@ def profile_entries() -> Dict[str, Dict[str, float]]:
     _ensure_loaded()
     with _lock:
         return {k: dict(v) for k, v in _profile.items()}
+
+
+def plan_token() -> str:
+    """Calibration-generation token folded into plan fingerprints
+    (``logical/fingerprint.py``): a quantized digest of every constant
+    ACTIVELY overriding its default right now. When a calibrated value
+    crosses the sample floor or moves materially, the token changes and
+    cached plans priced under the old constants stop being served. Empty
+    when calibration is off or frozen or nothing is active, so the common
+    path leaves fingerprints untouched. Local constants only: the
+    fleet-inherited ones come with the fleet (ROADMAP A8b)."""
+    if not enabled() or frozen():
+        return ""
+    floor = min_samples()
+    # 2 significant digits: EWMA nudges within a few percent keep the
+    # token (and so the plan cache) stable
+    active = {n: f"{e['value']:.1e}" for n, e in profile_entries().items()
+              if e["samples"] >= floor}
+    if not active:
+        return ""
+    blob = ",".join(f"{n}={active[n]}" for n in sorted(active))
+    return hashlib.sha256(blob.encode()).hexdigest()[:12]
 
 
 def ndv_ratio() -> float:

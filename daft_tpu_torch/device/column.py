@@ -600,16 +600,22 @@ def fetch_host(planes: Sequence[torch.Tensor]) -> List[np.ndarray]:
 
 
 
-def decode_columns(named: Sequence[Tuple[str, DeviceColumn]],
-                   count: int) -> List[Series]:
-    """Decode the first ``count`` rows of many DeviceColumns, with one
-    device→host copy for every data and validity plane. While the
+def fetch_columns(named: Sequence[Tuple[str, DeviceColumn]],
+                  count: int) -> List[np.ndarray]:
+    """The first ``count`` rows of every data and validity plane of many
+    DeviceColumns, in ONE device→host copy (:func:`decode_fetched`
+    decodes them)."""
+    return fetch_host([p for _, c in named
+                       for p in (c.data[:count], c.validity[:count])])
+
+
+def decode_fetched(named: Sequence[Tuple[str, DeviceColumn]],
+                   host: Sequence[np.ndarray], count: int) -> List[Series]:
+    """Decode :func:`fetch_columns`' planes into Series. While the
     pipeline is on, each decoded Series registers its device planes for
     reuse by a later encode (reference ``column.py:384``); decimals do
     not, since their float64 encoding is lossy."""
     from . import pipeline
-    host = fetch_host([p for _, c in named
-                       for p in (c.data[:count], c.validity[:count])])
     register = pipeline.inflight_window() > 0
     out = []
     for i, (name, c) in enumerate(named):

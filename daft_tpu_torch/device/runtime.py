@@ -163,15 +163,18 @@ _projection_cache: Dict[Tuple, object] = {}
 # threads run one projection over many morsels at once) produce ONE
 # compile, the others wait on the winner
 _compile_lock = threading.Lock()
-# One per-operator agg's device section at a time, as a join's
+# One per-operator device section at a time, across the four paths
+# (projection, predicate, argsort, agg), as a join's
 # (``joins._device_lock``): the encode and its upload, the launches and
-# the one fetch. The executor's reducer threads share the card's stream,
-# where their launches would only interleave, and run concurrently their
-# allocations peak as the threads happen to overlap, so a repeat of a
-# query could need new device memory at a signature its first run
-# warmed. The gate before the section and the decode after it run in
-# parallel.
-_agg_device_lock = threading.Lock()
+# the one fetch. The executor's threads, and concurrent queries under the
+# serving scheduler, share the card's stream, where their launches would
+# only interleave; run concurrently, their allocations peak as the
+# threads happen to overlap, so a repeat of a query could need new device
+# memory at a signature its first run warmed. One lock for the four
+# paths, not one each: a projection overlapping an agg peaks as much as
+# two aggs do. The gate before the section and the decode after it run
+# in parallel.
+_op_device_lock = threading.Lock()
 _compile_inflight: Dict[Tuple, threading.Event] = {}
 _compile_counters: Dict[str, int] = {"hits": 0, "misses": 0, "compiles": 0,
                                      "waits": 0}
@@ -304,18 +307,19 @@ def try_eval_projection(batch, exprs: List[Expression]):
                                                 len(exprs))):
         return None
     from . import costmodel
-    t0 = time.perf_counter()
-    with retrace_sanitizer.dispatch_scope(
+    with _op_device_lock, retrace_sanitizer.dispatch_scope(
             "runtime.projection",
             (id(c), dcol.bucket_capacity(len(batch)))):
+        t0 = time.perf_counter()  # the ledger times the section, not its wait
         dt, outs = _run_compiled(c, batch, device)
         count("projection")
         named = [(f.name, dcol.DeviceColumn(v, m, f.dtype,
                                             key_dictionary(e, f, dt)))
                  for e, f, (v, m) in zip(exprs, out_fields, outs)]
         # one device→host copy for every output plane
-        out = RecordBatch.from_series(
-            dcol.decode_columns(named, len(batch)))
+        host = dcol.fetch_columns(named, len(batch))
+    out = RecordBatch.from_series(
+        dcol.decode_fetched(named, host, len(batch)))
     n = len(batch)
     costmodel.ledger_record(
         "projection", rows=n,
@@ -335,14 +339,15 @@ def try_eval_predicate(batch, predicate: Expression) -> Optional[np.ndarray]:
             or not _gate(_row_output_profitable(batch, c.needs_cols, 1,
                                                 out_bytes_per_row=1)):
         return None
-    with retrace_sanitizer.dispatch_scope(
+    with _op_device_lock, retrace_sanitizer.dispatch_scope(
             "runtime.predicate",
             (id(c), dcol.bucket_capacity(len(batch)))):
         _, outs = _run_compiled(c, batch, device)
         count("predicate")
         val, valid = outs[0]
         mask = (val.to(torch.bool) & valid)[:len(batch)]
-        return dcol.fetch_host([mask])[0].astype(bool)
+        host = dcol.fetch_host([mask])[0]
+    return host.astype(bool)
 
 
 def try_argsort(key_series: List[Series], descending: List[bool],
@@ -367,7 +372,7 @@ def try_argsort(key_series: List[Series], descending: List[bool],
             len(key_series))):
         return None
     cap = dcol.bucket_capacity(n)
-    with retrace_sanitizer.dispatch_scope(
+    with _op_device_lock, retrace_sanitizer.dispatch_scope(
             "runtime.argsort",
             (cap, tuple(s.datatype() for s in key_series),
              tuple(descending), tuple(nulls_first))):
@@ -384,7 +389,8 @@ def try_argsort(key_series: List[Series], descending: List[bool],
             mask, tuple(bool(d) for d in descending),
             tuple(bool(x) for x in nulls_first))
         count("argsort")
-        out = dcol.fetch_host([perm[:n]])[0].astype(np.int64)
+        host = dcol.fetch_host([perm[:n]])[0]
+    out = host.astype(np.int64)
     costmodel.ledger_record(
         "argsort", rows=n,
         nbytes=mfu.argsort_bytes_model(cap, [c.data.dtype for c in cols]),
@@ -479,9 +485,9 @@ def _agg_dispatch(c, batch, device, specs, out_fields, key_fields,
     then the decode."""
     from ..recordbatch import RecordBatch
     from . import costmodel, hash_kernels, kernels, mfu
-    t0 = time.perf_counter()
-    with _agg_device_lock, \
+    with _op_device_lock, \
             retrace_sanitizer.dispatch_scope("runtime.agg", (id(c), cap)):
+        t0 = time.perf_counter()  # the ledger times the section, not its wait
         dt, outs = _run_compiled(c, batch, device)
         ops = tuple(s[0] for s in specs)
         keys = tuple(v for v, _ in outs[:nk])

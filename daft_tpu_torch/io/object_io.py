@@ -215,6 +215,14 @@ class ObjectSource:
             stats: Optional[IOStatsContext] = None) -> None:
         raise NotImplementedError
 
+    def version(self, path: str):
+        """Version token for ``path``: a tuple that changes whenever the
+        object's bytes may have changed (size and etag or mtime), or None
+        when this store exposes no version signal. The serving plan and
+        result caches key remote sources on it, so a store without one
+        keeps remote plans uncacheable (fail-safe)."""
+        return None
+
     def get_size(self, path: str) -> int:
         raise NotImplementedError
 
@@ -270,6 +278,13 @@ class LocalSource(ObjectSource):
 
     def get_size(self, path):
         return os.path.getsize(self._strip(path))
+
+    def version(self, path):
+        try:
+            st = os.stat(self._strip(path))
+            return ("stat", int(st.st_size), int(st.st_mtime_ns))
+        except OSError:
+            return None
 
     def glob(self, pattern, stats=None):
         if stats:
@@ -334,6 +349,22 @@ class HTTPSource(ObjectSource):
         with urllib.request.urlopen(req) as r:
             return int(r.headers.get("Content-Length", 0))
 
+    def version(self, path):
+        # etag (or last-modified) and size from one HEAD; a server sending
+        # neither gives no change signal, so the source stays uncacheable
+        req = self._request(path)
+        req.get_method = lambda: "HEAD"
+        try:
+            with urllib.request.urlopen(req) as r:
+                tag = r.headers.get("ETag") \
+                    or r.headers.get("Last-Modified")
+                size = int(r.headers.get("Content-Length", 0) or 0)
+        except Exception:
+            return None
+        if not tag:
+            return None
+        return ("http", size, tag)
+
 
 # ---------------------------------------------------------------------------
 # client
@@ -394,6 +425,10 @@ class IOClient:
 
     def glob(self, pattern, stats=None) -> List[str]:
         return self.source_for(pattern).glob(pattern, stats)
+
+    def version(self, path):
+        return self.source_for(path).version(path)
+
 
 _default_client: Optional[IOClient] = None
 _default_lock = threading.Lock()

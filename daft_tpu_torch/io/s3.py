@@ -206,6 +206,22 @@ class S3Source(ObjectSource):
         lower = {k.lower(): v for k, v in headers.items()}
         return int(lower.get("content-length", 0))
 
+    def version(self, path):
+        # S3 always returns an ETag on HEAD: the object's change signal
+        # (a content hash for simple puts, opaque for multipart)
+        try:
+            bucket, key = _parse_s3_url(path)
+            status, headers, _ = self._request("HEAD", bucket, key)
+            if status != 200:
+                return None
+            lower = {k.lower(): v for k, v in headers.items()}
+            tag = lower.get("etag") or lower.get("last-modified")
+            if not tag:
+                return None
+            return ("s3", int(lower.get("content-length", 0) or 0), tag)
+        except Exception:
+            return None
+
     def _list(self, bucket: str, prefix: str,
               delimiter: Optional[str] = None,
               stats: Optional[IOStatsContext] = None

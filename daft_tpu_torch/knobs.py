@@ -229,6 +229,42 @@ _KNOBS: List[Knob] = [
            'whole object); unset defers to '
            '`ExecutionConfig.io_infer_bytes` (1MiB)',
            config_field='io_infer_bytes'),
+    # ----------------------------------------------------- serving
+    _k("DAFT_TORCH_SERVE_CONCURRENCY", "int", None,
+       "daft_tpu_torch/serving/scheduler.py", "serving",
+       "worker slots of the query scheduler (queries RUNNING at once); "
+       "unset defers to `ExecutionConfig.serve_concurrency` (4)",
+       config_field="serve_concurrency"),
+    _k("DAFT_TORCH_SERVE_QUEUE_DEPTH", "int", None,
+       "daft_tpu_torch/serving/scheduler.py", "serving",
+       "most queued (not yet running) queries before a submission is "
+       "rejected `queue_full`; unset defers to "
+       "`ExecutionConfig.serve_queue_depth` (64)",
+       config_field="serve_queue_depth"),
+    _k("DAFT_TORCH_SERVE_QUEUE_TIMEOUT", "float", None,
+       "daft_tpu_torch/serving/scheduler.py", "serving",
+       "seconds a query may wait (in the queue, then again in admission) "
+       "before it is rejected `queue_timeout` (`0` waits forever); unset "
+       "defers to `ExecutionConfig.serve_queue_timeout` (30)",
+       config_field="serve_queue_timeout"),
+    _k("DAFT_TORCH_SERVE_PLAN_CACHE_BYTES", "bytes", None,
+       "daft_tpu_torch/serving/scheduler.py", "serving",
+       "LRU budget of the plan cache (optimized and translated plans "
+       "keyed by plan fingerprint; `0` disables); unset defers to "
+       "`ExecutionConfig.serve_plan_cache_bytes` (64MiB)",
+       config_field="serve_plan_cache_bytes"),
+    _k("DAFT_TORCH_SERVE_RESULT_CACHE_BYTES", "bytes", None,
+       "daft_tpu_torch/serving/scheduler.py", "serving",
+       "LRU budget of the result cache (materialized results of identical "
+       "literal-inclusive fingerprints over unchanged sources; `0` "
+       "disables); unset defers to "
+       "`ExecutionConfig.serve_result_cache_bytes` (64MiB)",
+       config_field="serve_result_cache_bytes"),
+    _k("DAFT_TORCH_SERVE_MEMORY", "bytes", None,
+       "daft_tpu_torch/serving/scheduler.py", "serving",
+       "admission byte budget shared by concurrent queries (default: "
+       "`DAFT_TORCH_MEMORY_LIMIT`, else the breaker budget; `0` disables "
+       "admission)", default_str="memory limit"),
     # ----------------------------------------------- observability
     _k("DAFT_TORCH_TRACE", "bool", False, "daft_tpu_torch/tracing.py",
            "observability", '`1`: the query-wide tracing plane, one span tree per query '

@@ -132,7 +132,8 @@ class LogicalPlanBuilder:
         value_col = _to_exprs([value_col])[0]
         agg_expr = getattr(value_col, agg_fn)()
         if names is None:
-            from ..runners.native_runner import get_runner
+            # through the process's runner, as every query runs
+            from ..context import get_runner
             distinct_b = LogicalPlanBuilder(self._plan).select([pivot_col]) \
                 .distinct()
             rb = get_runner().run(distinct_b).to_recordbatch()

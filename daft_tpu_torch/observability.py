@@ -29,10 +29,10 @@ reference engine's ``runtime_stats.rs``, ``common/tracing`` and
   ``plansan`` (plan-contract checks and violations).
 
 - ``exchange``: the mesh exchange program memo's hits and misses
-  (``parallel/exchange.py``), diffed process-wide like the sanitizers.
-
-The reference's ``serving`` block waits for the serving plane (ROADMAP
-A8).
+  (``parallel/exchange.py``), diffed process-wide like the sanitizers;
+- ``serving``: the query scheduler's record of a query it ran (session,
+  priority, queue wait, admitted bytes, plan and result cache outcomes;
+  ``serving/scheduler.py``), rendered by :func:`render_serving_block`.
 """
 
 from __future__ import annotations
@@ -308,6 +308,9 @@ class RuntimeStatsContext:
         self._plane_lock = threading.Lock()
         self._planes: Dict[str, Dict[str, float]] = {}
         self._attributed = False
+        # the serving-plane block (queue wait, admission, cache hits): set
+        # by the query scheduler for the queries it ran, empty otherwise
+        self.serving: Dict[str, object] = {}
 
     def _bump(self, plane: str, key: str, n: float) -> None:
         with self._plane_lock:
@@ -491,6 +494,7 @@ class RuntimeStatsContext:
         lines.extend(render_sanitizer_block(self.sanitizer))
         lines.extend(render_retrace_block(self.retrace))
         lines.extend(render_plansan_block(self.plansan))
+        lines.extend(render_serving_block(self.serving))
         if self.trace_summary:
             t = self.trace_summary
             lines.append(f"trace: id={t.get('trace_id')} "
@@ -710,6 +714,26 @@ def render_governor_block(d: Dict[str, float]) -> List[str]:
         if rest:
             lines.append("  actions: " + ", ".join(
                 f"{k}={v}" for k, v in rest.items()))
+    return lines
+
+
+def render_serving_block(s: Dict[str, object]) -> List[str]:
+    """Human lines for one query's serving-plane record (shared by
+    ``explain(analyze=True)`` and the dashboard; set only for queries run
+    through the query scheduler): the session and priority it ran as, how
+    long it queued, what the admission controller charged it, and whether
+    the plan and result caches served it."""
+    if not s:
+        return []
+    lines = ["serving (query scheduler):"]
+    lines.append(
+        f"  session={s.get('session')} priority={s.get('priority', 0)} "
+        f"queue_wait={float(s.get('queue_wait_us', 0)) / 1e3:.1f}ms "
+        f"admitted={_fmt_bytes(float(s.get('admitted_bytes', 0)))} "
+        f"(running={int(s.get('running_at_admit', 0))} at admit)")
+    lines.append(
+        f"  plan cache: {s.get('plan_cache', 'off')}, "
+        f"result cache: {s.get('result_cache', 'off')}")
     return lines
 
 
@@ -1069,7 +1093,7 @@ def flight_entry(ctx: RuntimeStatsContext) -> dict:
         "operators": ctx.as_dict(),
     }
     for block in ("recovery", "shuffle", "exchange", "io", "spill",
-                  "governor", "adaptive", "device_kernels",
+                  "governor", "adaptive", "device_kernels", "serving",
                   "sanitizer", "retrace", "plansan"):
         v = getattr(ctx, block, None)
         if v:

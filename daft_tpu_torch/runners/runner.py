@@ -27,6 +27,10 @@ class PartitionSet:
     def __len__(self) -> int:
         return sum(len(p) for p in self.partitions)
 
+    def size_bytes(self) -> int:
+        """The result's bytes (the serving result cache's charge)."""
+        return sum(p.size_bytes() for p in self.partitions)
+
     def to_recordbatch(self) -> RecordBatch:
         batches = []
         for p in self.partitions:

@@ -603,10 +603,11 @@ def prometheus_text() -> str:
     gauges.
 
     The ``retrace`` and ``plansan`` planes carry the sanitizers' counters
-    (empty unless armed). The reference's ``fleet`` plane and ``serving``
-    gauges come with the serving plane (ROADMAP A8); they are left out,
-    not skipped behind a caught import."""
+    (empty unless armed). The ``serving`` gauges and counters are those of
+    the shared scheduler when one runs. The reference's ``fleet`` plane
+    comes with the fleet (ROADMAP A8b)."""
     from . import observability as obs
+    from . import serving
     from .analysis import plan_sanitizer, retrace_sanitizer
     from .device import calibration, costmodel
     from .distributed import resilience, shuffle_service, topology
@@ -680,6 +681,30 @@ def prometheus_text() -> str:
         emit(_prom_name("kernel", f"{kind}_seconds") + "_total",
              round(d.get("seconds", 0.0), 6), "counter",
              f"device kernel seconds ({kind})")
+    sched = serving.shared_scheduler_if_running()
+    if sched is not None:
+        view = sched.live_view()
+        emit("daft_torch_serving_queue_depth", view["queued"], "gauge",
+             "queries queued in the serving scheduler")
+        emit("daft_torch_serving_running", view["running"], "gauge",
+             "queries currently running")
+        emit("daft_torch_serving_admitted_bytes", view["admitted_bytes"],
+             "gauge", "admission-controller outstanding bytes")
+        counters = view["counters"]
+        for k in sorted(counters):
+            if k.startswith(("plan_cache_", "result_cache_")) \
+                    or k in ("submitted", "completed", "failed",
+                             "cancelled") \
+                    or k.startswith("rejected_"):
+                emit(_prom_name("serving", k) + "_total", counters[k],
+                     "counter", f"serving scheduler counter ({k})")
+        for cache in ("plan_cache", "result_cache"):
+            hits = counters.get(f"{cache}_hits", 0)
+            misses = counters.get(f"{cache}_misses", 0)
+            if hits + misses:
+                emit(f"daft_torch_serving_{cache}_hit_rate",
+                     round(hits / (hits + misses), 6), "gauge",
+                     f"{cache} hit rate since process start")
     emit("daft_torch_traces_active", len(_recorders), "gauge",
          "span recorders currently registered")
     with _flight_lock:

@@ -363,10 +363,14 @@ def test_injected_kernel_error_fails_the_query(monkeypatch, pq_dir, window,
 
 # ------------------------------------------- device-resident hand-off
 
+def _decode(named, count):
+    return RecordBatch.from_series(dcol.decode_fetched(
+        named, dcol.fetch_columns(named, count), count))
+
+
 def _decoded(batch, names):
     dt = dcol.encode_batch(batch, names, CPU)
-    return RecordBatch.from_series(dcol.decode_columns(
-        [(n, dt.columns[n]) for n in names], len(batch))), dt
+    return _decode([(n, dt.columns[n]) for n in names], len(batch)), dt
 
 
 def test_residency_reuse_skips_reencode(monkeypatch):
@@ -382,8 +386,7 @@ def test_residency_reuse_skips_reencode(monkeypatch):
     assert runtime.counters().get("bytes_up", 0) == 0
     assert dt2.resident
     assert dt2.columns["a"].data is dt.columns["a"].data
-    again = RecordBatch.from_series(dcol.decode_columns(
-        [(n, dt2.columns[n]) for n in ("a", "b")], 128))
+    again = _decode([(n, dt2.columns[n]) for n in ("a", "b")], 128)
     assert again.to_pydict() == decoded.to_pydict()
     # a projection on the device re-enters through the registry too
     out = dcol.encode_series(decoded.get_column("a"), 128, CPU)

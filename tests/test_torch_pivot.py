@@ -119,6 +119,56 @@ def test_pivot(nparts, tier):
     assert (on_device > 0) == (tier == "device"), counts
 
 
+@pytest.mark.parametrize("how", ["distributed", "set_runner"])
+def test_pivot_probe_runs_through_the_selected_runner(how, cpu,
+                                                      monkeypatch):
+    """``pivot`` without ``names`` probes the pivot column's distinct
+    values through the process's runner, as the reference does
+    (``runners/runner_io.py``): under ``DAFT_TORCH_RUNNER=distributed``
+    the distributed runner, after ``set_runner`` the installed one. The
+    answer equals the reference's."""
+    import daft_tpu_torch
+    from daft_tpu_torch import context
+    from daft_tpu_torch.runners import distributed_runner as dr
+    from daft_tpu_torch.runners.native_runner import NativeRunner
+    from daft_tpu_torch.runners.runner import Runner
+    data = {"g": [1, 1, 2, 2, 3], "p": ["x", "y", "x", "z", "y"],
+            "v": [1.0, 2.0, 3.0, 4.0, 5.0]}
+    want = daft_tpu.from_pydict(data).pivot("g", "p", "v", "sum") \
+        .sort("g").to_pydict()
+    runs = []
+    if how == "distributed":
+        monkeypatch.setenv("DAFT_TORCH_RUNNER", "distributed")
+        monkeypatch.setenv("DAFT_TORCH_NUM_WORKERS", "2")
+        orig = dr.DistributedRunner.run_iter
+
+        def counted(self, builder, *a, **k):
+            runs.append(type(self).__name__)
+            return orig(self, builder, *a, **k)
+        monkeypatch.setattr(dr.DistributedRunner, "run_iter", counted)
+        installed = None
+    else:
+        class Counting(Runner):
+            def run_iter(self, builder, results_buffer_size=None):
+                runs.append(type(self).__name__)
+                return NativeRunner().run_iter(builder)
+        installed = Counting()
+    prev = context.get_context()._runner
+    context.set_runner(installed)
+    try:
+        df = daft_tpu_torch.from_pydict(data).pivot("g", "p", "v", "sum")
+        # the probe ran at plan time, through the selected runner
+        assert runs == (["DistributedRunner"] if how == "distributed"
+                        else ["Counting"])
+        got = df.sort("g").to_pydict()
+    finally:
+        runner = context.get_context()._runner
+        if isinstance(runner, dr.DistributedRunner):
+            runner.shutdown()
+        context.set_runner(prev)
+    assert list(got) == list(want) and _rows(got) == _rows(want)
+
+
 @pytest.mark.parametrize("agg_fn", ["sum", "mean", "min", "max", "count"])
 def test_pivot_aggregations_and_names(agg_fn, cpu):
     # no null pivot value: an integer pivot column's null name raises in

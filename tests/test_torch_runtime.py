@@ -298,11 +298,11 @@ def test_aggregate_device_section_runs_alone(monkeypatch):
     orig_run, orig_decode = port_rt._run_compiled, dcol.decode_np
 
     def spy_run(*a, **k):
-        encode_locked.append(port_rt._agg_device_lock.locked())
+        encode_locked.append(port_rt._op_device_lock.locked())
         return orig_run(*a, **k)
 
     def spy_decode(*a, **k):
-        decode_locked.append(port_rt._agg_device_lock.locked())
+        decode_locked.append(port_rt._op_device_lock.locked())
         return orig_decode(*a, **k)
 
     monkeypatch.setattr(port_rt, "_run_compiled", spy_run)
@@ -324,7 +324,71 @@ def test_aggregate_device_section_runs_alone(monkeypatch):
         t.join()
     assert encode_locked == [True] * 5
     assert all(o == alone for o in outs)
-    assert not port_rt._agg_device_lock.locked()
+    assert not port_rt._op_device_lock.locked()
+
+
+@pytest.mark.parametrize("path", ["projection", "predicate", "argsort"])
+def test_per_operator_device_section_runs_alone(path, monkeypatch):
+    """The projection, predicate and argsort hold the agg's device lock
+    over their encode, launches and fetch (one section at a time across
+    the four paths, whatever thread or query dispatches); the gate
+    before it and the decode after it run unlocked, and four threads at
+    once all finish with the solo answer."""
+    from daft_tpu_torch.device import column as dcol
+    lock = port_rt._op_device_lock
+    seen = {"gate": [], "section": [], "fetch": [], "decode": []}
+
+    def spy(kind, fn):
+        def wrapped(*a, **k):
+            seen[kind].append(lock.locked())
+            return fn(*a, **k)
+        return wrapped
+
+    monkeypatch.setattr(port_rt, "_gate", spy("gate", port_rt._gate))
+    monkeypatch.setattr(port_rt, "_run_compiled",
+                        spy("section", port_rt._run_compiled))
+    monkeypatch.setattr(dcol, "encode_series",
+                        spy("section", dcol.encode_series))
+    monkeypatch.setattr(dcol, "fetch_host", spy("fetch", dcol.fetch_host))
+    monkeypatch.setattr(dcol, "decode_np", spy("decode", dcol.decode_np))
+    rb = PortBatch.from_pydict(_frame(np.random.default_rng(5), 300))
+    c = daft_tpu_torch.col
+
+    def run():
+        if path == "projection":
+            out = port_rt.try_eval_projection(
+                rb, [(c("i") * 2 + c("f")).alias("x"),
+                     (c("f") > 0).alias("y")])
+            return out.to_pydict()
+        if path == "predicate":
+            return port_rt.try_eval_predicate(rb, c("i") > 3).tolist()
+        return port_rt.try_argsort([rb.get_column("i"),
+                                    rb.get_column("f")],
+                                   [False, True], [True, False]).tolist()
+
+    alone = run()
+    assert alone is not None
+    assert seen["gate"] and not any(seen["gate"])
+    assert seen["section"] and all(seen["section"])
+    assert seen["fetch"] and all(seen["fetch"])
+    assert not any(seen["decode"])
+    if path == "projection":
+        assert seen["decode"]  # the outputs decode outside the section
+    outs = [None] * 4
+
+    def run_i(i):
+        outs[i] = run()
+
+    threads = [threading.Thread(target=run_i, args=(i,)) for i in range(4)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    assert all(o == alone for o in outs)
+    # (with threads at once, another thread's section may hold the lock
+    # while this one gates or decodes: only the sections are checked)
+    assert all(seen["section"]) and all(seen["fetch"])
+    assert not lock.locked()
 
 
 def test_global_agg_matches_reference():

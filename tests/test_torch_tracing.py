@@ -25,15 +25,19 @@ reference's (``tests/test_tracing.py``).
   match too; the chain stays the one difference. Times are never
   compared.
 - The ``/metrics`` names equal the reference's, the prefix swapped, less
-  the planes that wait for their modules (named in ``prometheus_text``).
+  the planes that wait for their modules (named in ``prometheus_text``),
+  with a shared serving scheduler running in each package, so the
+  serving gauges and counters are held too.
+- The reference's serving cases: the ``/metrics`` serving gauges, the
+  ``serve:queue`` / ``serve:run`` spans of a scheduled query, a failed
+  scheduled query still exported (flight recorder and trace), and a
+  cancelled queued query's trace closed.
 - Port-only: a thread kept across queries carries no trace into the next
   query; two queries at once each see only their own dispatches.
 
 The reference's chaos and distributed trace cases (the remote worker's
 span shipping, its concurrent tasks) are in
-``tests/test_torch_resilience.py``; those that need the serving plane
-wait with it (ROADMAP A8): the serving scheduler's spans, cancel events
-and gauges.
+``tests/test_torch_resilience.py``.
 """
 
 import collections
@@ -282,8 +286,7 @@ def test_prometheus_text_parses_strictly():
 
 #: name stems of the reference's planes the port leaves out until their
 #: modules come (``prometheus_text``'s docstring)
-_WAITING = ("daft_tpu_fleet_", "daft_tpu_retrace_", "daft_tpu_plansan_",
-            "daft_tpu_serving_")
+_WAITING = ("daft_tpu_fleet_", "daft_tpu_retrace_", "daft_tpu_plansan_")
 
 
 def _force_both(monkeypatch):
@@ -317,7 +320,8 @@ def same_topology(monkeypatch):
 def test_metric_names_equal_the_reference(tpch_root, monkeypatch,
                                           same_topology):
     """Fresh planes in both packages, the same forced Q1 and Q3 through
-    each: the same metric names, the prefix swapped, less the waiting
+    each, and Q1 once more through a shared serving scheduler in each:
+    the same metric names, the prefix swapped, less the waiting
     planes."""
     from daft_tpu.device import costmodel as ref_cm
     from daft_tpu.execution import governor as ref_gov
@@ -348,13 +352,25 @@ def test_metric_names_equal_the_reference(tpch_root, monkeypatch,
     for q in (1, 3):
         RQ.ALL[q](_reader(daft_tpu, tpch_root)).collect()
         Q.ALL[q](_reader(dt, tpch_root)).collect()
+    import daft_tpu.serving as ref_serving
+    from daft_tpu_torch import serving
+    scheds = []
+    for mod, q in ((ref_serving, RQ.ALL[1](_reader(daft_tpu, tpch_root))),
+                   (serving, Q.ALL[1](_reader(dt, tpch_root)))):
+        sched = mod.QueryScheduler(concurrency=1)
+        scheds.append(sched)
+        monkeypatch.setattr(mod, "_shared", sched)
+        sched.submit(q).result(timeout=120)
     ref = {n.replace("daft_tpu_", "daft_torch_", 1)
            for n in ref_tracing.parse_prometheus_text(
                ref_tracing.prometheus_text())
            if not n.startswith(_WAITING)}
     got = set(tracing.parse_prometheus_text(tracing.prometheus_text()))
+    for sched in scheds:
+        sched.shutdown()
     assert any(n.startswith("daft_torch_kernel_") for n in got)
     assert any(n.startswith("daft_torch_io_") for n in got)
+    assert "daft_torch_serving_completed_total" in got
     assert got == ref
 
 
@@ -378,6 +394,41 @@ def test_metrics_endpoint_serves_the_kernel_counters(monkeypatch):
         assert "daft_torch_rss_peak_bytes" in metrics
     finally:
         dashboard.shutdown()
+
+
+def test_metrics_endpoint_and_serving_gauges(monkeypatch):
+    import urllib.request
+
+    from daft_tpu_torch import dashboard, serving
+
+    sched = serving.QueryScheduler(concurrency=1)
+    monkeypatch.setattr(serving, "_shared", sched)
+    port = dashboard.launch(0)
+    try:
+        df = dt.from_pydict({"x": list(range(100)),
+                             "g": [i % 4 for i in range(100)]}) \
+            .groupby("g").agg(col("x").sum().alias("s"))
+        sched.submit(df).result(timeout=60)
+        with urllib.request.urlopen(
+                f"http://127.0.0.1:{port}/metrics", timeout=10) as r:
+            assert r.headers["Content-Type"].startswith("text/plain")
+            text = r.read().decode()
+        metrics = tracing.parse_prometheus_text(text)
+        assert metrics.get("daft_torch_serving_completed_total", 0) >= 1
+        assert "daft_torch_serving_queue_depth" in metrics
+        assert "daft_torch_serving_running" in metrics
+        with urllib.request.urlopen(
+                f"http://127.0.0.1:{port}/api/serving", timeout=10) as r:
+            view = json.loads(r.read().decode())
+        assert view["concurrency"] == 1
+        assert view["counters"]["completed"] >= 1
+        with urllib.request.urlopen(f"http://127.0.0.1:{port}/",
+                                    timeout=10) as r:
+            assert "serving queue (live)" in r.read().decode()
+    finally:
+        dashboard.shutdown()
+        monkeypatch.setattr(serving, "_shared", None)
+        sched.shutdown()
 
 
 # ----------------------------------------------------- flight recorder
@@ -578,6 +629,105 @@ def test_otlp_spans_posted_for_traced_query(monkeypatch):
 
 
 # ---------------------------------------------------- trace lifecycle
+
+# ------------------------------------------------------- serving plane
+
+def test_serving_trace_has_queue_and_run_spans(monkeypatch):
+    from daft_tpu_torch import serving
+
+    monkeypatch.setenv("DAFT_TORCH_TRACE", "1")
+    sched = serving.QueryScheduler(concurrency=1)
+    try:
+        df = dt.from_pydict({"x": list(range(200)),
+                             "g": [i % 3 for i in range(200)]}) \
+            .groupby("g").agg(col("x").sum().alias("s"))
+        h = sched.submit(df, session="traced")
+        h.result(timeout=60)
+        assert h.trace_ctx is not None
+        rec = h.trace_ctx.recorder
+        assert rec.exported  # finalized by the scheduler, once
+        kinds = {s["name"] for s in rec.spans()}
+        assert "serve:queue" in kinds and "serve:run" in kinds
+        assert "plan:fingerprint" in kinds
+        q = next(s for s in rec.spans() if s["name"] == "serve:queue")
+        assert q["attrs"]["session"] == "traced"
+        assert tracing.orphan_spans(rec) == []
+        # the handle's stats carry the summary for explain and history
+        assert h.stats.trace_summary.get("trace_id") == rec.trace_id
+    finally:
+        sched.shutdown()
+
+
+def test_serving_failed_query_still_exported(tmp_path, monkeypatch):
+    """A FAILED serving query still lands in the flight recorder (with
+    the error) and exports its trace with error status; only rejected
+    and cancelled queries skip."""
+    from daft_tpu_torch import DataType, serving, udf
+
+    monkeypatch.setenv("DAFT_TORCH_TRACE", "1")
+    monkeypatch.setenv("DAFT_TORCH_QUERY_LOG", str(tmp_path / "q.jsonl"))
+    monkeypatch.setenv("DAFT_TORCH_TRACE_DIR", str(tmp_path))
+
+    @udf(return_dtype=DataType.int64())
+    def boom(x):
+        raise RuntimeError("intentional test failure")
+
+    sched = serving.QueryScheduler(concurrency=1)
+    try:
+        df = dt.from_pydict({"x": [1, 2, 3]}).select(boom(col("x")))
+        h = sched.submit(df)
+        with pytest.raises(Exception):
+            h.result(timeout=60)
+        assert h.state == "failed"
+        entries = [e for e in tracing.flight_history()
+                   if (e.get("serving") or {}).get("state") == "failed"]
+        assert entries, tracing.flight_history()
+        assert "intentional test failure" in entries[0]["serving"]["error"]
+        assert h.trace_ctx is not None
+        rec = h.trace_ctx.recorder
+        assert rec.exported
+        root = next(s for s in rec.spans() if s["name"] == "query")
+        assert root.get("status") == "error"
+        assert glob.glob(str(tmp_path / "trace_*.json"))
+    finally:
+        sched.shutdown()
+
+
+def test_serving_cancel_event_and_trace_close(monkeypatch):
+    """A queued query cancelled before it runs: its trace closes (the
+    recorder exported and unregistered) with a ``serve:cancel`` event."""
+    from daft_tpu_torch import DataType, serving, udf
+
+    monkeypatch.setenv("DAFT_TORCH_TRACE", "1")
+    gate, started = threading.Event(), threading.Event()
+
+    @udf(return_dtype=DataType.int64())
+    def block(s):
+        started.set()
+        gate.wait(30)
+        return s.to_pylist()
+
+    sched = serving.QueryScheduler(concurrency=1)
+    try:
+        h1 = sched.submit(dt.from_pydict({"x": [1]})
+                          .select(block(col("x"))))
+        assert started.wait(20)  # h1 holds the only worker
+        h2 = sched.submit(dt.from_pydict({"x": [1]}).where(col("x") > 0))
+        h2.cancel("test cancel")
+        with pytest.raises(Exception):
+            h2.result(timeout=30)
+        assert h2.state == "cancelled"
+        assert h2.trace_ctx is not None
+        rec = h2.trace_ctx.recorder
+        assert rec.exported  # closed, not leaked
+        assert tracing.recorder_for(rec.trace_id) is None
+        assert "serve:cancel" in {s["name"] for s in rec.spans()}
+        gate.set()
+        h1.result(timeout=60)
+    finally:
+        gate.set()
+        sched.shutdown()
+
 
 def test_planner_failure_aborts_and_unregisters_trace(monkeypatch):
     monkeypatch.setenv("DAFT_TORCH_TRACE", "1")
