@@ -5,7 +5,13 @@ Run from the repository root on a machine with a CUDA card:
 
     python3 chip_smoke.py
 
-Phases (any failure ends the run with a non-zero exit code):
+Phases (any failure ends the run with a non-zero exit code; every phase
+runs through ``run_phase``, which prints ``phase <name> done at <s> s``
+after it, or ``phase <name> FAILED after <s> s: <type>: <message>`` and
+the traceback on stdout and stderr before the exception ends the run).
+The first line is the ``env`` line: Python, torch, CUDA, pyarrow,
+``pyarrow.flight``, ``grpc``, ``google.protobuf`` and ``pyspark``, each
+``null`` where it does not import:
 
 1. the card's name and power limit, and its device-to-device copy
    bandwidth (the yardstick the kernel's bound is also given against);
@@ -161,15 +167,19 @@ Phases (any failure ends the run with a non-zero exit code):
    do not contend for the scan's interpreter lock,
    ``daft_tpu_torch/benchmarking/http_store.py``: HEAD and ranged GETs
    read by seeking in the files, 15 ms per request, the default of
-   ``bench.py``'s scan bench), cold, two ways: the defaults (planned,
-   coalesced range reads and the prefetch-pipelined scan, window 2) and
+   ``bench.py``'s scan bench), cold, three ways: the defaults (planned,
+   coalesced range reads and the prefetch-pipelined scan, window 2),
    ``DAFT_TORCH_IO_PLANNED_READS=0`` with ``DAFT_TORCH_SCAN_PREFETCH=0``,
-   3 rounds with the ways' order turned each round; each answer held to
-   pyarrow over the local files as on the main path; one ``remote`` line
+   and the defaults at ``DAFT_TORCH_DEVICE_FORCE=1``, 3 rounds with the
+   ways' order turned each round; each answer held to pyarrow over the
+   local files as on the main path, the first two ways at the cost
+   model's own prices (each line logs its decisions), the forced way's
+   group-by and Q3 held to their kernels' launches; one ``remote`` line
    per query and way (the median wall and every wall, the first run's
    server GETs, scan counters, ``scan_task_us`` against
-   ``scan_span_us`` and kernel launches); the phase fails if the planned way falls back to
-   the naive read, the group-by launches no hash-agg build or Q3 no join
+   ``scan_span_us``, kernel launches and the cost model's decisions);
+   the phase fails if a planned way falls back to the naive read, or the
+   forced group-by launches no hash-agg build or the forced Q3 no join
    build and probe; then Q1's answer written with ``write_parquet`` and
    ``write_csv`` and read back (equal), and three columns of one
    lineitem file written hive-partitioned by ``l_returnflag`` and read
@@ -272,6 +282,40 @@ Phases (any failure ends the run with a non-zero exit code):
    summary`` (cache hit rates, structure hits, the projection compile
    cache, (b)'s wall over (c)'s); its new rungs go to phase 8 (``pass``
    ``serve``);
+7n. Spark Connect, the serving fleet and the PySpark shim
+   (``daft_tpu_torch/connect/``, ``fleet/``, ``pyspark.py``; alone:
+   ``daft_tpu_torch/benchmarking/fleet_phase.py``) over the same files.
+   The Connect transport is chosen from the ``env`` line before the
+   phase: a gRPC server where ``grpc`` and ``google.protobuf`` import,
+   the handlers called in-process where only ``protobuf`` does, else
+   none (the ``connect`` line says ``not run``). (a) a Connect server on
+   port 0 and the port's client in this process: a running Q3
+   interrupted once its first join build launched, then released (the
+   stream ends CANCELLED, admission back at 0); Q1, the ``l_suppkey``
+   group-by and Q3 as SQL over temp views, each counted (the group-by
+   launches the hash-agg build, Q3 the join build and probe) and held to
+   pyarrow; one DataFrame relation through the analyzer (read, filter,
+   ``groupBy().agg``) held to pyarrow; one retention sweep under
+   ``DAFT_TORCH_SERVE_OP_TTL``. (c) ``SparkSession.builder.local()``
+   boots a live gRPC server that answers ``AnalyzePlan``; without
+   ``pyspark``, ``getOrCreate()`` raises its actionable error. (b) a
+   cache sidecar and 3 subprocess replicas on the card, started one
+   after another and timed; their spawn and control deadlines at least
+   3x the first replica's start-up and 7m's slowest cold query (logged
+   on ``fleet start`` lines), each pricing with the link it measured
+   while it started (logged); 6 closed-loop clients, two sessions a
+   replica, send 7m's mix as SQL through the router for 20 s and at
+   least until, after 36 completed queries, one gossip round and the
+   kill of r0 came (120 s at most; its launch
+   counts read first), at the end the drain of r1. Every answer held;
+   no admission leak, queued or running query on a live replica, no
+   session left on the drained one, no failed query; at least one
+   ``fleet_hit``; the gossip merged every origin into every replica;
+   every live replica on ``cuda``; the hash-agg build and the join build
+   and probe each launched in the replicas. ``connect`` and ``fleet``
+   lines; the Connect runs' new rungs go to phase 8 (``pass``
+   ``connect``); the replicas' launches happen in their processes and
+   add no rung;
 8. the hash build against its plain version at the inputs of every
    distinct hash rung of the main path and of the TPC-H 22 phase's
    dispatch pass
@@ -284,8 +328,8 @@ Phases (any failure ends the run with a non-zero exit code):
    held, each checked as in the join-kernel phase, then timed (rows name
    their ``pass``: ``tpcds`` or ``tpcds_dispatch`` for the TPC-DS ones,
    ``spill`` for the memory-bounded ones, ``pivot``, ``fuzz``,
-   ``remote``, ``obs``, ``sanitize``, ``dist`` and ``serve`` for the last
-   seven phases);
+   ``remote``, ``obs``, ``sanitize``, ``dist``, ``serve`` and
+   ``connect`` for the last eight phases);
    every entry point
    ``analysis/dispatch_registry.py`` declares must have launched and been
    held against its plain twin in the run;
@@ -332,6 +376,33 @@ MAIN_LIVE = 751_000
 
 def log(*a):
     print(*a, flush=True)
+
+
+#: the modules the ``env`` line names, by the key it prints them under
+ENV_MODULES = (("pyarrow", "pyarrow"), ("pyarrow.flight", "pyarrow.flight"),
+               ("grpc", "grpc"), ("google.protobuf", "google.protobuf"),
+               ("pyspark", "pyspark"))
+
+
+def env_probe() -> dict:
+    """Python, torch, CUDA and the versions of the optional packages the
+    phases choose their transports by (``null`` for each that does not
+    import): the ``env`` line."""
+    import importlib
+    import platform
+    import torch
+    out = {"python": platform.python_version(), "torch": torch.__version__,
+           "cuda": torch.version.cuda}
+    for key, mod in ENV_MODULES:
+        try:
+            m = importlib.import_module(mod)
+        except ImportError:
+            out[key] = None
+            continue
+        # pyarrow.flight has no version of its own: it is pyarrow's
+        out[key] = getattr(m, "__version__", None) or getattr(
+            importlib.import_module(mod.split(".")[0]), "__version__", "?")
+    return out
 
 
 # ------------------------------------------------------------------ timing
@@ -1794,6 +1865,7 @@ class KernelRecorder:
         #: ``floor4096`` (the dispatch pass)
         self.pass_ = pass_
         self.recorded, self.events = [], []
+        self._rung_keys = set()
         # the wrappers may run on several threads at once (phase 7m's
         # scheduler): a build's inputs and its events are appended as a pair
         self._lock = threading.Lock()
@@ -1819,8 +1891,17 @@ class KernelRecorder:
 
         def recording(*a):
             out, ev = timed(orig, *a)
+            key = (label, a[5], len(a[0]))
             with self._lock:
-                self.recorded.append((label, a))
+                # phase 8 holds each rung's first dispatch: a later one
+                # keeps its rung and events, not its inputs (phase 7m
+                # launches 138 builds at 2 rungs; with every call's inputs
+                # kept, 59 GB stayed allocated on the card when 7n's
+                # replicas were to start, 11.6 GB before 7m put its
+                # recorded inputs back on the card)
+                first = key not in self._rung_keys
+                self._rung_keys.add(key)
+                self.recorded.append((key, a if first else None))
                 self.events.append(ev)
             return out
 
@@ -1865,17 +1946,17 @@ class KernelRecorder:
         """Move every recorded input to the CPU (or back to ``device``),
         so that the recorder keeps none of a run's device memory alive
         into the next run."""
-        self.recorded = [(q, _moved(a, device)) for q, a in self.recorded]
+        self.recorded = [(k, None if a is None else _moved(a, device))
+                         for k, a in self.recorded]
         for r in self.join_rungs.values():
             r["build"] = _moved(r["build"], device)
             r["probe"] = _moved(r["probe"], device)
 
     def hash_rungs(self) -> dict:
         rungs = {}
-        for (q, a), (e0, e1) in zip(self.recorded, self.events):
-            r = rungs.setdefault((q, a[5], len(a[0])),
-                                 dict(args=a, launches=0, ms_sum=0.0,
-                                      pass_=self.pass_))
+        for (k, a), (e0, e1) in zip(self.recorded, self.events):
+            r = rungs.setdefault(k, dict(args=a, launches=0, ms_sum=0.0,
+                                         pass_=self.pass_))
             r["launches"] += 1
             r["ms_sum"] += e0.elapsed_time(e1)
         return rungs
@@ -2419,10 +2500,15 @@ def fuzz_phase():
 #: round), and the two ways each query runs
 REMOTE_DELAY_S = 0.015
 REMOTE_ROUNDS = 3
+#: ``planned`` and ``naive`` run at the cost model's own prices (a remote
+#: task is not cacheable: its upload is priced at the link measured at
+#: the start), and their lines log its choices; ``forced`` is ``planned``
+#: with every priced decision on the card, and holds the kernels
 REMOTE_WAYS = {
     "planned": {},
     "naive": dict(DAFT_TORCH_IO_PLANNED_READS="0",
-                  DAFT_TORCH_SCAN_PREFETCH="0")}
+                  DAFT_TORCH_SCAN_PREFETCH="0"),
+    "forced": dict(DAFT_TORCH_DEVICE_FORCE="1")}
 REMOTE_COUNTERS = ("gets", "ranges_planned", "range_requests",
                    "bytes_fetched", "bytes_used", "prefetch_tasks",
                    "planned_read_fallbacks")
@@ -2433,10 +2519,14 @@ def remote_phase(root: str, ref: dict, q3_ref, card: str):
     parquet served by a local HTTP object store (``FileStore``: HEAD and
     ranged GETs read by seeking in the files, ``REMOTE_DELAY_S`` per
     request), cold, each way of ``REMOTE_WAYS``: the defaults (planned
-    range reads, prefetch 2) and the naive reads with no prefetch;
-    ``REMOTE_ROUNDS`` rounds, the ways' order turned each round. Every
-    answer is held to pyarrow over the local files as on the main path;
-    then the write path (:func:`remote_write`)."""
+    range reads, prefetch 2), the naive reads with no prefetch, and the
+    defaults with every priced decision on the card; ``REMOTE_ROUNDS``
+    rounds, the ways' order turned each round. Every answer is held to
+    pyarrow over the local files as on the main path, the planned reads
+    of both planned ways are held, and the forced way's group-by and Q3
+    must launch their kernels (the other ways' lines log where the cost
+    model put each query's work); then the write path
+    (:func:`remote_write`)."""
     import daft_tpu_torch as dtt
     from daft_tpu_torch.benchmarking import tpch_queries as Q
     from daft_tpu_torch.benchmarking.http_store import FileStore
@@ -2465,22 +2555,21 @@ def remote_phase(root: str, ref: dict, q3_ref, card: str):
                                     ["revenue"])
                     else:
                         check_answer(name, got, ref)
-                    if way == "planned" and (d.get("planned_read_fallbacks")
-                                             or not d.get("range_requests")):
-                        raise AssertionError(f"remote {name}: the planned "
-                                             f"reads fell back ({d})")
-                    if name == "suppkey_agg" \
-                            and launches["hash_agg_build"] < 1:
+                    if way != "naive" and (d.get("planned_read_fallbacks")
+                                           or not d.get("range_requests")):
+                        raise AssertionError(f"remote {name} {way}: the "
+                                             f"planned reads fell back ({d})")
+                    short = (name == "suppkey_agg"
+                             and launches["hash_agg_build"] < 1) or (
+                        name == "q3" and min(launches["hash_join_build"],
+                                             launches["hash_join_probe"]) < 1)
+                    if way == "forced" and short:
                         raise AssertionError(
-                            f"remote {name} {way}: the hash-agg kernel "
-                            f"launched no time ({counts})")
-                    if name == "q3" and min(launches["hash_join_build"],
-                                            launches["hash_join_probe"]) < 1:
-                        raise AssertionError(
-                            f"remote q3 {way}: the join kernels did not "
+                            f"remote {name} {way}: its kernels did not "
                             f"launch ({launches}, {counts})")
                     runs.setdefault((name, way), []).append(dict(
                         wall=wall, scan=d, launches=launches, counts=counts,
+                        decisions=rec.decisions,
                         gets=g1["gets"] - g0["gets"],
                         heads=g1["heads"] - g0["heads"],
                         sent=g1["bytes_sent"] - g0["bytes_sent"]))
@@ -2495,7 +2584,7 @@ def remote_phase(root: str, ref: dict, q3_ref, card: str):
             scan={k: d.get(k, 0) for k in REMOTE_COUNTERS},
             scan_task_us=d.get("scan_task_us", 0),
             scan_span_us=d.get("scan_span_us", 0),
-            launches=first["launches"],
+            launches=first["launches"], decisions=first["decisions"],
             strategy={k: first["counts"].get(k, 0) for k in (
                 "dense", "hash", "sort", "global", "join_hash",
                 "join_sort", "host_joins", "host_morsels")})
@@ -2594,10 +2683,12 @@ def _profile_kernels(path: str) -> dict:
     ``lost``, calls whose first launch (a ``cudaLaunchKernel`` inside the
     range) has no kernel record, which the profiler dropped; ``empty``,
     calls with no launch record (a probe of 0 rows, or a launch whose
-    runtime record the profiler dropped); ``orphans``, the named first
-    kernels with no launch record (so counted in ``named`` and, by their
-    call, in ``empty``); ``kernel_us``, the summed time of its kernels by
-    name."""
+    runtime record the profiler dropped or placed outside the call's
+    range); ``orphans``, the named first kernels with no launch record,
+    and ``strays``, those whose launch record lies in none of the
+    wrapper's ranges (each counted in ``named`` and, by its call, in
+    ``empty``: ``named - orphans - strays + lost + empty`` counts every
+    call once); ``kernel_us``, the summed time of its kernels by name."""
     with open(path) as f:
         events = json.load(f).get("traceEvents", [])
     recorded = {e["args"]["correlation"] for e in events
@@ -2611,26 +2702,41 @@ def _profile_kernels(path: str) -> dict:
         ranges = [e for e in events if e.get("cat") == "user_annotation"
                   and e.get("name") == f"daft_torch::{entry}"]
         lost = empty = 0
+        in_ranges = set()
         for r in ranges:
             inside = sorted((e["ts"], e["args"].get("correlation"))
                             for e in runtime if e["tid"] == r["tid"]
                             and r["ts"] <= e["ts"] <= r["ts"] + r["dur"])
+            in_ranges.update(c for _, c in inside)
             if not inside:
                 empty += 1
             elif inside[0][1] not in recorded:
                 lost += 1
-        named, orphans, us = 0, 0, 0.0
+        named = orphans = strays = 0
+        us = 0.0
         for e in events:
             name = e.get("name", "")
             if e.get("cat") == "kernel" and any(k in name for k in knames):
                 if knames[0] in name:
                     named += 1
-                    orphans += e.get("args", {}).get("correlation") \
-                        not in launched
+                    corr = e.get("args", {}).get("correlation")
+                    if corr not in launched:
+                        orphans += 1
+                    elif corr not in in_ranges:
+                        strays += 1
                 us += float(e.get("dur", 0))
         out[w] = dict(calls=len(ranges), named=named, lost=lost,
-                      empty=empty, orphans=orphans, kernel_us=us)
+                      empty=empty, orphans=orphans, strays=strays,
+                      kernel_us=us)
     return out
+
+
+def _profile_calls(p: dict) -> int:
+    """The calls one wrapper's :func:`_profile_kernels` entry accounts
+    for, each once: those seen by their kernel's name, less the named
+    kernels whose call is also counted as empty, plus the lost and the
+    empty ones."""
+    return p["named"] - p["orphans"] - p["strays"] + p["lost"] + p["empty"]
 
 
 def _log_profile_mismatch(path: str, name: str, wrapper: str) -> None:
@@ -2762,14 +2868,14 @@ def obs_phase(root: str, ref: dict, q3_ref, card: str):
                 # every wrapper call in the capture, each launch seen by
                 # its kernel's name or as a launch whose kernel or launch
                 # record the profiler dropped (counted, shown in the line;
-                # a named kernel whose launch record was dropped is in
-                # both ``named`` and ``empty``)
+                # a named kernel whose launch record was dropped, or lies
+                # outside its call's range, is in both ``named`` and
+                # ``empty`` and is subtracted once as an orphan or a stray)
                 prof = _profile_kernels(st.profile_path)
                 for w, p in prof.items():
                     n = launches[w]
-                    if p["calls"] != n or p["named"] - p["orphans"] \
-                            + p["lost"] + p["empty"] != n or \
-                            (n and not p["named"]):
+                    if p["calls"] != n or _profile_calls(p) != n \
+                            or (n and not p["named"]):
                         _log_profile_mismatch(st.profile_path, name, w)
                         raise AssertionError(
                             f"obs {name}: the profiler shows {p} for the "
@@ -4074,6 +4180,591 @@ def serve_phase(root: str, ref: dict, q3_ref, host_free: dict,
                 summary=summary)
 
 
+#: phase 7n: the fleet's replicas and closed-loop clients, (b)'s duration,
+#: the completed queries after which the gossip round and the kill of r0
+#: come, the first replica's start-up deadline, the floor of the deadlines
+#: derived from it, and the Q3 the Connect client interrupts
+FLEET_REPLICAS = 3
+FLEET_CLIENTS = 6
+FLEET_MIX_S = 20.0
+FLEET_KILL_AFTER = 36
+#: the clients' traffic runs ``FLEET_MIX_S`` and at least until the kill,
+#: at most this long (the replicas' cold queries took up to 13 s each, so
+#: 20 s ended once with 29 queries completed and no kill)
+FLEET_MAX_S = 120.0
+FLEET_FIRST_SPAWN_S = 300.0
+FLEET_DEADLINE_FLOOR_S = 30.0
+#: free device memory the replicas start on, at least (each holds a CUDA
+#: context, its column cache and its queries' working memory)
+FLEET_MIN_FREE_BYTES = 24 << 30
+#: the modules each Connect transport needs, by the ``env`` line's keys
+CONNECT_NEEDS = {"grpc": ("grpc", "google.protobuf"),
+                 "in-process": ("google.protobuf",)}
+
+
+def connect_transport(env: dict):
+    """Phase 7n's Connect transport, chosen from the ``env`` line before
+    the phase starts: ``grpc`` (a gRPC server), ``in-process`` (the
+    handlers called with ``pb`` requests, only ``protobuf`` present) or
+    None (neither: Connect runs in the CPU tests only)."""
+    for way in ("grpc", "in-process"):
+        if all(env.get(m) for m in CONNECT_NEEDS[way]):
+            return way
+    return None
+
+
+def run_phase(name: str, fn, t_start: float):
+    """Run one phase: ``phase <name> done at <s> s`` after it, or ``phase
+    <name> FAILED after <s> s: <type>: <message>`` and its traceback on
+    stdout and stderr (flushed) before the exception goes on up."""
+    import traceback
+    t0 = time.perf_counter()
+    try:
+        out = fn()
+    except BaseException as e:
+        msg = (f"phase {name} FAILED after {time.perf_counter() - t0:.3f} "
+               f"s: {type(e).__name__}: {e}")
+        tb = traceback.format_exc()
+        for stream in (sys.stdout, sys.stderr):
+            print(msg, file=stream, flush=True)
+            print(tb, file=stream, end="", flush=True)
+        raise
+    log(f"phase {name} done at {time.perf_counter() - t_start:.3f} s")
+    return out
+
+
+def _sql_tables(sql: str, root: str) -> str:
+    """``sql`` with each table it names after FROM or JOIN read from its
+    files under ``root``."""
+    import re
+    return re.sub(r"\b(FROM|JOIN)\s+(lineitem|orders|customer)\b",
+                  lambda m: f"{m.group(1)} read_parquet('{root}/"
+                            f"{m.group(2)}') AS {m.group(2)}", sql)
+
+
+#: TPC-H Q3 as SQL with explicit joins: the comma-join text
+#: (``tpch_sql.Q3``) plans cross joins that the optimizer turns into
+#: equi-joins, but the scheduler's admission estimates the plan before
+#: the optimizer and prices their cross product past any budget
+SQL_Q3 = """
+SELECT o_orderkey, SUM(l_extendedprice * (1 - l_discount)) AS revenue,
+       o_orderdate, o_shippriority
+FROM customer JOIN orders ON c_custkey = o_custkey
+     JOIN lineitem ON l_orderkey = o_orderkey
+WHERE c_mktsegment = 'BUILDING'
+  AND o_orderdate < DATE '1995-03-15'
+  AND l_shipdate > DATE '1995-03-15'
+GROUP BY o_orderkey, o_orderdate, o_shippriority
+ORDER BY revenue DESC, o_orderdate
+LIMIT 10
+"""
+
+
+#: the ``l_suppkey`` group-by as SQL (the DataFrame form's columns)
+SQL_SUPPKEY = """
+SELECT l_suppkey, sum(l_quantity) AS sum_qty,
+       avg(l_extendedprice) AS avg_price, count(l_discount) AS n,
+       min(l_quantity) AS min_qty, max(l_extendedprice) AS max_price,
+       any_value(l_discount) AS any_disc, stddev(l_extendedprice) AS std_price
+FROM lineitem
+GROUP BY l_suppkey
+ORDER BY l_suppkey
+"""
+
+
+def _sql_q6(year: int, disc: float) -> str:
+    lo, hi = round(disc - 0.01, 2), round(disc + 0.01, 2)
+    return (f"SELECT sum(l_extendedprice * l_discount) AS revenue\n"
+            f"FROM lineitem\n"
+            f"WHERE l_shipdate >= DATE '{year}-01-01'\n"
+            f"  AND l_shipdate < DATE '{year + 1}-01-01'\n"
+            f"  AND l_discount BETWEEN {lo} AND {hi} AND l_quantity < 24\n")
+
+
+def _sql_lookup(key: int) -> str:
+    return (f"SELECT {', '.join(SERVE_LOOKUP_COLS)}\nFROM lineitem\n"
+            f"WHERE l_orderkey = {key}\nLIMIT 10\n")
+
+
+def fleet_sql(name: str, param=None) -> str:
+    """SQL text of one query of the serving mix (tables by name)."""
+    from daft_tpu_torch.benchmarking import tpch_sql
+    if name == "q1":
+        return tpch_sql.ALL[1]
+    if name == "q3":
+        return SQL_Q3
+    if name == "suppkey_agg":
+        return SQL_SUPPKEY
+    if name == "q6":
+        return _sql_q6(*param)
+    return _sql_lookup(param)
+
+
+def _mix_check(name: str, param, got: dict, ref: dict, q3_ref,
+               refs: dict) -> None:
+    """Hold one answer of the serving mix: Q1 and the group-by to pyarrow
+    by ``check_answer``, Q6 at its pair, Q3 to ``q3_reference`` (dates
+    that crossed as ISO text read back), a lookup's rows as a multiset."""
+    if name == "q3":
+        got = dict(got, o_orderdate=[
+            datetime.date.fromisoformat(d) if isinstance(d, str) else d
+            for d in got["o_orderdate"]])
+        _same_answer(f"{name}", got, q3_ref[0])
+    elif name == "q6":
+        check_table(f"q6 {param}", got, refs["q6"][param], [], [],
+                    ["revenue"])
+    elif name == "lookup":
+        rows = sorted(zip(*(got[c] for c in SERVE_LOOKUP_COLS)))
+        if rows != refs["lookups"][param]:
+            raise AssertionError(f"lookup {param}: {rows} != "
+                                 f"{refs['lookups'][param]}")
+    else:
+        check_answer(name, got, ref)
+
+
+def _connect_way(root: str, ref: dict, q3_ref, transport: str, rec,
+                 card: str) -> dict:
+    """7n (a): a Connect server and the port's client in this process
+    over ``transport``: Q1, the group-by and Q3 as SQL over temp views, one
+    DataFrame relation through the analyzer, the interrupt of a running
+    Q3 and its release, and one retention sweep."""
+    import pyarrow.compute as pc
+    import pyarrow.dataset as ds
+    from daft_tpu_torch import serving
+    from daft_tpu_torch.connect import SparkConnectService, start_server
+    from daft_tpu_torch.connect import client as cc
+    from daft_tpu_torch.device import join_kernels as jk
+    serving.shutdown_shared()  # a fresh shared scheduler: empty caches
+    server = start_server() if transport == "grpc" else None
+    svc = server if server is not None else SparkConnectService()
+    spark = cc.connect(server.address) if server is not None \
+        else cc.connect_in_process(svc)
+    out = dict(transport=transport, card=card)
+    try:
+        for t in ("lineitem", "orders", "customer"):
+            spark.read_parquet(os.path.join(root, t)) \
+                .createOrReplaceTempView(t)
+        sched = serving.shared_scheduler()
+        # Q1, the group-by and Q3 as SQL, each counted
+        for name in ("q1", "suppkey_agg", "q3"):
+            sql = fleet_sql(name)
+            t, wall, counts, launches = rec.counted(
+                f"connect {name}", lambda: spark.sql(sql).toArrow())
+            _mix_check(name, None, t.to_pydict(), ref, q3_ref, {})
+            out[name] = dict(wall_s=wall, launches=launches,
+                             host_joins=counts.get("host_joins", 0))
+        if out["suppkey_agg"]["launches"]["hash_agg_build"] < 1:
+            raise AssertionError(f"connect: the group-by launched no hash "
+                                 f"agg build ({out['suppkey_agg']})")
+        for k in ("hash_join_build", "hash_join_probe"):
+            if out["q3"]["launches"][k] < 1:
+                raise AssertionError(f"connect: Q3 launched no {k} "
+                                     f"({out['q3']})")
+        # one DataFrame relation through the analyzer
+        df = (spark.read_parquet(os.path.join(root, "lineitem"))
+              .filter(cc.col("l_quantity") < 24).groupBy("l_suppkey")
+              .agg(cc._agg_fn("sum", cc.col("l_extendedprice")).alias("s"),
+                   cc._agg_fn("count", cc.col("l_discount")).alias("n"))
+              .sort("l_suppkey"))
+        t, wall, _, launches = rec.counted("connect relation", df.toArrow)
+        li = ds.dataset(os.path.join(root, "lineitem"), format="parquet") \
+            .to_table(columns=["l_suppkey", "l_quantity",
+                               "l_extendedprice", "l_discount"])
+        li = li.filter(pc.less(li["l_quantity"], 24.0))
+        g = li.group_by("l_suppkey").aggregate([
+            ("l_extendedprice", "sum"), ("l_discount", "count")]) \
+            .sort_by("l_suppkey")
+        check_table("connect relation", t.to_pydict(), {
+            "l_suppkey": g["l_suppkey"].to_pylist(),
+            "s": g["l_extendedprice_sum"].to_pylist(),
+            "n": g["l_discount_count"].to_pylist()}, ["l_suppkey"], ["n"],
+            ["s"])
+        out["relation"] = dict(wall_s=wall, launches=launches,
+                               rows=t.num_rows)
+        # an Interrupt of a running Q3 once its first join build launched,
+        # last: its in-flight morsels may still launch after the cancel,
+        # and at another date than the counted Q3 (no result-cache hit)
+        built = threading.Event()
+        orig = jk.hash_join_build_cuda
+
+        def marking(*a):
+            res = orig(*a)
+            built.set()
+            return res
+        jk.hash_join_build_cuda = marking
+        outcome = {}
+
+        def interrupted_q3():
+            try:
+                spark.sql(SQL_Q3.replace("1995-03-15", "1995-03-16")
+                          ).execute_arrow(
+                    operation_id="q3-interrupt", reattachable=True)
+                outcome["state"] = "finished"
+            except Exception as e:  # noqa: BLE001 — the status is checked
+                outcome["state"] = "raised"
+                outcome["code"] = str(e.code()) if hasattr(e, "code") \
+                    else repr(e)
+        try:
+            th = threading.Thread(target=interrupted_q3)
+            th.start()
+            t0 = time.perf_counter()
+            while not built.wait(0.05) and th.is_alive() \
+                    and time.perf_counter() - t0 < 120:
+                pass
+            if not built.is_set():
+                th.join(120)
+                raise AssertionError(f"connect: the Q3 to interrupt "
+                                     f"launched no join build ({outcome})")
+            t0 = time.perf_counter()
+            ids = spark.interrupt("q3-interrupt")
+            th.join(120)
+            unwind_s = time.perf_counter() - t0
+        finally:
+            jk.hash_join_build_cuda = orig
+        if th.is_alive() or outcome.get("state") != "raised" \
+                or "CANCELLED" not in outcome.get("code", ""):
+            raise AssertionError(f"connect interrupt: {ids} {outcome}")
+        released = spark.release("q3-interrupt")
+        st = svc._sessions[spark.session_id]
+        deadline = time.monotonic() + 30
+        while sched.admission.outstanding and time.monotonic() < deadline:
+            time.sleep(0.01)
+        if sched.admission.outstanding or "q3-interrupt" in st.operations:
+            raise AssertionError(
+                f"connect interrupt: {sched.admission.outstanding} admitted "
+                f"bytes, operations {list(st.operations)}")
+        out["interrupt"] = dict(ids=ids, code=outcome["code"],
+                                unwind_s=unwind_s, released=released,
+                                admitted_after=0)
+        # one retention sweep: a finished reattachable operation nobody
+        # released goes once its TTL passed, at the session's next call
+        with _env(DAFT_TORCH_SERVE_OP_TTL="0.5"):
+            spark.sql("SELECT 1 AS x").execute_arrow(
+                operation_id="kept", reattachable=True)
+            held = "kept" in st.operations
+            time.sleep(0.6)
+            spark.version  # any call on the session sweeps it
+            swept = "kept" not in st.operations
+        if not (held and swept):
+            raise AssertionError(f"connect sweep: held {held}, swept "
+                                 f"{swept}")
+        out["sweep"] = dict(held=held, swept=swept)
+        out["version"] = spark.version
+        out["outstanding_after"] = sched.admission.outstanding
+        out["scheduler"] = {k: v for k, v in sched.counters_snapshot()
+                            .items() if not k.endswith("_us")}
+        if out["scheduler"].get("failed", 0):
+            raise AssertionError(f"connect: failed queries "
+                                 f"{out['scheduler']}")
+    finally:
+        spark.stop()
+        if server is not None:
+            server.stop(grace=1.0)
+        serving.shutdown_shared()
+    return out
+
+
+def _shim(env: dict, transport) -> dict:
+    """7n (c): ``SparkSession.builder.local()`` boots a live gRPC server
+    that answers AnalyzePlan; without ``pyspark`` ``getOrCreate()`` raises
+    its actionable error."""
+    if transport != "grpc":
+        return dict(run=False, why="no gRPC server: "
+                    + ", ".join(m for m in CONNECT_NEEDS["grpc"]
+                                if not env.get(m)))
+    from daft_tpu_torch.connect import client as cc
+    from daft_tpu_torch.pyspark import SparkSession
+    b = SparkSession.builder.local()
+    try:
+        s = cc.connect(b._remote)
+        version = s.version
+        s.stop()
+        if env.get("pyspark"):
+            spark = b.getOrCreate()
+            rows = spark.sql("SELECT 1 AS x").collect()
+            spark.stop()
+            return dict(run=True, version=version, pyspark=True,
+                        rows=len(rows))
+        try:
+            b.getOrCreate()
+        except ImportError as e:
+            if "pyspark" not in str(e):
+                raise
+            return dict(run=True, version=version, pyspark=False,
+                        error=str(e))
+        raise AssertionError("shim: getOrCreate without pyspark did not "
+                             "raise")
+    finally:
+        if b._server is not None:
+            b._server.stop(grace=1.0)
+
+
+class _FleetClient:
+    """One closed-loop client of the fleet: the 7m mix as SQL through the
+    router (``POST /sql``), its session pinned by the ring."""
+
+    def __init__(self, i: int, router, session: str, root: str, refs: dict,
+                 seed: int):
+        self.i, self.router, self.session = i, router, session
+        self.root, self.refs = root, refs
+        self.rng = np.random.default_rng(seed + i)
+        self.n = i
+        self.records = []
+
+    def run_one(self):
+        name = SERVE_MIX[self.n % len(SERVE_MIX)]
+        self.n += 1
+        param = None
+        if name == "q6":
+            param = SERVE_Q6[int(self.rng.integers(len(SERVE_Q6)))]
+        elif name == "lookup":
+            keys = sorted(self.refs["lookups"])
+            param = keys[int(self.rng.integers(len(keys)))]
+        sql = _sql_tables(fleet_sql(name, param), self.root)
+        t0 = time.perf_counter()
+        res = self.router.sql(sql, session=self.session, timeout_s=600.0)
+        self.records.append(dict(
+            name=name, param=param, latency_s=time.perf_counter() - t0,
+            submitted_s=t0, data=res["data"],
+            serving=res.get("serving", {})))
+
+
+def _fleet_way(root: str, ref: dict, q3_ref, slowest_cold_s: float,
+               transport, card: str) -> dict:
+    """7n (b): a cache sidecar and ``FLEET_REPLICAS`` subprocess replicas
+    on the card behind a ``FleetRouter``; ``FLEET_CLIENTS`` closed-loop
+    clients send the 7m mix for ``FLEET_MIX_S``; after
+    ``FLEET_KILL_AFTER`` completed queries one gossip round and the kill
+    of r0; at the end the drain of r1."""
+    import gc
+    import torch
+    from daft_tpu_torch.device import backend, costmodel
+    from daft_tpu_torch.fleet import cache_tier, state_sync
+    from daft_tpu_torch.fleet.router import (ConnectUnavailable,
+                                             FleetRouter, SubprocessReplica)
+    refs = serve_references(root)
+    # the replicas share the card with this process, whose caching
+    # allocator still reserves what the earlier phases used (up to the
+    # whole card in a full run): give back all it does not hold
+    mem0 = dict(allocated=torch.cuda.memory_allocated(),
+                reserved=torch.cuda.memory_reserved())
+    _clear_device_cache()
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    free, total = torch.cuda.mem_get_info()
+    mem = dict(card=card, before=mem0,
+               allocated=torch.cuda.memory_allocated(),
+               reserved=torch.cuda.memory_reserved(), free=free, total=total)
+    log("fleet memory " + json.dumps(mem))
+    if free < FLEET_MIN_FREE_BYTES:
+        raise AssertionError(f"fleet: {free} bytes free on the card for the "
+                             f"replicas, under {FLEET_MIN_FREE_BYTES} ({mem})")
+    state_sync.reset_for_tests()
+    sidecar = cache_tier.CacheSidecar()
+    addr = sidecar.start()
+    # each replica measures its own link while it starts (the replicas
+    # start one after another); their profiles are logged beside this
+    # process's
+    lp = costmodel.link_profile()
+    link = dict(parent=dict(rtt_s=lp.rtt_s, up_bps=lp.up_bps,
+                            down_bps=lp.down_bps))
+    env = dict(DAFT_TORCH_FLEET_SIDECAR=addr)
+    reps, starts = [], {}
+    router = None
+    try:
+        t0 = time.perf_counter()
+        reps.append(SubprocessReplica.spawn(
+            "r0", env=env, timeout_s=FLEET_FIRST_SPAWN_S,
+            control_timeout_s=FLEET_FIRST_SPAWN_S))
+        starts["r0"] = time.perf_counter() - t0
+        deadline_s = max(3 * starts["r0"], 3 * slowest_cold_s,
+                         FLEET_DEADLINE_FLOOR_S)
+        reps[0].timeout_s = deadline_s
+        log("fleet start " + json.dumps(dict(
+            replica="r0", start_s=starts["r0"], deadline_s=deadline_s,
+            slowest_cold_7m_s=slowest_cold_s, pid=reps[0].proc.pid,
+            connect=reps[0].connect_address,
+            connect_error=reps[0].connect_error)))
+        for i in range(1, FLEET_REPLICAS):
+            t0 = time.perf_counter()
+            reps.append(SubprocessReplica.spawn(
+                f"r{i}", env=env, timeout_s=deadline_s,
+                control_timeout_s=deadline_s))
+            starts[f"r{i}"] = time.perf_counter() - t0
+            log("fleet start " + json.dumps(dict(
+                replica=f"r{i}", start_s=starts[f"r{i}"],
+                deadline_s=deadline_s, pid=reps[i].proc.pid,
+                connect=reps[i].connect_address,
+                connect_error=reps[i].connect_error)))
+        router = FleetRouter(reps)
+        # the Connect address the router hands out, or its reason
+        try:
+            caddr = router.connect_address("connect-probe")
+            from daft_tpu_torch.connect import client as cc
+            s = cc.connect(caddr)
+            connect_probe = dict(address=caddr, version=s.version)
+            s.stop()
+        except ConnectUnavailable as e:
+            if transport == "grpc":
+                raise
+            connect_probe = dict(address=None, error=str(e))
+        # sessions pinned two to a replica (the ring decides who owns what)
+        names = [r.name for r in reps]
+        sessions, k = [], 0
+        for i in range(FLEET_CLIENTS):
+            want = names[i % len(names)]
+            while router.owner(f"c{k}") != want:
+                k += 1
+            sessions.append(f"c{k}")
+            k += 1
+        clients = [_FleetClient(i, router, sessions[i], root, refs, seed=16)
+                   for i in range(FLEET_CLIENTS)]
+        done_n = [0]
+        lock = threading.Lock()
+        killed = threading.Event()
+        errors, events = [], {}
+
+        def loop(c):
+            t0 = time.perf_counter()
+            try:
+                while (time.perf_counter() - t0 < FLEET_MIX_S
+                       or not killed.is_set()) \
+                        and time.perf_counter() - t0 < FLEET_MAX_S:
+                    c.run_one()
+                    with lock:
+                        done_n[0] += 1
+                        fire = done_n[0] >= FLEET_KILL_AFTER \
+                            and not killed.is_set()
+                        if fire:
+                            killed.set()
+                    if fire:
+                        # before the kill: r0's launches die with it
+                        events["r0_status"] = reps[0].status()
+                        events["gossip_applied"] = router.gossip_round()
+                        events["origins"] = {
+                            r.name: sorted((r.state_snapshot().get(
+                                "origins") or {})) for r in reps}
+                        events["kill"] = router.kill("r0")
+                        events["killed_at"] = done_n[0]
+            except BaseException as e:  # noqa: BLE001 — re-raised below
+                errors.append(e)
+        t0 = time.perf_counter()
+        threads = [threading.Thread(target=loop, args=(c,))
+                   for c in clients]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        wall = time.perf_counter() - t0
+        if errors:
+            raise AssertionError(f"fleet: {len(errors)} client(s) failed: "
+                                 f"{errors[0]!r}") from errors[0]
+        if not killed.is_set():
+            raise AssertionError(f"fleet: only {done_n[0]} queries "
+                                 f"completed, the kill never came")
+        records = [r for c in clients for r in c.records]
+        for r in records:
+            _mix_check(r["name"], r["param"], r["data"], ref, q3_ref, refs)
+        # the drain of r1, then what every live replica holds
+        drain = router.drain("r1", timeout_s=30.0)
+        live = [r for r in reps if r.name != "r0"]
+        status = {r.name: r.status() for r in live}
+        link.update({n: st["link"] for n, st in status.items()},
+                    r0=events["r0_status"]["link"])
+        gauges = {r.name: r.gauges() for r in live}
+        counters = {r.name: r.counters() for r in live}
+        left = {r.name: r.sessions() for r in live}
+        want_dev = backend.resolve_device().type
+        for n, st in status.items():
+            if st["device"] != want_dev:
+                raise AssertionError(f"fleet: replica {n} ran on "
+                                     f"{st['device']}, not {want_dev}")
+        launches = {k: events["r0_status"]["launches"][k]
+                    + sum(st["launches"][k] for st in status.values())
+                    for k in ("hash_agg_build", "hash_join_build",
+                              "hash_join_probe")}
+        for k, v in launches.items():
+            if v < 1:
+                raise AssertionError(f"fleet: {k} launched no time in the "
+                                     f"replicas ({launches})")
+        leaks = {n: g["admitted_bytes"] for n, g in gauges.items()
+                 if g["admitted_bytes"] or g["queued"] or g["running"]}
+        if leaks or left["r1"]:
+            raise AssertionError(f"fleet: admission leaks {leaks}, "
+                                 f"sessions left on r1 {left['r1']}")
+        failed = {n: c.get("failed", 0) for n, c in counters.items()
+                  if c.get("failed", 0)}
+        if failed:
+            raise AssertionError(f"fleet: failed queries {failed}")
+        fleet_hits = sum(1 for r in records
+                         if r["serving"].get("result_cache") == "fleet_hit")
+        if fleet_hits < 1:
+            raise AssertionError("fleet: no fleet_hit")
+        if events["gossip_applied"] < 1 or any(
+                set(o) != set(names) for o in events["origins"].values()):
+            raise AssertionError(f"fleet: the gossip did not merge "
+                                 f"({events})")
+        fc = state_sync.counters_snapshot()
+        lat = sorted(r["latency_s"] for r in records)
+        pct = lambda p: lat[min(int(p * len(lat)), len(lat) - 1)]  # noqa
+        out = dict(
+            card=card, replicas=FLEET_REPLICAS, clients=FLEET_CLIENTS,
+            queries=len(records), wall_s=wall, qps=len(records) / wall,
+            p50_s=pct(0.50), p99_s=pct(0.99), fleet_hits=fleet_hits,
+            result_cache={v: sum(1 for r in records
+                                 if r["serving"].get("result_cache") == v)
+                          for v in ("hit", "miss", "fleet_hit")},
+            rerouted=fc.get("reroute", 0),
+            handed_off=fc.get("handoff_sessions", 0),
+            killed_at=events["killed_at"],
+            kill=events["kill"], gossip_applied=events["gossip_applied"],
+            drain={k: drain.get(k) for k in ("drained", "sessions_moved",
+                                             "finished_in_time")},
+            start_s=starts, deadline_s=deadline_s, launches=launches,
+            replica_launches=dict(
+                r0=events["r0_status"]["launches"],
+                **{n: st["launches"] for n, st in status.items()}),
+            devices={n: st["device"] for n, st in status.items()},
+            sessions_left=left, connect=connect_probe,
+            output_bytes={r.name: r.output.bytes for r in reps},
+            memory=mem, link=link)
+        return out
+    finally:
+        if router is not None:
+            router.shutdown()
+        else:
+            for r in reps:
+                r.shutdown()
+        sidecar.stop()
+
+
+def connect_fleet_phase(root: str, ref: dict, q3_ref, env: dict,
+                        slowest_cold_s: float, card: str) -> dict:
+    """Phase 7n: Spark Connect, the fleet and the PySpark shim on the card
+    (see the module docstring). Returns the Connect runs' rungs for phase
+    8 (``pass`` ``connect``); the fleet's launches happen in its replicas'
+    processes and are counted from their ``/status`` alone."""
+    t_phase = time.perf_counter()
+    transport = connect_transport(env)
+    rec = KernelRecorder("connect")
+    if transport is None:
+        missing = [m for m in CONNECT_NEEDS["in-process"] if not env.get(m)]
+        conn = dict(run=False, why="not run: " + ", ".join(missing))
+        log(f"connect not run: {', '.join(missing)} (env line)")
+    else:
+        conn = _connect_way(root, ref, q3_ref, transport, rec, card)
+        rec.to_host("cuda")
+        conn["run"] = True
+    conn["shim"] = _shim(env, transport)
+    log("connect " + json.dumps(conn, default=str))
+    fl = _fleet_way(root, ref, q3_ref, slowest_cold_s, transport, card)
+    fl["phase_s"] = time.perf_counter() - t_phase
+    log("fleet " + json.dumps(fl, default=str))
+    log(f"connect and fleet phase wall: {fl['phase_s']:.3f} s")
+    return dict(rec=rec, connect=conn, fleet=fl)
+
+
 def tpcds_root(scale: float) -> str:
     from benchmarking.tpcds.datagen import generate_tpcds
     root = os.path.join(HERE, ".cache", f"tpcds_s{scale:g}")
@@ -4485,39 +5176,11 @@ def check_registry(kernels: list) -> None:
     log("registry " + json.dumps(out))
 
 
-def main() -> int:
-    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--sf", type=float, default=1.0)
-    ap.add_argument("--reps", type=int, default=3)
-    ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--profile", action="store_true",
-                    help="also trace one run of each main-path query and "
-                         "of Q3")
-    ap.add_argument("--dispatch-log", default=None, metavar="DIR",
-                    help="write the cost model's decisions of each TPC-H "
-                         "22 cold run to DIR/q<N>.jsonl")
-    ap.add_argument("--sanitize-child", nargs=2, default=None,
-                    metavar=("ROOT", "OUT"),
-                    help=argparse.SUPPRESS)
-    args = ap.parse_args()
-    if args.sanitize_child:
-        return sanitize_child(*args.sanitize_child)
-    # the link profile this run prices with is measured here, on this
-    # machine, never read from a store another machine may have written
-    os.environ["DAFT_TORCH_LINK_CACHE"] = "0"
-    if args.dispatch_log:
-        os.makedirs(args.dispatch_log, exist_ok=True)
-    t_start = time.perf_counter()
-
-    import torch
-    if not torch.cuda.is_available():
-        print("chip_smoke: no CUDA device", file=sys.stderr)
-        return 2
-    # fails here (no output yet) when run outside a checkout of the repo
-    import daft_tpu_torch  # noqa: F401
-    from benchmarking.tpch import datagen  # noqa: F401
-    from daft_tpu_torch.device import cuda_build
-
+def setup_phase() -> dict:
+    """Phases 1-2: the card, its copy bandwidth, the cost model's link
+    profile and constants, the entry-point registry, the kernels' build."""
+    from daft_tpu_torch.analysis import dispatch_registry
+    from daft_tpu_torch.device import calibration, costmodel, cuda_build
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip()
@@ -4525,7 +5188,6 @@ def main() -> int:
     log(f"card: {card}")
     bw = copy_bandwidth()
     log(f"device-to-device copy bandwidth: {bw / 1e9:.1f} GB/s")
-    from daft_tpu_torch.device import calibration, costmodel
     t0 = time.perf_counter()
     lp = costmodel.link_profile()
     log("costmodel " + json.dumps({
@@ -4534,8 +5196,6 @@ def main() -> int:
         "link_measure_s": time.perf_counter() - t0,
         "constants": costmodel.constants(),
         "calibrated": calibration.calibrated_names()}))
-
-    from daft_tpu_torch.analysis import dispatch_registry
     bad = dispatch_registry.findings()
     if bad:
         raise AssertionError(f"dispatch registry: {bad}")
@@ -4549,112 +5209,49 @@ def main() -> int:
         if "Compiling entry" in line or "stack frame" in line \
                 or "registers" in line:
             log(f"  {line.strip()}")
+    return dict(card=card, bw=bw)
 
-    def done(phase: str) -> None:
-        log(f"phase {phase} done at "
-            f"{time.perf_counter() - t_start:.3f} s")
 
-    rng = np.random.default_rng(args.seed)
-    kernel_phase(rng, bw, MAIN_C, MAIN_LIVE)
-    join_kernel_phase(rng, bw)
-    done("3-4")
-
-    root = tpch_root(args.sf)
-    mp = main_path(root)
-    # depth cut for the memory-bounded phase: at most 2 runs per way
-    pipeline_phase(root, mp["ref"], min(args.reps, 2))
-    done("5-5b")
-    # depth cut for the memory-bounded phase: at most 2 warm repeats
-    q3 = q3_path(root, min(args.reps, 2))
-    # every join forced to broadcast: the broadcast side's table is
-    # rebuilt for each morsel of the other side, as in the reference
-    # (one warm run: depth cut to make room for the pipeline phase)
-    q3_path(root, 1, ref=q3["ref"], threshold=1 << 40,
-            label="q3 forced broadcast")
-    done("6")
-    t22 = tpch22_phase(root, args.dispatch_log)
-    done("7")
-    tsql = tpchsql_phase(root, t22)
-    done("7b")
-    ds_root = tpcds_root(1.0)
-    tds = tpcds_phase(ds_root)
-    done("7c")
-    tdp = tpcds_dispatch_pass(ds_root, tds["answers"], root, t22["answers"])
-    region_phase(min(args.reps, 2))  # depth cut, as above
-    done("7d-7e")
-    ooc = ooc_phase(root)
-    done("7f")
-    piv = pivot_phase(root)
-    done("7g")
-    fz = fuzz_phase()
-    done("7h")
-    rem = remote_phase(root, mp["ref"], q3["ref"], card)
-    done("7i")
-    ob = obs_phase(root, mp["ref"], q3["ref"], card)
-    done("7j")
-    san = sanitize_phase(root, mp["ref"], mp, t22)
-    done("7k")
-    dist = dist_phase(root, mp, q3["ref"], t22, card)
-    done("7l")
-    srv = serve_phase(root, mp["ref"], q3["ref"], serve_host_free(dict(
-        {q: t22["per_query"][q]["counters"] for q in ("q1", "q3", "q6")},
-        suppkey_agg=mp["per_query"]["suppkey_agg"]["counters"])), card)
-    done("7m")
-    # the TPC-DS, memory-bounded, pivot, fuzz and remote rungs whose shape
-    # no earlier phase held
+def new_rungs(mp, t22, tsql, recs, fz_rec) -> dict:
+    """Phase 8's rungs not held by earlier phases: the TPC-DS,
+    memory-bounded, pivot, fuzz, remote, obs, sanitize, dist, serve and
+    connect ones (the fleet's replicas launch in their own processes, and
+    add none)."""
     held = {k[1:] for r in (mp["rungs"], t22["rungs"], tsql["rungs"])
             for k in r}
     jheld = {k[1:] for r in (t22["join_rungs"], tsql["join_rungs"])
              for k in r}
     ds_rungs, ds_jrungs = {}, {}
     fuzz_new = {m: {"hash": 0, "join": 0} for m in FUZZ_MODES}
-    for rec_k in (tds["rec"], tdp["rec"], ooc["rec"], piv["rec"],
-                  fz["rec"], rem["rec"], ob["rec"], san["rec"],
-                  dist["rec"], srv["rec"]):
+    for rec_k in recs:
         for k, v in rec_k.hash_rungs().items():
             if k[1:] not in held:
                 held.add(k[1:])
                 ds_rungs[k] = v
-                if rec_k is fz["rec"]:
+                if rec_k is fz_rec:
                     fuzz_new[k[0].split()[-1]]["hash"] += 1
         for k, v in rec_k.join_rungs.items():
             if k[1:] not in jheld:
                 jheld.add(k[1:])
                 ds_jrungs[k] = dict(v, pass_=rec_k.pass_)
-                if rec_k is fz["rec"]:
+                if rec_k is fz_rec:
                     fuzz_new[k[0].split()[-1]]["join"] += 1
-    log(f"tpcds, ooc, pivot, fuzz, remote, obs, sanitize, dist and serve "
-        f"rungs not held by earlier phases: {len(ds_rungs)} hash, "
-        f"{len(ds_jrungs)} join")
-    log("sanitize new rungs " + json.dumps(dict(
-        hash=sorted(str(list(k)) for k in ds_rungs
-                    if k[0].startswith("sanitize")),
-        join=sorted(str(list(k)) for k in ds_jrungs
-                    if k[0].startswith("sanitize")))))
-    log("remote new rungs " + json.dumps(dict(
-        hash=sorted(str(list(k)) for k in ds_rungs
-                    if k[0].startswith("remote")),
-        join=sorted(str(list(k)) for k in ds_jrungs
-                    if k[0].startswith("remote")))))
+    log(f"tpcds, ooc, pivot, fuzz, remote, obs, sanitize, dist, serve "
+        f"and connect rungs not held by earlier phases: "
+        f"{len(ds_rungs)} hash, {len(ds_jrungs)} join")
     log("fuzz new rungs " + json.dumps(fuzz_new))
-    for pre in ("dist", "serve"):
+    for pre in ("sanitize", "remote", "dist", "serve", "connect"):
         log(f"{pre} new rungs " + json.dumps(dict(
             hash=sorted(str(list(k)) for k in ds_rungs
                         if k[0].startswith(pre)),
             join=sorted(str(list(k)) for k in ds_jrungs
                         if k[0].startswith(pre)))))
-    krecs = main_path_kernel_timing(mp["rungs"], bw)
-    krecs += main_path_kernel_timing(t22["rungs"], bw)
-    krecs += main_path_kernel_timing(tsql["rungs"], bw)
-    krecs += main_path_kernel_timing(ds_rungs, bw)
-    jrec = join_main_path_timing(q3, bw)
-    jrecs = join_rung_timing(t22["join_rungs"], bw)
-    jrecs += join_rung_timing(tsql["join_rungs"], bw)
-    jrecs += join_rung_timing(ds_jrungs, bw)
-    if args.profile:
-        profile_phase(root)
+    return dict(hash=ds_rungs, join=ds_jrungs)
 
-    # one row per distinct hash rung of the main path
+
+def kernel_rows(krecs, q3, jrec, jrecs) -> list:
+    """The ``kernels`` line's rows: one per distinct hash rung, Q3's
+    build and probe, one per kernel per distinct join rung."""
     kernels = [{
         "name": f"hash_agg_build ({k['query']}, T={k['T']})",
         "route": "cuda", "source": "daft_tpu_torch/csrc/hash_agg.cu",
@@ -4710,7 +5307,106 @@ def main() -> int:
                 "pass": j.get("pass_", "floor4096"),
                 "host_ms": j[f"{pre}_host_ms"],
                 "sort_join_ms": j["sort_join_ms"], "library_ms": None})
-    check_registry(kernels)
+    return kernels
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--sf", type=float, default=1.0)
+    ap.add_argument("--reps", type=int, default=3)
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--profile", action="store_true",
+                    help="also trace one run of each main-path query and "
+                         "of Q3")
+    ap.add_argument("--dispatch-log", default=None, metavar="DIR",
+                    help="write the cost model's decisions of each TPC-H "
+                         "22 cold run to DIR/q<N>.jsonl")
+    ap.add_argument("--sanitize-child", nargs=2, default=None,
+                    metavar=("ROOT", "OUT"),
+                    help=argparse.SUPPRESS)
+    args = ap.parse_args()
+    if args.sanitize_child:
+        return sanitize_child(*args.sanitize_child)
+    # the versions the phases choose their transports by: first, so a
+    # failure anywhere later reads against them
+    env = env_probe()
+    log("env " + json.dumps(env))
+    # the link profile this run prices with is measured here, on this
+    # machine, never read from a store another machine may have written
+    os.environ["DAFT_TORCH_LINK_CACHE"] = "0"
+    if args.dispatch_log:
+        os.makedirs(args.dispatch_log, exist_ok=True)
+    t_start = time.perf_counter()
+
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    # fails here (no output yet) when run outside a checkout of the repo
+    import daft_tpu_torch  # noqa: F401
+    from benchmarking.tpch import datagen  # noqa: F401
+
+    def phase(name, fn):
+        return run_phase(name, fn, t_start)
+
+    st = phase("1-2", setup_phase)
+    card, bw = st["card"], st["bw"]
+    rng = np.random.default_rng(args.seed)
+    phase("3-4", lambda: (kernel_phase(rng, bw, MAIN_C, MAIN_LIVE),
+                          join_kernel_phase(rng, bw)))
+    root = phase("data", lambda: tpch_root(args.sf))
+    mp = phase("5", lambda: main_path(root))
+    # depth cut for the memory-bounded phase: at most 2 runs per way
+    phase("5b", lambda: pipeline_phase(root, mp["ref"], min(args.reps, 2)))
+    # depth cut for the memory-bounded phase: at most 2 warm repeats
+    q3 = phase("6", lambda: q3_path(root, min(args.reps, 2)))
+    # every join forced to broadcast: the broadcast side's table is
+    # rebuilt for each morsel of the other side, as in the reference
+    # (one warm run: depth cut to make room for the pipeline phase)
+    phase("6b", lambda: q3_path(root, 1, ref=q3["ref"], threshold=1 << 40,
+                                label="q3 forced broadcast"))
+    t22 = phase("7", lambda: tpch22_phase(root, args.dispatch_log))
+    tsql = phase("7b", lambda: tpchsql_phase(root, t22))
+    ds_root = phase("7c data", lambda: tpcds_root(1.0))
+    tds = phase("7c", lambda: tpcds_phase(ds_root))
+    tdp = phase("7d", lambda: tpcds_dispatch_pass(
+        ds_root, tds["answers"], root, t22["answers"]))
+    phase("7e", lambda: region_phase(min(args.reps, 2)))  # depth cut
+    ooc = phase("7f", lambda: ooc_phase(root))
+    piv = phase("7g", lambda: pivot_phase(root))
+    fz = phase("7h", fuzz_phase)
+    rem = phase("7i", lambda: remote_phase(root, mp["ref"], q3["ref"], card))
+    ob = phase("7j", lambda: obs_phase(root, mp["ref"], q3["ref"], card))
+    san = phase("7k", lambda: sanitize_phase(root, mp["ref"], mp, t22))
+    dist = phase("7l", lambda: dist_phase(root, mp, q3["ref"], t22, card))
+    srv = phase("7m", lambda: serve_phase(
+        root, mp["ref"], q3["ref"], serve_host_free(dict(
+            {q: t22["per_query"][q]["counters"] for q in ("q1", "q3", "q6")},
+            suppkey_agg=mp["per_query"]["suppkey_agg"]["counters"])), card))
+    slowest = max(v["cold_s"] for v in
+                  srv["lines"]["a"]["cold_repeat"].values())
+    cf = phase("7n", lambda: connect_fleet_phase(
+        root, mp["ref"], q3["ref"], env, slowest, card))
+
+    def kernel_timing():
+        new = new_rungs(mp, t22, tsql, (
+            tds["rec"], tdp["rec"], ooc["rec"], piv["rec"], fz["rec"],
+            rem["rec"], ob["rec"], san["rec"], dist["rec"], srv["rec"],
+            cf["rec"]), fz["rec"])
+        krecs = main_path_kernel_timing(mp["rungs"], bw)
+        krecs += main_path_kernel_timing(t22["rungs"], bw)
+        krecs += main_path_kernel_timing(tsql["rungs"], bw)
+        krecs += main_path_kernel_timing(new["hash"], bw)
+        jrec = join_main_path_timing(q3, bw)
+        jrecs = join_rung_timing(t22["join_rungs"], bw)
+        jrecs += join_rung_timing(tsql["join_rungs"], bw)
+        jrecs += join_rung_timing(new["join"], bw)
+        kernels = kernel_rows(krecs, q3, jrec, jrecs)
+        check_registry(kernels)
+        return kernels
+    kernels = phase("8", kernel_timing)
+    if args.profile:
+        phase("profile", lambda: profile_phase(root))
     log(json.dumps({"kernels": kernels}))
     log(f"chip_smoke total wall: {time.perf_counter() - t_start:.3f} s")
     log(f"{card}")

@@ -102,6 +102,13 @@ class ExecutionConfig:
     serve_queue_timeout: float = 30.0
     serve_plan_cache_bytes: int = 64 << 20
     serve_result_cache_bytes: int = 64 << 20
+    #: the serving fleet (``fleet/``): virtual nodes per replica on the
+    #: session ring, the gossip round interval (s) and a drain's grace
+    #: before stragglers are cancelled (s); the ``DAFT_TORCH_FLEET_*``
+    #: knobs win when set
+    fleet_vnodes: int = 64
+    fleet_gossip_s: float = 2.0
+    fleet_drain_timeout: float = 10.0
 
 
 class Context:

@@ -7,10 +7,9 @@ renders the engine's own runtime stats as plain HTML: recent queries with
 per-operator rows and timings (``observability.RuntimeStatsContext``) and
 their io block, the flight recorder's history (``/api/history``), the
 queries as JSON (``/api/queries``), the serving scheduler's live queue
-(``/api/serving`` and a panel on the page) and a Prometheus scrape
-(``/metrics``). The in-memory history is bounded by count and by bytes.
-
-The fleet panel (``/api/fleet``) comes with the fleet (ROADMAP A8b).
+(``/api/serving`` and a panel on the page), the fleet when this process
+hosts its router (``/api/fleet``) and a Prometheus scrape (``/metrics``).
+The in-memory history is bounded by count and by bytes.
 """
 
 from __future__ import annotations
@@ -89,6 +88,24 @@ def _serving_view() -> dict:
     return sched.live_view() if sched is not None else {}
 
 
+def _fleet_view() -> dict:
+    """Live fleet state when this process hosts the router: per-replica
+    gauges, the aggregate, the autoscaling signal and the gossiped
+    state-store generations ({} when no router is installed)."""
+    from . import fleet
+    from .fleet import state_sync
+    router = fleet.installed_router()
+    if router is None:
+        return {}
+    out = router.gauges()
+    out["assignments"] = len(router.assignments())
+    out["counters"] = state_sync.counters_snapshot()
+    st = state_sync.installed()
+    if st is not None:
+        out["state"] = st.view()
+    return out
+
+
 def _serving_html(live: dict) -> str:
     if not live:
         return ""
@@ -133,6 +150,10 @@ class _Handler(http.server.BaseHTTPRequestHandler):
             return
         if self.path.startswith("/api/serving"):
             self._reply(json.dumps(_serving_view()).encode(),
+                        "application/json")
+            return
+        if self.path.startswith("/api/fleet"):
+            self._reply(json.dumps(_fleet_view()).encode(),
                         "application/json")
             return
         if self.path.startswith("/api/queries"):

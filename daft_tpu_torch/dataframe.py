@@ -641,8 +641,11 @@ def from_glob_path(path: str, io_config=None) -> DataFrame:
                         "num_rows": [None] * len(paths)})
 
 
-def range(start: int, end: Optional[int] = None, step: int = 1
-          ) -> DataFrame:
+def range(start: int, end: Optional[int] = None, step: int = 1,
+          partitions: int = 1) -> DataFrame:
     if end is None:
         start, end = 0, start
-    return from_pydict({"id": np.arange(start, end, step)})
+    df = from_pydict({"id": np.arange(start, end, step)})
+    if partitions > 1:
+        df = df.into_partitions(partitions)
+    return df

@@ -39,8 +39,10 @@ reads return the caller's default and observations are dropped, so a
 chaos replay prices every decision as the recorded run did.
 
 :func:`plan_token` folds the active constants into the serving plane's
-plan fingerprints (``logical/fingerprint.py``). The fleet-gossiped
-constants wait for the fleet (ROADMAP A8b).
+plan fingerprints (``logical/fingerprint.py``). Where the local profile is
+blind, a gossiped fleet view (``fleet/state_sync``, sample-weighted over
+replica origins) beats the hard-coded default, in :func:`const` and in
+the token alike.
 """
 
 from __future__ import annotations
@@ -311,8 +313,10 @@ def observe_dispatch(kind: str, strategy: Optional[str], rows: float,
 
 def const(name: str, default: float) -> float:
     """The calibrated value for ``name`` when the profile has one past the
-    sample floor and calibration is on; else the caller's default. Every
-    costmodel rate read routes through here."""
+    sample floor and calibration is on; else the fleet's gossiped value
+    past the same floor (how a cold replica's first query prices like a
+    warm one); else the caller's default. Every costmodel rate read routes
+    through here."""
     if not _active():
         return default
     _ensure_loaded()
@@ -320,7 +324,27 @@ def const(name: str, default: float) -> float:
         e = _profile.get(name)
         if e is not None and e["samples"] >= min_samples():
             return e["value"]
-    return default
+    # outside _lock: the fleet store has its own lock and must not nest
+    # under the profile lock
+    fleet = _fleet_const(name)
+    return default if fleet is None else fleet
+
+
+def _fleet_const(name: str) -> Optional[float]:
+    """Merged fleet-history value for ``name`` past the sample floor, or
+    None when no fleet state store is installed or the fleet is blind."""
+    from ..fleet import state_sync
+    st = state_sync.installed()
+    if st is None:
+        return None
+    got = st.merged_calibration(name)
+    if got is None:
+        return None
+    value, samples = got
+    if samples < min_samples():
+        return None
+    state_sync.count("calibration_fleet_reads")
+    return float(value)
 
 
 def profile_entries() -> Dict[str, Dict[str, float]]:
@@ -337,8 +361,9 @@ def plan_token() -> str:
     crosses the sample floor or moves materially, the token changes and
     cached plans priced under the old constants stop being served. Empty
     when calibration is off or frozen or nothing is active, so the common
-    path leaves fingerprints untouched. Local constants only: the
-    fleet-inherited ones come with the fleet (ROADMAP A8b)."""
+    path leaves fingerprints untouched. Fleet-inherited constants count
+    as local ones do: they flip the same decisions."""
+    from ..fleet import state_sync
     if not enabled() or frozen():
         return ""
     floor = min_samples()
@@ -346,6 +371,11 @@ def plan_token() -> str:
     # token (and so the plan cache) stable
     active = {n: f"{e['value']:.1e}" for n, e in profile_entries().items()
               if e["samples"] >= floor}
+    st = state_sync.installed()
+    if st is not None:
+        for n, (v, samples) in st.merged_calibration_all().items():
+            if n not in active and samples >= floor:
+                active[n] = f"{v:.1e}"
     if not active:
         return ""
     blob = ",".join(f"{n}={active[n]}" for n in sorted(active))

@@ -137,6 +137,10 @@ def _env_profile() -> Optional[LinkProfile]:
         down_bps=(down if down is not None else 100.0) * 1e6)
 
 
+#: the timed bandwidth rounds of one link measurement
+_LINK_ROUNDS = 5
+
+
 def _measure(device) -> LinkProfile:
     """One link measurement on a card, through the port's own transfer
     path: pinned staging and the copy stream up (``column._upload``), one
@@ -144,12 +148,17 @@ def _measure(device) -> LinkProfile:
 
     RTT: a 32-byte upload, a kernel and a fetch with its wait, median of
     three after an untimed first pass (lazy init: the copy stream, the
-    pinned pool). Bandwidth: 8 MiB, two rounds; per round the fetch of a
-    resident plane (down), then a fresh host buffer uploaded, touched by a
-    kernel and fetched (up = that round trip less the down leg and one
-    RTT). The slower round wins: an optimistic link estimate buys device
-    mispredicts, a pessimistic one leaves an op on the host. The copies
-    count in no transfer counter."""
+    pinned pool); a fetch's fixed cost likewise, from a resident 32-byte
+    plane. Bandwidth: 8 MiB, ``_LINK_ROUNDS`` rounds; per round the fetch
+    of a resident plane (down = its time less the fetch's fixed cost),
+    then a fresh host buffer uploaded, touched by a kernel and fetched (up
+    = that round trip less the down leg and one RTT). Each leg is the
+    median of its rounds (the reference keeps the slower of two, against
+    a tunnel's optimistic samples, and takes half an RTT off the down
+    leg; over one H100's PCIe link the slower of two read 1.0 GB/s up in
+    one run and 2.6–5.4 in others, and half an RTT, 0.2–0.75 ms there,
+    exceeded most 8 MiB fetches). The copies count in no transfer
+    counter."""
     import statistics
 
     import numpy as np
@@ -170,6 +179,13 @@ def _measure(device) -> LinkProfile:
             round_trip(tiny)
             rtts.append(time.perf_counter() - t0)
         rtt = max(statistics.median(rtts), 1e-7)
+        (tiny_dev,), _, _ = dcol._upload([tiny], len(tiny), device)
+        fetches = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            dcol.fetch_host([tiny_dev])
+            fetches.append(time.perf_counter() - t0)
+        fetch_fixed = statistics.median(fetches)
 
         nbytes = 1 << 23
         big = np.zeros(nbytes // 4, dtype=np.float32)
@@ -177,20 +193,19 @@ def _measure(device) -> LinkProfile:
         dev = dev + 0
         round_trip(big)   # untimed: pinned buffers of this size pooled
         torch.cuda.synchronize(device)
-        down_best = up_best = 0.0
-        for rnd in range(2):
+        downs, ups = [], []
+        for rnd in range(_LINK_ROUNDS):
             t0 = time.perf_counter()
             dcol.fetch_host([dev])
-            down_s = max(time.perf_counter() - t0 - rtt / 2, 1e-7)
+            down_s = max(time.perf_counter() - t0 - fetch_fixed, 1e-7)
             fresh = big + (1.0 + rnd)
             t0 = time.perf_counter()
             round_trip(fresh)
             round_s = time.perf_counter() - t0
-            up_s = max(round_s - down_s - rtt, down_s / 10, 1e-7)
-            down_best = max(down_best, down_s)
-            up_best = max(up_best, up_s)
-    return LinkProfile(rtt_s=rtt, up_bps=nbytes / up_best,
-                       down_bps=nbytes / down_best)
+            downs.append(down_s)
+            ups.append(max(round_s - down_s - rtt, down_s / 10, 1e-7))
+    return LinkProfile(rtt_s=rtt, up_bps=nbytes / statistics.median(ups),
+                       down_bps=nbytes / statistics.median(downs))
 
 
 _LINK_CACHE_TTL_S = 1800.0      # reuse a stored profile this long

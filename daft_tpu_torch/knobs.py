@@ -265,6 +265,53 @@ _KNOBS: List[Knob] = [
        "admission byte budget shared by concurrent queries (default: "
        "`DAFT_TORCH_MEMORY_LIMIT`, else the breaker budget; `0` disables "
        "admission)", default_str="memory limit"),
+    _k("DAFT_TORCH_SERVE_OP_TTL", "float", 600.0,
+       "daft_tpu_torch/connect/server.py", "serving",
+       "seconds a FINISHED reattachable Spark Connect operation retains "
+       "its response buffer before the sweep drops it; `0` disables"),
+    _k("DAFT_TORCH_SERVE_OP_RETAIN_BYTES", "bytes", 64 << 20,
+       "daft_tpu_torch/connect/server.py", "serving",
+       "per-session retained-response budget across finished Spark "
+       "Connect operations (newest kept first); `0` disables",
+       default_str="64MiB"),
+    # -------------------------------------------------------- fleet
+    _k("DAFT_TORCH_FLEET_VNODES", "int", None,
+       "daft_tpu_torch/fleet/router.py", "fleet",
+       "virtual nodes per replica on the consistent-hash session ring "
+       "(more vnodes = smoother session spread, larger ring); unset "
+       "defers to `ExecutionConfig.fleet_vnodes` (64)",
+       config_field="fleet_vnodes"),
+    _k("DAFT_TORCH_FLEET_GOSSIP_S", "float", None,
+       "daft_tpu_torch/fleet/replica.py", "fleet",
+       "seconds between anti-entropy gossip rounds republishing this "
+       "replica's learned state (calibration profile + admission "
+       "history) to every peer, floored at `0.05`; unset defers to "
+       "`ExecutionConfig.fleet_gossip_s` (2)",
+       config_field="fleet_gossip_s"),
+    _k("DAFT_TORCH_FLEET_DRAIN_TIMEOUT", "float", None,
+       "daft_tpu_torch/fleet/router.py", "fleet",
+       "seconds a draining replica may finish in-flight queries before "
+       "the router cancels the stragglers and re-homes its sessions; "
+       "unset defers to `ExecutionConfig.fleet_drain_timeout` (10)",
+       config_field="fleet_drain_timeout"),
+    _k("DAFT_TORCH_FLEET_SIDECAR", "str", None,
+       "daft_tpu_torch/fleet/cache_tier.py", "fleet",
+       "`host:port` of a fleet cache sidecar (`python -m "
+       "daft_tpu_torch.fleet.cache_tier --port N`); when set, replicas "
+       "consult it for cross-process result-cache hits",
+       default_str="off"),
+    _k("DAFT_TORCH_FLEET_SIDECAR_BYTES", "bytes", 256 << 20,
+       "daft_tpu_torch/fleet/cache_tier.py", "fleet",
+       "LRU byte budget of the cache sidecar's blob store",
+       default_str="256MiB"),
+    _k("DAFT_TORCH_FLEET_PEERS", "str", None,
+       "daft_tpu_torch/fleet/replica.py", "fleet",
+       "comma-separated control addresses (`host:port`) of the peer "
+       "replicas this one gossips with", default_str="none"),
+    _k("DAFT_TORCH_FLEET_REPLICA_ID", "str", None,
+       "daft_tpu_torch/fleet/replica.py", "fleet",
+       "stable identity of this replica process (its gossip origin); "
+       "`--replica-id` overrides", default_str="replica-0"),
     # ----------------------------------------------- observability
     _k("DAFT_TORCH_TRACE", "bool", False, "daft_tpu_torch/tracing.py",
            "observability", '`1`: the query-wide tracing plane, one span tree per query '

@@ -8,8 +8,8 @@ caches keyed by logical-plan fingerprints, and cooperative cancellation
 threaded into the executor pipelines. ``drain`` and ``release_session``
 are the lifecycle hooks a router calls.
 
-Spark Connect and the fleet, which submit through
-:func:`shared_scheduler` in the reference, come with ROADMAP A8b.
+Spark Connect (``connect/``) and the fleet's replicas (``fleet/``) submit
+through :func:`shared_scheduler`.
 """
 
 from __future__ import annotations

@@ -28,8 +28,13 @@ concurrent queries, shared engine resources. The pieces:
   into the executor pipelines; ``QueryHandle.cancel()`` unwinds it at the
   next morsel boundary and releases its admission.
 
-The fleet wiring (``fleet_state``, ``cache_tier``: the cross-replica
-state store and cache tier) comes with the fleet (ROADMAP A8b).
+The fleet wiring (both optional, ``fleet/``): ``fleet_state`` is this
+replica's gossiped state store (its merged admission history seeds a
+cold replica's estimates, counter ``est_seeded_fleet``), ``cache_tier``
+the cross-replica cache layer consulted on a local result-cache miss
+(``result_cache: fleet_hit``, promoted into the local cache). Unset,
+each falls back to the process-installed one (``state_sync.install``,
+``cache_tier.install``); a bare scheduler touches neither.
 """
 
 from __future__ import annotations
@@ -292,12 +297,12 @@ class QueryScheduler:
                  result_cache_bytes: Optional[int] = None,
                  fleet_state=None, cache_tier=None,
                  name: Optional[str] = None):
-        # the fleet wiring (this replica's state store and the
-        # cross-replica cache tier) comes with the fleet
-        if fleet_state is not None or cache_tier is not None:
-            raise NotImplementedError(
-                "the serving fleet (fleet_state, cache_tier) is not ported "
-                "yet (ROADMAP A8b)")
+        # fleet wiring (both optional): ``fleet_state`` is this replica's
+        # fleet/state_sync.StateStore (falls back to the process-installed
+        # one), ``cache_tier`` the cross-replica cache layer
+        # (fleet/cache_tier); a bare scheduler never touches either
+        self.fleet_state = fleet_state
+        self.cache_tier = cache_tier
         self.name = name or "local"
         self.concurrency = concurrency or serve_concurrency()
         self.queue_depth = queue_depth or serve_queue_depth()
@@ -409,10 +414,24 @@ class QueryScheduler:
                 "admitted_bytes": float(self.admission.outstanding),
                 "draining": 1.0 if draining else 0.0}
 
+    # --------------------------------------------------------------- fleet
+    def _fleet_store(self):
+        if self.fleet_state is not None:
+            return self.fleet_state
+        from ..fleet import state_sync
+        return state_sync.installed()
+
+    def _fleet_cache_tier(self):
+        if self.cache_tier is not None:
+            return self.cache_tier
+        from ..fleet import cache_tier as _ct
+        return _ct.installed()
+
     # ------------------------------------------------------- lifecycle
     def admission_history_snapshot(self) -> Dict[str, tuple]:
-        """Copy of the per-fingerprint admission history (key → (ewma
-        bytes, ewma wall us, samples))."""
+        """Copy of the per-fingerprint admission history, the gossip
+        export ``fleet/state_sync`` consumes (key → (ewma bytes, ewma
+        wall us, samples))."""
         with self._hist_lock:
             return dict(self._fp_hist)
 
@@ -560,9 +579,10 @@ class QueryScheduler:
     def _estimate_bytes(self, builder) -> int:
         # observed history outranks the heuristic model: for a repeat
         # query (same structure + params + source paths) the recorded
-        # result bytes of past executions (this process's completions or
-        # the flight recorder's) are strictly better information than a
-        # selectivity guess, so repeats stop over- and under-admitting
+        # result bytes of past executions (this process's completions, the
+        # flight recorder's, or the fleet's gossiped history on a cold
+        # replica) are strictly better information than a selectivity
+        # guess, so repeats stop over- and under-admitting
         from ..logical import stats as lstats
         key = _history_fingerprint(builder)
         self._tl_est.hist_key = key
@@ -570,6 +590,10 @@ class QueryScheduler:
             seeded = self._history_estimate(key)
             if seeded is not None:
                 self._count("est_seeded_history")
+                return seeded
+            seeded = self._fleet_history_estimate(key)
+            if seeded is not None:
+                self._count("est_seeded_fleet")
                 return seeded
         est = lstats.estimate(builder.plan).size_bytes
         if est is None:
@@ -581,6 +605,19 @@ class QueryScheduler:
         self._seed_history_from_flight()
         with self._hist_lock:
             e = self._fp_hist.get(key)
+        if e is None:
+            return None
+        return max(int(e[0]), _MIN_EST_BYTES)
+
+    def _fleet_history_estimate(self, key: str) -> Optional[int]:
+        """Gossiped fleet admission history for ``key`` (sample-weighted
+        over replica origins): a cold replica's first repeat query admits
+        from the fleet's observations instead of the cost model's guess.
+        None when no fleet store is installed or it is blind."""
+        st = self._fleet_store()
+        if st is None:
+            return None
+        e = st.merged_admission(key)
         if e is None:
             return None
         return max(int(e[0]), _MIN_EST_BYTES)
@@ -898,6 +935,7 @@ class QueryScheduler:
             and not cfg.enable_aqe
         with tracing.span("plan:fingerprint", lane="planner"):
             fp = fingerprint(builder.plan, cfg) if cacheable else None
+        tier = self._fleet_cache_tier()
         if fp is not None and self.result_cache.enabled:
             ps = self.result_cache.get_result(fp)
             if ps is not None:
@@ -905,6 +943,20 @@ class QueryScheduler:
                 info["plan_cache"] = "skipped"
                 tracing.event("cache:result_hit", lane="planner")
                 return ps, None, info
+            if tier is not None:
+                # local miss → the fleet tier: a repeat query that last
+                # ran on a peer replica still hits warm state (the tier
+                # itself turns a transport failure into a miss); a hit is
+                # promoted into the local cache so the next repeat is local
+                ps = tier.get_result(fp)
+                if ps is not None:
+                    info["result_cache"] = "fleet_hit"
+                    info["plan_cache"] = "skipped"
+                    self._count("result_cache_fleet_hits")
+                    tracing.event("cache:result_fleet_hit", lane="planner")
+                    self.result_cache.put_result(fp, ps)
+                    return ps, None, info
+                self._count("result_cache_fleet_misses")
             info["result_cache"] = "miss"
         if not cacheable:
             # AQE / the distributed runner: the scheduler still provides
@@ -925,7 +977,9 @@ class QueryScheduler:
         if fp is not None and h._fp_hist_key is None:
             # every EXECUTED cacheable query feeds the per-fingerprint
             # admission history, not just blind-estimate ones (cache hits
-            # returned above: their ~0 wall would pollute the EWMA)
+            # returned above: their ~0 wall would pollute the EWMA): warm
+            # replicas publish observed bytes and walls to the fleet store,
+            # which a cold replica's estimates seed from
             h._fp_hist_key = _history_key_from_fp(fp)
         hit = self.plan_cache.get_plan(fp) if self.plan_cache.enabled \
             else None
@@ -934,19 +988,34 @@ class QueryScheduler:
             info["plan_cache"] = "hit"
             tracing.event("cache:plan_hit", lane="planner")
         else:
-            with tracing.span("plan:optimize", lane="planner"):
-                optimized = builder.optimize()
-            with tracing.span("plan:translate", lane="planner"):
-                pplan = translate(optimized.plan)
-            if fp is not None and self.plan_cache.enabled:
-                self.plan_cache.put_plan(fp, optimized.plan, pplan)
-                info["plan_cache"] = "miss"
+            tiered = None
+            if fp is not None and self.plan_cache.enabled \
+                    and tier is not None:
+                tiered = tier.get_plan(fp)
+            if tiered is not None:
+                optimized_plan, pplan = tiered
+                info["plan_cache"] = "fleet_hit"
+                self._count("plan_cache_fleet_hits")
+                tracing.event("cache:plan_fleet_hit", lane="planner")
+                self.plan_cache.put_plan(fp, optimized_plan, pplan)
+            else:
+                with tracing.span("plan:optimize", lane="planner"):
+                    optimized = builder.optimize()
+                with tracing.span("plan:translate", lane="planner"):
+                    pplan = translate(optimized.plan)
+                if fp is not None and self.plan_cache.enabled:
+                    self.plan_cache.put_plan(fp, optimized.plan, pplan)
+                    if tier is not None:
+                        tier.put_plan(fp, optimized.plan, pplan)
+                    info["plan_cache"] = "miss"
         executor = make_local_executor(cfg, device)
         parts = list(executor.run(pplan))
         stats = obs.last_query_stats_local()
         ps = PartitionSet(parts, builder.schema())
         if fp is not None and self.result_cache.enabled:
             self.result_cache.put_result(fp, ps)
+            if tier is not None:
+                tier.put_result(fp, ps)
         return ps, stats, info
 
     # ------------------------------------------------------------ shutdown

@@ -603,15 +603,16 @@ def prometheus_text() -> str:
     gauges.
 
     The ``retrace`` and ``plansan`` planes carry the sanitizers' counters
-    (empty unless armed). The ``serving`` gauges and counters are those of
-    the shared scheduler when one runs. The reference's ``fleet`` plane
-    comes with the fleet (ROADMAP A8b)."""
+    (empty unless armed), the ``fleet`` plane the serving fleet's (routes,
+    gossip, the cache tier; ``fleet/state_sync``). The ``serving`` gauges
+    and counters are those of the shared scheduler when one runs."""
     from . import observability as obs
     from . import serving
     from .analysis import plan_sanitizer, retrace_sanitizer
     from .device import calibration, costmodel
     from .distributed import resilience, shuffle_service, topology
     from .execution import governor, memory
+    from .fleet import state_sync
     from .io import read_planner
     from .parallel import exchange
     from .physical import adaptive
@@ -670,6 +671,8 @@ def prometheus_text() -> str:
          "collective exchange groups currently in flight")
     plane("obs", obs.obs_counters_snapshot(),
           "observability export counter")
+    plane("fleet", state_sync.counters_snapshot(),
+          "serving-fleet counter (routing, gossip, cache tier)")
     plane("retrace", retrace_sanitizer.counters_snapshot(),
           "retrace sanitizer counter")
     plane("plansan", plan_sanitizer.counters_snapshot(),

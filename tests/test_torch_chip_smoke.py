@@ -1,0 +1,113 @@
+"""The card script's own helpers, on the CPU: the phase helper every
+phase of ``chip_smoke.py`` runs through, the ``env`` line and the Connect
+transport phase 7n chooses from it. The script itself runs only on a
+card; these import it and call the helpers."""
+
+import os
+import sys
+
+import pytest
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, REPO)
+
+import chip_smoke as cs  # noqa: E402
+
+
+def test_run_phase_names_the_failing_phase_and_reraises(capsys):
+    def broken():
+        raise ValueError("the sidecar answered 500")
+
+    with pytest.raises(ValueError, match="sidecar answered 500"):
+        cs.run_phase("7n", broken, t_start=0.0)
+    out, err = capsys.readouterr()
+    for stream in (out, err):
+        lines = stream.splitlines()
+        assert lines[0].startswith("phase 7n FAILED after ")
+        assert lines[0].endswith(
+            " s: ValueError: the sidecar answered 500")
+        assert "Traceback (most recent call last):" in stream
+        assert "in broken" in stream
+    assert "done" not in out
+
+
+def test_run_phase_reports_done_and_returns():
+    assert cs.run_phase("3-4", lambda: 42, t_start=0.0) == 42
+
+
+def test_run_phase_done_line(capsys):
+    cs.run_phase("7m", lambda: None, t_start=0.0)
+    out, err = capsys.readouterr()
+    assert out.startswith("phase 7m done at ") and err == ""
+
+
+def test_env_line_names_every_module():
+    env = cs.env_probe()
+    assert set(env) == {"python", "torch", "cuda", "pyarrow",
+                        "pyarrow.flight", "grpc", "google.protobuf",
+                        "pyspark"}
+    assert env["pyarrow"] and env["torch"]
+    for key, mod in cs.ENV_MODULES:
+        try:
+            __import__(mod)
+            assert env[key] is not None, key
+        except ImportError:
+            assert env[key] is None, key
+
+
+@pytest.mark.parametrize("env, way", [
+    ({"grpc": "1.80.0", "google.protobuf": "6.33.6"}, "grpc"),
+    ({"grpc": None, "google.protobuf": "6.33.6"}, "in-process"),
+    ({"grpc": "1.80.0", "google.protobuf": None}, None),
+    ({"grpc": None, "google.protobuf": None}, None),
+])
+def test_connect_transport_comes_from_the_env_line(env, way):
+    assert cs.connect_transport(env) == way
+
+
+def test_fleet_sql_reads_the_named_tables():
+    sql = cs._sql_tables(cs.fleet_sql("q3"), "/d")
+    assert "FROM read_parquet('/d/customer') AS customer" in sql
+    assert "JOIN read_parquet('/d/orders') AS orders ON" in sql
+    assert "JOIN read_parquet('/d/lineitem') AS lineitem ON" in sql
+    for name, param in (("q1", None), ("suppkey_agg", None),
+                        ("q6", (1994, 0.06)), ("lookup", 7)):
+        sql = cs._sql_tables(cs.fleet_sql(name, param), "/d")
+        assert "FROM read_parquet('/d/lineitem') AS lineitem" in sql
+
+
+def test_profile_classifier_counts_every_call_once(tmp_path):
+    """A synthetic profiler trace with one call of each kind: seen by
+    name, its launch record outside its range (a stray), its launch
+    record dropped (an orphan), its kernel record dropped (lost)."""
+    import json
+
+    def rng(ts):
+        return dict(cat="user_annotation", name="daft_torch::"
+                    "daft_hash_agg_build", tid=1, ts=ts, dur=10, ph="X")
+
+    def launch(ts, corr):
+        return dict(cat="cuda_runtime", name="cudaLaunchKernel", tid=1,
+                    ts=ts, dur=1, ph="X", args=dict(correlation=corr))
+
+    def kernel(ts, corr):
+        return dict(cat="kernel", name="hash_agg_init_kernel", ts=ts,
+                    dur=2, ph="X", args=dict(correlation=corr))
+
+    events = [rng(0), launch(2, 1), kernel(5, 1),      # seen by name
+              rng(20), launch(31, 2), kernel(33, 2),   # stray
+              rng(40), kernel(45, 3),                  # orphan
+              rng(60), launch(62, 4)]                  # lost
+    path = tmp_path / "trace.json"
+    path.write_text(json.dumps(dict(traceEvents=events)))
+    p = cs._profile_kernels(str(path))["hash_agg_build"]
+    assert (p["calls"], p["named"], p["orphans"], p["strays"], p["lost"],
+            p["empty"]) == (4, 3, 1, 1, 1, 2)
+    assert cs._profile_calls(p) == 4
+    # the stray's launch moved into its range: no longer empty nor a stray
+    events[4] = launch(22, 2)
+    path.write_text(json.dumps(dict(traceEvents=events)))
+    p = cs._profile_kernels(str(path))["hash_agg_build"]
+    assert (p["strays"], p["empty"]) == (0, 1)
+    assert cs._profile_calls(p) == 4
+    assert cs._profile_kernels(str(path))["hash_join_build"]["calls"] == 0

@@ -144,6 +144,40 @@ def test_link_profile_persistence_roundtrip(tmp_path, monkeypatch):
     assert cm._load_stored("cpu") == (None, None)
 
 
+def test_link_measurement_takes_each_legs_median(monkeypatch):
+    """One slow round of five moves neither leg: the up and down rates
+    are the medians of their rounds (a clock the fake transfers advance,
+    8 MiB up in 2 ms and down in 0.25 ms, the third round's upload 8 ms;
+    a tiny upload 0.15 ms, a tiny fetch 0.05 ms)."""
+    from daft_tpu_torch.device import column as dcol
+    clock = [0.0]
+    # the resident plane and the untimed pass, then the timed rounds
+    ups = iter([0.0, 0.0] + [2e-3, 2e-3, 8e-3, 2e-3, 2e-3])
+
+    def upload(hosts, n, device):
+        big = n > 8
+        clock[0] += next(ups) if big else 1.5e-4
+        return (torch.from_numpy(hosts[0].copy()),), None, None
+
+    def fetch(ts):
+        clock[0] += 2.5e-4 if ts[0].numel() > 8 else 5e-5
+
+    monkeypatch.setattr(dcol, "_upload", upload)
+    monkeypatch.setattr(dcol, "fetch_host", fetch)
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda device=None: None)
+    monkeypatch.setattr(cm.time, "perf_counter", lambda: clock[0])
+    lp = cm._measure(torch.device("cpu"))
+    assert cm._LINK_ROUNDS == 5
+    rtt = 2e-4
+    assert lp.rtt_s == pytest.approx(rtt)
+    nbytes = 1 << 23
+    down_s = 2.5e-4 - 5e-5    # less a tiny fetch's time, not half an RTT
+    assert lp.down_bps == pytest.approx(nbytes / down_s)
+    # up: the round trip (upload + fetch) less the down leg and one RTT
+    assert lp.up_bps == pytest.approx(
+        nbytes / (2e-3 + 2.5e-4 - down_s - rtt))
+
+
 def test_link_profile_cpu_is_shared_memory():
     lp = cm.link_profile()   # DAFT_TORCH_DEVICE=cpu
     assert lp.rtt_s == 0.0 and lp.up_bps == float("inf")

@@ -1,7 +1,7 @@
 """The port's serving plane (``daft_tpu_torch/serving/``) against the
 reference's (``tests/test_serving.py``).
 
-28 of the reference's 30 cases, each run through the port on CPU tensors
+The reference's 30 cases, each run through the port on CPU tensors
 (``DAFT_TORCH_DEVICE=cpu``). Where a case checks answers, the same files
 (written once with pyarrow) or the same in-memory data go through the
 reference's ``QueryScheduler`` over ``daft_tpu`` and the port's over
@@ -12,9 +12,11 @@ run is deterministic (one worker, each result awaited before the next
 submission). Where concurrency makes a counter timing-dependent, only
 its deterministic sum is compared (hits plus misses).
 
-Not here: ``test_operation_retention_ttl_and_byte_sweep`` and
-``test_operation_cancel_callbacks_fire`` need Spark Connect's server and
-operations, which come with ROADMAP A8b.
+``test_operation_retention_ttl_and_byte_sweep`` and
+``test_operation_cancel_callbacks_fire`` hold the Spark Connect server's
+operations (``daft_tpu_torch/connect/server.py``) to the reference's:
+the same sweeps keep the same operations, under ``DAFT_TORCH_SERVE_OP_TTL``
+and ``_OP_RETAIN_BYTES``.
 
 Port-only: 8 concurrent submissions of TPC-H Q1, Q3 and a group-by in a
 child process with the lock-order sanitizer armed, with 0 cycles and
@@ -927,10 +929,103 @@ def test_breaker_drain_polls_cancellation():
 
 
 def test_fleet_wiring_waits_for_its_slice():
-    with pytest.raises(NotImplementedError, match="A8b"):
-        QueryScheduler(concurrency=1, fleet_state=object())
-    with pytest.raises(NotImplementedError, match="A8b"):
-        QueryScheduler(concurrency=1, cache_tier=object())
+    """The fleet wiring has landed: a scheduler takes a state store and a
+    cache tier (the reference's constructor), and without them falls back
+    to the process-installed ones, none by default."""
+    from daft_tpu_torch.fleet import cache_tier, state_sync
+    store = state_sync.StateStore("w")
+    tier = cache_tier.InProcessCacheTier()
+    s = QueryScheduler(concurrency=1, fleet_state=store, cache_tier=tier)
+    try:
+        assert s._fleet_store() is store
+        assert s._fleet_cache_tier() is tier
+    finally:
+        s.shutdown()
+    bare = QueryScheduler(concurrency=1)
+    try:
+        assert bare._fleet_store() is None
+        assert bare._fleet_cache_tier() is None
+    finally:
+        bare.shutdown()
+
+
+def test_operation_retention_ttl_and_byte_sweep(monkeypatch):
+    """The reference's sweep case on both servers: the same finished
+    operations go, the same stay."""
+    from daft_tpu.connect.server import SparkConnectServer as RefServer
+    from daft_tpu.connect.server import _Operation as RefOperation
+    from daft_tpu_torch.connect.server import SparkConnectServer, _Operation
+
+    class _Resp:
+        def __init__(self, n):
+            self._n = n
+            self.response_id = f"r{n}"
+
+        def ByteSize(self):
+            return self._n
+
+    kept = {}
+    for side, (srv_cls, op_cls, pre) in {
+            "ref": (RefServer, RefOperation, "DAFT_TPU_"),
+            "port": (SparkConnectServer, _Operation, "DAFT_TORCH_")}.items():
+        monkeypatch.delenv(pre + "SERVE_OP_TTL", raising=False)
+        monkeypatch.delenv(pre + "SERVE_OP_RETAIN_BYTES", raising=False)
+        srv = srv_cls()
+        try:
+            st = srv._session("sweep-sess")
+
+            def finished_op(op_id, nbytes, age_s):
+                op = op_cls(op_id, (), reattachable=True)
+                op.record(_Resp(nbytes))
+                op.finish()
+                op.finished_at = time.monotonic() - age_s
+                st.operations[op_id] = op
+                return op
+
+            # TTL sweep: an old finished op is dropped, a fresh one kept
+            monkeypatch.setenv(pre + "SERVE_OP_TTL", "100")
+            finished_op("old", 10, age_s=1000)
+            finished_op("fresh", 10, age_s=1)
+            srv._session("sweep-sess")
+            after_ttl = set(st.operations)
+            assert "old" not in after_ttl and "fresh" in after_ttl
+
+            # byte-budget sweep: newest kept first, the rest dropped
+            st.operations.pop("fresh")
+            monkeypatch.setenv(pre + "SERVE_OP_RETAIN_BYTES", "25")
+            finished_op("b1", 20, age_s=30)
+            finished_op("b2", 20, age_s=20)
+            finished_op("b3", 20, age_s=10)
+            srv._session("sweep-sess")
+            after_bytes = set(st.operations)
+            assert after_bytes == {"b3"}
+
+            # a RUNNING operation is never swept, regardless of budget
+            running = op_cls("running", (), reattachable=True)
+            running.record(_Resp(1000))
+            st.operations["running"] = running
+            srv._session("sweep-sess")
+            assert "running" in st.operations
+            kept[side] = (after_ttl, after_bytes, set(st.operations))
+        finally:
+            srv.stop()
+    assert kept["port"] == kept["ref"]
+
+
+def test_operation_cancel_callbacks_fire():
+    from daft_tpu.connect.server import _Operation as RefOperation
+    from daft_tpu_torch.connect.server import _Operation
+    fired = {}
+    for side, op_cls in (("ref", RefOperation), ("port", _Operation)):
+        op = op_cls("x", (), reattachable=False)
+        got = []
+        op.bind_cancel(lambda: got.append(1))
+        op.request_cancel()
+        assert got == [1]
+        # late binding on an already-cancelled op fires immediately
+        op.bind_cancel(lambda: got.append(2))
+        fired[side] = got
+    assert fired["port"] == fired["ref"] == [1, 2]
 
 
 def test_shared_scheduler_lifecycle():
