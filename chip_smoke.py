@@ -22,7 +22,9 @@ The first line is the ``env`` line: Python, torch, CUDA, pyarrow,
 2. build of the CUDA kernels from ``daft_tpu_torch/csrc`` (one ``nvcc``
    per source for sm_90a, all at once, linked into a shared library
    loaded with ctypes; its seconds and ``-Xptxas -v`` lines are
-   printed);
+   printed), and of the native host library (``daft_tpu_torch/native``,
+   one ``g++``; its seconds on a ``native library`` line, repeated on
+   7o's ``expr`` lines);
 3. kernel phase: the hash grouped-agg table build against its plain torch
    version on the card, at the main path's shape (C = 2^20 rows, ~751k
    live), over 1-word and 2-word keys, null keys, every agg state kind,
@@ -316,6 +318,21 @@ The first line is the ``env`` line: Python, torch, CUDA, pyarrow,
    lines; the Connect runs' new rungs go to phase 8 (``pass``
    ``connect``); the replicas' launches happen in their processes and
    add no rung;
+7o. the expression families of ROADMAP A8c over ``orders``
+   (``daft_tpu_torch/benchmarking/expr_phase.py``, which also runs it
+   alone): (a) a word count (``str.split`` → ``explode`` of about 9M
+   words → group by → count) held to pyarrow; (b) a MinHash near-dedup
+   (``str.normalize`` → ``minhash`` → four int64 band keys → ``explode``
+   to 6M rows → group by band → join back to the groups →
+   ``drop_duplicates`` → ``agg_list``) at the default knobs, forced to
+   the card (must launch the hash-agg build, the join build and the join
+   probe) and on the host tier, each held exactly to a numpy oracle over
+   the port's signatures; (c) the native library's MinHash, XXH64 and
+   HyperLogLog on the SF1 data equal to their numpy twins; (d) two SQL
+   group-bys (``regexp_extract``, and ``hash``: a uint64 key) forced to
+   the card, held to their DataFrame forms. ``expr`` lines; its new
+   rungs go to phase 8 (``pass`` ``expr_default``, ``expr_forced``,
+   ``expr_sql``);
 8. the hash build against its plain version at the inputs of every
    distinct hash rung of the main path and of the TPC-H 22 phase's
    dispatch pass
@@ -328,8 +345,8 @@ The first line is the ``env`` line: Python, torch, CUDA, pyarrow,
    held, each checked as in the join-kernel phase, then timed (rows name
    their ``pass``: ``tpcds`` or ``tpcds_dispatch`` for the TPC-DS ones,
    ``spill`` for the memory-bounded ones, ``pivot``, ``fuzz``,
-   ``remote``, ``obs``, ``sanitize``, ``dist``, ``serve`` and
-   ``connect`` for the last eight phases);
+   ``remote``, ``obs``, ``sanitize``, ``dist``, ``serve``, ``connect``
+   and ``expr_*`` for the last nine phases);
    every entry point
    ``analysis/dispatch_registry.py`` declares must have launched and been
    held against its plain twin in the run;
@@ -5209,14 +5226,19 @@ def setup_phase() -> dict:
         if "Compiling entry" in line or "stack frame" in line \
                 or "registers" in line:
             log(f"  {line.strip()}")
+    # the native host library: the first string hash builds it (one g++)
+    from daft_tpu_torch import native
+    native.library()
+    log(f"native library: {native.build_seconds:.3f} s (built here: "
+        f"{native.built}; {native.library_path()})")
     return dict(card=card, bw=bw)
 
 
 def new_rungs(mp, t22, tsql, recs, fz_rec) -> dict:
     """Phase 8's rungs not held by earlier phases: the TPC-DS,
-    memory-bounded, pivot, fuzz, remote, obs, sanitize, dist, serve and
-    connect ones (the fleet's replicas launch in their own processes, and
-    add none)."""
+    memory-bounded, pivot, fuzz, remote, obs, sanitize, dist, serve,
+    connect and expr ones (the fleet's replicas launch in their own
+    processes, and add none)."""
     held = {k[1:] for r in (mp["rungs"], t22["rungs"], tsql["rungs"])
             for k in r}
     jheld = {k[1:] for r in (t22["join_rungs"], tsql["join_rungs"])
@@ -5236,11 +5258,11 @@ def new_rungs(mp, t22, tsql, recs, fz_rec) -> dict:
                 ds_jrungs[k] = dict(v, pass_=rec_k.pass_)
                 if rec_k is fz_rec:
                     fuzz_new[k[0].split()[-1]]["join"] += 1
-    log(f"tpcds, ooc, pivot, fuzz, remote, obs, sanitize, dist, serve "
-        f"and connect rungs not held by earlier phases: "
+    log(f"tpcds, ooc, pivot, fuzz, remote, obs, sanitize, dist, serve, "
+        f"connect and expr rungs not held by earlier phases: "
         f"{len(ds_rungs)} hash, {len(ds_jrungs)} join")
     log("fuzz new rungs " + json.dumps(fuzz_new))
-    for pre in ("sanitize", "remote", "dist", "serve", "connect"):
+    for pre in ("sanitize", "remote", "dist", "serve", "connect", "expr"):
         log(f"{pre} new rungs " + json.dumps(dict(
             hash=sorted(str(list(k)) for k in ds_rungs
                         if k[0].startswith(pre)),
@@ -5387,12 +5409,15 @@ def main() -> int:
                   srv["lines"]["a"]["cold_repeat"].values())
     cf = phase("7n", lambda: connect_fleet_phase(
         root, mp["ref"], q3["ref"], env, slowest, card))
+    from daft_tpu_torch.benchmarking import expr_phase
+    eo = phase("7o", lambda: expr_phase.phase(sys.modules[__name__], root,
+                                              card))
 
     def kernel_timing():
         new = new_rungs(mp, t22, tsql, (
             tds["rec"], tdp["rec"], ooc["rec"], piv["rec"], fz["rec"],
             rem["rec"], ob["rec"], san["rec"], dist["rec"], srv["rec"],
-            cf["rec"]), fz["rec"])
+            cf["rec"], *eo["recs"]), fz["rec"])
         krecs = main_path_kernel_timing(mp["rungs"], bw)
         krecs += main_path_kernel_timing(t22["rungs"], bw)
         krecs += main_path_kernel_timing(tsql["rungs"], bw)

@@ -30,7 +30,8 @@ from .context import (execution_config_ctx, get_context,
 from .dataframe import (DataFrame, from_arrow, from_glob_path, from_pandas,
                         from_pydict, from_pylist)
 from .datatype import DataType, TimeUnit
-from .expressions import Expression, col, lit
+from .expressions import (Expression, coalesce, col, element, interval,
+                          list_, lit, struct)
 from .io import (AzureConfig, GCSConfig, HTTPConfig, IOConfig, S3Config,
                  read_csv, read_json, read_parquet, read_sql, read_warc)
 from .recordbatch import RecordBatch
@@ -62,7 +63,8 @@ __all__ = [
     "Catalog", "DataFrame", "DataType", "Expression", "Field", "Identifier",
     "NotFoundError", "RecordBatch", "Schema", "Series", "Session", "Table",
     "TimeUnit", "Window", "attach", "attach_catalog", "attach_function",
-    "attach_table", "col", "create_namespace",
+    "attach_table", "coalesce", "col", "create_namespace", "element",
+    "interval", "list_", "struct",
     "create_namespace_if_not_exists", "create_table",
     "create_table_if_not_exists", "create_temp_table", "current_catalog",
     "current_namespace", "current_session", "detach_catalog",

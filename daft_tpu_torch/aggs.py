@@ -159,6 +159,15 @@ def _global_one(op: str, s: Series, name: str, params) -> Series:
         v = (pc.min if op == "min" else pc.max)(arr).as_py() if len(arr) else None
         return Series.from_pylist([v], name, dtype=in_dtype)
     if op in ("count_distinct", "approx_count_distinct"):
+        if op == "approx_count_distinct" and not s.is_pyobject():
+            # HyperLogLog over the row hashes (reference: ``aggs.py``, the
+            # hyperloglog crate): the library's, or its numpy twin's
+            # registers and estimate, the same to the last bit
+            from . import native
+            hashes = s.filter(s.not_null()).hash().to_numpy()
+            est = native.HyperLogLog().add_hashes(hashes).estimate()
+            return Series.from_pylist([int(round(est))], name,
+                                      dtype=DataType.uint64())
         v = pc.count_distinct(arr, mode="only_valid").as_py()
         return Series.from_pylist([v], name, dtype=DataType.uint64())
     if op == "any_value":
@@ -233,6 +242,7 @@ def _agg_groupby(batch, specs, group_by: List[Expression]):
     pa_aggs = []
     post: List[Tuple[str, str, DataType, str]] = []  # (pa_out_name, out_name, dtype, op)
     py_specs = []
+    concat_inputs: Dict[str, Series] = {}
     for i, (op, child, name, params) in enumerate(specs):
         s = _eval_child(batch, child, i)
         in_name = f"__in{i}__"
@@ -246,6 +256,17 @@ def _agg_groupby(batch, specs, group_by: List[Expression]):
                 pa_mode = "sum"
             pa_aggs.append((in_name, pa_mode))
             post.append((f"{in_name}_{pa_mode}", name, DataType.uint64(), op))
+        elif op == "concat" and s.datatype().is_list() \
+                and not s.is_pyobject():
+            # each group's rows gathered by Arrow (its list kernel takes
+            # no nested input), then their lists flattened in row order
+            # (the reference concatenates them row by row in Python)
+            if "__row__" not in cols:
+                cols["__row__"] = pa.array(np.arange(len(batch)))
+                pa_aggs.append(("__row__", "list"))
+            concat_inputs[name] = s
+            post.append(("__row___list", name, s.datatype(),
+                         "concat_lists"))
         elif op in _PA_AGGS and not s.is_pyobject():
             cols[in_name] = s.to_arrow()
             pa_op = _PA_AGGS[op]
@@ -284,10 +305,12 @@ def _agg_groupby(batch, specs, group_by: List[Expression]):
         out_cols.append(Series.from_arrow(aggd.column(kn), ke.name())
                         .cast(key_series[ki].datatype()))
     for (pa_out, name, out_dt, op) in post:
-        if pa_out is not None:
+        if op == "concat_lists":
+            out_cols.append(Series.from_arrow(_concat_lists(
+                concat_inputs[name].to_arrow(), aggd.column(pa_out)),
+                name).cast(out_dt))
+        elif pa_out is not None:
             s_out = Series.from_arrow(aggd.column(pa_out), name)
-            if op == "concat":
-                pass
             out_cols.append(s_out.cast(out_dt) if out_dt is not None else s_out)
         else:
             i, op2, s, name2, params = next(p for p in py_specs if p[3] == name)
@@ -302,6 +325,27 @@ def _agg_groupby(batch, specs, group_by: List[Expression]):
             dt = _agg_out_dtype(op2, s.datatype())
             out_cols.append(Series.from_pylist(vals, name2, dtype=dt))
     return RecordBatch.from_series(out_cols)
+
+
+def _concat_lists(lists: pa.Array, group_rows) -> pa.Array:
+    """Per group, the concatenation of the non-null lists of its rows
+    (``group_rows``: each group's row indices, in row order, at least
+    one); a group with none gives an empty list."""
+    if isinstance(group_rows, pa.ChunkedArray):
+        group_rows = group_rows.combine_chunks()
+    if isinstance(lists, pa.ChunkedArray):
+        lists = lists.combine_chunks()
+    rows = pc.list_flatten(group_rows)
+    per_group = np.asarray(pc.list_value_length(group_rows).to_numpy(
+        zero_copy_only=False), dtype=np.int64)
+    taken = lists.take(rows)
+    lens = np.asarray(pc.fill_null(pc.list_value_length(taken), 0)
+                      .to_numpy(zero_copy_only=False), dtype=np.int64)
+    # a group's lists end where its last row's list ends
+    ends = np.cumsum(lens)[np.cumsum(per_group) - 1]
+    offs = np.concatenate([[0], ends]).astype(np.int64)
+    return pa.LargeListArray.from_arrays(pa.array(offs, pa.int64()),
+                                         pc.list_flatten(taken))
 
 
 def _agg_out_dtype(op: str, in_dtype: DataType) -> DataType:

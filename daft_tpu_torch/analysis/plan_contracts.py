@@ -29,8 +29,8 @@ layers (``physical/adaptive.py`` and the distributed re-planner,
 ``distributed/replan.py``, with its ``Boundary`` / ``BoundaryActuals``
 entries) may mutate in place on a built plan.
 
-Nodes of the reference the port does not have (``Explode``,
-``UDFProject``) are not declared; a node the port adds fails the lint
+Nodes of the reference the port does not have (``UDFProject``) are not
+declared; a node the port adds fails the lint
 run until it is.
 """
 
@@ -94,6 +94,8 @@ LOGICAL_NODES: Dict[str, NodeContract] = {c.name: c for c in [
        "preserves", "frozen", ("predicate",)),
     _n("Limit", "logical", "child", "inherits child (prefix truncation)",
        "preserves", "frozen", ("limit", "offset")),
+    _n("Explode", "logical", "computed", "inherits child (rows multiply "
+       "in place)", "preserves row groups", "frozen", ("exprs",)),
     _n("Unpivot", "logical", "computed", "inherits child (rows multiply "
        "in place)", "preserves row groups", "frozen",
        ("ids", "values", "variable_name", "value_name")),
@@ -147,6 +149,8 @@ PHYSICAL_NODES: Dict[str, NodeContract] = {c.name: c for c in [
        "preserves", "frozen", ("predicate",)),
     _n("Limit", "physical", "child", "inherits child (prefix "
        "truncation)", "preserves", "frozen", ("limit", "offset")),
+    _n("Explode", "physical", "computed", "inherits child (rows multiply "
+       "in place)", "preserves row groups", "frozen", ("exprs",)),
     _n("Unpivot", "physical", "computed", "inherits child (rows multiply "
        "in place)", "preserves row groups", "frozen",
        ("ids", "values", "variable_name", "value_name")),

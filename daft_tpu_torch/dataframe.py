@@ -11,10 +11,10 @@ cross joins included, concat and the set operations with their ``all``
 and by-name forms, pivot/unpivot, drop_nan/drop_null, describe/summarize,
 repartition, into_partitions and sample, monotonically increasing ids,
 window expressions routed into ``Window`` nodes, explain and
-``explain(analyze=True)``, num_partitions) and the writes
-(``write_parquet``/``write_csv``/``write_json``/``write_sink``);
-``explode``, the list aggregations and the lake-format writes come later
-(ROADMAP A8).
+``explain(analyze=True)``, num_partitions, ``explode``, ``drop_duplicates``
+and the list aggregations) and the writes
+(``write_parquet``/``write_csv``/``write_json``/``write_sink``); the
+lake-format writes come with ROADMAP A8e.
 """
 
 from __future__ import annotations
@@ -172,6 +172,11 @@ class DataFrame:
     def head(self, n: int = 10) -> "DataFrame":
         return self.limit(n)
 
+    def explode(self, *columns: ColumnInput) -> "DataFrame":
+        """One row per element of each list column, the other columns
+        repeated; a null or empty list gives one null row."""
+        return DataFrame(self._builder.explode(list(columns)))
+
     def unpivot(self, ids, values=None, variable_name: str = "variable",
                 value_name: str = "value") -> "DataFrame":
         """Wide to long: per row, one row per column of ``values`` (every
@@ -192,6 +197,11 @@ class DataFrame:
     def distinct(self, *on: ColumnInput) -> "DataFrame":
         """Rows unique over ``on`` (every column when none is given)."""
         return DataFrame(self._builder.distinct(list(on) if on else None))
+
+    unique = distinct
+
+    def drop_duplicates(self, *on) -> "DataFrame":
+        return self.distinct(*on)
 
     def _drop_where(self, cols, default_names, term_of) -> "DataFrame":
         names = [c.name() for c in _flatten_cols(cols)] or default_names
@@ -356,6 +366,15 @@ class DataFrame:
     def any_value(self, *cols):
         return self.agg(*[_c(c).any_value() for c in _flatten_cols(cols)])
 
+    def agg_list(self, *cols):
+        return self.agg(*[_c(c).agg_list() for c in _flatten_cols(cols)])
+
+    def agg_concat(self, *cols):
+        return self.agg(*[_c(c).agg_concat() for c in _flatten_cols(cols)])
+
+    def agg_set(self, *cols):
+        return self.agg(*[_c(c).agg_set() for c in _flatten_cols(cols)])
+
     def count(self, *cols) -> "DataFrame":
         if not cols:
             return self.agg(lit(1).count("all").alias("count"))
@@ -487,6 +506,26 @@ class DataFrame:
             for rb in p.batches():
                 yield from rb.to_arrow_table().to_batches()
 
+    def to_ray_dataset(self):
+        """Bridge to a Ray Dataset (needs the optional ``ray`` package)."""
+        try:
+            import ray.data
+        except ImportError as exc:
+            raise ImportError("to_ray_dataset requires the optional 'ray' "
+                              "package") from exc
+        return ray.data.from_arrow(self.to_arrow())
+
+    def to_dask_dataframe(self):
+        """Bridge to a Dask DataFrame (needs the optional ``dask``
+        package)."""
+        try:
+            import dask.dataframe as dd
+        except ImportError as exc:
+            raise ImportError("to_dask_dataframe requires the optional "
+                              "'dask' package") from exc
+        return dd.from_pandas(self.to_pandas(),
+                              npartitions=max(self.num_partitions(), 1))
+
 
 class GroupedDataFrame:
     """Reference: ``daft/dataframe/dataframe.py`` GroupedDataFrame."""
@@ -546,6 +585,15 @@ class GroupedDataFrame:
 
     def stddev(self, *cols):
         return self.agg(*[_c(c).stddev() for c in _flatten_cols(cols)])
+
+    def agg_list(self, *cols):
+        return self.agg(*[_c(c).agg_list() for c in _flatten_cols(cols)])
+
+    def agg_concat(self, *cols):
+        return self.agg(*[_c(c).agg_concat() for c in _flatten_cols(cols)])
+
+    def agg_set(self, *cols):
+        return self.agg(*[_c(c).agg_set() for c in _flatten_cols(cols)])
 
 
 def _c(x: ColumnInput) -> Expression:

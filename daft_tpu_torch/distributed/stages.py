@@ -66,7 +66,8 @@ class Stage:
         """True when the fragment is partition-parallel end-to-end, so its
         scan tasks can shard across workers without changing semantics."""
         ok = (pp.ScanSource, pp.InMemorySource, pp.StageInput, pp.Project,
-              pp.Filter, pp.Unpivot, pp.Sample, pp.DeviceFragmentAgg)
+              pp.Filter, pp.Explode, pp.Unpivot, pp.Sample,
+              pp.DeviceFragmentAgg)
 
         def walk(n) -> bool:
             if isinstance(n, pp.Aggregate):
@@ -172,7 +173,8 @@ class StagePlan:
                 has_any = has_any or has
             if not has_any:
                 return False, True
-            if isinstance(n, (pp.Project, pp.Filter, pp.Unpivot)):
+            if isinstance(n, (pp.Project, pp.Filter, pp.Explode,
+                              pp.Unpivot)):
                 return True, True
             if isinstance(n, pp.HashJoin):
                 # hash strategy: both sides are engine-inserted hash

@@ -473,6 +473,10 @@ class LocalExecutor:
         child = self._exec(node.children[0])
         yield from _ordered_parallel(child, _sample_kernel(node))
 
+    def _exec_Explode(self, node: pp.Explode):
+        child = self._exec(node.children[0])
+        yield from _ordered_parallel(child, lambda p: p.explode(node.exprs))
+
     def _exec_Unpivot(self, node: pp.Unpivot):
         child = self._exec(node.children[0])
         yield from _ordered_parallel(

@@ -263,6 +263,8 @@ def _map_kernel(node) -> Optional[Callable[[MicroPartition], MicroPartition]]:
         return lambda p: p.filter(node.predicate)
     if name == "Dedup":
         return lambda p: p.distinct(node.on)
+    if name == "Explode":
+        return lambda p: p.explode(node.exprs)
     if name == "Unpivot":
         return lambda p: p.unpivot(node.ids, node.values,
                                    node.variable_name, node.value_name)

@@ -3,11 +3,14 @@ from .expressions import (
     ExpressionsProjection,
     col,
     lit,
+    element,
     coalesce,
     interval,
+    list_,
+    struct,
 )
 
 __all__ = [
-    "Expression", "ExpressionsProjection", "col", "lit", "coalesce",
-    "interval",
+    "Expression", "ExpressionsProjection", "col", "lit", "element",
+    "coalesce", "interval", "list_", "struct",
 ]

@@ -10,7 +10,7 @@ Reference capability: ``eval_expression_list``
 from __future__ import annotations
 
 import math
-from typing import Dict
+from typing import Dict, List
 
 import numpy as np
 import pyarrow as pa
@@ -306,11 +306,87 @@ def _eval(e: Expression, cols: Dict[str, Series], n: int) -> Series:
               "bitwise_xor": pc.bit_wise_xor}[op]
         return Series.from_arrow(fn(b(kids[0]).to_arrow(), b(kids[1]).to_arrow()),
                                  kids[0].name())
+    if op in ("deserialize", "try_deserialize"):
+        import json as _json
+        fmt, dtype = e.params
+        if fmt != "json":
+            raise ValueError(f"deserialize format {fmt!r} (only 'json')")
+        strict = op == "deserialize"
+        out = []
+        for v in kids[0].to_pylist():
+            if v is None:
+                out.append(None)
+                continue
+            try:
+                out.append(_json.loads(v))
+            except ValueError:
+                if strict:
+                    raise
+                out.append(None)
+        # enforce the DECLARED dtype: parsed-but-mismatched values must not
+        # leak through as python objects under a typed schema
+        target = dtype.to_arrow()
+        try:
+            arr = pa.array(out, type=target)
+        except (pa.ArrowInvalid, pa.ArrowTypeError, TypeError,
+                OverflowError):
+            if strict:
+                raise
+            coerced = []
+            for v in out:
+                try:
+                    pa.array([v], type=target)
+                    coerced.append(v)
+                except (pa.ArrowInvalid, pa.ArrowTypeError, TypeError,
+                        OverflowError):
+                    coerced.append(None)
+            arr = pa.array(coerced, type=target)
+        return Series.from_arrow(arr, kids[0].name()).cast(dtype)
+    if op == "hash":
+        return kids[0].hash(kids[1] if len(kids) > 1 else None)
+    if op == "minhash":
+        num_hashes, ngram_size, seed = e.params
+        return kids[0].minhash(num_hashes, ngram_size, seed)
+    if op == "py_apply":
+        fn, ret = e.params
+        vals = kids[0].to_pylist()
+        out = [None if v is None else fn(v) for v in vals]
+        return Series.from_pylist(out, kids[0].name(), dtype=ret)
+    if op == "explode":
+        # handled by the explode kernel at the RecordBatch level
+        return kids[0]
+    if op == "list":
+        return _make_list([b(k) for k in kids], out_field, max_len)
+    if op == "struct_make":
+        arrs = [b(k) for k in kids]
+        sa = pa.StructArray.from_arrays([a.to_arrow() for a in arrs],
+                                        [a.name() for a in arrs])
+        return Series.from_arrow(sa, "struct")
+
     if "." in op:
         from .fn_host import eval_function
         return eval_function(op, e, kids, b, out_field)
 
     raise NotImplementedError(f"host eval for expression op {op!r}")
+
+
+def _make_list(cols: List[Series], out_field, n: int) -> Series:
+    """``list_(a, b, ...)``: row i is ``[a[i], b[i], ...]`` cast to the
+    supertype (the reference builds each row in Python; here the columns
+    interleave into one values array)."""
+    inner = out_field.dtype.inner
+    k = len(cols)
+    flats = [c.cast(inner).to_arrow() for c in cols]
+    flats = [f if len(f) == n else pa.repeat(f[0], n) if len(f) else
+             pa.nulls(n, inner.to_arrow()) for f in flats]
+    # interleave: output slot i * k + j takes row i of column j
+    order = (np.arange(k, dtype=np.int64)[None, :] * n
+             + np.arange(n, dtype=np.int64)[:, None]).ravel()
+    values = pa.concat_arrays(flats).take(pa.array(order)) if k \
+        else pa.array([], inner.to_arrow())
+    offsets = pa.array(np.arange(n + 1, dtype=np.int64) * k, pa.int64())
+    out = pa.LargeListArray.from_arrays(offsets, values)
+    return Series.from_arrow(out, "list").cast(out_field.dtype)
 
 
 def pd_isnull(v: np.ndarray) -> np.ndarray:

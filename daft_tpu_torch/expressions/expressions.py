@@ -15,9 +15,10 @@ Designed fresh: expressions are immutable trees that know how to
 
 from __future__ import annotations
 
-from typing import Any, Iterable, List, Optional, Sequence, Tuple
+import datetime
+from typing import Any, Callable, Iterable, List, Optional, Sequence, Tuple, Union
 
-from ..datatype import DataType
+from ..datatype import DataType, TimeUnit
 from ..schema import Field, Schema
 
 # ---------------------------------------------------------------------------
@@ -254,6 +255,22 @@ class Expression:
     def bitwise_xor(self, other):
         return Expression("bitwise_xor", (self, Expression._to_expression(other)))
 
+    # top-level codec / serde surface (reference: Expression.encode/decode/
+    # try_* + deserialize; rides the binary-namespace codec machinery)
+    def encode(self, codec: str): return Expression("binary.encode", (self,), (codec,))
+    def decode(self, codec: str): return Expression("binary.decode", (self,), (codec,))
+    def try_encode(self, codec: str):
+        return Expression("binary.try_encode", (self,), (codec,))
+    def try_decode(self, codec: str):
+        return Expression("binary.try_decode", (self,), (codec,))
+    def deserialize(self, format: str, dtype):
+        return Expression("deserialize", (self,), (format, dtype))
+    def try_deserialize(self, format: str, dtype):
+        return Expression("try_deserialize", (self,), (format, dtype))
+    def jq(self, filter: str):
+        """jq-style JSON query (reference: Expression.jq over the jaq
+        crate; same surface as ``.json.query``)."""
+        return Expression("json.query", (self,), (filter,))
     def clip(self, min=None, max=None):
         return Expression("clip", (self, Expression._to_expression(min),
                                    Expression._to_expression(max)))
@@ -261,22 +278,37 @@ class Expression:
     def shift_left(self, other): return Expression("shift_left", (self, Expression._to_expression(other)))
     def shift_right(self, other): return Expression("shift_right", (self, Expression._to_expression(other)))
 
+    def hash(self, seed=None) -> "Expression":
+        args = (self,) if seed is None else (self, Expression._to_expression(seed))
+        return Expression("hash", args)
+
+    def minhash(self, num_hashes: int, ngram_size: int, seed: int = 1) -> "Expression":
+        return Expression("minhash", (self,), (num_hashes, ngram_size, seed))
+
+    def apply(self, func: Callable, return_dtype: DataType) -> "Expression":
+        return Expression("py_apply", (self,), (func, return_dtype))
+
     # -- window ------------------------------------------------------------
     def over(self, window) -> "Expression":
         """Attach a window spec (reference: ``Expr::Over``)."""
         return Expression("window", (self,), (window,))
 
     def lag(self, offset: int = 1, default=None) -> "Expression":
-        args = (self,) if default is None \
-            else (self, Expression._to_expression(default))
+        args = (self,) if default is None else (self, Expression._to_expression(default))
         return Expression("winfn.lag", args, (offset,))
 
     def lead(self, offset: int = 1, default=None) -> "Expression":
-        args = (self,) if default is None \
-            else (self, Expression._to_expression(default))
+        args = (self,) if default is None else (self, Expression._to_expression(default))
         return Expression("winfn.lead", args, (offset,))
 
+    def explode(self) -> "Expression":
+        return Expression("explode", (self,))
+
     # -- namespaces --------------------------------------------------------
+    @property
+    def str(self) -> "ExpressionStringNamespace":
+        return ExpressionStringNamespace(self)
+
     @property
     def dt(self) -> "ExpressionDatetimeNamespace":
         return ExpressionDatetimeNamespace(self)
@@ -286,8 +318,41 @@ class Expression:
         return ExpressionFloatNamespace(self)
 
     @property
-    def str(self) -> "ExpressionStringNamespace":
-        return ExpressionStringNamespace(self)
+    def list(self) -> "ExpressionListNamespace":
+        return ExpressionListNamespace(self)
+
+    @property
+    def struct(self) -> "ExpressionStructNamespace":
+        return ExpressionStructNamespace(self)
+
+    @property
+    def map(self) -> "ExpressionMapNamespace":
+        return ExpressionMapNamespace(self)
+
+    @property
+    def embedding(self) -> "ExpressionEmbeddingNamespace":
+        return ExpressionEmbeddingNamespace(self)
+
+    @property
+    def image(self) -> "ExpressionImageNamespace":
+        raise NotImplementedError(
+            "the image namespace is not ported yet (ROADMAP A8d)")
+
+    @property
+    def partitioning(self) -> "ExpressionPartitioningNamespace":
+        return ExpressionPartitioningNamespace(self)
+
+    @property
+    def binary(self) -> "ExpressionBinaryNamespace":
+        return ExpressionBinaryNamespace(self)
+
+    @property
+    def json(self) -> "ExpressionJsonNamespace":
+        return ExpressionJsonNamespace(self)
+
+    @property
+    def url(self) -> "ExpressionUrlNamespace":
+        return ExpressionUrlNamespace(self)
 
     # -- schema ------------------------------------------------------------
     def to_field(self, schema: Schema) -> Field:
@@ -315,6 +380,59 @@ class _Ns:
     def _f(self, op: str, args: Tuple = (), params: Tuple = ()) -> Expression:
         return Expression(op, (self._e,) + tuple(
             Expression._to_expression(a) for a in args), params)
+
+
+class ExpressionStringNamespace(_Ns):
+    """Reference surface: ~50 utf8 fns in ``src/daft-functions-utf8``."""
+
+    def contains(self, pattern): return self._f("str.contains", (pattern,))
+    def startswith(self, prefix): return self._f("str.startswith", (prefix,))
+    def endswith(self, suffix): return self._f("str.endswith", (suffix,))
+    def concat(self, other): return self._f("str.concat", (other,))
+    def length(self): return self._f("str.length")
+    def length_bytes(self): return self._f("str.length_bytes")
+    def lower(self): return self._f("str.lower")
+    def upper(self): return self._f("str.upper")
+    def lstrip(self): return self._f("str.lstrip")
+    def rstrip(self): return self._f("str.rstrip")
+    def strip(self): return self._f("str.strip")
+    def reverse(self): return self._f("str.reverse")
+    def capitalize(self): return self._f("str.capitalize")
+    def left(self, n): return self._f("str.left", (n,))
+    def right(self, n): return self._f("str.right", (n,))
+    def repeat(self, n): return self._f("str.repeat", (n,))
+    def split(self, pattern, regex: bool = False):
+        return self._f("str.split", (pattern,), (regex,))
+    def match(self, pattern): return self._f("str.match", (pattern,))
+    def extract(self, pattern, index: int = 0):
+        return self._f("str.extract", (pattern,), (index,))
+    def extract_all(self, pattern, index: int = 0):
+        return self._f("str.extract_all", (pattern,), (index,))
+    def replace(self, pattern, replacement, regex: bool = False):
+        return self._f("str.replace", (pattern, replacement), (regex,))
+    def find(self, substr): return self._f("str.find", (substr,))
+    def rpad(self, length, pad): return self._f("str.rpad", (length, pad))
+    def lpad(self, length, pad): return self._f("str.lpad", (length, pad))
+    def substr(self, start, length=None):
+        return self._f("str.substr", (start, length))
+    def to_date(self, format: str): return self._f("str.to_date", (), (format,))
+    def to_datetime(self, format: str, timezone: Optional[str] = None):
+        return self._f("str.to_datetime", (), (format, timezone))
+    def normalize(self, remove_punct=False, lowercase=False, nfd_unicode=False,
+                  white_space=False):
+        return self._f("str.normalize", (),
+                       (remove_punct, lowercase, nfd_unicode, white_space))
+    def count_matches(self, patterns, whole_words=False, case_sensitive=True):
+        pats = tuple(patterns) if isinstance(patterns, (list, tuple)) else (patterns,)
+        return self._f("str.count_matches", (), (pats, whole_words, case_sensitive))
+    def tokenize_encode(self, tokens_path: Optional[str] = None,
+                        pattern: Optional[str] = None):
+        raise NotImplementedError(
+            "str.tokenize_encode is not ported yet (ROADMAP A8d)")
+    def tokenize_decode(self, tokens_path: Optional[str] = None,
+                        pattern: Optional[str] = None):
+        raise NotImplementedError(
+            "str.tokenize_decode is not ported yet (ROADMAP A8d)")
 
 
 class ExpressionDatetimeNamespace(_Ns):
@@ -346,42 +464,103 @@ class ExpressionDatetimeNamespace(_Ns):
     def total_seconds(self): return self._f("dt.total_seconds")
 
 
-class ExpressionStringNamespace(_Ns):
-    """The utf8 functions TPC-H and the SQL function library reach
-    (reference surface: ``src/daft-functions-utf8``); split, extract,
-    to_date/to_datetime, normalize, count_matches and tokenize wait for
-    ROADMAP A8."""
-
-    def contains(self, pattern): return self._f("str.contains", (pattern,))
-    def startswith(self, prefix): return self._f("str.startswith", (prefix,))
-    def endswith(self, suffix): return self._f("str.endswith", (suffix,))
-    def concat(self, other): return self._f("str.concat", (other,))
-    def length(self): return self._f("str.length")
-    def lower(self): return self._f("str.lower")
-    def upper(self): return self._f("str.upper")
-    def lstrip(self): return self._f("str.lstrip")
-    def rstrip(self): return self._f("str.rstrip")
-    def strip(self): return self._f("str.strip")
-    def reverse(self): return self._f("str.reverse")
-    def capitalize(self): return self._f("str.capitalize")
-    def left(self, n): return self._f("str.left", (n,))
-    def right(self, n): return self._f("str.right", (n,))
-    def repeat(self, n): return self._f("str.repeat", (n,))
-    def match(self, pattern): return self._f("str.match", (pattern,))
-    def replace(self, pattern, replacement, regex: bool = False):
-        return self._f("str.replace", (pattern, replacement), (regex,))
-    def find(self, substr): return self._f("str.find", (substr,))
-    def rpad(self, length, pad): return self._f("str.rpad", (length, pad))
-    def lpad(self, length, pad): return self._f("str.lpad", (length, pad))
-    def substr(self, start, length=None):
-        return self._f("str.substr", (start, length))
-
-
 class ExpressionFloatNamespace(_Ns):
     def is_nan(self): return self._f("float.is_nan")
     def is_inf(self): return self._f("float.is_inf")
     def not_nan(self): return self._f("float.not_nan")
     def fill_nan(self, fill_value): return self._f("float.fill_nan", (fill_value,))
+
+
+class ExpressionListNamespace(_Ns):
+    """Reference surface: ``src/daft-functions-list``."""
+
+    def join(self, delimiter): return self._f("list.join", (delimiter,))
+    def value_counts(self): return self._f("list.value_counts")
+    def count(self, mode: str = "valid"): return self._f("list.count", (), (mode,))
+    def lengths(self): return self._f("list.length")
+    def length(self): return self._f("list.length")
+    def get(self, idx, default=None):
+        return self._f("list.get", (idx, default))
+    def slice(self, start, end=None): return self._f("list.slice", (start, end))
+    def chunk(self, size: int): return self._f("list.chunk", (), (size,))
+    def sum(self): return self._f("list.sum")
+    def mean(self): return self._f("list.mean")
+    def min(self): return self._f("list.min")
+    def max(self): return self._f("list.max")
+    def bool_and(self): return self._f("list.bool_and")
+    def bool_or(self): return self._f("list.bool_or")
+    def sort(self, desc=False, nulls_first=None):
+        return self._f("list.sort", (), (bool(_const(desc)), nulls_first))
+    def distinct(self): return self._f("list.distinct")
+    def unique(self): return self.distinct()
+
+
+class ExpressionStructNamespace(_Ns):
+    def get(self, name: str): return self._f("struct.get", (), (name,))
+
+
+class ExpressionMapNamespace(_Ns):
+    def get(self, key): return self._f("map.get", (key,))
+
+
+class ExpressionEmbeddingNamespace(_Ns):
+    def cosine_distance(self, other):
+        return self._f("embedding.cosine_distance", (other,))
+
+
+class ExpressionImageNamespace(_Ns):
+    """The ``image`` functions come with ROADMAP A8d; until then
+    :attr:`Expression.image` raises."""
+
+
+class ExpressionBinaryNamespace(_Ns):
+    """Reference surface: ``src/daft-functions-binary`` (concat/slice/encode)."""
+
+    def concat(self, other): return self._f("binary.concat", (other,))
+    def length(self): return self._f("binary.length")
+    def slice(self, start, length=None):
+        return self._f("binary.slice", (start, length))
+    def encode(self, codec: str): return self._f("binary.encode", (), (codec,))
+    def decode(self, codec: str): return self._f("binary.decode", (), (codec,))
+    def try_encode(self, codec: str):
+        return self._f("binary.try_encode", (), (codec,))
+    def try_decode(self, codec: str):
+        return self._f("binary.try_decode", (), (codec,))
+
+
+class ExpressionJsonNamespace(_Ns):
+    """Reference surface: ``src/daft-functions-json`` (jq-style ``query``)."""
+
+    def query(self, jq: str): return self._f("json.query", (), (jq,))
+
+
+class ExpressionUrlNamespace(_Ns):
+    """Reference surface: ``src/daft-functions-uri`` (url.download / url.upload)."""
+
+    def download(self, max_connections: int = 32, on_error: str = "raise",
+                 io_config=None):
+        return self._f("url.download", (), (max_connections, on_error, io_config))
+
+    def upload(self, location, max_connections: int = 32, on_error: str = "raise",
+               io_config=None):
+        return self._f("url.upload", (Expression._to_expression(location),),
+                       (max_connections, on_error, io_config))
+
+    def parse(self):
+        return self._f("url.parse")
+
+
+class ExpressionPartitioningNamespace(_Ns):
+    def days(self): return self._f("partitioning.days")
+    def hours(self): return self._f("partitioning.hours")
+    def months(self): return self._f("partitioning.months")
+    def years(self): return self._f("partitioning.years")
+    def iceberg_bucket(self, n: int): return self._f("partitioning.iceberg_bucket", (), (n,))
+    def iceberg_truncate(self, w: int): return self._f("partitioning.iceberg_truncate", (), (w,))
+
+
+def _const(v):
+    return v.params[0] if isinstance(v, Expression) and v.op == "lit" else v
 
 
 # ---------------------------------------------------------------------------
@@ -392,8 +571,21 @@ def col(name: str) -> Expression:
     return Expression._col(name)
 
 
+def element() -> Expression:
+    """Placeholder for the current list element in list.map-style exprs."""
+    return Expression("element", ())
+
+
 def lit(value: Any) -> Expression:
     return Expression._lit(value)
+
+
+def list_(*exprs) -> Expression:
+    return Expression("list", tuple(Expression._to_expression(e) for e in exprs))
+
+
+def struct(*exprs) -> Expression:
+    return Expression("struct_make", tuple(Expression._to_expression(e) for e in exprs))
 
 
 def coalesce(*exprs) -> Expression:

@@ -113,10 +113,6 @@ def infer_field(e, schema: Schema) -> Field:
             "unsupported — e.g. a subquery in a SELECT list or HAVING")
     if op == "lit":
         return _lit_field(e.params[0])
-    if op == "udf":
-        u = e.params[0]
-        name = infer_field(e.args[0], schema).name if e.args else u.name
-        return Field(name, u.return_dtype)
     if op == "lit_interval":
         return Field("literal", DataType.interval())
     if op == "alias":
@@ -128,14 +124,6 @@ def infer_field(e, schema: Schema) -> Field:
 
     child_fields = [infer_field(a, schema) for a in e.args]
     name = child_fields[0].name if child_fields else op
-
-    if op == "window":
-        from ..window_exec import window_field
-        return window_field(e, schema)
-    if op in ("winfn.row_number", "winfn.rank", "winfn.dense_rank"):
-        return Field(op[6:], DataType.uint64())
-    if op in ("winfn.lag", "winfn.lead"):
-        return Field(child_fields[0].name, child_fields[0].dtype)
 
     if op in ("add", "sub", "mul", "div", "floordiv", "mod", "pow"):
         l, r = child_fields[0].dtype, child_fields[1].dtype
@@ -169,6 +157,8 @@ def infer_field(e, schema: Schema) -> Field:
     if op in ("shift_left", "shift_right", "bitwise_and", "bitwise_or",
               "bitwise_xor"):
         return Field(name, child_fields[0].dtype)
+    if op in ("deserialize", "try_deserialize"):
+        return Field(name, e.params[1])
     if op == "fill_null":
         base = child_fields[0].dtype
         if base.is_null():
@@ -186,6 +176,35 @@ def infer_field(e, schema: Schema) -> Field:
         for f in child_fields[1:]:
             dt = f.dtype if dt.is_null() else supertype(dt, f.dtype)
         return Field(name, dt)
+    if op == "hash":
+        return Field(name, DataType.uint64())
+    if op == "udf":
+        u = e.params[0]
+        nm = child_fields[0].name if child_fields else u.name
+        return Field(nm, u.return_dtype)
+    if op == "window":
+        from ..window_exec import window_field
+        return window_field(e, schema)
+    if op in ("winfn.row_number", "winfn.rank", "winfn.dense_rank"):
+        return Field(op[6:], DataType.uint64())
+    if op in ("winfn.lag", "winfn.lead"):
+        return Field(child_fields[0].name, child_fields[0].dtype)
+    if op == "minhash":
+        return Field(name, DataType.fixed_size_list(DataType.uint32(), e.params[0]))
+    if op == "py_apply":
+        return Field(name, e.params[1])
+    if op == "explode":
+        d = child_fields[0].dtype
+        return Field(name, d.inner if d.is_list() else d)
+    if op == "list":
+        dt = DataType.null()
+        for f in child_fields:
+            dt = f.dtype if dt.is_null() else supertype(dt, f.dtype)
+        return Field("list", DataType.list(dt))
+    if op == "struct_make":
+        return Field("struct", DataType.struct(
+            {f.name: f.dtype for f in child_fields}))
+
     # aggregations -------------------------------------------------------
     if op.startswith("agg."):
         return _agg_field(op[4:], e, child_fields[0] if child_fields else None)
@@ -252,13 +271,6 @@ def _agg_field(agg: str, e, f: Optional[Field]) -> Field:
     raise NotImplementedError(f"agg type inference for {agg}")
 
 
-#: the ported ``str`` functions whose output is a string
-_STR_TO_STR = frozenset((
-    "concat", "lower", "upper", "lstrip", "rstrip", "strip", "reverse",
-    "capitalize", "left", "right", "repeat", "replace", "rpad", "lpad",
-    "substr"))
-
-
 def _function_field(op: str, e, child_fields, schema: Schema) -> Field:
     ns, fn = op.split(".", 1)
     f = child_fields[0]
@@ -266,13 +278,21 @@ def _function_field(op: str, e, child_fields, schema: Schema) -> Field:
     if ns == "str":
         if fn in ("contains", "startswith", "endswith", "match"):
             return Field(name, DataType.bool())
-        if fn == "length":
+        if fn in ("length", "length_bytes", "find"):
+            return Field(name, DataType.uint64() if fn != "find" else DataType.int64())
+        if fn in ("split", "extract_all"):
+            return Field(name, DataType.list(DataType.string()))
+        if fn == "to_date":
+            return Field(name, DataType.date())
+        if fn == "to_datetime":
+            return Field(name, DataType.timestamp(TimeUnit.us, e.params[1]))
+        if fn == "count_matches":
             return Field(name, DataType.uint64())
-        if fn == "find":
-            return Field(name, DataType.int64())
-        if fn in _STR_TO_STR:
+        if fn == "tokenize_encode":
+            return Field(name, DataType.list(DataType.uint32()))
+        if fn == "tokenize_decode":
             return Field(name, DataType.string())
-        raise NotImplementedError(f"str.{fn}")
+        return Field(name, DataType.string())
     if ns == "dt":
         if fn in ("day", "hour", "minute", "second", "month", "quarter",
                   "day_of_week", "day_of_year", "week_of_year", "millisecond",
@@ -295,4 +315,85 @@ def _function_field(op: str, e, child_fields, schema: Schema) -> Field:
         if fn in ("is_nan", "is_inf", "not_nan"):
             return Field(name, DataType.bool())
         return Field(name, f.dtype)
+    if ns == "list":
+        d = f.dtype
+        if fn in ("length", "count"):
+            return Field(name, DataType.uint64())
+        if fn == "join":
+            return Field(name, DataType.string())
+        if fn in ("get",):
+            return Field(name, d.inner)
+        if fn in ("slice", "chunk", "sort", "distinct"):
+            return Field(name, DataType.list(d.inner) if fn != "chunk"
+                         else DataType.list(DataType.list(d.inner)))
+        if fn in ("sum", "mean", "min", "max"):
+            inner = d.inner
+            if fn == "mean":
+                return Field(name, DataType.float64())
+            return Field(name, inner)
+        if fn in ("bool_and", "bool_or"):
+            return Field(name, DataType.bool())
+        if fn == "value_counts":
+            return Field(name, DataType.map(d.inner, DataType.uint64()))
+        raise NotImplementedError(f"list.{fn}")
+    if ns == "struct":
+        if fn == "get":
+            fld = e.params[0]
+            return Field(fld, f.dtype.fields[fld])
+    if ns == "map":
+        if fn == "get":
+            return Field("value", f.dtype._params[1])
+    if ns == "embedding":
+        if fn == "cosine_distance":
+            return Field(name, DataType.float64())
+    if ns == "image":
+        if fn == "decode":
+            mode = e.params[1]
+            return Field(name, DataType.image(mode))
+        if fn == "encode":
+            return Field(name, DataType.binary())
+        if fn == "resize":
+            d = f.dtype
+            if d.kind == "fixed_shape_image":
+                m = d.image_mode
+                return Field(name, DataType.fixed_shape_image(m, e.params[1], e.params[0]))
+            return Field(name, d)
+        if fn in ("crop", "to_mode"):
+            if fn == "to_mode":
+                return Field(name, DataType.image(e.params[0]))
+            return Field(name, DataType.image(f.dtype.image_mode
+                                              if f.dtype.is_image() else None))
+    if ns == "binary":
+        if fn == "length":
+            return Field(name, DataType.uint64())
+        if fn in ("encode", "try_encode"):
+            # utf-8 "encodes" bytes→text in the reference's codec table
+            return Field(name, DataType.binary())
+        if fn in ("decode", "try_decode"):
+            # both aliases map to Codec::Utf8 → Utf8 in the reference
+            from .fn_host import norm_codec
+            codec = norm_codec(e.params[0])
+            return Field(name, DataType.string() if codec in ("utf-8", "utf8")
+                         else DataType.binary())
+        return Field(name, DataType.binary())
+    if ns == "json":
+        if fn == "query":
+            return Field(name, DataType.string())
+    if ns == "url":
+        if fn == "download":
+            return Field(name, DataType.binary())
+        if fn == "upload":
+            return Field(name, DataType.string())
+        if fn == "parse":
+            return Field(name, DataType.struct({
+                "scheme": DataType.string(), "host": DataType.string(),
+                "port": DataType.int32(), "path": DataType.string(),
+                "query": DataType.string(), "fragment": DataType.string()}))
+    if ns == "partitioning":
+        if fn in ("days",):
+            return Field(name, DataType.date())
+        if fn in ("hours", "months", "years", "iceberg_bucket"):
+            return Field(name, DataType.int32())
+        if fn == "iceberg_truncate":
+            return Field(name, f.dtype)
     raise NotImplementedError(f"type inference for {op}")

@@ -76,6 +76,10 @@ _KNOBS: List[Knob] = [
            '`interp` (the pull interpreter); unset defers to '
            '`ExecutionConfig.local_executor` (default `push`)',
            config_field='local_executor'),
+    _k("DAFT_TORCH_NATIVE", "bool", True, "daft_tpu_torch/native/__init__.py",
+           "core", 'the native host library (row hashes, MinHash, '
+           'HyperLogLog, fanout; g++ at first use into `_build/`): on, a '
+           'failed build raises; `0`: its numpy twins, the same values'),
     # ----------------------------------------------------- kernels
     _k("DAFT_TORCH_KERNEL_GROUPBY", "str", 'auto', "daft_tpu_torch/device/costmodel.py",
            "kernels", "grouped-agg strategy: `auto` (dense, else the cost model's "

@@ -56,13 +56,15 @@ class LogicalPlanBuilder:
                 resolved.extend(col(n) for n in self.schema().column_names)
             else:
                 resolved.extend(_to_exprs([x]))
-        return self._wrap(lp.Project(self._plan, resolved))
+        child, resolved = _route_monotonic_id(self._plan, resolved)
+        return self._wrap(lp.Project(child, resolved))
 
     def with_columns(self, exprs: Sequence[Expression]) -> "LogicalPlanBuilder":
         new_names = {e.name() for e in exprs}
         keep = [col(n) for n in self.schema().column_names
                 if n not in new_names]
-        return self._wrap(lp.Project(self._plan, keep + list(exprs)))
+        child, resolved = _route_monotonic_id(self._plan, keep + list(exprs))
+        return self._wrap(lp.Project(child, resolved))
 
     def with_columns_renamed(self, mapping: Dict[str, str]) -> "LogicalPlanBuilder":
         exprs = []
@@ -83,6 +85,11 @@ class LogicalPlanBuilder:
 
     def limit(self, n: int, offset: int = 0) -> "LogicalPlanBuilder":
         return self._wrap(lp.Limit(self._plan, n, offset))
+
+    def explode(self, exprs: Sequence) -> "LogicalPlanBuilder":
+        es = [e._unalias() if e.op == "alias" else e for e in _to_exprs(exprs)]
+        es = [e if e.op == "explode" else e.explode() for e in es]
+        return self._wrap(lp.Explode(self._plan, es))
 
     def unpivot(self, ids, values, variable_name="variable",
                 value_name="value") -> "LogicalPlanBuilder":
@@ -236,6 +243,27 @@ class LogicalPlanBuilder:
 
     def repr_ascii(self) -> str:
         return self._plan.repr_ascii()
+
+
+def _route_monotonic_id(child, exprs: List[Expression]):
+    """Replace monotonically_increasing_id() expression nodes with a plan-level
+    MonotonicallyIncreasingId (reference: DetectMonotonicId rule,
+    ``daft_tpu/logical/builder.py:_route_monotonic_id``)."""
+    found = False
+
+    def walk(e: Expression) -> Expression:
+        nonlocal found
+        if e.op == "monotonically_increasing_id":
+            found = True
+            return col("__mono_id__")
+        if not e.args:
+            return e
+        return e.with_children([walk(c) for c in e.args])
+
+    new = [walk(e) for e in exprs]
+    if not found:
+        return child, exprs
+    return lp.MonotonicallyIncreasingId(child, "__mono_id__"), new
 
 
 def _extract_aggs(to_agg: List[Expression], schema: Schema

@@ -128,9 +128,10 @@ def combine_conjuncts(es: List[Expression]) -> Expression:
 
 
 def _has_effectful(e: Expression) -> bool:
-    """A UDF may be stateful or nondeterministic: filters are not pushed
-    through it, nor hoisted above a reordered join tree."""
-    if e.op == "udf":
+    """A UDF may be stateful or nondeterministic, and ``apply`` and
+    ``explode`` change cardinality or cost: filters are not pushed through
+    them, nor hoisted above a reordered join tree."""
+    if e.op in ("py_apply", "explode", "udf"):
         return True
     return any(_has_effectful(c) for c in e.args)
 

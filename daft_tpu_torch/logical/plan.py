@@ -5,8 +5,7 @@ enum — and ``partitioning.rs`` (ClusteringSpec). The port carries the nodes
 of the grouped-aggregation, join, TPC-H, SQL and TPC-DS slices: Source/
 Project/Filter/Limit/Sort/TopN/Repartition/Distinct/Aggregate/Join (equi
 and cross)/Window/Concat/Sample/MonotonicallyIncreasingId/Pivot/Unpivot/
-Sink.
-Explode comes with the ``list`` type (ROADMAP A8).
+Explode/Sink.
 """
 
 from __future__ import annotations
@@ -226,6 +225,35 @@ class Limit(LogicalPlan):
 
     def multiline_display(self):
         return [f"Limit: {self.limit}"]
+
+
+class Explode(LogicalPlan):
+    """One row per element of each ``.explode()`` list expression; the
+    other columns repeat (reference: ``daft_tpu/logical/plan.py:Explode``)."""
+
+    def __init__(self, child: LogicalPlan, exprs: List[Expression]):
+        super().__init__([child])
+        self.exprs = list(exprs)
+
+    def _compute_schema(self) -> Schema:
+        s = self._children[0].schema()
+        out = []
+        explode_names = {e.name(): e for e in self.exprs}
+        for f in s:
+            if f.name in explode_names:
+                out.append(explode_names[f.name].to_field(s))
+            else:
+                out.append(f)
+        for e in self.exprs:
+            if e.name() not in s:
+                out.append(e.to_field(s))
+        return Schema(out)
+
+    def with_children(self, children):
+        return Explode(children[0], self.exprs)
+
+    def _params(self):
+        return tuple(e._key() for e in self.exprs)
 
 
 class Unpivot(LogicalPlan):

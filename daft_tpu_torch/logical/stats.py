@@ -116,6 +116,8 @@ def estimate(node: lp.LogicalPlan) -> Stats:
         return kids[0].scaled(AGG_GROUP_FACTOR)
     if isinstance(node, lp.Distinct):
         return kids[0].scaled(AGG_GROUP_FACTOR)
+    if isinstance(node, lp.Explode):
+        return kids[0].scaled(4.0)
     if isinstance(node, lp.Concat):
         l, r = kids
         rows = None if l.rows is None or r.rows is None else l.rows + r.rows

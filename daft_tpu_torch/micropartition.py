@@ -157,6 +157,9 @@ class MicroPartition:
     def distinct(self, on=None) -> "MicroPartition":
         return MicroPartition.from_recordbatch(self.combined().distinct(on))
 
+    def explode(self, exprs) -> "MicroPartition":
+        return MicroPartition.from_recordbatch(self.combined().explode(exprs))
+
     def unpivot(self, ids, values, variable_name,
                 value_name) -> "MicroPartition":
         return MicroPartition.from_recordbatch(

@@ -212,6 +212,15 @@ class Exchange(PhysicalPlan):
         self.join_side = False
 
 
+class Explode(PhysicalPlan):
+    """One row per list element of ``exprs`` (``.explode()`` expressions)
+    in each morsel, the other columns repeated."""
+
+    def __init__(self, child, exprs, schema):
+        super().__init__([child], schema)
+        self.exprs = exprs
+
+
 class Unpivot(PhysicalPlan):
     def __init__(self, child, ids, values, variable_name, value_name,
                  schema):

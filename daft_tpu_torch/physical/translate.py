@@ -107,6 +107,8 @@ def _t_node(node: lp.LogicalPlan) -> pp.PhysicalPlan:
     if isinstance(node, lp.Sample):
         return pp.Sample(_t(node.children[0]), node.fraction, node.size,
                          node.with_replacement, node.seed)
+    if isinstance(node, lp.Explode):
+        return pp.Explode(_t(node.children[0]), node.exprs, node.schema())
     if isinstance(node, lp.Unpivot):
         return pp.Unpivot(_t(node.children[0]), node.ids, node.values,
                           node.variable_name, node.value_name,

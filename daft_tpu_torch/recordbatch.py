@@ -283,6 +283,34 @@ class RecordBatch:
         return self.take(np.sort(idx))
 
     # ---- explode ---------------------------------------------------------
+    def explode(self, exprs: Sequence[Expression]) -> "RecordBatch":
+        """One row per list element of the ``.explode()`` expressions, the
+        other columns repeated; a null or empty list gives one null row
+        (reference: ``daft_tpu/recordbatch.py:explode``,
+        ``src/daft-recordbatch/src/ops/explode.rs``). The first list sets
+        each row's repeat count, as in the reference."""
+        exploded = []
+        for e in exprs:
+            inner = e._unalias()
+            if inner.op != "explode":
+                raise ValueError("explode expects .explode() expressions")
+            exploded.append(
+                self.eval_expression(inner.args[0]).rename(e.name()))
+        arr0 = exploded[0].to_arrow()
+        lengths = pc.fill_null(pc.list_value_length(arr0), 1) \
+            .to_numpy(zero_copy_only=False).astype(np.int64)
+        lengths = np.maximum(lengths, 1)  # null/empty lists -> 1 null row
+        repeat_idx = np.repeat(np.arange(self._len), lengths)
+        by_name = {s.name(): s for s in exploded}
+        out_cols = []
+        for c in self._columns:
+            match = by_name.get(c.name())
+            out_cols.append(_explode_series(match, lengths)
+                            if match is not None else c.take(repeat_idx))
+        for s in exploded:
+            if s.name() not in self._schema:
+                out_cols.append(_explode_series(s, lengths))
+        return RecordBatch.from_series(out_cols)
 
     # ---- partitioning ----------------------------------------------------
     def pivot(self, group_by: Sequence[Expression], pivot_col: Expression,
@@ -397,11 +425,10 @@ class RecordBatch:
         return parts, pvalues
 
     def _split_by_pid(self, pid: np.ndarray, n: int) -> List["RecordBatch"]:
-        # a 16-bit key takes numpy's radix sort (stable, linear)
-        if n <= 1 << 16:
-            pid = pid.astype(np.uint16)
-        order = np.argsort(pid, kind="stable")
-        counts = np.bincount(pid, minlength=n)
+        from . import native
+        # one counting sort into a stable gather list (the native library,
+        # or its twin, a stable argsort): each part keeps row order
+        counts, order = native.fanout_pid(pid, n)
         sorted_batch = self.take(order)
         offsets = np.concatenate([[0], np.cumsum(counts)])
         return [sorted_batch.slice(int(offsets[i]), int(offsets[i + 1]))
@@ -430,6 +457,44 @@ class RecordBatch:
     def __repr__(self):
         return repr(self.to_pandas()) if self._len <= 20 else \
             repr(self.head(10).to_pandas()) + f"\n… ({self._len} rows)"
+
+
+def _explode_series(s: Series, lengths: np.ndarray) -> Series:
+    """The list column ``s`` flattened, a null or empty list one null row
+    (``lengths`` holds each row's output count, at least 1): the
+    reference's per-row ``_explode_series`` with Arrow kernels."""
+    inner_dt = s.datatype().inner if s.datatype().is_list() \
+        else s.datatype()
+    arr = s.to_arrow()
+    if isinstance(arr, pa.ChunkedArray):
+        arr = arr.combine_chunks()
+    if not (pa.types.is_list(arr.type) or pa.types.is_large_list(arr.type)
+            or pa.types.is_fixed_size_list(arr.type)):
+        out = []
+        for v in arr.to_pylist():
+            if not v:
+                out.append(None)
+            else:
+                out.extend(v)
+        return Series.from_pylist(out, s.name(), dtype=inner_dt)
+    n = len(arr)
+    own = pc.fill_null(pc.list_value_length(arr), 0) \
+        .to_numpy(zero_copy_only=False).astype(np.int64)
+    # list_flatten drops null lists' slots and keeps null elements
+    flat = pc.list_flatten(arr)
+    if len(flat) == int(lengths.sum()):
+        out = flat
+    else:
+        # rows whose list is null or empty take one null slot: gather the
+        # flattened values with -1 (null) at those rows
+        starts = np.concatenate([[0], np.cumsum(own)[:-1]]) if n else own
+        pos = np.repeat(starts - np.cumsum(
+            np.concatenate([[0], lengths[:-1]])), lengths) + \
+            np.arange(int(lengths.sum()))
+        empty = np.repeat(own == 0, lengths)
+        idx = pa.array(np.where(empty, 0, pos), mask=empty)
+        out = flat.take(idx) if len(flat) else pa.nulls(len(idx), flat.type)
+    return Series.from_arrow(out, s.name()).cast(inner_dt)
 
 
 def _plain(arr):

@@ -65,6 +65,15 @@ class Series:
                     dtype: Optional[DataType] = None) -> "Series":
         if dtype is not None and dtype.is_python():
             return cls.from_pyobjects(data, name)
+        if dtype is not None and dtype.kind in ("tensor", "image",
+                                                "sparse_tensor"):
+            # variable-shape multimodal rows (ndarrays) → the struct
+            # physical layout; a pyobject fallback here would disable the
+            # whole cast matrix
+            arr = _multimodal_from_rows(data, dtype)
+            if arr is not None:
+                return cls(name, dtype, arrow=arr)
+            return cls.from_pyobjects(data, name)
         try:
             arr = pa.array(data, type=dtype.to_arrow() if dtype is not None else None)
         except (pa.ArrowInvalid, pa.ArrowNotImplementedError, pa.ArrowTypeError):
@@ -140,11 +149,19 @@ class Series:
     def to_pylist(self) -> List[Any]:
         if self._pyobjs is not None:
             return list(self._pyobjs)
+        if self._dtype.kind in ("tensor", "image"):
+            return _multimodal_to_rows(self._arrow, self._dtype)
         return self._arrow.to_pylist()
 
     def to_numpy(self) -> np.ndarray:
         if self._pyobjs is not None:
             return self._pyobjs
+        if self._dtype.kind in ("tensor", "image", "sparse_tensor"):
+            # variable-shape struct storage: rows are ragged — object array
+            out = np.empty(len(self), dtype=object)
+            for i, v in enumerate(self.to_pylist()):
+                out[i] = v
+            return out
         if self._dtype.is_tensor() or self._dtype.is_embedding():
             flat = self._arrow.flatten().to_numpy(zero_copy_only=False)
             n = len(self._arrow)
@@ -256,6 +273,9 @@ class Series:
             # (pyarrow has no cast kernel for this direction)
             return Series(self._name, dtype,
                           arrow=pa.nulls(len(self._arrow)))
+        mm = _multimodal_cast(self, dtype)
+        if mm is not None:
+            return mm
         target = dtype.to_arrow()
         try:
             out = self._arrow.cast(target)
@@ -275,6 +295,40 @@ class Series:
             h = _splitmix64(h ^ sv)
         return Series(self._name, DataType.uint64(), arrow=pa.array(h))
 
+    def minhash(self, num_hashes: int, ngram_size: int = 1,
+                seed: int = 1) -> "Series":
+        """MinHash signature per string row → fixed_size_list<uint32>[num_hashes].
+
+        Reference capability: ``src/daft-minhash/src/lib.rs`` (word shingles,
+        k universal-hash permutations, per-permutation minimum). Native C++
+        path in ``daft_tpu_torch/native`` (``DAFT_TORCH_NATIVE``); its Python
+        twin :func:`_minhash_fallback` gives the same signatures.
+        """
+        if not self._dtype.is_string():
+            raise ValueError(f"minhash expects a string column, got {self._dtype!r}")
+        from . import native
+        arr = self.to_arrow().cast(pa.large_binary())
+        bufs = arr.buffers()
+        offsets = np.frombuffer(bufs[1], dtype=np.int64, count=len(arr) + 1,
+                                offset=arr.offset * 8)
+        data = np.frombuffer(bufs[2], dtype=np.uint8) if bufs[2] is not None \
+            else np.empty(0, dtype=np.uint8)
+        valid = np.asarray(pc.is_valid(arr).to_numpy(zero_copy_only=False),
+                           dtype=np.bool_)
+        if native.available():
+            sig = native.minhash(offsets, data, valid, num_hashes,
+                                 ngram_size, seed)
+        else:
+            sig = _minhash_fallback(self.to_pylist(), num_hashes,
+                                    ngram_size, seed)
+        flat = pa.array(sig.ravel(), type=pa.uint32())
+        out = pa.FixedSizeListArray.from_arrays(flat, num_hashes)
+        if not valid.all():
+            mask = pa.array(~valid)
+            out = pc.if_else(mask, pa.nulls(len(self), out.type), out)
+        return Series(self._name, DataType.fixed_size_list(
+            DataType.uint32(), num_hashes), arrow=out)
+
     # ---- repr ------------------------------------------------------------
     def __repr__(self):
         preview = self.to_pylist()[:10]
@@ -282,6 +336,327 @@ class Series:
 
     def __iter__(self):
         return iter(self.to_pylist())
+
+
+def _fsl_values_offsets(arr: pa.Array):
+    """FixedSizeList array → (flat values, per-row width, validity).
+    ``flatten()`` (not ``.values``) — it respects the array's slice
+    offset; ``.values`` spans the whole backing buffer."""
+    if isinstance(arr, pa.ChunkedArray):
+        arr = arr.combine_chunks()
+    width = arr.type.list_size
+    valid = np.asarray(pc.is_valid(arr).to_numpy(zero_copy_only=False),
+                       dtype=np.bool_)
+    return arr.flatten(), width, valid
+
+
+def _list_window(data: pa.Array):
+    """List array → (values restricted to this array's window, offsets
+    REBASED to that window). ``offsets`` honors the slice but stays
+    absolute into the backing buffer; ``values`` ignores the slice —
+    this pairs them correctly for sliced arrays."""
+    offs = np.asarray(data.offsets.to_numpy(zero_copy_only=False),
+                      dtype=np.int64)
+    window = data.values.slice(int(offs[0]), int(offs[-1] - offs[0]))
+    return window, offs - offs[0]
+
+
+def _wrap_list(flat: pa.Array, counts: np.ndarray,
+               valid: np.ndarray) -> pa.Array:
+    offsets = np.concatenate([[0], np.cumsum(counts)]).astype(np.int64)
+    off = pa.array(offsets, pa.int64())
+    out = pa.LargeListArray.from_arrays(off, flat)
+    if not valid.all():
+        out = pc.if_else(pa.array(valid), out, pa.nulls(len(valid), out.type))
+    return out
+
+
+def _multimodal_from_rows(data: Sequence[Any],
+                          dtype: DataType) -> Optional[pa.Array]:
+    """ndarray rows → the struct physical for variable-shape tensor /
+    image / sparse-tensor columns. None when a row isn't array-like."""
+    rows = []
+    for v in data:
+        if v is None:
+            rows.append(None)
+            continue
+        if isinstance(v, dict):
+            if dtype.kind != "sparse_tensor":
+                return None  # dict rows only mean something for sparse
+            rows.append(v)
+            continue
+        try:
+            rows.append(np.asarray(v))
+        except Exception:
+            return None
+        if rows[-1].dtype == object:
+            return None
+    n = len(rows)
+    valid = np.array([r is not None for r in rows], dtype=np.bool_)
+    mask = pa.array(~valid) if not valid.all() else None
+    try:
+        return _multimodal_build(rows, dtype, n, valid, mask)
+    except Exception:
+        return None  # non-conforming rows → pyobject fallback
+
+
+def _multimodal_build(rows, dtype, n, valid, mask):
+    from .datatype import ImageMode
+    if dtype.kind == "tensor":
+        inner = dtype._params[0].to_physical().to_arrow()
+        flats, shapes, counts, scounts = [], [], [], []
+        for r in rows:
+            if r is None:
+                counts.append(0)
+                scounts.append(0)
+            else:
+                flats.append(r.ravel())
+                shapes.append(np.asarray(r.shape, np.uint64))
+                counts.append(r.size)
+                scounts.append(r.ndim)
+        flat = np.concatenate(flats) if flats else np.empty(0)
+        shp = np.concatenate(shapes) if shapes else np.empty(0, np.uint64)
+        data_col = _wrap_list(pa.array(flat).cast(inner),
+                              np.asarray(counts, np.int64), valid)
+        shape_col = _wrap_list(pa.array(shp, pa.uint64()),
+                               np.asarray(scounts, np.int64), valid)
+        return pa.StructArray.from_arrays([data_col, shape_col],
+                                          ["data", "shape"], mask=mask)
+    if dtype.kind == "image":
+        mode = dtype._params[0]
+        flats, counts, chans, hs, ws, modes = [], [], [], [], [], []
+        for r in rows:
+            if r is None:
+                counts.append(0)
+                chans.append(0); hs.append(0); ws.append(0); modes.append(0)
+                continue
+            if r.ndim == 2:
+                r = r[:, :, None]
+            h, w, c = r.shape
+            m = mode if mode is not None else \
+                {1: ImageMode.L, 2: ImageMode.LA, 3: ImageMode.RGB,
+                 4: ImageMode.RGBA}.get(c)
+            flats.append(r.ravel())
+            counts.append(r.size)
+            chans.append(c); hs.append(h); ws.append(w)
+            modes.append(m.value if m is not None else 0)
+        if mode is not None:
+            inner = DataType.from_numpy_dtype(mode.np_dtype).to_arrow()
+        else:
+            dts = {f.dtype for f in flats}
+            if len(dts) > 1 or (dts and next(iter(dts)) not in (
+                    np.dtype(np.uint8),)):
+                raise ValueError("mode-less image rows must be uint8")
+            inner = DataType.uint8().to_arrow()
+        flat = np.concatenate(flats) if flats else np.empty(0)
+        data_col = _wrap_list(pa.array(flat).cast(inner),
+                              np.asarray(counts, np.int64), valid)
+        return pa.StructArray.from_arrays(
+            [data_col, pa.array(chans, pa.uint16()),
+             pa.array(hs, pa.uint32()), pa.array(ws, pa.uint32()),
+             pa.array(modes, pa.uint8())],
+            ["data", "channel", "height", "width", "mode"], mask=mask)
+    if dtype.kind == "sparse_tensor":
+        inner = dtype._params[0].to_physical().to_arrow()
+        vals, idxs, shps = [], [], []
+        vcounts, icounts, scounts = [], [], []
+        for r in rows:
+            if r is None:
+                vcounts.append(0); icounts.append(0); scounts.append(0)
+                continue
+            if isinstance(r, dict):
+                v = np.asarray(r["values"]); i = np.asarray(r["indices"],
+                                                            np.uint64)
+                shp = np.asarray(r["shape"], np.uint64)
+            else:
+                flat = r.ravel()
+                nz = np.flatnonzero(flat)
+                v = flat[nz]; i = nz.astype(np.uint64)
+                shp = np.asarray(r.shape, np.uint64)
+            vals.append(v); idxs.append(i); shps.append(shp)
+            vcounts.append(len(v)); icounts.append(len(i))
+            scounts.append(len(shp))
+        def cat(parts, dt=None):
+            return np.concatenate(parts) if parts else np.empty(0, dt or np.float64)
+        values_col = _wrap_list(pa.array(cat(vals)).cast(inner),
+                                np.asarray(vcounts, np.int64), valid)
+        idx_col = _wrap_list(pa.array(cat(idxs, np.uint64), pa.uint64()),
+                             np.asarray(icounts, np.int64), valid)
+        shp_col = _wrap_list(pa.array(cat(shps, np.uint64), pa.uint64()),
+                             np.asarray(scounts, np.int64), valid)
+        return pa.StructArray.from_arrays([values_col, idx_col, shp_col],
+                                          ["values", "indices", "shape"],
+                                          mask=mask)
+    return None
+
+
+def _multimodal_to_rows(arr: pa.Array, dtype: DataType) -> List[Any]:
+    """Struct-physical tensor/image columns → ndarray rows (what users
+    put in is what they get back)."""
+    arr = _combine(arr)
+    out: List[Any] = []
+    valid = np.asarray(pc.is_valid(arr).to_numpy(zero_copy_only=False),
+                       dtype=np.bool_)
+    if dtype.kind == "tensor":
+        data = arr.field("data")
+        shape = arr.field("shape")
+        for i in range(len(arr)):
+            if not valid[i]:
+                out.append(None)
+                continue
+            d = np.asarray(data[i].as_py())
+            s = tuple(int(x) for x in (shape[i].as_py() or ()))
+            out.append(d.reshape(s) if s else d)
+        return out
+    if dtype.kind == "image":
+        data = arr.field("data")
+        hs = arr.field("height")
+        ws = arr.field("width")
+        cs = arr.field("channel")
+        for i in range(len(arr)):
+            if not valid[i]:
+                out.append(None)
+                continue
+            d = np.asarray(data[i].as_py())
+            c = int(cs[i].as_py())
+            shape = (int(hs[i].as_py()), int(ws[i].as_py())) \
+                if c == 1 else (int(hs[i].as_py()), int(ws[i].as_py()), c)
+            out.append(d.reshape(shape))  # L-mode rows stay 2-D, like PIL
+        return out
+    return arr.to_pylist()
+
+
+def _multimodal_cast(s: "Series", dtype: DataType) -> "Optional[Series]":
+    """Cast directions pyarrow has no kernels for: the multimodal matrix
+    between fixed-shape and variable-shape tensor/image types and the
+    dense↔sparse tensor pair (reference:
+    ``src/daft-core/src/array/ops/cast.rs`` — the physical layouts here
+    mirror ``dtype.rs:307-335``)."""
+    src = s.datatype()
+    arr = s.to_arrow()
+    if isinstance(arr, pa.ChunkedArray):
+        arr = arr.combine_chunks()
+    n = len(arr)
+
+    def done(struct):
+        return Series(s.name(), dtype, arrow=struct)
+
+    # fixed-shape tensor/embedding → variable Tensor --------------------
+    if src.kind in ("fixed_shape_tensor", "embedding") \
+            and dtype.kind == "tensor":
+        inner, shape = (src._params if src.kind == "fixed_shape_tensor"
+                        else (src._params[0], (src._params[1],)))
+        flat, width, valid = _fsl_values_offsets(arr)
+        tgt_inner = dtype._params[0].to_physical().to_arrow()
+        if flat.type != pa.large_list(tgt_inner).value_type:
+            flat = flat.cast(tgt_inner)
+        # flatten() drops null rows' slots, so null rows count 0
+        counts = np.where(valid, width, 0).astype(np.int64)
+        data = _wrap_list(flat, counts, valid)
+        shape_flat = pa.array(np.tile(np.asarray(shape, np.uint64),
+                                      int(valid.sum())))
+        shapes = _wrap_list(shape_flat,
+                            np.where(valid, len(shape), 0).astype(np.int64),
+                            valid)
+        return done(pa.StructArray.from_arrays(
+            [data, shapes], ["data", "shape"],
+            mask=pa.array(~valid) if not valid.all() else None))
+
+    # FixedShapeImage → Image -------------------------------------------
+    if src.kind == "fixed_shape_image" and dtype.kind == "image":
+        mode, h, w = src._params
+        flat, width, valid = _fsl_values_offsets(arr)
+        data = _wrap_list(flat, np.where(valid, width, 0).astype(np.int64),
+                          valid)
+        mk = lambda v, t: pa.array(np.full(n, v), t)  # noqa: E731
+        return done(pa.StructArray.from_arrays(
+            [data, mk(mode.num_channels, pa.uint16()),
+             mk(h, pa.uint32()), mk(w, pa.uint32()),
+             mk(mode.value, pa.uint8())],
+            ["data", "channel", "height", "width", "mode"],
+            mask=pa.array(~valid) if not valid.all() else None))
+
+    # Image → Tensor (shape = [h, w, c] per row) ------------------------
+    if src.kind == "image" and dtype.kind == "tensor":
+        valid = np.asarray(pc.is_valid(arr).to_numpy(zero_copy_only=False),
+                           dtype=np.bool_)
+        data = arr.field("data")
+        h = arr.field("height").to_numpy(zero_copy_only=False)
+        w = arr.field("width").to_numpy(zero_copy_only=False)
+        c = arr.field("channel").to_numpy(zero_copy_only=False)
+        hwc = np.stack([np.where(valid, h, 0), np.where(valid, w, 0),
+                        np.where(valid, c, 0)], axis=1).astype(np.uint64)
+        shapes = _wrap_list(pa.array(hwc.ravel()),
+                            np.full(n, 3, np.int64), valid)
+        tgt_inner = dtype._params[0].to_physical().to_arrow()
+        if data.type.value_type != tgt_inner:
+            data = data.cast(pa.large_list(tgt_inner))
+        elif not isinstance(data.type, pa.LargeListType):
+            data = data.cast(pa.large_list(data.type.value_type))
+        return done(pa.StructArray.from_arrays(
+            [data, shapes], ["data", "shape"],
+            mask=pa.array(~valid) if not valid.all() else None))
+
+    # Tensor → SparseTensor (drop zeros, record indices) ----------------
+    if src.kind == "tensor" and dtype.kind == "sparse_tensor":
+        valid = np.asarray(pc.is_valid(arr).to_numpy(zero_copy_only=False),
+                           dtype=np.bool_)
+        data = _combine(arr.field("data"))
+        shape_col = arr.field("shape")
+        flat, offs = _list_window(data)  # slice-safe: rebased offsets
+        flat = np.asarray(flat.to_numpy(zero_copy_only=False))
+        spans = np.diff(offs)
+        nz = (flat != 0) & np.repeat(valid, spans)
+        row_of = np.repeat(np.arange(n), spans)
+        counts = np.bincount(row_of[nz], minlength=n).astype(np.int64) \
+            if len(flat) else np.zeros(n, np.int64)
+        row_base = np.repeat(offs[:-1], spans)
+        idx_all = (np.arange(len(flat)) - row_base).astype(np.uint64)
+        tgt_inner = dtype._params[0].to_physical().to_arrow()
+        values = _wrap_list(pa.array(flat[nz]).cast(tgt_inner),
+                            counts, valid)
+        indices = _wrap_list(pa.array(idx_all[nz]), counts, valid)
+        return done(pa.StructArray.from_arrays(
+            [values, indices, shape_col.cast(pa.large_list(pa.uint64()))],
+            ["values", "indices", "shape"],
+            mask=pa.array(~valid) if not valid.all() else None))
+
+    # SparseTensor → Tensor (dense reconstruction) ----------------------
+    if src.kind == "sparse_tensor" and dtype.kind == "tensor":
+        valid = np.asarray(pc.is_valid(arr).to_numpy(zero_copy_only=False),
+                           dtype=np.bool_)
+        values = _combine(arr.field("values"))
+        indices = _combine(arr.field("indices"))
+        shape_col = _combine(arr.field("shape"))
+        shp_flat_a, shp_offs = _list_window(shape_col)
+        shp_flat = np.asarray(shp_flat_a.to_numpy(zero_copy_only=False),
+                              dtype=np.int64)
+        dense_counts = np.ones(n, np.int64)
+        for i in range(n):
+            dims = shp_flat[shp_offs[i]:shp_offs[i + 1]]
+            dense_counts[i] = int(np.prod(dims)) if len(dims) else 0
+        dense_counts = np.where(valid, dense_counts, 0)
+        total = int(dense_counts.sum())
+        tgt_inner = dtype._params[0].to_physical()
+        out_flat = np.zeros(total, dtype=tgt_inner.device_repr())
+        bases = np.concatenate([[0], np.cumsum(dense_counts)])[:-1]
+        v_flat_a, v_offs = _list_window(values)
+        i_flat_a, _ = _list_window(indices)
+        v_flat = np.asarray(v_flat_a.to_numpy(zero_copy_only=False))
+        i_flat = np.asarray(i_flat_a.to_numpy(zero_copy_only=False),
+                            dtype=np.int64)
+        spans = np.diff(v_offs)
+        keep = np.repeat(valid, spans)
+        row_of = np.repeat(np.arange(n), spans)
+        if len(v_flat):
+            out_flat[bases[row_of[keep]] + i_flat[keep]] = v_flat[keep]
+        dense = _wrap_list(pa.array(out_flat), dense_counts, valid)
+        return done(pa.StructArray.from_arrays(
+            [dense, shape_col.cast(pa.large_list(pa.uint64()))],
+            ["data", "shape"],
+            mask=pa.array(~valid) if not valid.all() else None))
+
+    return None
 
 
 # ---- hashing --------------------------------------------------------------
@@ -405,7 +780,11 @@ def _hash_array(s: Series) -> np.ndarray:
                                 count=len(enc) + 1, offset=enc.offset * 8)
         data = np.frombuffer(buffers[2], dtype=np.uint8) \
             if buffers[2] is not None else np.empty(0, dtype=np.uint8)
-        out = _xxh64_var(offsets, data)
+        from . import native
+        # the library's XXH64 where DAFT_TORCH_NATIVE is on, else its numpy
+        # twin: the same hashes
+        out = native.hash_var(offsets, data, valid) if native.available() \
+            else _xxh64_var(offsets, data)
     else:
         phys = dt.to_physical()
         if phys.device_repr() is None:
@@ -436,4 +815,119 @@ def _hash_array(s: Series) -> np.ndarray:
             out = np.array([np.uint64(hash(v) & 0xFFFFFFFFFFFFFFFF)
                             for v in vals], dtype=np.uint64)
     out[~valid] = _NULL_HASH
+    return out
+
+
+_XXH_P1 = 11400714785074694791
+_XXH_P2 = 14029467366897019727
+_XXH_P3 = 1609587929392839161
+_XXH_P4 = 9650029242287828579
+_XXH_P5 = 2870177450012600261
+_U64 = (1 << 64) - 1
+
+
+def _rotl64(x: int, r: int) -> int:
+    return ((x << r) | (x >> (64 - r))) & _U64
+
+
+def _xxh64_py(data: bytes, seed: int) -> int:
+    """Pure-python XXH64 — bit-identical to the native kernel's xxh64
+    (``daft_tpu_torch/native/src/kernels.cpp``) so fallback and native minhash
+    signatures are comparable across a mixed fleet."""
+    n, i = len(data), 0
+    if n >= 32:
+        v1 = (seed + _XXH_P1 + _XXH_P2) & _U64
+        v2 = (seed + _XXH_P2) & _U64
+        v3 = seed & _U64
+        v4 = (seed - _XXH_P1) & _U64
+        while i <= n - 32:
+            v1 = (_rotl64((v1 + int.from_bytes(data[i:i+8], "little")
+                           * _XXH_P2) & _U64, 31) * _XXH_P1) & _U64
+            v2 = (_rotl64((v2 + int.from_bytes(data[i+8:i+16], "little")
+                           * _XXH_P2) & _U64, 31) * _XXH_P1) & _U64
+            v3 = (_rotl64((v3 + int.from_bytes(data[i+16:i+24], "little")
+                           * _XXH_P2) & _U64, 31) * _XXH_P1) & _U64
+            v4 = (_rotl64((v4 + int.from_bytes(data[i+24:i+32], "little")
+                           * _XXH_P2) & _U64, 31) * _XXH_P1) & _U64
+            i += 32
+        h = (_rotl64(v1, 1) + _rotl64(v2, 7) + _rotl64(v3, 12)
+             + _rotl64(v4, 18)) & _U64
+        for v in (v1, v2, v3, v4):
+            h ^= (_rotl64((v * _XXH_P2) & _U64, 31) * _XXH_P1) & _U64
+            h = ((h * _XXH_P1) + _XXH_P4) & _U64
+    else:
+        h = (seed + _XXH_P5) & _U64
+    h = (h + n) & _U64
+    while i + 8 <= n:
+        k = (_rotl64((int.from_bytes(data[i:i+8], "little") * _XXH_P2) & _U64,
+                     31) * _XXH_P1) & _U64
+        h = ((_rotl64(h ^ k, 27) * _XXH_P1) + _XXH_P4) & _U64
+        i += 8
+    if i + 4 <= n:
+        h ^= (int.from_bytes(data[i:i+4], "little") * _XXH_P1) & _U64
+        h = ((_rotl64(h, 23) * _XXH_P2) + _XXH_P3) & _U64
+        i += 4
+    while i < n:
+        h ^= (data[i] * _XXH_P5) & _U64
+        h = (_rotl64(h, 11) * _XXH_P1) & _U64
+        i += 1
+    h ^= h >> 33
+    h = (h * _XXH_P2) & _U64
+    h ^= h >> 29
+    h = (h * _XXH_P3) & _U64
+    h ^= h >> 32
+    return h
+
+
+def _minhash_fallback(values, num_hashes: int, ngram_size: int,
+                      seed: int) -> np.ndarray:
+    """Pure-python minhash, bit-identical to the native ``dn_minhash`` kernel:
+    same xorshift permutation coefficients, same ASCII-whitespace word split,
+    and the same xxh64(seed=42) over the raw byte span of each shingle
+    (original separators included) — so signatures from native and fallback
+    workers compare correctly."""
+    p = (1 << 61) - 1
+    st = seed or 1
+    def nxt():
+        nonlocal st
+        st ^= (st << 13) & _U64
+        st ^= st >> 7
+        st ^= (st << 17) & _U64
+        return st
+    # interleaved draws, matching the native kernel's per-j (a, b) order
+    a, b = [], []
+    for _ in range(num_hashes):
+        a.append(nxt() % (p - 1) + 1)
+        b.append(nxt() % p)
+    ws = (0x20, 0x09, 0x0A, 0x0D)
+    out = np.full((len(values), num_hashes), 0xFFFFFFFF, dtype=np.uint32)
+    for i, v in enumerate(values):
+        if v is None:
+            continue
+        raw = v.encode("utf-8") if isinstance(v, str) else bytes(v)
+        starts, ends = [], []
+        w = -1
+        for k, byte in enumerate(raw):
+            is_ws = byte in ws
+            if not is_ws and w < 0:
+                w = k
+            if is_ws and w >= 0:
+                starts.append(w)
+                ends.append(k)
+                w = -1
+        if w >= 0:
+            starts.append(w)
+            ends.append(len(raw))
+        nwords = len(starts)
+        if nwords == 0:
+            continue
+        nsh = max(1, nwords - ngram_size + 1)
+        for s in range(nsh):
+            last = min(s + ngram_size, nwords) - 1
+            hv = _xxh64_py(raw[starts[s]:ends[last]], 42) & p
+            for j in range(num_hashes):
+                ph = (a[j] * hv + b[j]) % p
+                val = ph & 0xFFFFFFFF
+                if val < out[i, j]:
+                    out[i, j] = val
     return out

@@ -12,8 +12,7 @@ The port's copy of ``daft_tpu/sql/planner.py``, window functions (``OVER``:
 partition and order keys, ``ROWS`` / ``RANGE`` frames, windows over
 aggregates and over grouping sets) included. What the port does not carry
 yet raises ``NotImplementedError`` naming its ROADMAP item: the
-``read_csv`` / ``read_json`` table functions and the SQL functions whose
-expression families are not ported (A8).
+tokenize functions (A8d).
 """
 
 from __future__ import annotations
@@ -1876,8 +1875,14 @@ def _apply_function(fn: str, args: List[Expression],
         for x in args[1:]:
             out = out.str.concat(x)
         return out
+    if fn == "split":
+        return a.str.split(args[1])
     if fn in ("regexp_match",):
         return a.str.match(args[1].params[0])
+    if fn in ("regexp_extract",):
+        return a.str.extract(args[1], 0)
+    if fn in ("regexp_extract_all",):
+        return a.str.extract_all(args[1], 0)
     if fn in ("regexp_replace",):
         return a.str.replace(args[1], args[2], regex=True)
     if fn in ("lpad", "rpad"):
@@ -1887,6 +1892,8 @@ def _apply_function(fn: str, args: List[Expression],
         return (ns.lpad if fn == "lpad" else ns.rpad)(length, pad)
     if fn == "repeat":
         return a.str.repeat(args[1])
+    if fn == "normalize":
+        return a.str.normalize()
     if fn in ("starts_with", "startswith"):
         return a.str.startswith(args[1])
     if fn in ("ends_with", "endswith"):
@@ -1907,14 +1914,26 @@ def _apply_function(fn: str, args: List[Expression],
         return a.str.right(args[1])
     if fn in ("find", "instr"):
         return a.str.find(args[1])
+    if fn == "count_matches":
+        return a.str.count_matches(args[1].params[0])
     if fn in ("year", "month", "day", "hour", "minute", "second", "quarter"):
         return getattr(a.dt, fn)()
     if fn == "day_of_week" or fn == "dayofweek":
         return a.dt.day_of_week()
     if fn == "date_trunc":
         return args[1].dt.truncate(args[0].params[0])
+    if fn == "to_date":
+        return a.str.to_date(args[1].params[0] if len(args) > 1 else "%Y-%m-%d")
     if fn == "if" or fn == "iif":
         return a.if_else(args[1], args[2])
+    if fn == "greatest":
+        from ..functions import columns_max
+        return columns_max(*args)
+    if fn == "least":
+        from ..functions import columns_min
+        return columns_min(*args)
+    if fn == "hash":
+        return a.hash()
     if fn == "row_number":
         from ..functions import row_number
         return row_number()
@@ -1924,6 +1943,8 @@ def _apply_function(fn: str, args: List[Expression],
     if fn == "dense_rank":
         from ..functions import dense_rank
         return dense_rank()
+    if fn == "list_value_counts":
+        return a.list.value_counts()
     if fn in _NOT_PORTED_FUNCTIONS:
         raise NotImplementedError(
             f"SQL function {fn!r}: {_NOT_PORTED_FUNCTIONS[fn]}")
@@ -1933,12 +1954,8 @@ def _apply_function(fn: str, args: List[Expression],
 #: SQL functions of the reference's library whose expressions the port
 #: does not carry yet, with the ROADMAP item that brings them
 _NOT_PORTED_FUNCTIONS = {
-    **{fn: "its expression family is not ported yet (ROADMAP A8)"
-       for fn in ("split", "regexp_extract", "regexp_extract_all",
-                  "normalize", "count_matches", "tokenize_encode",
-                  "tokenize_decode", "to_date", "greatest", "least",
-                  "hash", "list_value_counts")},
-}
+    fn: "the tokenize functions are not ported yet (ROADMAP A8d)"
+    for fn in ("tokenize_encode", "tokenize_decode")}
 
 
 def _has_agg(e: Expression) -> bool:

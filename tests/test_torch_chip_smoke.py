@@ -111,3 +111,58 @@ def test_profile_classifier_counts_every_call_once(tmp_path):
     assert (p["strays"], p["empty"]) == (0, 1)
     assert cs._profile_calls(p) == 4
     assert cs._profile_kernels(str(path))["hash_join_build"]["calls"] == 0
+
+
+def test_expr_phase_runs_its_oracles_on_the_cpu(tmp_path, monkeypatch,
+                                                capsys):
+    """Phase 7o (``benchmarking/expr_phase.phase``) end to end over TPC-H
+    at SF 0.01 on CPU tensors, with a recorder that runs each step as the
+    card script's does but counts launches from the device tier's
+    dispatch counters (the real one times with CUDA events): every
+    oracle holds, and the forced way reaches the hash-agg and join
+    paths."""
+    import time
+    import types
+
+    from benchmarking.tpch.datagen import generate_tpch
+    from daft_tpu_torch.benchmarking import expr_phase
+    from daft_tpu_torch.device import costmodel, runtime
+    monkeypatch.setenv("DAFT_TORCH_DEVICE", "cpu")
+    root = str(tmp_path / "tpch")
+    generate_tpch(root, scale_factor=0.01, num_parts=2, seed=42)
+
+    class Recorder:
+        def __init__(self, pass_="default"):
+            self.pass_, self.decisions = pass_, {}
+
+        def counted(self, label, fn, clear=True):
+            runtime.reset_counters()
+            costmodel.reset_decision_counts()
+            t0 = time.perf_counter()
+            out = fn()
+            wall = time.perf_counter() - t0
+            self.decisions = costmodel.decision_counts_snapshot()
+            c = runtime.counters()
+            joins = c.get("join_hash", 0)
+            return out, wall, c, {
+                "hash_agg_build": c.get("agg_hash", 0) + c.get("hash", 0),
+                "hash_join_build": joins, "hash_join_probe": joins}
+
+        def to_host(self, device="cpu"):
+            pass
+
+    stub = types.SimpleNamespace(KernelRecorder=Recorder, log=cs.log,
+                                 _env=cs._env, _sql_tables=cs._sql_tables)
+    out = expr_phase.phase(stub, root, "cpu")
+    lines = {(d["step"], d["way"]): d for d in out["lines"]}
+    forced = [lines[("groups", "forced")], lines[("pairs", "forced")]]
+    assert forced[0]["launches"]["hash_agg_build"] >= 1
+    assert forced[1]["launches"]["hash_join_build"] >= 1
+    # each step's line carries its own decisions and knobs
+    default = lines[("groups", "default")]
+    assert default["decisions"] and default["knobs"] == ["DAFT_TORCH_DEVICE"]
+    assert "DAFT_TORCH_DEVICE_FORCE" in forced[0]["knobs"]
+    assert lines[("explode", "default")]["rows_out"] == \
+        expr_phase.BANDS * lines[("explode", "default")]["rows_in"]
+    text = capsys.readouterr().out
+    assert "expr dedup " in text and "expr native " in text

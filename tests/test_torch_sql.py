@@ -138,8 +138,8 @@ def test_sql_shared_cte_runs_once(tpch_root, monkeypatch):
 def test_window_function_names_its_roadmap_item(monkeypatch, tmp_path):
     """Windows are ported (ROADMAP A5a): the rank query gives the
     reference's answer; so do the CSV and JSON table functions (ported
-    with the scan data plane); the expression families still waiting name
-    their item."""
+    with the scan data plane) and ``split`` (ROADMAP A8c); the tokenize
+    functions still waiting name their item."""
     import daft_tpu_torch
     monkeypatch.setenv("DAFT_TORCH_DEVICE", "cpu")
     data = {"g": [1, 1, 2], "v": [1.0, 2.0, 3.0]}
@@ -154,8 +154,12 @@ def test_window_function_names_its_roadmap_item(monkeypatch, tmp_path):
         q = f"SELECT g FROM {fn}('{tmp_path / f}') ORDER BY g"
         assert daft_tpu_torch.sql(q).to_pydict() \
             == daft_tpu.sql(q).to_pydict()
-    with pytest.raises(NotImplementedError, match="ROADMAP A8"):
-        daft_tpu_torch.sql("SELECT split(s, ',') AS p FROM t",
+    q = "SELECT split(s, ',') AS p FROM t"
+    assert daft_tpu_torch.sql(
+        q, t=daft_tpu_torch.from_pydict({"s": ["a,b"]})).to_pydict() \
+        == daft_tpu.sql(q, t=daft_tpu.from_pydict({"s": ["a,b"]})).to_pydict()
+    with pytest.raises(NotImplementedError, match="ROADMAP A8d"):
+        daft_tpu_torch.sql("SELECT tokenize_encode(s, 'x') AS p FROM t",
                            t=daft_tpu_torch.from_pydict({"s": ["a,b"]}))
 
 
