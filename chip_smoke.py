@@ -48,8 +48,9 @@ The first line is the ``env`` line: Python, torch, CUDA, pyarrow,
    against pyarrow on the same files, and the port's counters must show
    the kernels ran, every query went through the pipeline and no morsel
    fell to the host tier;
-5b. pipeline phase: the same four queries three ways, 2 runs each (a
-   depth cut that makes room for the memory-bounded phase):
+5b. pipeline phase: the same four queries three ways, 1 run each (a
+   depth cut that makes room for the later phases; 2 before phases 7p and
+   7q):
    window 0 (the synchronous path) and window 2 with the device column
    cache cleared before each run (cold walls, comparable with the warm
    walls of versions without the cache), then window 2 on a warm cache
@@ -157,8 +158,8 @@ The first line is the ``env`` line: Python, torch, CUDA, pyarrow,
    (``daft_tpu_torch/analysis/plan_fuzzer.py``) in the modes optimized,
    device, bounded, fused and replanned on the card, each against the
    port's own unoptimized host run, at least 100 seeds per mode and
-   about 30 s in all (a depth cut that makes room for the serving
-   phase); any mismatch or error fails the script after its
+   about 15 s in all (a depth cut that makes room for the later
+   phases; 30 s before phases 7p and 7q); any mismatch or error fails the script after its
    minimized repro is printed; the device mode must launch every kernel;
    one ``fuzz`` line per mode (seeds, mismatches, errors, launches, wall)
    and a ``fuzz new rungs`` line (its kernel rungs that no earlier phase
@@ -172,7 +173,8 @@ The first line is the ``env`` line: Python, torch, CUDA, pyarrow,
    ``bench.py``'s scan bench), cold, three ways: the defaults (planned,
    coalesced range reads and the prefetch-pipelined scan, window 2),
    ``DAFT_TORCH_IO_PLANNED_READS=0`` with ``DAFT_TORCH_SCAN_PREFETCH=0``,
-   and the defaults at ``DAFT_TORCH_DEVICE_FORCE=1``, 3 rounds with the
+   and the defaults at ``DAFT_TORCH_DEVICE_FORCE=1``, 2 rounds (a depth
+   cut: 3 before phases 7p and 7q) with the
    ways' order turned each round; each answer held to pyarrow over the
    local files as on the main path, the first two ways at the cost
    model's own prices (each line logs its decisions), the forced way's
@@ -259,7 +261,8 @@ The first line is the ``env`` line: Python, torch, CUDA, pyarrow,
    ``dist``);
 7m. serving (``daft_tpu_torch/serving/``, ``logical/fingerprint.py``),
    SF1, a ``QueryScheduler`` of 4 worker slots on ``cuda``: (a) 4
-   closed-loop clients in 3 sessions for 30 s, each rotating over Q1, the
+   closed-loop clients in 3 sessions for 15 s (a depth cut: 30 s before
+   phases 7p and 7q), each rotating over Q1, the
    ``l_suppkey`` group-by, Q6 at one of 4 seeded (year, discount) pairs,
    Q3 and a point lookup (``l_orderkey == k``, 4 columns, ``limit 10``)
    at one of 8 seeded keys, every cache on; (b) the same clients for 2
@@ -306,7 +309,8 @@ The first line is the ``env`` line: Python, torch, CUDA, pyarrow,
    3x the first replica's start-up and 7m's slowest cold query (logged
    on ``fleet start`` lines), each pricing with the link it measured
    while it started (logged); 6 closed-loop clients, two sessions a
-   replica, send 7m's mix as SQL through the router for 20 s and at
+   replica, send 7m's mix as SQL through the router for 12 s (a depth
+   cut: 20 s before phases 7p and 7q) and at
    least until, after 36 completed queries, one gossip round and the
    kill of r0 came (120 s at most; its launch
    counts read first), at the end the drain of r1. Every answer held;
@@ -333,6 +337,30 @@ The first line is the ``env`` line: Python, torch, CUDA, pyarrow,
    the card, held to their DataFrame forms. ``expr`` lines; its new
    rungs go to phase 8 (``pass`` ``expr_default``, ``expr_forced``,
    ``expr_sql``);
+7p. the multimodal and text pipelines of ROADMAP A8d
+   (``daft_tpu_torch/benchmarking/multimodal_phase.py``, which also runs
+   it alone): (a) 4,096 generated 256x256 RGB images → ``image.decode`` →
+   ``image.resize(224, 224)`` as one batch on the card → a stateful UDF (a
+   random projection on the card: each image's cosine and cluster) →
+   group-bys by label and cluster, at the default knobs and forced; the
+   resized images held to the plain torch program, the cosines and
+   clusters to numpy, the group-bys to pyarrow; the resize program timed
+   alone; (b) ``o_comment`` of two SF1 ``orders`` files →
+   ``tokenize_encode`` → ``explode`` → group by token → join to the
+   vocabulary → ``tokenize_decode`` equal to the comments; a stateful UDF
+   in two spawned actors (two pids, neither the parent's; shut down
+   after) → group by cluster → joined back, default and forced (must
+   launch the hash-agg build, the join build and the join probe); (c) the
+   torch dataset bridges. ``mm`` lines; new rungs go to phase 8 (``pass``
+   ``mm_default``, ``mm_forced``);
+7q. the lake formats of ROADMAP A8e
+   (``daft_tpu_torch/benchmarking/lake_phase.py``): ``lineitem`` written
+   as Delta and Iceberg, ``orders`` as Lance and as a copy-on-write Hudi
+   table; Q1, ``l_suppkey`` and Q3 over them (Q3 also over Lance and
+   Hudi ``orders``), default and forced, held to pyarrow (forced: each
+   ``l_suppkey`` launches the hash-agg build, each Q3 the join build and
+   probe); Q1 through a Unity catalog's mock server; time travel over
+   an append. ``lake`` lines; new rungs go to phase 8 (``pass`` ``lake``);
 8. the hash build against its plain version at the inputs of every
    distinct hash rung of the main path and of the TPC-H 22 phase's
    dispatch pass
@@ -345,8 +373,8 @@ The first line is the ``env`` line: Python, torch, CUDA, pyarrow,
    held, each checked as in the join-kernel phase, then timed (rows name
    their ``pass``: ``tpcds`` or ``tpcds_dispatch`` for the TPC-DS ones,
    ``spill`` for the memory-bounded ones, ``pivot``, ``fuzz``,
-   ``remote``, ``obs``, ``sanitize``, ``dist``, ``serve``, ``connect``
-   and ``expr_*`` for the last nine phases);
+   ``remote``, ``obs``, ``sanitize``, ``dist``, ``serve``, ``connect``,
+   ``expr_*``, ``mm_*`` and ``lake`` for the last eleven phases);
    every entry point
    ``analysis/dispatch_registry.py`` declares must have launched and been
    held against its plain twin in the run;
@@ -398,7 +426,8 @@ def log(*a):
 #: the modules the ``env`` line names, by the key it prints them under
 ENV_MODULES = (("pyarrow", "pyarrow"), ("pyarrow.flight", "pyarrow.flight"),
                ("grpc", "grpc"), ("google.protobuf", "google.protobuf"),
-               ("pyspark", "pyspark"))
+               ("pyspark", "pyspark"), ("PIL", "PIL"), ("regex", "regex"),
+               ("cloudpickle", "cloudpickle"))
 
 
 def env_probe() -> dict:
@@ -2462,7 +2491,7 @@ def pivot_phase(root: str):
 #: the phase's time budget (more seeds run while it lasts)
 FUZZ_MODES = ("optimized", "device", "bounded", "fused", "replanned")
 FUZZ_MIN_SEEDS = 100
-FUZZ_BUDGET_S = 30.0
+FUZZ_BUDGET_S = 15.0
 
 
 def fuzz_phase():
@@ -2516,7 +2545,7 @@ def fuzz_phase():
 #: round trip), the rounds (one cold run of each query each way per
 #: round), and the two ways each query runs
 REMOTE_DELAY_S = 0.015
-REMOTE_ROUNDS = 3
+REMOTE_ROUNDS = 2
 #: ``planned`` and ``naive`` run at the cost model's own prices (a remote
 #: task is not cacheable: its upload is priced at the link measured at
 #: the start), and their lines log its choices; ``forced`` is ``planned``
@@ -3812,7 +3841,7 @@ def dist_phase(root: str, mp: dict, q3_ref, t22: dict, card: str) -> dict:
 #: seeded ``l_orderkey`` lookup keys
 SERVE_CONCURRENCY = 4
 SERVE_SESSIONS = 3
-SERVE_MIX_S = 30.0
+SERVE_MIX_S = 15.0
 SERVE_ROTATIONS = 2
 SERVE_Q6 = ((1994, 0.06), (1995, 0.05), (1993, 0.07), (1996, 0.04))
 SERVE_LOOKUPS = 8
@@ -4203,7 +4232,7 @@ def serve_phase(root: str, ref: dict, q3_ref, host_free: dict,
 #: derived from it, and the Q3 the Connect client interrupts
 FLEET_REPLICAS = 3
 FLEET_CLIENTS = 6
-FLEET_MIX_S = 20.0
+FLEET_MIX_S = 12.0
 FLEET_KILL_AFTER = 36
 #: the clients' traffic runs ``FLEET_MIX_S`` and at least until the kill,
 #: at most this long (the replicas' cold queries took up to 13 s each, so
@@ -5237,8 +5266,8 @@ def setup_phase() -> dict:
 def new_rungs(mp, t22, tsql, recs, fz_rec) -> dict:
     """Phase 8's rungs not held by earlier phases: the TPC-DS,
     memory-bounded, pivot, fuzz, remote, obs, sanitize, dist, serve,
-    connect and expr ones (the fleet's replicas launch in their own
-    processes, and add none)."""
+    connect, expr, mm and lake ones (the fleet's replicas launch in their
+    own processes, and add none)."""
     held = {k[1:] for r in (mp["rungs"], t22["rungs"], tsql["rungs"])
             for k in r}
     jheld = {k[1:] for r in (t22["join_rungs"], tsql["join_rungs"])
@@ -5259,10 +5288,11 @@ def new_rungs(mp, t22, tsql, recs, fz_rec) -> dict:
                 if rec_k is fz_rec:
                     fuzz_new[k[0].split()[-1]]["join"] += 1
     log(f"tpcds, ooc, pivot, fuzz, remote, obs, sanitize, dist, serve, "
-        f"connect and expr rungs not held by earlier phases: "
+        f"connect, expr, mm and lake rungs not held by earlier phases: "
         f"{len(ds_rungs)} hash, {len(ds_jrungs)} join")
     log("fuzz new rungs " + json.dumps(fuzz_new))
-    for pre in ("sanitize", "remote", "dist", "serve", "connect", "expr"):
+    for pre in ("sanitize", "remote", "dist", "serve", "connect", "expr",
+                "mm", "lake"):
         log(f"{pre} new rungs " + json.dumps(dict(
             hash=sorted(str(list(k)) for k in ds_rungs
                         if k[0].startswith(pre)),
@@ -5378,8 +5408,8 @@ def main() -> int:
                           join_kernel_phase(rng, bw)))
     root = phase("data", lambda: tpch_root(args.sf))
     mp = phase("5", lambda: main_path(root))
-    # depth cut for the memory-bounded phase: at most 2 runs per way
-    phase("5b", lambda: pipeline_phase(root, mp["ref"], min(args.reps, 2)))
+    # depth cut: one run per way (2 before phases 7p and 7q came)
+    phase("5b", lambda: pipeline_phase(root, mp["ref"], 1))
     # depth cut for the memory-bounded phase: at most 2 warm repeats
     q3 = phase("6", lambda: q3_path(root, min(args.reps, 2)))
     # every join forced to broadcast: the broadcast side's table is
@@ -5412,12 +5442,17 @@ def main() -> int:
     from daft_tpu_torch.benchmarking import expr_phase
     eo = phase("7o", lambda: expr_phase.phase(sys.modules[__name__], root,
                                               card))
+    from daft_tpu_torch.benchmarking import lake_phase, multimodal_phase
+    mmp = phase("7p", lambda: multimodal_phase.phase(
+        sys.modules[__name__], root, card))
+    lk = phase("7q", lambda: lake_phase.phase(
+        sys.modules[__name__], root, card, mp["ref"], q3["ref"]))
 
     def kernel_timing():
         new = new_rungs(mp, t22, tsql, (
             tds["rec"], tdp["rec"], ooc["rec"], piv["rec"], fz["rec"],
             rem["rec"], ob["rec"], san["rec"], dist["rec"], srv["rec"],
-            cf["rec"], *eo["recs"]), fz["rec"])
+            cf["rec"], *eo["recs"], *mmp["recs"], lk["rec"]), fz["rec"])
         krecs = main_path_kernel_timing(mp["rungs"], bw)
         krecs += main_path_kernel_timing(t22["rungs"], bw)
         krecs += main_path_kernel_timing(tsql["rungs"], bw)

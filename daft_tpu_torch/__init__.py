@@ -29,11 +29,12 @@ from .context import (execution_config_ctx, get_context,
                       set_execution_config, set_runner)
 from .dataframe import (DataFrame, from_arrow, from_glob_path, from_pandas,
                         from_pydict, from_pylist)
-from .datatype import DataType, TimeUnit
+from .datatype import DataType, ImageFormat, ImageMode, TimeUnit
 from .expressions import (Expression, coalesce, col, element, interval,
                           list_, lit, struct)
 from .io import (AzureConfig, GCSConfig, HTTPConfig, IOConfig, S3Config,
-                 read_csv, read_json, read_parquet, read_sql, read_warc)
+                 read_csv, read_deltalake, read_hudi, read_iceberg,
+                 read_json, read_lance, read_parquet, read_sql, read_warc)
 from .recordbatch import RecordBatch
 from .schema import Field, Schema
 from .series import Series
@@ -59,7 +60,9 @@ __version__ = "0.1.0"
 
 __all__ = [
     "AzureConfig", "GCSConfig", "HTTPConfig", "IOConfig", "S3Config",
-    "from_glob_path", "read_csv", "read_json", "read_sql", "read_warc",
+    "from_glob_path", "read_csv", "read_deltalake", "read_hudi",
+    "read_iceberg", "read_json", "read_lance", "read_sql", "read_warc",
+    "ImageFormat", "ImageMode",
     "Catalog", "DataFrame", "DataType", "Expression", "Field", "Identifier",
     "NotFoundError", "RecordBatch", "Schema", "Series", "Session", "Table",
     "TimeUnit", "Window", "attach", "attach_catalog", "attach_function",

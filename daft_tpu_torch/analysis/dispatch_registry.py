@@ -146,6 +146,9 @@ SITES: Tuple[DispatchSite, ...] = (
         "hash_join.probe", _JK, "(rows C, buckets T, output cap)",
         entry="daft_hash_join_probe"),
     DispatchSite(
+        "image.resize", f"{PKG}/functions/image.py",
+        "(batch shape, dtype, target h/w, clip bounds)"),
+    DispatchSite(
         "warmup.aot", f"{PKG}/device/warmup.py",
         "(max capacity, min capacity)", "none: counted only",
         exempt="the warm-up launches every kernel and program once per "

@@ -29,9 +29,7 @@ layers (``physical/adaptive.py`` and the distributed re-planner,
 ``distributed/replan.py``, with its ``Boundary`` / ``BoundaryActuals``
 entries) may mutate in place on a built plan.
 
-Nodes of the reference the port does not have (``UDFProject``) are not
-declared; a node the port adds fails the lint
-run until it is.
+A node the port adds fails the lint run until it is declared here.
 """
 
 from __future__ import annotations
@@ -90,6 +88,8 @@ LOGICAL_NODES: Dict[str, NodeContract] = {c.name: c for c in [
        late_fields=("materialized_tasks",)),
     _n("Project", "logical", "computed", "inherits child", "preserves",
        "frozen", ("exprs",), row_conservation=True),
+    _n("UDFProject", "logical", "computed", "inherits child", "preserves",
+       "frozen", ("exprs", "concurrency"), row_conservation=True),
     _n("Filter", "logical", "child", "inherits child (subset per part)",
        "preserves", "frozen", ("predicate",)),
     _n("Limit", "logical", "child", "inherits child (prefix truncation)",
@@ -145,6 +145,9 @@ PHYSICAL_NODES: Dict[str, NodeContract] = {c.name: c for c in [
        "in-memory micropartition", "none", "frozen", ("partitions",)),
     _n("Project", "physical", "computed", "inherits child", "preserves",
        "frozen", ("exprs",), row_conservation=True),
+    _n("UDFProject", "physical", "computed", "inherits child",
+       "preserves", "frozen", ("exprs", "concurrency"),
+       row_conservation=True),
     _n("Filter", "physical", "child", "inherits child (subset per part)",
        "preserves", "frozen", ("predicate",)),
     _n("Limit", "physical", "child", "inherits child (prefix "

@@ -2,7 +2,7 @@
 machine: the card's link and kernel rates and the host tier's rates.
 
     python3 -m daft_tpu_torch.benchmarking.calibrate [--rows N] [--out FILE]
-        [--only spill_disk]
+        [--only spill_disk|pil_resize]
 
 Runs on ``cuda`` (``--device cpu`` rehearses the script on CPU tensors:
 its numbers are the CPU's and name it). Prints one JSON line each for:
@@ -35,6 +35,12 @@ its numbers are the CPU's and name it). Prints one JSON line each for:
   mean of the write and read walls (per byte per direction, as
   ``costmodel.spill_plan_wins`` charges it). ``--only spill_disk`` runs
   the card line and this line alone;
+- ``pil_resize``: where Pillow imports, the per-image host path of
+  ``image.resize`` (``PIL.Image.resize``, one core) over ``PIL_IMAGES``
+  seeded 64x64 RGB images resized to 32x32, median of ``--reps``;
+  ``HOST_PIL_BPS`` is their input bytes over the wall (the reference's
+  shape for the constant); ``{"pillow": false}`` without Pillow.
+  ``--only pil_resize`` runs the card line and this line alone;
 - ``constants``: what the measurements give the cost model, each with its
   derivation — ``HOST_VECTOR_BPS`` (the median over the four
   ``host_vector`` expressions of (Arrow bytes in + bytes out) / wall),
@@ -217,6 +223,32 @@ def spill_disk(n: int, reps: int) -> dict:
             "SPILL_DISK_BPS": nbytes / ((w + r) / 2)}
 
 
+#: images of ``pil_resize``
+PIL_IMAGES = 2048
+
+
+def pil_resize(reps: int) -> dict:
+    """Input bytes per second of per-image PIL resizes (see the module
+    docstring)."""
+    try:
+        from PIL import Image
+    except ImportError:
+        return {"pillow": False}
+    rng = np.random.default_rng(8)
+    imgs = [rng.integers(0, 256, (64, 64, 3), dtype=np.uint8)
+            for _ in range(PIL_IMAGES)]
+    walls = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        for a in imgs:
+            np.asarray(Image.fromarray(a).resize((32, 32)))
+        walls.append(time.perf_counter() - t0)
+    w = statistics.median(walls)
+    nbytes = sum(a.nbytes for a in imgs)
+    return {"pillow": True, "images": PIL_IMAGES, "src": [64, 64, 3],
+            "dst": [32, 32, 3], "wall_s": w, "HOST_PIL_BPS": nbytes / w}
+
+
 def derive(link, rep, small, big, hv, hj, n: int, reg, sd) -> dict:
     """The constants, from the measurements (see the module docstring)."""
     batch = op_floor.make_batch(n, 0)
@@ -261,7 +293,8 @@ def main() -> int:
     ap.add_argument("--reps", type=int, default=5)
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--out", default=None)
-    ap.add_argument("--only", choices=("spill_disk",), default=None,
+    ap.add_argument("--only", choices=("spill_disk", "pil_resize"),
+                    default=None,
                     help="run the card line and this line alone")
     args = ap.parse_args()
     device = torch.device(args.device)
@@ -277,6 +310,9 @@ def main() -> int:
         lines.append(line)
 
     emit("card", card_line(device))
+    if args.only == "pil_resize":
+        emit("pil_resize", pil_resize(args.reps))
+        return _write(args.out, lines)
     sd = spill_disk(args.rows, args.reps)
     emit("spill_disk", sd)
     if args.only == "spill_disk":
@@ -300,6 +336,7 @@ def main() -> int:
     emit("host_join", hj)
     reg = [region_join_agg(n, args.reps) for n in REGION_ROWS]
     emit("region_join_agg", reg)
+    emit("pil_resize", pil_resize(args.reps))
     emit("constants", derive(link, rep, small, big, hv, hj, args.rows, reg,
                              sd))
     runtime.reset_counters()

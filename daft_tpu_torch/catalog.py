@@ -4,8 +4,10 @@ The port's copy of ``daft_tpu/catalog.py`` (parity target: the reference
 engine's ``daft/catalog/__init__.py``: ``Catalog`` ABC :74-494,
 ``Identifier`` :498-611, ``Table`` ABC :613-814). Catalogs only resolve
 *names* to lazy DataFrames; all compute stays in the execution tiers. The
-port carries the in-memory catalog; the file-system, Iceberg and Unity
-catalogs wait for ROADMAP A8.
+port carries the in-memory catalog here, the file-system catalog in
+``catalog_fs.py`` and the Unity REST catalog in ``catalog_unity.py``;
+``from_iceberg`` and ``from_unity`` raise for their missing SDKs, as in
+the reference.
 """
 
 from __future__ import annotations
@@ -208,6 +210,18 @@ class Catalog(ABC):
         for ident, source in tables.items():
             cat._put(_to_ident(ident), _as_table(_to_ident(ident)[-1], source))
         return cat
+
+    @staticmethod
+    def from_iceberg(catalog: Any) -> "Catalog":
+        raise ImportError(
+            "Iceberg catalogs require the 'pyiceberg' package, which is not "
+            "installed")
+
+    @staticmethod
+    def from_unity(catalog: Any) -> "Catalog":
+        raise ImportError(
+            "Unity catalogs require the 'unitycatalog' package, which is not "
+            "installed")
 
     @staticmethod
     def _from_obj(obj: Any) -> "Catalog":

@@ -11,10 +11,8 @@ tables are queryable by SQL name::
     sess.attach(FilesystemCatalog("/warehouse", name="lake"))
     sess.sql("SELECT * FROM lake.sales.orders")
 
-The port reads and writes the parquet tables. The lake formats' readers
-and writers wait for their slice (ROADMAP A8): reading, writing or
-creating such a table raises ``NotImplementedError``, as the reference's
-would without its readers. Format detection is the reference's, so the
+Writes go through ``create_table`` (Iceberg format) so round-trips stay
+inside the native formats. Format detection is the reference's, so the
 two list the same tables and namespaces.
 """
 
@@ -57,22 +55,28 @@ class LakeTable(Table):
         return self.read().schema()
 
     def read(self, **options: Any):
-        from .io import read_parquet
-        if self.format != "parquet":
-            raise NotImplementedError(_lake_unported(self.format))
-        return read_parquet(os.path.join(self.path, "*.parquet"), **options)
+        import daft_tpu_torch as dt
+        if self.format == "iceberg":
+            return dt.read_iceberg(self.path, **options)
+        if self.format == "delta":
+            return dt.read_deltalake(self.path, **options)
+        if self.format == "hudi":
+            return dt.read_hudi(self.path, **options)
+        return dt.read_parquet(os.path.join(self.path, "*.parquet"),
+                               **options)
 
     def write(self, df, mode: str = "append", **options: Any) -> None:
         if mode not in ("append", "overwrite"):
             raise ValueError(f"unsupported write mode {mode!r}")
-        if self.format != "parquet":
-            raise NotImplementedError(_lake_unported(self.format))
-        df.write_parquet(self.path, write_mode=mode)
-
-
-def _lake_unported(fmt: str) -> str:
-    return (f"{fmt} tables: the port's lake-format readers and writers "
-            "are not ported yet (ROADMAP A8)")
+        if self.format == "iceberg":
+            df.write_iceberg(self.path, mode=mode)
+        elif self.format == "delta":
+            df.write_deltalake(self.path, mode=mode)
+        elif self.format == "parquet":
+            df.write_parquet(self.path, write_mode=mode)
+        else:
+            raise NotImplementedError(
+                f"writes to {self.format} tables are not supported")
 
 
 class FilesystemCatalog(Catalog):
@@ -99,11 +103,16 @@ class FilesystemCatalog(Catalog):
 
     def _create_table(self, ident: Identifier, schema,
                       properties=None) -> Table:
-        # the reference creates an Iceberg table
+        import pyarrow as pa
+
+        import daft_tpu_torch as dt
         path = self._path_of(ident)
         if _detect_format(path):
             raise ValueError(f"table {ident} already exists")
-        raise NotImplementedError(_lake_unported("iceberg"))
+        empty = pa.table({f.name: pa.array([], type=f.dtype.to_arrow())
+                          for f in schema})
+        dt.from_arrow(empty).write_iceberg(path)
+        return LakeTable(ident[-1], path, "iceberg")
 
     def _drop_table(self, ident: Identifier) -> None:
         import shutil

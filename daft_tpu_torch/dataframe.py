@@ -12,9 +12,10 @@ and by-name forms, pivot/unpivot, drop_nan/drop_null, describe/summarize,
 repartition, into_partitions and sample, monotonically increasing ids,
 window expressions routed into ``Window`` nodes, explain and
 ``explain(analyze=True)``, num_partitions, ``explode``, ``drop_duplicates``
-and the list aggregations) and the writes
-(``write_parquet``/``write_csv``/``write_json``/``write_sink``); the
-lake-format writes come with ROADMAP A8e.
+and the list aggregations), the writes
+(``write_parquet``/``write_csv``/``write_json``/``write_sink``, and the
+lake formats' ``write_deltalake``/``write_iceberg``/``write_lance``) and
+the torch dataset bridges.
 """
 
 from __future__ import annotations
@@ -441,6 +442,29 @@ class DataFrame:
         """Drive a user ``io.DataSink`` with the rows."""
         return DataFrame(self._builder.write_sink(sink)).collect()
 
+    def write_deltalake(self, table_uri: str, mode: str = "append",
+                        io_config=None) -> "DataFrame":
+        """Commit as a Delta Lake transaction (the log writer of
+        ``io/delta.py``)."""
+        from .io.delta import write_deltalake as _w
+        _w(self, table_uri, mode=mode, io_config=io_config)
+        return self
+
+    def write_iceberg(self, table_uri: str, mode: str = "append",
+                      io_config=None) -> "DataFrame":
+        """Commit as an Apache Iceberg snapshot (the v1 writer of
+        ``io/iceberg.py``)."""
+        from .io.iceberg import write_iceberg as _w
+        _w(self, table_uri, mode=mode, io_config=io_config)
+        return self
+
+    def write_lance(self, uri: str, mode: str = "create",
+                    io_config=None):
+        """Write a Lance dataset version (``io/lance.py``)."""
+        from .io.lance import write_lance as _impl
+        _impl(self, uri, mode=mode, io_config=io_config)
+        return self
+
     # ---- execution -------------------------------------------------------
     def collect(self, num_preview_rows: Optional[int] = 8) -> "DataFrame":
         if self._result is None:
@@ -497,6 +521,14 @@ class DataFrame:
 
     def to_pandas(self):
         return self._materialize().to_recordbatch().to_pandas()
+
+    def to_torch_map_dataset(self):
+        from .to_torch import TorchMapDataset
+        return TorchMapDataset(self)
+
+    def to_torch_iter_dataset(self):
+        from .to_torch import TorchIterDataset
+        return TorchIterDataset(self)
 
     def to_arrow_iter(self) -> Iterator[pa.RecordBatch]:
         """Stream results as Arrow record batches without materializing a
@@ -594,6 +626,10 @@ class GroupedDataFrame:
 
     def agg_set(self, *cols):
         return self.agg(*[_c(c).agg_set() for c in _flatten_cols(cols)])
+
+    def map_groups(self, udf_expr: Expression) -> DataFrame:
+        # the reference raises the same error: it implements no map_groups
+        raise NotImplementedError("map_groups lands with the UDF actor pools")
 
 
 def _c(x: ColumnInput) -> Expression:

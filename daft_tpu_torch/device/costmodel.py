@@ -37,9 +37,6 @@ Env overrides:
 
 ``SPILL_DISK_BPS`` (the spill tier's IPC rate, :func:`spill_plan_wins`)
 comes from ``calibrate``'s ``spill_disk`` line on the same machine.
-
-Not carried over yet (each waits for its caller's slice, ROADMAP):
-``image_resize_wins`` (A8).
 """
 
 from __future__ import annotations
@@ -62,6 +59,10 @@ HOST_VECTOR_BPS = 3.146e9       # projection / predicate, per byte touched
 HOST_AGG_BPS = 9.843e8          # grouped and global agg, per byte touched
 HOST_SORT_ROWS_PER_S = 8.972e6  # multi-key argsort, key-rows/s
 HOST_JOIN_ROWS_PER_S = 1.914e6  # equi-join index generation, rows/s
+# per-image PIL resize, input bytes/s (64x64 RGB -> 32x32, one core;
+# ``calibrate``'s ``pil_resize`` line on the H100 machine's host, Pillow
+# 12.2.0; the reference's value is 85e6)
+HOST_PIL_BPS = 1.505e8
 
 # device tier rates (kernels on device-resident planes)
 DEV_VECTOR_BPS = 3.484e11     # compiled projection, per byte up + down
@@ -308,7 +309,7 @@ def constants() -> dict:
     out.update(HOST_VECTOR_BPS=HOST_VECTOR_BPS, HOST_AGG_BPS=HOST_AGG_BPS,
                HOST_SORT_ROWS_PER_S=HOST_SORT_ROWS_PER_S,
                HOST_JOIN_ROWS_PER_S=HOST_JOIN_ROWS_PER_S,
-               DEV_DISPATCH_S=DEV_DISPATCH_S,
+               HOST_PIL_BPS=HOST_PIL_BPS, DEV_DISPATCH_S=DEV_DISPATCH_S,
                DEV_REGION_DISPATCH_S=DEV_REGION_DISPATCH_S,
                DEV_REGION_JOIN_AGG_ROWS_PER_S=DEV_REGION_JOIN_AGG_ROWS_PER_S,
                INVEST_MAX_RATIO=INVEST_MAX_RATIO)
@@ -584,6 +585,32 @@ def row_output_op_wins(bytes_up: float, bytes_down: float,
     dev_s = link_profile().device_seconds(
         bytes_up, bytes_down, round_trips, kernel_s)
     _log("row_output", dev_s < host_s, host_s, dev_s,
+         bytes_up=bytes_up, bytes_down=bytes_down)
+    return dev_s < host_s
+
+
+def log_decline(kind: str, reason: str, **extras) -> None:
+    """Record a planned host decision taken before any pricing (a batch
+    below its floor, a ragged batch): counted with the priced ones under
+    ``kind``, with ``reason`` in the dispatch log."""
+    _log(kind, False, math.nan, math.nan, reason=reason, **extras)
+
+
+def image_resize_wins(bytes_up: float, bytes_down: float) -> bool:
+    """Batched device image resize vs per-image PIL. The host alternative
+    is PIL's scalar loop (:data:`HOST_PIL_BPS`), far slower than one
+    vector pass on the card, so on a local card the batch wins by orders
+    of magnitude, while over a slow link the transfer dominates and PIL
+    keeps the work (reference: ``daft_tpu/device/costmodel.py:598``)."""
+    f = _forced()
+    if f is not None:
+        return f
+    host_s = bytes_up / HOST_PIL_BPS
+    kernel_s = DEV_DISPATCH_S + (bytes_up + bytes_down) \
+        / _cal("DEV_VECTOR_BPS", DEV_VECTOR_BPS)
+    dev_s = link_profile().device_seconds(bytes_up, bytes_down, 2.0,
+                                          kernel_s)
+    _log("image_resize", dev_s < host_s, host_s, dev_s,
          bytes_up=bytes_up, bytes_down=bytes_down)
     return dev_s < host_s
 

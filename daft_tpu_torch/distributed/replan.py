@@ -141,7 +141,7 @@ def _by_names(b: Boundary) -> Optional[List[str]]:
 #: fragment nodes through which "output bytes ≤ input bytes" holds (the
 #: conservative bound the demotion and exchange evidence rely on);
 #: anything else — joins, explodes, concats — can expand and disqualifies
-_NON_EXPANDING = (pp.Project, pp.Filter, pp.Aggregate,
+_NON_EXPANDING = (pp.Project, pp.Filter, pp.UDFProject, pp.Aggregate,
                   pp.DeviceFragmentAgg, pp.StageInput, pp.InMemorySource,
                   pp.Limit, pp.Sample, pp.Dedup, pp.TopN, pp.ScanSource)
 

@@ -66,7 +66,7 @@ class Stage:
         """True when the fragment is partition-parallel end-to-end, so its
         scan tasks can shard across workers without changing semantics."""
         ok = (pp.ScanSource, pp.InMemorySource, pp.StageInput, pp.Project,
-              pp.Filter, pp.Explode, pp.Unpivot, pp.Sample,
+              pp.Filter, pp.UDFProject, pp.Explode, pp.Unpivot, pp.Sample,
               pp.DeviceFragmentAgg)
 
         def walk(n) -> bool:
@@ -173,8 +173,8 @@ class StagePlan:
                 has_any = has_any or has
             if not has_any:
                 return False, True
-            if isinstance(n, (pp.Project, pp.Filter, pp.Explode,
-                              pp.Unpivot)):
+            if isinstance(n, (pp.Project, pp.Filter, pp.UDFProject,
+                              pp.Explode, pp.Unpivot)):
                 return True, True
             if isinstance(n, pp.HashJoin):
                 # hash strategy: both sides are engine-inserted hash

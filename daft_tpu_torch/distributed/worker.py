@@ -160,7 +160,7 @@ def _stream_safe(plan: pp.PhysicalPlan, sid: int,
       (``LocalExecutor._merge_agg_stream``), so fetch overlaps reduce
       compute; or
     - every node between the root and the StageInput is row-local
-      (Project/Filter/Explode/Unpivot) AND the task shuffles
+      (Project/Filter/UDFProject/Explode/Unpivot) AND the task shuffles
       out — the morsels are re-partitioned into the cache, so output
       granularity is invisible downstream.
 
@@ -168,7 +168,8 @@ def _stream_safe(plan: pp.PhysicalPlan, sid: int,
     partitions) gets today's single concatenated morsel."""
     from ..aggs import merge_exprs_for
     parents: List = []
-    row_local = (pp.Project, pp.Filter, pp.Explode, pp.Unpivot)
+    row_local = (pp.Project, pp.Filter, pp.UDFProject, pp.Explode,
+                 pp.Unpivot)
 
     def walk(n, ancestors_row_local):
         for c in n.children:

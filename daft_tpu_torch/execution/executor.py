@@ -465,6 +465,12 @@ class LocalExecutor:
         yield from _ordered_parallel(
             child, lambda p: p.eval_expression_list(node.exprs))
 
+    def _exec_UDFProject(self, node: pp.UDFProject):
+        child = self._exec(node.children[0])
+        width = node.concurrency or None
+        yield from _ordered_parallel(
+            child, lambda p: p.eval_expression_list(node.exprs), width=width)
+
     def _exec_Filter(self, node: pp.Filter):
         child = self._exec(node.children[0])
         yield from _ordered_parallel(child, lambda p: p.filter(node.predicate))

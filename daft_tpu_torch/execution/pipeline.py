@@ -257,7 +257,7 @@ def _default_workers() -> int:
 # _ordered_parallel bodies (single-sourced there for the interpreter).
 def _map_kernel(node) -> Optional[Callable[[MicroPartition], MicroPartition]]:
     name = type(node).__name__
-    if name == "Project":
+    if name in ("Project", "UDFProject"):
         return lambda p: p.eval_expression_list(node.exprs)
     if name == "Filter":
         return lambda p: p.filter(node.predicate)
@@ -287,6 +287,8 @@ def _map_kernel(node) -> Optional[Callable[[MicroPartition], MicroPartition]]:
 
 
 def _map_workers(node) -> int:
+    if type(node).__name__ == "UDFProject" and node.concurrency:
+        return max(int(node.concurrency), 1)
     return _default_workers()
 
 

@@ -335,8 +335,7 @@ class Expression:
 
     @property
     def image(self) -> "ExpressionImageNamespace":
-        raise NotImplementedError(
-            "the image namespace is not ported yet (ROADMAP A8d)")
+        return ExpressionImageNamespace(self)
 
     @property
     def partitioning(self) -> "ExpressionPartitioningNamespace":
@@ -427,12 +426,10 @@ class ExpressionStringNamespace(_Ns):
         return self._f("str.count_matches", (), (pats, whole_words, case_sensitive))
     def tokenize_encode(self, tokens_path: Optional[str] = None,
                         pattern: Optional[str] = None):
-        raise NotImplementedError(
-            "str.tokenize_encode is not ported yet (ROADMAP A8d)")
+        return self._f("str.tokenize_encode", (), (tokens_path, pattern))
     def tokenize_decode(self, tokens_path: Optional[str] = None,
                         pattern: Optional[str] = None):
-        raise NotImplementedError(
-            "str.tokenize_decode is not ported yet (ROADMAP A8d)")
+        return self._f("str.tokenize_decode", (), (tokens_path, pattern))
 
 
 class ExpressionDatetimeNamespace(_Ns):
@@ -509,8 +506,14 @@ class ExpressionEmbeddingNamespace(_Ns):
 
 
 class ExpressionImageNamespace(_Ns):
-    """The ``image`` functions come with ROADMAP A8d; until then
-    :attr:`Expression.image` raises."""
+    """Reference surface: ``src/daft-image`` kernels."""
+
+    def decode(self, on_error: str = "raise", mode: Optional[str] = None):
+        return self._f("image.decode", (), (on_error, mode))
+    def encode(self, image_format): return self._f("image.encode", (), (image_format,))
+    def resize(self, w: int, h: int): return self._f("image.resize", (), (w, h))
+    def crop(self, bbox): return self._f("image.crop", (Expression._to_expression(bbox),))
+    def to_mode(self, mode: str): return self._f("image.to_mode", (), (mode,))
 
 
 class ExpressionBinaryNamespace(_Ns):

@@ -8,7 +8,8 @@ Capability mirror of the reference's function crates
 ``-json``, ``-uri``). Where the reference loops over rows in Python, the
 port computes the same values with Arrow kernels for the functions a
 large text pipeline reaches (``str.normalize`` on ASCII text,
-``list.get``). ``image`` and ``tokenize`` come with ROADMAP A8d.
+``list.get``). ``image`` runs in ``functions/image.py`` (the batched
+resize on the card), ``str.tokenize_*`` in ``functions/tokenize.py``.
 """
 
 from __future__ import annotations
@@ -82,8 +83,8 @@ def eval_function(op: str, e, kids: List[Series], b, out_field: Field) -> Series
                 out = 1.0 - num / den
             return Series.from_arrow(pa.array(out), name)
     if ns == "image":
-        raise NotImplementedError(
-            f"image.{fn} is not ported yet (ROADMAP A8d)")
+        from ..functions.image import eval_image_fn
+        return eval_image_fn(fn, e, kids, out_field)
     if ns == "partitioning":
         return _partitioning_fn(fn, e, s, out_field)
     if ns == "binary":
@@ -320,8 +321,8 @@ def _str_fn(fn, e, kids, b, out_field) -> Series:
     s = kids[0]
     name = s.name()
     if fn in ("tokenize_encode", "tokenize_decode"):
-        raise NotImplementedError(
-            f"str.{fn} is not ported yet (ROADMAP A8d)")
+        from ..functions.tokenize import eval_tokenize
+        return eval_tokenize(fn, e, kids, out_field)
     arr = _sa(s)
     if fn == "contains":
         pat = kids[1].to_pylist()[0]

@@ -1,8 +1,8 @@
 """Public read_* entry points (reference: ``daft/io/_parquet.py`` etc.).
 
-The port's copy of ``daft_tpu/io/read.py``. The lake formats
-(``read_deltalake``, ``read_iceberg``, ``read_hudi``, ``read_lance``) wait
-for their slice (ROADMAP A8).
+The port's copy of ``daft_tpu/io/read.py``, the lake formats
+(``read_deltalake``, ``read_iceberg``, ``read_hudi``, ``read_lance``)
+included.
 """
 
 from __future__ import annotations
@@ -78,6 +78,45 @@ def read_warc(path: Union[str, List[str]],
             stacklevel=2)
     from .warc import WARC_SCHEMA
     return _df_from_scan(GlobScanOperator(path, "warc", schema=WARC_SCHEMA))
+
+
+def read_deltalake(table_uri, version=None, io_config: Any = None, **kwargs):
+    """Delta Lake snapshot read (``io/delta.py``)."""
+    from .delta import read_deltalake as _impl
+    return _impl(table_uri, version, io_config, **kwargs)
+
+
+def read_iceberg(table, snapshot_id: Optional[int] = None,
+                 io_config: Any = None, **kwargs):
+    """Read an Apache Iceberg table (``io/iceberg.py``): ``table`` is a
+    warehouse path or metadata JSON URI, or a pyiceberg-style object
+    exposing ``metadata_location``."""
+    from .iceberg import read_iceberg as _impl
+    uri = getattr(table, "metadata_location", table)
+    if not isinstance(uri, str):
+        raise TypeError(f"read_iceberg expects a table path or an object "
+                        f"with .metadata_location, got {type(table)!r}")
+    return _impl(uri, snapshot_id=snapshot_id, io_config=io_config)
+
+
+def read_hudi(table_uri: str, io_config: Any = None,
+              query_type: str = "snapshot", **kwargs):
+    """Read an Apache Hudi table's latest snapshot (``io/hudi.py``):
+    Copy-on-Write, and Merge-on-Read with log-file merging
+    (``query_type='read_optimized'`` for base files only)."""
+    if kwargs:
+        raise TypeError(f"read_hudi: unsupported options {sorted(kwargs)} "
+                        f"(incremental options are not implemented)")
+    from .hudi import read_hudi as _impl
+    return _impl(table_uri, io_config=io_config, query_type=query_type)
+
+
+def read_lance(uri: str, version: Optional[int] = None,
+               io_config=None):
+    """Read a Lance dataset (``io/lance.py``): versioned column-page
+    datasets with projection, limit and filter pushdown."""
+    from .lance import read_lance as _impl
+    return _impl(uri, version=version, io_config=io_config)
 
 
 def read_sql(sql: str, conn, partition_col: Optional[str] = None,

@@ -80,6 +80,9 @@ _KNOBS: List[Knob] = [
            "core", 'the native host library (row hashes, MinHash, '
            'HyperLogLog, fanout; g++ at first use into `_build/`): on, a '
            'failed build raises; `0`: its numpy twins, the same values'),
+    _k("DAFT_TORCH_ACTOR_POOL", "bool", True, "daft_tpu_torch/actor_pool.py",
+           "core", '`0` runs stateful (class) UDFs in-process on one shared '
+           'instance instead of their spawned actor processes'),
     # ----------------------------------------------------- kernels
     _k("DAFT_TORCH_KERNEL_GROUPBY", "str", 'auto', "daft_tpu_torch/device/costmodel.py",
            "kernels", "grouped-agg strategy: `auto` (dense, else the cost model's "

@@ -57,14 +57,14 @@ class LogicalPlanBuilder:
             else:
                 resolved.extend(_to_exprs([x]))
         child, resolved = _route_monotonic_id(self._plan, resolved)
-        return self._wrap(lp.Project(child, resolved))
+        return self._wrap(_project_maybe_udf(child, resolved))
 
     def with_columns(self, exprs: Sequence[Expression]) -> "LogicalPlanBuilder":
         new_names = {e.name() for e in exprs}
         keep = [col(n) for n in self.schema().column_names
                 if n not in new_names]
         child, resolved = _route_monotonic_id(self._plan, keep + list(exprs))
-        return self._wrap(lp.Project(child, resolved))
+        return self._wrap(_project_maybe_udf(child, resolved))
 
     def with_columns_renamed(self, mapping: Dict[str, str]) -> "LogicalPlanBuilder":
         exprs = []
@@ -139,12 +139,10 @@ class LogicalPlanBuilder:
         value_col = _to_exprs([value_col])[0]
         agg_expr = getattr(value_col, agg_fn)()
         if names is None:
-            # through the process's runner, as every query runs
-            from ..context import get_runner
+            from ..runners.runner_io import materialize_for_planning
             distinct_b = LogicalPlanBuilder(self._plan).select([pivot_col]) \
                 .distinct()
-            rb = get_runner().run(distinct_b).to_recordbatch()
-            names = rb.get_column(rb.column_names()[0]).to_pylist()
+            names = materialize_for_planning(distinct_b)
         pre = lp.Aggregate(self._plan, [agg_expr], group_by + [pivot_col])
         return self._wrap(lp.Pivot(pre, group_by, pivot_col, value_col,
                                    agg_expr, names))
@@ -304,3 +302,13 @@ def _extract_aggs(to_agg: List[Expression], schema: Schema
     if direct and not needs_project:
         return base, None
     return base, finals
+
+
+def _project_maybe_udf(child, exprs: List[Expression]):
+    """Route projections containing stateful UDFs to UDFProject
+    (reference rule: SplitActorPoolProjects)."""
+    from ..udf import expr_has_stateful_udf, stateful_udf_concurrency
+    if any(expr_has_stateful_udf(e) for e in exprs):
+        return lp.UDFProject(child, exprs,
+                             stateful_udf_concurrency(exprs))
+    return lp.Project(child, exprs)

@@ -331,7 +331,7 @@ class PushDownProjection(Rule):
                     return node.with_pushdowns(
                         node.pushdowns.with_columns(needed))
             return node
-        if isinstance(node, lp.Project):
+        if isinstance(node, (lp.Project, lp.UDFProject)):
             child = node.children[0]
             exprs = node.exprs
             if required is not None:
@@ -341,7 +341,8 @@ class PushDownProjection(Rule):
                 child_req.update(e.column_names())
             # collapse project(project) when outer is pure column selection
             new_child = self._prune(child, child_req)
-            if (isinstance(new_child, lp.Project)
+            if (isinstance(node, lp.Project)
+                    and isinstance(new_child, lp.Project)
                     and all(e._unalias().op == "col" for e in exprs)):
                 inner_map = {ie.name(): ie for ie in new_child.exprs}
                 merged = []
@@ -356,6 +357,8 @@ class PushDownProjection(Rule):
                                   else ie._unalias().alias(e.name()))
                 if ok:
                     return lp.Project(new_child.children[0], merged)
+            if isinstance(node, lp.UDFProject):
+                return lp.UDFProject(new_child, list(exprs), node.concurrency)
             return lp.Project(new_child, list(exprs))
         if isinstance(node, lp.Filter):
             child_req = None if required is None else \

@@ -190,6 +190,27 @@ class Project(LogicalPlan):
                 + ("…" if len(self.exprs) > 6 else "")]
 
 
+class UDFProject(LogicalPlan):
+    """Projection containing a stateful/actor UDF, isolated so the executor
+    can give it its own worker pool (reference: ActorPoolProject)."""
+
+    def __init__(self, child: LogicalPlan, exprs: List[Expression],
+                 concurrency: Optional[int] = None):
+        super().__init__([child])
+        self.exprs = list(exprs)
+        self.concurrency = concurrency
+
+    def _compute_schema(self) -> Schema:
+        s = self._children[0].schema()
+        return Schema([e.to_field(s) for e in self.exprs])
+
+    def with_children(self, children):
+        return UDFProject(children[0], self.exprs, self.concurrency)
+
+    def _params(self):
+        return tuple(e._key() for e in self.exprs)
+
+
 class Filter(LogicalPlan):
     def __init__(self, child: LogicalPlan, predicate: Expression):
         super().__init__([child])

@@ -150,7 +150,8 @@ def estimate(node: lp.LogicalPlan) -> Stats:
             rw = r.size_bytes / max(r.rows, 1.0)
             size = rows * (lw + rw)
         return Stats(rows, size)
-    # row-preserving ops (Project/Sort/TopN/Window/MonotonicallyIncreasingId)
+    # row-preserving ops (Project/UDFProject/Sort/TopN/Window/
+    # MonotonicallyIncreasingId)
     if kids:
         return kids[0]
     return UNKNOWN

@@ -482,8 +482,17 @@ class BpeVocab:
     def encode_batch(self, pieces):
         """Many pieces in one call → a list of int32 id arrays, or None on
         a byte sequence without a rank."""
+        flat, counts = self.encode_flat(pieces)
+        if flat is None:
+            return None
+        return np.split(flat, np.cumsum(counts)[:-1]) if len(counts) else []
+
+    def encode_flat(self, pieces):
+        """Many pieces in one call → (every piece's int32 ids end to end,
+        the int64 id count of each piece), or (None, None) on a byte
+        sequence without a rank."""
         if not pieces:
-            return []
+            return np.empty(0, np.int32), np.empty(0, np.int64)
         lens = np.fromiter((len(p) for p in pieces), dtype=np.int64,
                            count=len(pieces))
         offs = np.zeros(len(pieces) + 1, dtype=np.int64)
@@ -499,8 +508,8 @@ class BpeVocab:
             len(pieces), _ptr(out, ctypes.c_int32),
             _ptr(counts, ctypes.c_int64))
         if total < 0:
-            return None
-        return np.split(out[:total], np.cumsum(counts)[:-1])
+            return None, None
+        return out[:total], counts
 
     def __del__(self):
         if getattr(self, "_handle", None):

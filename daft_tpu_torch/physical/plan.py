@@ -45,6 +45,14 @@ class Project(PhysicalPlan):
         self.exprs = exprs
 
 
+class UDFProject(PhysicalPlan):
+    def __init__(self, child, exprs: List[Expression], schema: Schema,
+                 concurrency: Optional[int]):
+        super().__init__([child], schema)
+        self.exprs = exprs
+        self.concurrency = concurrency
+
+
 class Filter(PhysicalPlan):
     def __init__(self, child, predicate: Expression):
         super().__init__([child], child.schema())

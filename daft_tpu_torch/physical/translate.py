@@ -94,6 +94,9 @@ def _t_node(node: lp.LogicalPlan) -> pp.PhysicalPlan:
     if isinstance(node, lp.Project):
         return pp.Project(_t(node.children[0]), node.exprs,
                           node.schema())
+    if isinstance(node, lp.UDFProject):
+        return pp.UDFProject(_t(node.children[0]), node.exprs,
+                             node.schema(), node.concurrency)
     if isinstance(node, lp.Filter):
         return pp.Filter(_t(node.children[0]), node.predicate)
     if isinstance(node, lp.Limit):

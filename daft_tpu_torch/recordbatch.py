@@ -171,7 +171,10 @@ class RecordBatch:
 
     def slice(self, start: int, end: int) -> "RecordBatch":
         cols = [c.slice(start, end) for c in self._columns]
-        return RecordBatch(self._schema, cols, len(cols[0]) if cols else 0)
+        # a batch without columns (a count's scan) keeps its row count
+        n = len(cols[0]) if cols else \
+            max(0, min(end, self._len) - max(start, 0))
+        return RecordBatch(self._schema, cols, n)
 
     def head(self, n: int) -> "RecordBatch":
         return self.slice(0, n)

@@ -385,6 +385,8 @@ def _multimodal_from_rows(data: Sequence[Any],
                 return None  # dict rows only mean something for sparse
             rows.append(v)
             continue
+        if np.ma.isMaskedArray(v):
+            return None  # null values: a Python column, as object rows
         try:
             rows.append(np.asarray(v))
         except Exception:
@@ -490,9 +492,22 @@ def _multimodal_build(rows, dtype, n, valid, mask):
     return None
 
 
+def _row_values(data: pa.Array, i: int) -> np.ndarray:
+    """Row ``i`` of a list column as a writable numpy array of the list's
+    value type (the reference builds it from Python ints, which gives
+    int64 and costs a Python object per element); a row holding null
+    values is a masked array of that type, its nulls masked."""
+    v = data[i].values
+    if v.null_count:
+        return np.ma.masked_array(
+            pc.fill_null(v, 0).to_numpy(zero_copy_only=False, writable=True),
+            mask=v.is_null().to_numpy(zero_copy_only=False))
+    return v.to_numpy(zero_copy_only=False, writable=True)
+
+
 def _multimodal_to_rows(arr: pa.Array, dtype: DataType) -> List[Any]:
     """Struct-physical tensor/image columns → ndarray rows (what users
-    put in is what they get back)."""
+    put in is what they get back, their element type included)."""
     arr = _combine(arr)
     out: List[Any] = []
     valid = np.asarray(pc.is_valid(arr).to_numpy(zero_copy_only=False),
@@ -504,7 +519,7 @@ def _multimodal_to_rows(arr: pa.Array, dtype: DataType) -> List[Any]:
             if not valid[i]:
                 out.append(None)
                 continue
-            d = np.asarray(data[i].as_py())
+            d = _row_values(data, i)
             s = tuple(int(x) for x in (shape[i].as_py() or ()))
             out.append(d.reshape(s) if s else d)
         return out
@@ -517,7 +532,7 @@ def _multimodal_to_rows(arr: pa.Array, dtype: DataType) -> List[Any]:
             if not valid[i]:
                 out.append(None)
                 continue
-            d = np.asarray(data[i].as_py())
+            d = _row_values(data, i)
             c = int(cs[i].as_py())
             shape = (int(hs[i].as_py()), int(ws[i].as_py())) \
                 if c == 1 else (int(hs[i].as_py()), int(ws[i].as_py()), c)

@@ -10,9 +10,7 @@ exists in this environment, so the parser is first-party.
 
 The port's copy of ``daft_tpu/sql/planner.py``, window functions (``OVER``:
 partition and order keys, ``ROWS`` / ``RANGE`` frames, windows over
-aggregates and over grouping sets) included. What the port does not carry
-yet raises ``NotImplementedError`` naming its ROADMAP item: the
-tokenize functions (A8d).
+aggregates and over grouping sets) and the tokenize functions included.
 """
 
 from __future__ import annotations
@@ -1916,6 +1914,10 @@ def _apply_function(fn: str, args: List[Expression],
         return a.str.find(args[1])
     if fn == "count_matches":
         return a.str.count_matches(args[1].params[0])
+    if fn == "tokenize_encode":
+        return a.str.tokenize_encode(args[1].params[0])
+    if fn == "tokenize_decode":
+        return a.str.tokenize_decode(args[1].params[0])
     if fn in ("year", "month", "day", "hour", "minute", "second", "quarter"):
         return getattr(a.dt, fn)()
     if fn == "day_of_week" or fn == "dayofweek":
@@ -1945,17 +1947,7 @@ def _apply_function(fn: str, args: List[Expression],
         return dense_rank()
     if fn == "list_value_counts":
         return a.list.value_counts()
-    if fn in _NOT_PORTED_FUNCTIONS:
-        raise NotImplementedError(
-            f"SQL function {fn!r}: {_NOT_PORTED_FUNCTIONS[fn]}")
     raise ValueError(f"unknown SQL function {fn!r}")
-
-
-#: SQL functions of the reference's library whose expressions the port
-#: does not carry yet, with the ROADMAP item that brings them
-_NOT_PORTED_FUNCTIONS = {
-    fn: "the tokenize functions are not ported yet (ROADMAP A8d)"
-    for fn in ("tokenize_encode", "tokenize_decode")}
 
 
 def _has_agg(e: Expression) -> bool:

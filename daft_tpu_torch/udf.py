@@ -1,18 +1,27 @@
-"""User-defined functions, the stateless part.
+"""User-defined functions.
 
 Reference: ``daft_tpu/udf.py`` (after ``daft/udf.py``): the ``@udf``
 decorator builds a :class:`UDF` whose call makes a ``udf`` expression; the
 evaluator runs it per batch through :func:`run_udf_batches` (batch
 slicing, scalar broadcasting, output coercion). The SQL frontend's
 scalar-cardinality checks (``logical/subquery.py``) are such UDFs. A UDF
-runs on the host: the device compiler declines the ``udf`` op. Stateful
-(class) UDFs, their actor pools and ``UDFProject`` wait for ROADMAP A8.
+runs on the host: the device compiler declines the ``udf`` op.
+
+Stateful (class) UDFs (``init_args``, ``concurrency``) are planned into
+``UDFProject`` nodes (``logical/builder._project_maybe_udf``) and run in
+an actor pool (``actor_pool.py``): ``concurrency`` spawned processes, one
+instance each. Two cases keep the one shared in-process instance, as in
+the reference: a UDF that does not pickle (``actor_pool.try_make_pool``)
+and a batch with a Python-object column or return type, which Arrow IPC
+cannot carry. An error raised inside an actor is raised to the caller
+(the reference re-runs the batch in-process instead).
 """
 
 from __future__ import annotations
 
 import functools
 import inspect
+import threading
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
@@ -29,11 +38,8 @@ class UDF:
                  num_gpus: Optional[float] = None,
                  memory_bytes: Optional[int] = None,
                  batch_size: Optional[int] = None,
-                 concurrency: Optional[int] = None):
-        if inspect.isclass(func):
-            raise NotImplementedError(
-                "stateful (class) UDFs and their actor pools are not "
-                "ported yet (ROADMAP A8)")
+                 concurrency: Optional[int] = None,
+                 init_args: Optional[Tuple[tuple, dict]] = None):
         self.func = func
         self.return_dtype = return_dtype
         self.num_cpus = num_cpus
@@ -41,7 +47,13 @@ class UDF:
         self.memory_bytes = memory_bytes
         self.batch_size = batch_size
         self.concurrency = concurrency
-        functools.update_wrapper(self, func)
+        self.init_args = init_args
+        self.is_stateful = inspect.isclass(func)
+        self._instance = None
+        self._pool: Any = "unset"
+        self._instance_lock = threading.Lock()
+        if not self.is_stateful:
+            functools.update_wrapper(self, func)
         self.name = getattr(func, "__name__", type(func).__name__)
 
     def __call__(self, *args, **kwargs) -> Expression:
@@ -70,21 +82,68 @@ class UDF:
                    num_gpus if num_gpus is not None else self.num_gpus,
                    memory_bytes if memory_bytes is not None else self.memory_bytes,
                    batch_size if batch_size is not None else self.batch_size,
-                   self.concurrency)
+                   self.concurrency, self.init_args)
+
+    def with_concurrency(self, concurrency: int) -> "UDF":
+        return UDF(self.func, self.return_dtype, self.num_cpus, self.num_gpus,
+                   self.memory_bytes, self.batch_size, concurrency,
+                   self.init_args)
+
+    def with_init_args(self, *args, **kwargs) -> "UDF":
+        return UDF(self.func, self.return_dtype, self.num_cpus, self.num_gpus,
+                   self.memory_bytes, self.batch_size, self.concurrency,
+                   (args, kwargs))
+
+    def _callable(self) -> Callable:
+        """The function, or a stateful UDF's one in-process instance
+        (built at first use)."""
+        if not self.is_stateful:
+            return self.func
+        with self._instance_lock:
+            if self._instance is None:
+                a, kw = self.init_args or ((), {})
+                # daft-lint: allow(blocking-under-lock) -- build once: a
+                # second caller waits for the one instance
+                self._instance = self.func(*a, **kw)
+            return self._instance
+
+    def _get_pool(self):
+        """The actor pool of a stateful UDF, made at first use; None for
+        the shared in-process instance (a stateless UDF, a UDF that does
+        not pickle, or ``DAFT_TORCH_ACTOR_POOL=0``)."""
+        if not self.is_stateful:
+            return None
+        with self._instance_lock:
+            if self._pool == "unset":
+                from . import actor_pool
+                # daft-lint: allow(blocking-under-lock) -- spawn once: a
+                # second caller waits for the one pool
+                self._pool = actor_pool.try_make_pool(self)
+            return self._pool
 
     def run(self, evaluated: List[Series], arg_spec, kw_spec,
             length: int) -> Series:
-        """Called per batch by the evaluator."""
-        return run_udf_batches(self.func, evaluated, arg_spec, kw_spec,
-                               length, self.batch_size, self.return_dtype,
-                               self.name)
+        """Called per batch by the evaluator. A stateful UDF's batch goes
+        to its actor pool (``concurrency`` processes, one instance each),
+        unless a column or the return type holds Python objects."""
+        ipc_ok = self.return_dtype.kind != "python" \
+            and not any(s.is_pyobject() for s in evaluated)
+        # the pool starts at the first batch that can cross to it (the
+        # reference starts it at the first batch of any kind)
+        pool = self._get_pool() if ipc_ok else None
+        if pool is not None:
+            return pool.call(evaluated, arg_spec, kw_spec, length)
+        return run_udf_batches(self._callable(), evaluated, arg_spec,
+                               kw_spec, length, self.batch_size,
+                               self.return_dtype, self.name)
 
 
 def run_udf_batches(fn: Callable, evaluated: List[Series], arg_spec, kw_spec,
                     length: int, batch_size: Optional[int],
                     return_dtype: DataType, name: str) -> Series:
     """Slice the batch into ``batch_size`` chunks, broadcast literal
-    arguments, call ``fn`` and coerce each chunk's output."""
+    arguments, call ``fn`` and coerce each chunk's output (in-process and
+    in an actor, ``actor_pool._actor_main``)."""
     chunks: List[Series] = []
     bs = batch_size or length or 1
     for start in range(0, max(length, 1), bs):
@@ -129,3 +188,21 @@ def udf(*, return_dtype: DataType, num_cpus: Optional[float] = None,
         return UDF(fn, return_dtype, num_cpus, num_gpus, memory_bytes,
                    batch_size, concurrency)
     return wrap
+
+
+def expr_has_stateful_udf(e: Expression) -> bool:
+    if e.op == "udf" and e.params[0].is_stateful:
+        return True
+    return any(expr_has_stateful_udf(c) for c in e.args)
+
+
+def stateful_udf_concurrency(exprs) -> Optional[int]:
+    """The ``concurrency`` of the first stateful UDF in ``exprs``."""
+    for e in exprs:
+        if e.op == "udf" and e.params[0].is_stateful:
+            return e.params[0].concurrency
+        for c in e.args:
+            r = stateful_udf_concurrency([c])
+            if r is not None:
+                return r
+    return None

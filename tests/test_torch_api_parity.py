@@ -1,9 +1,7 @@
 """The DataFrame and Expression API additions of ``tests/test_api_parity.py``
 held against ``daft_tpu``: its 11 cases, each through both packages on
 the same inputs, the answers equal (floats of the math functions within
-1e-12 relative) and the reference's assertions kept. The Lance half of
-``test_gated_bridges_error_actionably`` waits for ROADMAP A8e (the lake
-formats); the port's ``write_lance`` is not there yet.
+1e-12 relative) and the reference's assertions kept.
 """
 
 import math
@@ -74,7 +72,7 @@ def test_to_arrow_iter_streams_batches():
     assert _both(run) == list(range(100))
 
 
-def test_gated_bridges_error_actionably():
+def test_gated_bridges_error_actionably(tmp_path):
     def run(p):
         df = p.from_pydict({"x": [1]})
         out = []
@@ -83,8 +81,12 @@ def test_gated_bridges_error_actionably():
             with pytest.raises(ImportError, match=pkg) as e:
                 getattr(df, meth)()
             out.append(str(e.value))
+        # lance is native (io/lance.py): a real write round-trips
+        ds = str(tmp_path / p.__name__)
+        df.write_lance(ds)
+        out.append(p.read_lance(ds).to_pydict())
         return out
-    _both(run)
+    assert _both(run)[-1] == {"x": [1]}
 
 
 def test_extended_math_functions():

@@ -2,10 +2,9 @@
 (``tests/test_catalog_fs.py``): a warehouse directory whose subdirectories
 are namespaces and whose table directories are detected as Iceberg,
 Delta, Hudi or parquet. The warehouse's lake tables are written by
-``daft_tpu``; both packages list the same tables and namespaces, read the
-parquet tables alike (through the catalog and through SQL), and the port
-raises on the lake formats, whose readers and writers wait for their
-slice (ROADMAP A8)."""
+``daft_tpu``; both packages list the same tables and namespaces and read
+every table alike (through the catalog and through SQL); the port's
+writes append to the lake tables and create Iceberg tables."""
 
 import pytest
 
@@ -56,17 +55,16 @@ def test_list_and_detect_formats(warehouse):
 def test_read_through_catalog(warehouse):
     cat = FilesystemCatalog(str(warehouse))
     ref = RefCatalog(str(warehouse))
-    for ident in (("raw_events",), ("sales", "returns")):
+    for ident in (("raw_events",), ("sales", "returns"), ("sales", "orders"),
+                  ("sales", "customers")):
         got = cat._get_table(Identifier(*ident)).read()
         want = ref._get_table(daft_tpu.catalog.Identifier(*ident)).read()
         assert got.sort(got.column_names[0]).to_pydict() \
             == want.sort(want.column_names[0]).to_pydict()
     assert cat._get_table(Identifier("raw_events")).read().to_pydict() \
         == {"p": [7]}
-    for ident in (("sales", "orders"), ("sales", "customers")):
-        t = cat._get_table(Identifier(*ident))
-        with pytest.raises(NotImplementedError, match="ROADMAP A8"):
-            t.read()
+    assert cat._get_table(Identifier("sales", "orders")).read() \
+        .sort("k").to_pydict() == {"k": [1, 2], "v": [10.0, 20.0]}
     with pytest.raises(NotFoundError):
         cat._get_table(Identifier("sales", "absent"))
 
@@ -84,8 +82,8 @@ def test_sql_over_attached_catalog(warehouse):
 
 def test_append_overwrite_and_drop_roundtrip(warehouse):
     """A parquet table takes appends and overwrites through the port's
-    writes (the reference's table tests run the same calls over Iceberg,
-    which the port creates no table of yet)."""
+    writes; the Iceberg and Delta tables take appends, read back by the
+    reference; ``create_table`` makes an empty Iceberg table."""
     from daft_tpu_torch.datatype import DataType
     from daft_tpu_torch.schema import Field, Schema
     cat = FilesystemCatalog(str(warehouse))
@@ -100,12 +98,21 @@ def test_append_overwrite_and_drop_roundtrip(warehouse):
     with pytest.raises(ValueError, match="write mode"):
         t.write(daft_tpu_torch.from_pydict({"k": [1], "v": [1.0]}),
                 mode="upsert")
-    with pytest.raises(NotImplementedError, match="ROADMAP A8"):
-        cat._get_table(Identifier("sales", "orders")).append(
-            daft_tpu_torch.from_pydict({"k": [3], "v": [1.0]}))
-    with pytest.raises(NotImplementedError, match="ROADMAP A8"):
-        cat._create_table(Identifier("sales", "new_tbl"),
-                          Schema([Field("x", DataType.int64())]))
+    cat._get_table(Identifier("sales", "orders")).append(
+        daft_tpu_torch.from_pydict({"k": [3], "v": [1.0]}))
+    cat._get_table(Identifier("sales", "customers")).append(
+        daft_tpu_torch.from_pydict({"c": ["z"]}))
+    ref = RefCatalog(str(warehouse))
+    ids = daft_tpu.catalog.Identifier
+    assert sorted(ref._get_table(ids("sales", "orders")).read()
+                  .to_pydict()["k"]) == [1, 2, 3]
+    assert sorted(ref._get_table(ids("sales", "customers")).read()
+                  .to_pydict()["c"]) == ["a", "b", "z"]
+    new = cat._create_table(Identifier("sales", "new_tbl"),
+                            Schema([Field("x", DataType.int64())]))
+    assert new.format == "iceberg"
+    assert ref._get_table(ids("sales", "new_tbl")).read().to_pydict() \
+        == {"x": []}
     with pytest.raises(ValueError, match="already exists"):
         cat._create_table(ident, Schema([Field("x", DataType.int64())]))
     cat._drop_table(ident)

@@ -45,7 +45,7 @@ def test_env_line_names_every_module():
     env = cs.env_probe()
     assert set(env) == {"python", "torch", "cuda", "pyarrow",
                         "pyarrow.flight", "grpc", "google.protobuf",
-                        "pyspark"}
+                        "pyspark", "PIL", "regex", "cloudpickle"}
     assert env["pyarrow"] and env["torch"]
     for key, mod in cs.ENV_MODULES:
         try:
@@ -166,3 +166,115 @@ def test_expr_phase_runs_its_oracles_on_the_cpu(tmp_path, monkeypatch,
         expr_phase.BANDS * lines[("explode", "default")]["rows_in"]
     text = capsys.readouterr().out
     assert "expr dedup " in text and "expr native " in text
+
+
+class _CpuRecorder:
+    """Runs each step as the card script's recorder does, but counts
+    launches from the device tier's dispatch counters (the real one times
+    with CUDA events)."""
+
+    def __init__(self, pass_="default"):
+        self.pass_, self.decisions = pass_, {}
+
+    def counted(self, label, fn, clear=True):
+        import time
+
+        from daft_tpu_torch.device import costmodel, runtime
+        runtime.reset_counters()
+        costmodel.reset_decision_counts()
+        t0 = time.perf_counter()
+        out = fn()
+        wall = time.perf_counter() - t0
+        self.decisions = costmodel.decision_counts_snapshot()
+        c = runtime.counters()
+        joins = c.get("join_hash", 0)
+        return out, wall, c, {
+            "hash_agg_build": c.get("agg_hash", 0) + c.get("hash", 0),
+            "hash_join_build": joins, "hash_join_probe": joins}
+
+    def to_host(self, device="cpu"):
+        pass
+
+
+@pytest.fixture(scope="module")
+def tpch_001(tmp_path_factory):
+    from benchmarking.tpch.datagen import generate_tpch
+    root = str(tmp_path_factory.mktemp("cache") / "tpch")
+    generate_tpch(root, scale_factor=0.01, num_parts=2, seed=42)
+    return root
+
+
+def _stub():
+    import types
+    return types.SimpleNamespace(
+        KernelRecorder=_CpuRecorder, log=cs.log, _env=cs._env,
+        cuda_ms=cs.cuda_ms, HBM_BYTES_PER_S=cs.HBM_BYTES_PER_S,
+        check_table=cs.check_table, check_answer=cs.check_answer,
+        pyarrow_answers=cs.pyarrow_answers, q3_reference=cs.q3_reference)
+
+
+def _lines(text: str, prefix: str) -> list:
+    import json
+    out = []
+    for ln in text.splitlines():
+        if ln.startswith(prefix + " {"):
+            out.append(json.loads(ln[len(prefix) + 1:]))
+    return out
+
+
+def test_multimodal_phase_runs_its_oracles_on_the_cpu(tpch_001, monkeypatch,
+                                                      capsys):
+    """Phase 7p (``benchmarking/multimodal_phase.phase``) end to end on CPU
+    tensors, 64 images of 32x32 and TPC-H at SF 0.01: every oracle holds,
+    the token UDF runs in two actors (each with its table on the CPU), the
+    forced way reaches the hash-agg and join paths, and every ``mm`` line
+    parses."""
+    from daft_tpu_torch.benchmarking import multimodal_phase as mm
+    monkeypatch.setenv("DAFT_TORCH_DEVICE", "cpu")
+    monkeypatch.setattr(mm, "IMG_N", 64)
+    monkeypatch.setattr(mm, "IMG_PX", 32)
+    monkeypatch.setattr(mm, "IMG_OUT", 24)
+    out = mm.phase(_stub(), tpch_001, "cpu")
+    lines = {(d["step"], d["way"]): d for d in out["lines"]}
+    for way in ("default", "forced"):
+        assert lines[("resize", way)]["device_resizes"] == 1
+    embed = lines[("token embed", "default")]
+    assert len(embed["actor_pids"]) == 2 and embed["pool_shut_down"]
+    assert embed["actor_devices"] == {str(p): ["cpu"]
+                                      for p in embed["actor_pids"]}
+    assert lines[("token counts", "forced")]["launches"]["hash_agg_build"] >= 1
+    assert lines[("token join", "forced")]["launches"]["hash_join_probe"] >= 1
+    assert lines[("cluster join", "forced")]["launches"]["hash_join_build"] >= 1
+    text = capsys.readouterr().out
+    parsed = _lines(text, "mm")
+    assert len(parsed) == len(out["lines"])
+    for prefix in ("mm resize", "mm vocab", "mm token check", "mm data"):
+        assert len(_lines(text, prefix)) == 1, prefix
+    assert len(_lines(text, "mm embed check")) == 2
+
+
+def test_lake_phase_runs_its_oracles_on_the_cpu(tpch_001, monkeypatch,
+                                                capsys):
+    """Phase 7q (``benchmarking/lake_phase.phase``) end to end on CPU
+    tensors at SF 0.01: the four tables written, Q1, ``l_suppkey`` and Q3
+    over them held to pyarrow both ways (forced: the hash-agg build and
+    the join kernels reached), Unity's Q1, the time travel; every ``lake``
+    line parses."""
+    from daft_tpu_torch.benchmarking import lake_phase
+    monkeypatch.setenv("DAFT_TORCH_DEVICE", "cpu")
+    out = lake_phase.phase(_stub(), tpch_001, "cpu")
+    text = capsys.readouterr().out
+    parsed = _lines(text, "lake")
+    assert parsed == out["lines"]
+    writes = [d["format"] for d in parsed if d["step"] == "write"]
+    assert writes == ["delta", "iceberg", "lance", "hudi"]
+    queries = [d for d in parsed if d["step"] == "query"]
+    assert len(queries) == 2 * 3 * 2 + 1
+    for d in queries:
+        if d["way"] == "forced" and d["query"] == "suppkey_agg":
+            assert d["launches"]["hash_agg_build"] >= 1
+        if d["way"] == "forced" and d["query"] == "q3":
+            assert d["launches"]["hash_join_probe"] >= 1
+    travel = [d for d in parsed if d["step"] == "time travel"][0]
+    assert travel["counts"]["delta"][1] - travel["counts"]["delta"][0] \
+        == lake_phase.APPEND_ROWS

@@ -2,8 +2,8 @@
 client, held against ``daft_tpu``: the 15 non-image cases of
 ``tests/test_functions.py``, each run through both packages on the same
 inputs, the answers equal (bytes, strings and nulls exactly) and the
-reference's own assertions kept. The three image cases wait for ROADMAP
-A8d, with the ``image`` namespace (which raises naming it here).
+reference's own assertions kept. The three image cases are replayed in
+``tests/test_torch_image.py``.
 """
 
 import base64
@@ -231,7 +231,11 @@ def test_io_client_glob(tmp_path):
 
 
 def test_image_namespace_names_its_roadmap_item():
-    with pytest.raises(NotImplementedError, match="A8d"):
-        daft_tpu_torch.col("x").image
-    with pytest.raises(NotImplementedError, match="A8d"):
-        daft_tpu_torch.col("x").str.tokenize_encode()
+    """The ``image`` namespace and ``str.tokenize_*`` (ROADMAP A8d) build
+    the reference's expressions."""
+    def run(p):
+        c = p.col("x")
+        return [repr(e) for e in (
+            c.image.resize(4, 3), c.image.decode(), c.image.to_mode("L"),
+            c.str.tokenize_encode(), c.str.tokenize_decode("bytes"))]
+    _both(run)

@@ -13,10 +13,11 @@
    ``tests/test_sql_statements.py`` replayed through both packages at once
    (:class:`Pair`): each call runs on the reference and on the port with
    the same arguments, every value that comes back is compared, and the
-   original assertions then run on the reference's values. Where the port
-   raises ``NotImplementedError`` naming its ROADMAP item (the
-   file-system catalog), the rest of that test runs on the reference only,
-   and the test asserts the message names the item.
+   original assertions then run on the reference's values. The port's
+   file-system catalog writes a warehouse of its own beside the
+   reference's. Where the port raises ``NotImplementedError`` naming a
+   ROADMAP item, the rest of that test runs on the reference only, and the
+   test asserts the message names the item.
 """
 
 import ast
@@ -138,8 +139,8 @@ def test_sql_shared_cte_runs_once(tpch_root, monkeypatch):
 def test_window_function_names_its_roadmap_item(monkeypatch, tmp_path):
     """Windows are ported (ROADMAP A5a): the rank query gives the
     reference's answer; so do the CSV and JSON table functions (ported
-    with the scan data plane) and ``split`` (ROADMAP A8c); the tokenize
-    functions still waiting name their item."""
+    with the scan data plane), ``split`` (ROADMAP A8c) and the tokenize
+    functions (ROADMAP A8d)."""
     import daft_tpu_torch
     monkeypatch.setenv("DAFT_TORCH_DEVICE", "cpu")
     data = {"g": [1, 1, 2], "v": [1.0, 2.0, 3.0]}
@@ -158,9 +159,11 @@ def test_window_function_names_its_roadmap_item(monkeypatch, tmp_path):
     assert daft_tpu_torch.sql(
         q, t=daft_tpu_torch.from_pydict({"s": ["a,b"]})).to_pydict() \
         == daft_tpu.sql(q, t=daft_tpu.from_pydict({"s": ["a,b"]})).to_pydict()
-    with pytest.raises(NotImplementedError, match="ROADMAP A8d"):
-        daft_tpu_torch.sql("SELECT tokenize_encode(s, 'x') AS p FROM t",
-                           t=daft_tpu_torch.from_pydict({"s": ["a,b"]}))
+    q = ("SELECT tokenize_decode(tokenize_encode(s, 'bytes'), 'bytes') AS d,"
+         " tokenize_encode(s, 'bytes') AS p FROM t")
+    assert daft_tpu_torch.sql(
+        q, t=daft_tpu_torch.from_pydict({"s": ["a,b"]})).to_pydict() \
+        == daft_tpu.sql(q, t=daft_tpu.from_pydict({"s": ["a,b"]})).to_pydict()
 
 
 @pytest.mark.parametrize("query", [
@@ -335,13 +338,12 @@ for _nm in ("__add__", "__radd__", "__sub__", "__rsub__", "__mul__",
     setattr(Pair, _nm, _binop(_nm))
 
 
-class _NotPorted:
-    def __init__(self, what):
-        self.what = what
-
-    def __call__(self, *a, **k):
-        raise NotImplementedError(f"{self.what} is not ported yet "
-                                  "(ROADMAP A8)")
+def _port_catalog(root, *args, **kwargs):
+    """The port's catalog over a warehouse of its own beside the
+    reference's (both create the same tables)."""
+    from daft_tpu_torch.catalog_fs import FilesystemCatalog
+    os.makedirs(root + "_port", exist_ok=True)
+    return FilesystemCatalog(root + "_port", *args, **kwargs)
 
 
 def _dual_namespace():
@@ -368,8 +370,7 @@ def _dual_namespace():
         "col": dual.col, "Session": dual.Session,
         "SQLCatalog": Pair(rsql.SQLCatalog, psql.SQLCatalog), "sql": sql,
         "sql_expr": Pair(rsql.sql_expr, psql.sql_expr),
-        "FilesystemCatalog": Pair(FilesystemCatalog,
-                                  _NotPorted("FilesystemCatalog")),
+        "FilesystemCatalog": Pair(FilesystemCatalog, _port_catalog),
     }
 
 
